@@ -1,0 +1,616 @@
+// Forward of divided space-time attention for Hopper (sm_90a), read
+// straight from the qkv projection output.
+//
+// Layout. `qkv` is the [B, S, 3*H*Dh] output of the qkv Linear, row-major:
+// for sequence row r of batch b, q of head h starts at element
+// (b*S + r)*3*H*Dh + h*Dh, k at + H*Dh, v at + 2*H*Dh. `out` is
+// [B, S, H*Dh]. Row 0 is the CLS token; row 1 + f*N + n is patch n of frame
+// f (S = 1 + F*N). No transpose is made on either side: each kernel reads
+// q, k and v by stride, as the packed TPU kernel kept transposes out of
+// memory.
+//
+// Semantics (those of `_divided_xla`, egovlpv2_tpu/ops/divided.py):
+//   * space: patch query (f, n) attends the N keys of frame f plus the CLS
+//     key, in one softmax;
+//   * time: patch query (f, n) attends the F keys of patch column n plus
+//     the CLS key;
+//   * CLS row (both axes): row 0 attends all S keys.
+// space_attention_fwd / time_attention_fwd write rows 1..S-1 and
+// cls_row_attention_fwd writes row 0.
+//
+// Work split. K1 in bf16 with Dh a multiple of 16 (the slice) runs on the
+// tensor cores (mma::space_fwd_kernel, described there). Everything else
+// runs on the CUDA cores: a group of G threads owns one query row of one
+// head; each thread holds 8 consecutive elements of the head dim (16 B of
+// bf16), so G = Dh/8 rounded up to a power of two (G <= 16 for Dh <= 128;
+// lanes past Dh/8 idle). A q.k dot is 8 FMAs a thread plus a log2(G)
+// shuffle reduction inside the group. Keys are taken kChunk at a time with
+// an online softmax (one rescale a chunk). Logits, softmax and P.V are f32;
+// the output is stored in the input dtype.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kVec = 8;        // head-dim elements a thread owns
+constexpr int kChunk = 8;      // keys scored between softmax rescales
+constexpr int kThreads = 256;  // threads a block
+
+__device__ __forceinline__ void load_vec(const float* p, float (&o)[kVec]) {
+  const float4 a = __ldg(reinterpret_cast<const float4*>(p));
+  const float4 b = __ldg(reinterpret_cast<const float4*>(p) + 1);
+  o[0] = a.x; o[1] = a.y; o[2] = a.z; o[3] = a.w;
+  o[4] = b.x; o[5] = b.y; o[6] = b.z; o[7] = b.w;
+}
+
+__device__ __forceinline__ void load_vec(const __nv_bfloat16* p,
+                                         float (&o)[kVec]) {
+  const uint4 u = __ldg(reinterpret_cast<const uint4*>(p));
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+  for (int i = 0; i < kVec / 2; ++i) {
+    const float2 f = __bfloat1622float2(h[i]);
+    o[2 * i] = f.x;
+    o[2 * i + 1] = f.y;
+  }
+}
+
+__device__ __forceinline__ void store_vec(float* p, const float (&v)[kVec]) {
+  reinterpret_cast<float4*>(p)[0] = make_float4(v[0], v[1], v[2], v[3]);
+  reinterpret_cast<float4*>(p)[1] = make_float4(v[4], v[5], v[6], v[7]);
+}
+
+__device__ __forceinline__ void store_vec(__nv_bfloat16* p,
+                                          const float (&v)[kVec]) {
+  uint4 u;
+  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&u);
+#pragma unroll
+  for (int i = 0; i < kVec / 2; ++i) {
+    h[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
+  }
+  *reinterpret_cast<uint4*>(p) = u;
+}
+
+__device__ __forceinline__ void store_one(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store_one(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16(v);
+}
+
+// Sum over the G lanes of a row group. Every lane of the warp must call it.
+template <int G>
+__device__ __forceinline__ float group_sum(float x) {
+#pragma unroll
+  for (int off = G / 2; off > 0; off >>= 1) {
+    x += __shfl_xor_sync(0xffffffffu, x, off, G);
+  }
+  return x;
+}
+
+// Online-softmax state of one query row: running max, running sum and the
+// unnormalised output slice this thread owns.
+struct RowState {
+  float m = -INFINITY;
+  float l = 0.f;
+  float acc[kVec] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+};
+
+// What a thread needs to read the keys and values of its (batch, head).
+template <typename T>
+struct HeadView {
+  const T* k;      // k of sequence row 0, offset to this thread's slice
+  const T* v;      // v likewise
+  int64_t stride;  // elements between sequence rows (3*H*Dh)
+  bool on;         // the thread owns a slice (false on padding lanes)
+};
+
+// Attends the keys i = 0 .. n_valid-1 of one query row. Key i lives at
+// sequence row `first + i*step`; with `cls_first` key 0 is row 0 (CLS) and
+// key i >= 1 is row `first + (i-1)*step`. `n_loop` >= n_valid must be the
+// same across the warp, so every lane reaches every shuffle.
+template <typename T, int G>
+__device__ __forceinline__ void attend_keys(const HeadView<T>& hv,
+                                            const float (&q)[kVec],
+                                            bool cls_first, int first,
+                                            int step, int n_valid, int n_loop,
+                                            float scale, RowState& st) {
+  for (int i0 = 0; i0 < n_loop; i0 += kChunk) {
+    float s[kChunk];
+    int64_t rows[kChunk];
+    float cmax = -INFINITY;
+#pragma unroll
+    for (int c = 0; c < kChunk; ++c) {
+      const int i = i0 + c;
+      const bool valid = i < n_valid;
+      rows[c] = cls_first ? (i == 0 ? 0 : first + (int64_t)(i - 1) * step)
+                          : first + (int64_t)i * step;
+      float part = 0.f;
+      if (hv.on && valid) {
+        float k[kVec];
+        load_vec(hv.k + rows[c] * hv.stride, k);
+#pragma unroll
+        for (int e = 0; e < kVec; ++e) part = fmaf(q[e], k[e], part);
+      }
+      part = group_sum<G>(part);
+      s[c] = valid ? part * scale : -INFINITY;
+      cmax = fmaxf(cmax, s[c]);
+    }
+    const float m_new = fmaxf(st.m, cmax);
+    // Branch-free for a chunk with no valid key yet (m_new = -inf).
+    const float corr = st.m == -INFINITY ? 0.f : expf(st.m - m_new);
+    st.l *= corr;
+#pragma unroll
+    for (int e = 0; e < kVec; ++e) st.acc[e] *= corr;
+#pragma unroll
+    for (int c = 0; c < kChunk; ++c) {
+      const float p = s[c] == -INFINITY ? 0.f : expf(s[c] - m_new);
+      st.l += p;
+      if (hv.on && i0 + c < n_valid) {
+        float v[kVec];
+        load_vec(hv.v + rows[c] * hv.stride, v);
+#pragma unroll
+        for (int e = 0; e < kVec; ++e) st.acc[e] = fmaf(p, v[e], st.acc[e]);
+      }
+    }
+    st.m = m_new;
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ HeadView<T> head_view(const T* qkv, int b, int h,
+                                                 int S, int H, int Dh,
+                                                 int lane) {
+  const int64_t stride = 3LL * H * Dh;
+  const T* base = qkv + (int64_t)b * S * stride + (int64_t)h * Dh +
+                  (int64_t)lane * kVec;
+  return HeadView<T>{base + (int64_t)H * Dh, base + 2LL * H * Dh, stride,
+                     lane * kVec < Dh};
+}
+
+template <typename T>
+__device__ __forceinline__ void load_q(const T* qkv, const HeadView<T>& hv,
+                                       int b, int h, int S, int H, int Dh,
+                                       int lane, int64_t row,
+                                       float (&q)[kVec]) {
+#pragma unroll
+  for (int e = 0; e < kVec; ++e) q[e] = 0.f;
+  if (hv.on) {
+    load_vec(qkv + ((int64_t)b * S + row) * hv.stride + (int64_t)h * Dh +
+                 (int64_t)lane * kVec,
+             q);
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ void store_row(T* out, const RowState& st, int b,
+                                          int h, int S, int H, int Dh,
+                                          int lane, int64_t row) {
+  float o[kVec];
+  const float inv = 1.f / st.l;
+#pragma unroll
+  for (int e = 0; e < kVec; ++e) o[e] = st.acc[e] * inv;
+  store_vec(out + ((int64_t)b * S + row) * H * Dh + (int64_t)h * Dh +
+                (int64_t)lane * kVec,
+            o);
+}
+
+// K1. Replaces the frame-block space branch of the packed TPU kernel
+// (`_packed_fwd_kernel` egovlpv2_tpu/ops/divided.py:774-788, with
+// `_space_fb_fwd` and `_tile_attend`).
+// Bound: each query row loads its frame's N+1 keys and values, 2 x 197 x
+// 128 B = 50 KB at N=196, Dh=64 in bf16, for 4*Dh flops a key, so the
+// loads from L1 and L2 bound it; device memory need see the qkv tensor only
+// once (289 MB at B=20, S=3137: 86 us at 3.35 TB/s). One frame's K/V
+// (50 KB in bf16, 100 KB in f32) exceeds the 48 KB of static shared memory.
+// Design: no shared memory and no limit on N. Consecutive rows of a block
+// are consecutive patches of one frame, so the row groups of a warp read
+// the same key at the same time (one broadcast load), the block's 8 warps
+// reuse it from L1, and the ~6 blocks of a frame meet in L2. The online
+// softmax over key chunks takes any N.
+template <typename T, int G>
+__global__ void __launch_bounds__(kThreads)
+    space_fwd_kernel(const T* __restrict__ qkv, T* __restrict__ out, int S,
+                     int H, int Dh, int N, float scale) {
+  const int b = blockIdx.z, h = blockIdx.y;
+  const int lane = threadIdx.x % G;
+  const int row = 1 + blockIdx.x * (kThreads / G) + threadIdx.x / G;
+  const bool row_ok = row < S;
+  const int r = row_ok ? row : S - 1;  // idle groups still join shuffles
+  const HeadView<T> hv = head_view(qkv, b, h, S, H, Dh, lane);
+  float q[kVec];
+  load_q(qkv, hv, b, h, S, H, Dh, lane, r, q);
+  RowState st;
+  const int first = 1 + ((r - 1) / N) * N;
+  attend_keys<T, G>(hv, q, true, first, 1, N + 1, N + 1, scale, st);
+  if (row_ok && hv.on) store_row(out, st, b, h, S, H, Dh, lane, r);
+}
+
+// K1 on the tensor cores: the bf16 form of space_fwd_kernel, for Dh a
+// multiple of 16 (the slice: Dh = 64).
+// Bound: the kernel above spends ~14 warp instructions on each (row, key)
+// pair on the CUDA cores; here QK^T and PV are mma.sync m16n8k16 products
+// (bf16 in, f32 accumulate), 38 GFLOP at the 16-frame shape, so loads of
+// K/V into shared memory and the softmax bound it instead.
+// Design: a block owns 64 query rows of one frame of one (b, h), 16 rows a
+// warp, Q held in registers as mma A fragments. It walks the frame's keys
+// (CLS first, then the N patches) in chunks of 64 staged in shared memory:
+// K row-major and V transposed, both padded by 8 so the fragment loads
+// spread over the banks (2 x 9 KB at Dh=64, any N). Each chunk: S = QK^T
+// in registers, scale, mask past the last key, online softmax (FA2 style:
+// row max over the 4 threads of a row, per-thread partial sums), P rounded
+// to bf16 as the A operand of P.V, as the plain version rounds it.
+namespace mma {
+
+constexpr int kWarps = 4;
+constexpr int kRows = 16 * kWarps;  // query rows a block
+constexpr int kKeys = 64;           // keys a chunk
+constexpr int kPad = 8;             // bf16 of padding a shared-memory row
+constexpr float kLog2e = 1.4426950408889634f;
+
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+template <int DH>
+__global__ void __launch_bounds__(kWarps * 32)
+    space_fwd_kernel(const __nv_bfloat16* __restrict__ qkv,
+                     __nv_bfloat16* __restrict__ out, int S, int H, int N,
+                     float scale) {
+  __shared__ __align__(16) __nv_bfloat16 sk[kKeys][DH + kPad];
+  __shared__ __align__(16) __nv_bfloat16 svt[DH][kKeys + kPad];
+  const int tiles = (N + kRows - 1) / kRows;
+  const int f = blockIdx.x / tiles, qt = blockIdx.x % tiles;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3;  // mma fragment row / column pair
+  const int64_t stride = 3LL * H * DH;
+  const __nv_bfloat16* qbase = qkv + (int64_t)b * S * stride + (int64_t)h * DH;
+  const __nv_bfloat16* kbase = qbase + (int64_t)H * DH;
+  const __nv_bfloat16* vbase = qbase + 2LL * H * DH;
+  const int first = 1 + f * N;  // sequence row of patch 0 of frame f
+  // This thread's two query rows (fragment rows g and g + 8).
+  const int p_lo = qt * kRows + warp * 16 + g, p_hi = p_lo + 8;
+  const bool ok_lo = p_lo < N, ok_hi = p_hi < N;
+
+  uint32_t qa[DH / 16][4];
+  {
+    const __nv_bfloat16* q_lo = qbase + (int64_t)(first + p_lo) * stride;
+    const __nv_bfloat16* q_hi = qbase + (int64_t)(first + p_hi) * stride;
+#pragma unroll
+    for (int kk = 0; kk < DH / 16; ++kk) {
+      const int c = kk * 16 + 2 * t;
+      qa[kk][0] = ok_lo ? ld32(q_lo + c) : 0u;
+      qa[kk][1] = ok_hi ? ld32(q_hi + c) : 0u;
+      qa[kk][2] = ok_lo ? ld32(q_lo + c + 8) : 0u;
+      qa[kk][3] = ok_hi ? ld32(q_hi + c + 8) : 0u;
+    }
+  }
+  float o[DH / 8][4];
+#pragma unroll
+  for (int nd = 0; nd < DH / 8; ++nd) o[nd][0] = o[nd][1] = o[nd][2] = o[nd][3] = 0.f;
+  float m_lo = -INFINITY, m_hi = -INFINITY, l_lo = 0.f, l_hi = 0.f;
+  const float sl2 = scale * kLog2e;
+
+  for (int c0 = 0; c0 <= N; c0 += kKeys) {  // keys 0..N: CLS, then patches
+    __syncthreads();  // the previous chunk is consumed
+    for (int i = threadIdx.x; i < kKeys * (DH / 8); i += kWarps * 32) {
+      const int j = i / (DH / 8), d8 = (i % (DH / 8)) * 8;
+      const int key = c0 + j;
+      uint4 kv = make_uint4(0, 0, 0, 0), vv = make_uint4(0, 0, 0, 0);
+      if (key <= N) {
+        const int64_t row = key == 0 ? 0 : first + key - 1;
+        kv = __ldg(reinterpret_cast<const uint4*>(kbase + row * stride + d8));
+        vv = __ldg(reinterpret_cast<const uint4*>(vbase + row * stride + d8));
+      }
+      *reinterpret_cast<uint4*>(&sk[j][d8]) = kv;
+      const __nv_bfloat16* ve = reinterpret_cast<const __nv_bfloat16*>(&vv);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) svt[d8 + e][j] = ve[e];
+    }
+    __syncthreads();
+
+    float s[kKeys / 8][4];
+#pragma unroll
+    for (int nt = 0; nt < kKeys / 8; ++nt) {
+      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < DH / 16; ++kk) {
+        const __nv_bfloat16* kr = &sk[nt * 8 + g][kk * 16 + 2 * t];
+        mma_bf16(s[nt], qa[kk], ld32(kr), ld32(kr + 8));
+      }
+    }
+    float mx_lo = -INFINITY, mx_hi = -INFINITY;
+#pragma unroll
+    for (int nt = 0; nt < kKeys / 8; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const bool valid = c0 + nt * 8 + 2 * t + (e & 1) <= N;
+        s[nt][e] = valid ? s[nt][e] * sl2 : -INFINITY;
+      }
+      mx_lo = fmaxf(mx_lo, fmaxf(s[nt][0], s[nt][1]));
+      mx_hi = fmaxf(mx_hi, fmaxf(s[nt][2], s[nt][3]));
+    }
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, off));
+      mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, off));
+    }
+    // Every chunk holds a valid key (chunk 0 the CLS key), so the new
+    // maxima are finite and exp2(-inf - m) = 0 handles the first chunk.
+    const float mn_lo = fmaxf(m_lo, mx_lo), mn_hi = fmaxf(m_hi, mx_hi);
+    const float corr_lo = exp2f(m_lo - mn_lo), corr_hi = exp2f(m_hi - mn_hi);
+    m_lo = mn_lo;
+    m_hi = mn_hi;
+    l_lo *= corr_lo;
+    l_hi *= corr_hi;
+#pragma unroll
+    for (int nd = 0; nd < DH / 8; ++nd) {
+      o[nd][0] *= corr_lo; o[nd][1] *= corr_lo;
+      o[nd][2] *= corr_hi; o[nd][3] *= corr_hi;
+    }
+#pragma unroll
+    for (int nt = 0; nt < kKeys / 8; ++nt) {
+      s[nt][0] = exp2f(s[nt][0] - mn_lo);
+      s[nt][1] = exp2f(s[nt][1] - mn_lo);
+      s[nt][2] = exp2f(s[nt][2] - mn_hi);
+      s[nt][3] = exp2f(s[nt][3] - mn_hi);
+      l_lo += s[nt][0] + s[nt][1];
+      l_hi += s[nt][2] + s[nt][3];
+    }
+#pragma unroll
+    for (int kc = 0; kc < kKeys / 16; ++kc) {
+      // The C fragments of key tiles 2kc, 2kc+1 are the A fragment of P.
+      const uint32_t pa[4] = {pack_bf16(s[2 * kc][0], s[2 * kc][1]),
+                              pack_bf16(s[2 * kc][2], s[2 * kc][3]),
+                              pack_bf16(s[2 * kc + 1][0], s[2 * kc + 1][1]),
+                              pack_bf16(s[2 * kc + 1][2], s[2 * kc + 1][3])};
+#pragma unroll
+      for (int nd = 0; nd < DH / 8; ++nd) {
+        const __nv_bfloat16* vr = &svt[nd * 8 + g][kc * 16 + 2 * t];
+        mma_bf16(o[nd], pa, ld32(vr), ld32(vr + 8));
+      }
+    }
+  }
+
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    l_lo += __shfl_xor_sync(0xffffffffu, l_lo, off);
+    l_hi += __shfl_xor_sync(0xffffffffu, l_hi, off);
+  }
+  const float inv_lo = 1.f / l_lo, inv_hi = 1.f / l_hi;
+  const int64_t width = (int64_t)H * DH;
+  __nv_bfloat16* o_lo = out + ((int64_t)b * S + first + p_lo) * width + h * DH;
+  __nv_bfloat16* o_hi = out + ((int64_t)b * S + first + p_hi) * width + h * DH;
+#pragma unroll
+  for (int nd = 0; nd < DH / 8; ++nd) {
+    const int c = nd * 8 + 2 * t;
+    if (ok_lo) {
+      *reinterpret_cast<uint32_t*>(o_lo + c) =
+          pack_bf16(o[nd][0] * inv_lo, o[nd][1] * inv_lo);
+    }
+    if (ok_hi) {
+      *reinterpret_cast<uint32_t*>(o_hi + c) =
+          pack_bf16(o[nd][2] * inv_hi, o[nd][3] * inv_hi);
+    }
+  }
+}
+
+}  // namespace mma
+
+// K2. Replaces the time branches of the packed TPU kernel: the frame-pair
+// branch (divided.py:811-830, `_time_fp_attend_mxu`) and the patch-major
+// window branch (divided.py:789-810, with its row permutes and the
+// permute hoist of models/video.py:175-192).
+// Bound: memory. Each row has only F+1 logits (17 at F=16), so the kernel
+// is a gather of F+1 keys and values per row at stride N rows; compute is
+// negligible.
+// Design: no permute. Row groups enumerate rows column-major (group
+// g -> patch n = g / F, frame f = g % F), so the F queries of one patch
+// column sit side by side in a block and share each key load, read at
+// stride N straight from the qkv output. Any F works (online softmax).
+template <typename T, int G>
+__global__ void __launch_bounds__(kThreads)
+    time_fwd_kernel(const T* __restrict__ qkv, T* __restrict__ out, int S,
+                    int H, int Dh, int N, int F, float scale) {
+  const int b = blockIdx.z, h = blockIdx.y;
+  const int lane = threadIdx.x % G;
+  const int g = blockIdx.x * (kThreads / G) + threadIdx.x / G;
+  const bool row_ok = g < S - 1;
+  const int gg = row_ok ? g : S - 2;
+  const int n = gg / F, f = gg % F;
+  const int64_t r = 1 + (int64_t)f * N + n;
+  const HeadView<T> hv = head_view(qkv, b, h, S, H, Dh, lane);
+  float q[kVec];
+  load_q(qkv, hv, b, h, S, H, Dh, lane, r, q);
+  RowState st;
+  attend_keys<T, G>(hv, q, true, 1 + n, N, F + 1, F + 1, scale, st);
+  if (row_ok && hv.on) store_row(out, st, b, h, S, H, Dh, lane, r);
+}
+
+// K3. Replaces the all-heads CLS-row pass `_cls_row_fwd_allh`
+// (divided.py:359-374), which both axes share.
+// Bound: memory. Row 0 of each (b, h) reads all S keys and values once
+// (S=3137, Dh=64, bf16: 0.8 MB per (b, h)) for S logits.
+// Design: one block per (b, h). Its kThreads/G row groups split the keys
+// round-robin, each with its own online softmax; the partial (max, sum,
+// output) triples are merged in shared memory at the end.
+template <typename T, int G>
+__global__ void __launch_bounds__(kThreads)
+    cls_row_fwd_kernel(const T* __restrict__ qkv, T* __restrict__ out, int S,
+                       int H, int Dh, float scale) {
+  constexpr int kGroups = kThreads / G;
+  __shared__ float sm_m[kGroups];
+  __shared__ float sm_l[kGroups];
+  __shared__ float sm_acc[kGroups * G * kVec];
+  const int b = blockIdx.y, h = blockIdx.x;
+  const int lane = threadIdx.x % G, grp = threadIdx.x / G;
+  const HeadView<T> hv = head_view(qkv, b, h, S, H, Dh, lane);
+  float q[kVec];
+  load_q(qkv, hv, b, h, S, H, Dh, lane, 0, q);
+  RowState st;
+  const int n_valid = grp < S ? (S - grp + kGroups - 1) / kGroups : 0;
+  const int n_loop = (S + kGroups - 1) / kGroups;
+  attend_keys<T, G>(hv, q, false, grp, kGroups, n_valid, n_loop, scale, st);
+#pragma unroll
+  for (int e = 0; e < kVec; ++e) sm_acc[grp * G * kVec + lane * kVec + e] = st.acc[e];
+  if (lane == 0) {
+    sm_m[grp] = st.m;
+    sm_l[grp] = st.l;
+  }
+  __syncthreads();
+  const int t = threadIdx.x;  // element t of the head dim
+  if (t < Dh) {
+    float m = -INFINITY;
+    for (int i = 0; i < kGroups; ++i) m = fmaxf(m, sm_m[i]);
+    float l = 0.f, o = 0.f;
+    for (int i = 0; i < kGroups; ++i) {
+      const float w = sm_m[i] == -INFINITY ? 0.f : expf(sm_m[i] - m);
+      l += sm_l[i] * w;
+      o += sm_acc[i * G * kVec + t] * w;
+    }
+    store_one(out + (int64_t)b * S * H * Dh + (int64_t)h * Dh + t, o / l);
+  }
+}
+
+int group_size(int Dh) {
+  int g = 1;
+  while (g * kVec < Dh) g <<= 1;
+  return g;
+}
+
+template <typename T, int G>
+struct Space {
+  static void run(const void* qkv, void* out, int B, int S, int H, int Dh,
+                  int F, float scale, cudaStream_t stream) {
+    const int rows = kThreads / G;
+    const dim3 grid((S - 1 + rows - 1) / rows, H, B);
+    space_fwd_kernel<T, G><<<grid, kThreads, 0, stream>>>(
+        static_cast<const T*>(qkv), static_cast<T*>(out), S, H, Dh,
+        (S - 1) / F, scale);
+  }
+};
+
+template <typename T, int G>
+struct Time {
+  static void run(const void* qkv, void* out, int B, int S, int H, int Dh,
+                  int F, float scale, cudaStream_t stream) {
+    const int rows = kThreads / G;
+    const dim3 grid((S - 1 + rows - 1) / rows, H, B);
+    time_fwd_kernel<T, G><<<grid, kThreads, 0, stream>>>(
+        static_cast<const T*>(qkv), static_cast<T*>(out), S, H, Dh,
+        (S - 1) / F, F, scale);
+  }
+};
+
+template <typename T, int G>
+struct ClsRow {
+  static void run(const void* qkv, void* out, int B, int S, int H, int Dh,
+                  int /*F*/, float scale, cudaStream_t stream) {
+    const dim3 grid(H, B);
+    cls_row_fwd_kernel<T, G><<<grid, kThreads, 0, stream>>>(
+        static_cast<const T*>(qkv), static_cast<T*>(out), S, H, Dh, scale);
+  }
+};
+
+template <typename T, template <typename, int> class Launch>
+int dispatch_group(const void* qkv, void* out, int B, int S, int H, int Dh,
+                   int F, float scale, cudaStream_t stream) {
+  switch (group_size(Dh)) {
+    case 1: Launch<T, 1>::run(qkv, out, B, S, H, Dh, F, scale, stream); break;
+    case 2: Launch<T, 2>::run(qkv, out, B, S, H, Dh, F, scale, stream); break;
+    case 4: Launch<T, 4>::run(qkv, out, B, S, H, Dh, F, scale, stream); break;
+    case 8: Launch<T, 8>::run(qkv, out, B, S, H, Dh, F, scale, stream); break;
+    case 16: Launch<T, 16>::run(qkv, out, B, S, H, Dh, F, scale, stream); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int DH>
+void launch_space_mma(const void* qkv, void* out, int B, int S, int H, int F,
+                      float scale, cudaStream_t stream) {
+  const int N = (S - 1) / F;
+  const dim3 grid(F * ((N + mma::kRows - 1) / mma::kRows), H, B);
+  mma::space_fwd_kernel<DH><<<grid, mma::kWarps * 32, 0, stream>>>(
+      static_cast<const __nv_bfloat16*>(qkv), static_cast<__nv_bfloat16*>(out),
+      S, H, N, scale);
+}
+
+int space_mma(const void* qkv, void* out, int B, int S, int H, int Dh, int F,
+              float scale, cudaStream_t stream) {
+  switch (Dh) {
+    case 16: launch_space_mma<16>(qkv, out, B, S, H, F, scale, stream); break;
+    case 32: launch_space_mma<32>(qkv, out, B, S, H, F, scale, stream); break;
+    case 48: launch_space_mma<48>(qkv, out, B, S, H, F, scale, stream); break;
+    case 64: launch_space_mma<64>(qkv, out, B, S, H, F, scale, stream); break;
+    case 80: launch_space_mma<80>(qkv, out, B, S, H, F, scale, stream); break;
+    case 96: launch_space_mma<96>(qkv, out, B, S, H, F, scale, stream); break;
+    case 112: launch_space_mma<112>(qkv, out, B, S, H, F, scale, stream); break;
+    case 128: launch_space_mma<128>(qkv, out, B, S, H, F, scale, stream); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// dtype: 0 = float32, 1 = bfloat16. The Python wrapper has checked the
+// shapes, dtype, contiguity, alignment and Dh (a multiple of 8, <= 128).
+template <template <typename, int> class Launch>
+int dispatch(const void* qkv, void* out, int dtype, int B, int S, int H,
+             int Dh, int F, float scale, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) {
+    return dispatch_group<float, Launch>(qkv, out, B, S, H, Dh, F, scale, s);
+  }
+  if (dtype == 1) {
+    return dispatch_group<__nv_bfloat16, Launch>(qkv, out, B, S, H, Dh, F,
+                                                 scale, s);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+}  // namespace
+
+extern "C" {
+
+// bf16 with Dh a multiple of 16 runs on the tensor cores; the rest (f32,
+// other head dims) on the CUDA cores.
+int space_attention_fwd(const void* qkv, void* out, int dtype, int B, int S,
+                        int H, int Dh, int F, float scale, void* stream) {
+  if (dtype == 1 && Dh % 16 == 0) {
+    return space_mma(qkv, out, B, S, H, Dh, F, scale,
+                     static_cast<cudaStream_t>(stream));
+  }
+  return dispatch<Space>(qkv, out, dtype, B, S, H, Dh, F, scale, stream);
+}
+
+int time_attention_fwd(const void* qkv, void* out, int dtype, int B, int S,
+                       int H, int Dh, int F, float scale, void* stream) {
+  return dispatch<Time>(qkv, out, dtype, B, S, H, Dh, F, scale, stream);
+}
+
+int cls_row_attention_fwd(const void* qkv, void* out, int dtype, int B, int S,
+                          int H, int Dh, float scale, void* stream) {
+  return dispatch<ClsRow>(qkv, out, dtype, B, S, H, Dh, 1, scale, stream);
+}
+
+const char* cuda_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+}  // extern "C"

@@ -1,0 +1,54 @@
+"""Attention primitives shared by the encoders (port of
+`egovlpv2_tpu/ops/attention.py`).
+
+`attend` is softmax(scale * q @ k^T + bias) @ v with the flax dtype rules
+written out: q is scaled in its own dtype, the logits and the softmax are
+float32, and the PV product is stored in the compute dtype. The JAX
+package runs this as XLA einsums too (text self-attention, i2t and t2i
+never reach its flash kernel at 15 text tokens), so it is plain torch.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+# Additive mask value: zero after an f32 softmax, finite in bf16.
+NEG_INF = -1e9
+
+
+def make_additive_mask(attention_mask: torch.Tensor,
+                       dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """[B, S] {0,1} padding mask -> [B, 1, 1, S] additive bias (0 keep / NEG_INF drop)."""
+    bias = (1.0 - attention_mask.to(dtype)) * NEG_INF
+    return bias[:, None, None, :]
+
+
+def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, scale: float,
+           bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Scaled dot-product attention over the last two axes.
+
+    q [..., Sq, Dh], k and v [..., Sk, Dh]; `bias` is additive and
+    broadcasts to [..., Sq, Sk]. Returns [..., Sq, Dh] in q.dtype.
+    """
+    qs = q * torch.tensor(scale, dtype=q.dtype)
+    # bf16 products are exact in f32, so an f32 matmul of the upcast
+    # operands is the bf16-in / f32-accumulate product of the reference.
+    logits = torch.matmul(qs.float(), k.float().transpose(-1, -2))
+    if bias is not None:
+        logits = logits + bias.float()
+    probs = torch.softmax(logits, dim=-1)
+    return torch.matmul(probs.to(q.dtype), v)
+
+
+def split_heads(x: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """[B, S, H*Dh] -> [B, H, S, Dh]."""
+    b, s, d = x.shape
+    return x.reshape(b, s, num_heads, d // num_heads).transpose(1, 2)
+
+
+def merge_heads(x: torch.Tensor) -> torch.Tensor:
+    """[B, H, S, Dh] -> [B, S, H*Dh]."""
+    b, h, s, dh = x.shape
+    return x.transpose(1, 2).reshape(b, s, h * dh)

@@ -1,0 +1,163 @@
+"""The CUDA kernels of egovlpv2_torch against their plain PyTorch versions,
+and the dispatch and checks around them.
+
+Tests marked `gpu` need a CUDA card and skip without one. This file imports
+torch and the port only (no jax), so on a machine with a card and without
+jax it runs as:
+
+    python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_kernels.py
+"""
+
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from egovlpv2_torch.ops import _kernels
+from egovlpv2_torch.ops.divided import (divided_attention,
+                                        divided_attention_reference)
+
+torch.set_num_threads(2)
+
+TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _qkv(seed, b, s, h, dh, dtype=torch.float32, device="cpu"):
+    x = np.random.RandomState(seed).randn(b, s, 3, h, dh).astype(np.float32)
+    return torch.from_numpy(x).to(device=device, dtype=dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("axis", ["space", "time"])
+@pytest.mark.parametrize("case", [
+    # (B, F, N, H, Dh): slice shapes, odd group sizes, head dims that leave
+    # idle lanes (24, 72), the largest head dim, one frame, one patch, and
+    # query tiles and key chunks of the tensor-core space kernel that end
+    # part-way (N = 70, 130).
+    (2, 4, 196, 12, 64),
+    (1, 16, 196, 2, 64),
+    (2, 3, 5, 3, 8),
+    (2, 5, 7, 2, 24),
+    (1, 2, 33, 2, 72),
+    (1, 4, 16, 2, 128),
+    (1, 1, 9, 2, 16),
+    (3, 6, 1, 1, 32),
+    (1, 2, 70, 2, 48),
+    (1, 3, 130, 1, 80),
+])
+def test_kernels_match_plain(cuda, case, axis, dtype):
+    b, f, n, h, dh = case
+    qkv = _qkv(0, b, 1 + f * n, h, dh, dtype, cuda)
+    before = dict(_kernels.launch_counts)
+    got = divided_attention(qkv, scale=dh ** -0.5, axis=axis, num_frames=f)
+    torch.cuda.synchronize()
+    ref = divided_attention_reference(qkv, scale=dh ** -0.5, axis=axis,
+                                      num_frames=f)
+    assert got.shape == ref.shape and got.dtype == dtype
+    err = (got.float() - ref.float()).abs().max().item()
+    assert err <= TOL[dtype], err
+    grouped = "space_attention_fwd" if axis == "space" else "time_attention_fwd"
+    assert _kernels.launch_counts[grouped] == before[grouped] + 1
+    assert (_kernels.launch_counts["cls_row_attention_fwd"]
+            == before["cls_row_attention_fwd"] + 1)
+
+
+@pytest.mark.gpu
+def test_kernel_wrapper_rejects_what_it_cannot_take(cuda):
+    out = torch.empty(1, 5, 2 * 12, device=cuda)
+    with pytest.raises(ValueError, match="head dim"):  # Dh = 12
+        _kernels.space_attention_fwd(torch.zeros(1, 5, 72, device=cuda), out,
+                                     num_heads=2, num_frames=2, scale=1.0)
+    with pytest.raises(TypeError):
+        _kernels.cls_row_attention_fwd(
+            torch.zeros(1, 5, 48, device=cuda, dtype=torch.float16),
+            out.half(), num_heads=2, scale=1.0)
+    qkv = _qkv(1, 2, 9, 2, 8, device=cuda).transpose(0, 1)
+    with pytest.raises(ValueError, match="contiguous"):
+        divided_attention(qkv, scale=1.0, axis="space", num_frames=2)
+
+
+def test_cpu_tensor_takes_the_plain_version():
+    qkv = _qkv(2, 2, 1 + 3 * 4, 2, 8)
+    before = dict(_kernels.launch_counts)
+    for axis in ("space", "time"):
+        got = divided_attention(qkv, scale=0.3, axis=axis, num_frames=3)
+        ref = divided_attention_reference(qkv, scale=0.3, axis=axis,
+                                          num_frames=3)
+        assert torch.equal(got, ref)
+    assert _kernels.launch_counts == before
+
+
+def test_other_devices_and_axes_raise():
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        divided_attention(torch.empty(1, 5, 3, 2, 8, device="meta"),
+                          scale=1.0, axis="space", num_frames=2)
+    with pytest.raises(ValueError, match="axis"):
+        divided_attention(_qkv(3, 1, 5, 2, 8), scale=1.0, axis="depth",
+                          num_frames=2)
+
+
+def test_kernel_wrappers_refuse_cpu_tensors_before_building():
+    qkv, out = torch.zeros(1, 5, 48), torch.zeros(1, 5, 16)
+    for launch in (_kernels.space_attention_fwd, _kernels.time_attention_fwd):
+        with pytest.raises(ValueError, match="CUDA"):
+            launch(qkv, out, num_heads=2, num_frames=2, scale=1.0)
+    with pytest.raises(ValueError, match="CUDA"):
+        _kernels.cls_row_attention_fwd(qkv, out, num_heads=2, scale=1.0)
+    lib = _kernels.library_path()
+    assert lib.parent == _kernels.BUILD_DIR
+    assert lib.parent.parts[-2:] == ("build", "egovlpv2_torch")
+
+
+def test_reference_row_semantics():
+    """Spot-check the plain version against the definition, one row per
+    axis: CLS over all keys; a space row over its frame + CLS; a time row
+    over its patch column + CLS."""
+    b, f, n, h, dh = 1, 3, 4, 1, 8
+    s = 1 + f * n
+    qkv = _qkv(4, b, s, h, dh).double()
+    q, k, v = qkv[0, :, 0, 0], qkv[0, :, 1, 0], qkv[0, :, 2, 0]
+
+    def row(r, keys):
+        w = torch.softmax(k[keys] @ q[r] * 0.5, dim=0)
+        return w @ v[keys]
+
+    space = divided_attention_reference(qkv, scale=0.5, axis="space",
+                                        num_frames=f)[0, :, 0]
+    time_ = divided_attention_reference(qkv, scale=0.5, axis="time",
+                                        num_frames=f)[0, :, 0]
+    r = 1 + 1 * n + 2  # frame 1, patch 2
+    torch.testing.assert_close(space[0], row(0, list(range(s))))
+    torch.testing.assert_close(time_[0], row(0, list(range(s))))
+    torch.testing.assert_close(space[r], row(r, [0] + list(range(1 + n, 1 + 2 * n))))
+    torch.testing.assert_close(time_[r], row(r, [0] + [1 + g * n + 2 for g in range(f)]))
+
+
+def test_port_imports_no_jax():
+    """Every module of the port imports without jax or flax."""
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import egovlpv2_torch\n"
+        "for m in pkgutil.walk_packages(egovlpv2_torch.__path__, 'egovlpv2_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'flax'))\n"
+        "assert not bad, bad\n"
+        "print(len([k for k in sys.modules if k.startswith('egovlpv2_torch')]))\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=240,
+                          cwd=Path(__file__).resolve().parents[1])
+    assert proc.returncode == 0, proc.stderr
+    assert int(proc.stdout.strip()) >= 14
