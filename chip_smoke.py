@@ -8,23 +8,41 @@ Run from the root of a checkout on a machine with one card:
 Phases, each printing its own lines; any failure raises and exits non-zero:
   1. device   — CUDA present; the card's name and power limit (nvidia-smi);
                 TF32 off for matmul and cuDNN.
-  2. build    — nvcc builds the kernels of csrc/ into build/egovlpv2_torch/.
-  3. kernels  — K1 space, K2 time and K3 CLS-row against their plain
-                PyTorch versions on the card, at B=20, H=12, Dh=64,
-                S=785 (4 frames) and S=3137 (16 frames), bf16 and f32;
-                max abs error <= 2e-2 in bf16 (the kernel keeps P.V in f32
-                where the plain version rounds P to bf16) and <= 1e-4 in
-                f32 (another summation order); each kernel's time beside
-                the plain version's.
+  2. build    — nvcc builds the kernels of csrc/ into build/egovlpv2_torch/,
+                one compiler a source, side by side.
+  3. kernels  — each kernel against its plain PyTorch version on the card,
+                H=12, Dh=64, bf16 and f32, with its time, the plain
+                version's, one library call's (`library_ms`) and its bound:
+                forward K1 space, K2 time, K3 CLS row at B=20, S=785 and
+                S=3137 (the EgoMCQ shapes) and B=16, S=785 (the pretrain
+                step's); max abs error <= 2e-2 in bf16 (the kernel keeps
+                P.V in f32 where the plain version rounds P to bf16) and
+                <= 1e-4 in f32 (another summation order);
+                backward K4 space, K5 time, K6 CLS row at B=16, S=785 and
+                S=3137 against autograd through the plain version; max abs
+                error of each of dq, dk, dv <= 2e-2 (bf16) / 1e-4 (f32) of
+                max |reference| of that tensor, the CLS row and the patch
+                rows each by its own maximum (a gradient's scale follows
+                the cotangent's, and the CLS key's dk/dv are many times a
+                patch key's; the kernels keep P, dP and dS in f32 and
+                round only the stores, the plain version rounds P and dS to
+                bf16; K6 rounds the dk/dv rows a second time when it adds
+                to them).
   4. tiny     — one small model (depth 4, 2 fused, width 128, 2 heads of
                 64, 4 frames of 4x4 patches) from one seeded state_dict on
-                the card (kernels) and on the CPU (plain): VTC and VTM agree
-                within 1e-3 in f32.
-  5. slice    — `egovlpv2_torch.cli egomcq` at full width (TimeSformer-B +
-                RoBERTa-base, 6 fused blocks each, ITM head) from
-                configs/eval_egomcq.json: 16 frames, batch 4, bf16, then
-                4 frames; every score finite and all three kernels launched
-                in each run.
+                the card (kernels) and on the CPU (plain), f32: EgoMCQ VTC
+                and VTM agree within 1e-3; one training step's loss parts
+                within 1e-3 and every parameter's gradient within 1e-3 of
+                max |cpu gradient|, from the same batch and mined indices,
+                dropout 0; all six kernels launched.
+  5. slices   — at full width (TimeSformer-B + RoBERTa-base, 6 fused blocks
+                each, ITM and MLM heads, projection 4096), bf16:
+                `egovlpv2_torch.cli egomcq` from configs/eval_egomcq.json
+                at 16 frames, batch 4 x 5 candidates, then 4 frames: every
+                score finite, the three forward kernels launched;
+                `egovlpv2_torch.cli pretrain --synthetic`: batch 16, 4
+                frames, no remat: every loss part finite at every step,
+                parameters changed, all six kernels launched every step.
 Then one JSON line of the kernels and, last, the result line.
 """
 
@@ -35,23 +53,44 @@ import time
 
 import numpy as np
 import torch
+from torch.nn import functional as F
 
 from egovlpv2_torch import cli
+from egovlpv2_torch.core.config import load_train_config
 from egovlpv2_torch.models.egovlp import EgoVLPv2
+from egovlpv2_torch.objectives.itm_mining import ITMIndices
 from egovlpv2_torch.ops import _kernels
-from egovlpv2_torch.ops.divided import cls_row_reference, grouped_reference
+from egovlpv2_torch.ops.divided import (cls_row_reference,
+                                        divided_attention_backward_reference,
+                                        grouped_reference)
 from egovlpv2_torch.tasks.egomcq import make_egomcq_eval_step
-from egovlpv2_torch.weights import random_init_
+from egovlpv2_torch.tasks.pretrain import synthetic_batch
+from egovlpv2_torch.train import step as train_step_module
+from egovlpv2_torch.weights import random_init_, training_init_
 
-SOURCE = "egovlpv2_torch/csrc/divided_attention.cu"
-KERNELS = {  # name -> the TPU kernel body it replaces
-    "space_attention_fwd": "egovlpv2_tpu/ops/divided.py:774",
-    "time_attention_fwd": "egovlpv2_tpu/ops/divided.py:811",
-    "cls_row_attention_fwd": "egovlpv2_tpu/ops/divided.py:359",
+FWD_SOURCE = "egovlpv2_torch/csrc/divided_attention.cu"
+BWD_SOURCE = "egovlpv2_torch/csrc/divided_attention_bwd.cu"
+KERNELS = {  # name -> (source, the TPU kernel body it replaces)
+    "space_attention_fwd": (FWD_SOURCE, "egovlpv2_tpu/ops/divided.py:774"),
+    "time_attention_fwd": (FWD_SOURCE, "egovlpv2_tpu/ops/divided.py:811"),
+    "cls_row_attention_fwd": (FWD_SOURCE, "egovlpv2_tpu/ops/divided.py:359"),
+    "space_attention_bwd": (BWD_SOURCE, "egovlpv2_tpu/ops/divided.py:623"),
+    "time_attention_bwd": (BWD_SOURCE, "egovlpv2_tpu/ops/divided.py:957"),
+    "cls_row_attention_bwd": (BWD_SOURCE, "egovlpv2_tpu/ops/divided.py:377"),
 }
-TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
-B, H, DH, N = 20, 12, 64, 196  # 4 items x 5 candidates, ViT-B heads, 14x14 patches
+TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}  # forward abs, backward rel
+H, DH, N = 12, 64, 196  # ViT-B heads, 14x14 patches
+FWD_CASES = ((20, 4), (20, 16), (16, 4))  # (B, frames)
+BWD_CASES = ((16, 4), (16, 16))
+MAIN_CASE = (torch.bfloat16, 16, 4)  # the pretrain step's: the JSON line's times
 TIME_ITERS = 20  # timed calls of a kernel or its plain version, after 3 warm
+# The card's published peaks (NVIDIA H100 SXM data sheet, dense).
+PEAK_BYTES_S = 3.35e12
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+PRETRAIN_STEPS = 6
+PRETRAIN_SETS = ["model.compute_dtype=bfloat16", "model.remat=false",
+                 "path_remat=false", "optim.max_steps=1000",
+                 "global_batch_size=16"]
 
 
 def _time_ms(fn) -> float:
@@ -67,168 +106,415 @@ def _time_ms(fn) -> float:
     return start.elapsed_time(end) / TIME_ITERS
 
 
+def bound_ms(name: str, dtype, b: int, s: int, frames: int) -> tuple:
+    """The least time the card could take for one call: the larger of the
+    bytes the function must move (each input row read once, each output row
+    written once) over the memory rate, and its operations (2 a
+    multiply-add; the forward has 2 products a (query, key) pair, the
+    backward 5 with the recomputed logits) over the peak rate of the dtype.
+    Returns (ms, "bytes" or "operations")."""
+    e = torch.finfo(dtype).bits // 8
+    head_rows = b * H * DH  # elements of one sequence row over all heads
+    keys = {"space": N + 1, "time": frames + 1, "cls_row": s}[name.rsplit("_", 2)[0]]
+    queries = 1 if name.startswith("cls_row") else s - 1
+    if name.endswith("_fwd"):
+        rows = queries + 2 * s + queries  # q, k and v in; out
+        products = 2
+    elif name.startswith("cls_row"):
+        # q0, k, v and g0 in; dq0, dk and dv out. That K6 adds in place to
+        # the 2 (S - 1) dk/dv rows K4/K5 wrote, and so reads them back, is
+        # this design's cost and not the function's.
+        rows = 1 + 2 * s + 1 + 1 + 2 * s
+        products = 5
+    else:
+        rows = queries + 2 * s + queries + 3 * queries  # q, k, v, g; dq, dk, dv
+        products = 5
+    t_bytes = rows * head_rows * e / PEAK_BYTES_S
+    t_flops = products * 2 * b * H * queries * keys * DH / PEAK_FLOPS[dtype]
+    return max(t_bytes, t_flops) * 1e3, "bytes" if t_bytes >= t_flops else "operations"
+
+
 def phase_device() -> str:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
-    print(smi)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     name = torch.cuda.get_device_name(0)
     print(f"[1 device] {name} x{torch.cuda.device_count()}, torch "
           f"{torch.__version__}, CUDA {torch.version.cuda}, python "
-          f"{sys.version.split()[0]}", flush=True)
-    return name
+          f"{sys.version.split()[0]}; nvidia-smi: {smi}", flush=True)
+    return smi
 
 
 def phase_build() -> None:
     t0 = time.perf_counter()
-    cached = _kernels.library_path().exists()
-    lib = _kernels.load()
+    cached = all(p.exists() for p in _kernels.library_paths().values())
+    _kernels.load()
+    libs = ", ".join(p.name for p in _kernels.library_paths().values())
     print(f"[2 build] {time.perf_counter() - t0:.2f} s "
-          f"({'already built' if cached else 'nvcc'}): {lib._name}", flush=True)
+          f"({'already built' if cached else 'nvcc'}): {libs}", flush=True)
+
+
+def _grouped_qkv(qkv: torch.Tensor, axis: str, frames: int):
+    """q, k, v as one library attention call takes them: the frames (space)
+    or patch columns (time) as a batch [B, H, G, L, Dh], the CLS key and
+    value concatenated in front of each group's."""
+    b, s, _, h, dh = qkv.shape
+    q, k, v = qkv.permute(2, 0, 3, 1, 4).unbind(0)
+
+    def grouped(t):
+        t = t[:, :, 1:].reshape(b, h, frames, (s - 1) // frames, dh)
+        return t.transpose(2, 3) if axis == "time" else t
+
+    qg, kg, vg = grouped(q), grouped(k), grouped(v)
+    g = qg.shape[2]
+    kg = torch.cat([k[:, :, None, :1].expand(b, h, g, 1, dh), kg], dim=3)
+    vg = torch.cat([v[:, :, None, :1].expand(b, h, g, 1, dh), vg], dim=3)
+    return qg.contiguous(), kg.contiguous(), vg.contiguous()
+
+
+def _library_calls(qkv: torch.Tensor, g: torch.Tensor, frames: int) -> dict:
+    """name -> a closure over one PyTorch library call that computes the
+    kernel's function (`scaled_dot_product_attention`, or its autograd
+    backward), on tensors laid out for it beforehand. Timed only."""
+    scale = DH ** -0.5
+    calls = {}
+    q0, k0, v0 = (t.contiguous() for t in qkv.permute(2, 0, 3, 1, 4).unbind(0))
+    groups = {"space": _grouped_qkv(qkv, "space", frames),
+              "time": _grouped_qkv(qkv, "time", frames),
+              "cls_row": (q0[:, :, :1].contiguous(), k0, v0)}
+    b, s = qkv.shape[:2]
+    gh = g.transpose(1, 2)  # [B, H, S, Dh]
+    cots = {"space": gh[:, :, 1:].reshape(b, H, frames, -1, DH),
+            "time": gh[:, :, 1:].reshape(b, H, frames, -1, DH).transpose(2, 3),
+            "cls_row": gh[:, :, :1]}
+    for axis, (q, k, v) in groups.items():
+        calls[f"{axis}_attention_fwd"] = (
+            lambda q=q, k=k, v=v: F.scaled_dot_product_attention(
+                q, k, v, scale=scale))
+        leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        out = F.scaled_dot_product_attention(*leaves, scale=scale)
+        cot = cots[axis].contiguous()
+        calls[f"{axis}_attention_bwd"] = (
+            lambda out=out, leaves=leaves, cot=cot: torch.autograd.grad(
+                out, leaves, cot, retain_graph=True))
+    return calls
+
+
+def _rel_errs(got: torch.Tensor, ref: torch.Tensor) -> tuple:
+    """(largest abs error, its share of max |ref| on the CLS row, the same
+    on the patch rows) over dq, dk, dv of [B, S, 3, H, Dh] tensors. Sequence
+    row 0 and rows 1..S-1 are each held to their own max |ref|: the CLS key
+    gathers from every query, so its dk/dv are many times a patch key's and
+    would hide an error as large as a patch row's values."""
+    worst_abs, worst_rel = 0.0, [0.0, 0.0]
+    for i in range(3):
+        for j, rows in enumerate((slice(0, 1), slice(1, None))):
+            r = ref[:, rows, i].float()
+            err = (got[:, rows, i].float() - r).abs().max().item()
+            worst_abs = max(worst_abs, err)
+            worst_rel[j] = max(worst_rel[j], err / max(r.abs().max().item(), 1e-30))
+    return worst_abs, worst_rel[0], worst_rel[1]
 
 
 def phase_kernels() -> dict:
     """Each kernel against its plain version; returns per-kernel results,
-    with the times taken at the 16-frame bf16 shape of the slice."""
+    with the times taken at MAIN_CASE."""
     results = {name: {"max_abs_err": 0.0} for name in KERNELS}
     gen = torch.Generator(device="cuda").manual_seed(0)
     scale = DH ** -0.5
+
+    def record(name, dtype, b, frames, err, check, ms, plain_ms, lib_ms):
+        s = 1 + frames * N
+        least, by = bound_ms(name, dtype, b, s, frames)
+        tag = f"{str(dtype).split('.')[-1]} B={b} S={s}"
+        print(f"[3 kernels] {name:22s} {tag:20s} err={err:.3e} ({check}, tol "
+              f"{TOL[dtype]:.0e})  kernel {ms:.4f} ms  plain {plain_ms:.4f} ms"
+              f"  library {lib_ms:.4f} ms  bound {least:.4f} ms ({by})",
+              flush=True)
+        r = results[name]
+        r["max_abs_err"] = max(r["max_abs_err"], err)
+        if (dtype, b, frames) == MAIN_CASE:
+            r.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                     bound_ms=least, bound_by=by, shape=tag)
+
     for dtype in (torch.bfloat16, torch.float32):
-        for frames in (4, 16):
+        for b, frames in sorted(set(FWD_CASES) | set(BWD_CASES)):
             s = 1 + frames * N
-            qkv = torch.randn((B, s, 3, H, DH), generator=gen,
+            qkv = torch.randn((b, s, 3, H, DH), generator=gen,
                               device="cuda").to(dtype)
-            flat = qkv.view(B, s, 3 * H * DH)
-            out = torch.empty((B, s, H * DH), dtype=dtype, device="cuda")
-            runs = {
-                "space_attention_fwd": (
-                    lambda: _kernels.space_attention_fwd(
-                        flat, out, num_heads=H, num_frames=frames, scale=scale),
-                    lambda: grouped_reference(qkv, scale=scale, axis="space",
-                                              num_frames=frames),
-                    slice(1, None)),
-                "time_attention_fwd": (
-                    lambda: _kernels.time_attention_fwd(
-                        flat, out, num_heads=H, num_frames=frames, scale=scale),
-                    lambda: grouped_reference(qkv, scale=scale, axis="time",
-                                              num_frames=frames),
-                    slice(1, None)),
-                "cls_row_attention_fwd": (
-                    lambda: _kernels.cls_row_attention_fwd(
-                        flat, out, num_heads=H, scale=scale),
-                    lambda: cls_row_reference(qkv, scale=scale),
-                    slice(0, 1)),
-            }
-            for name, (kernel, plain, rows) in runs.items():
-                out.fill_(float("nan"))
-                kernel()
+            g = torch.randn((b, s, H, DH), generator=gen,
+                            device="cuda").to(dtype)
+            flat, gflat = qkv.view(b, s, 3 * H * DH), g.view(b, s, H * DH)
+            library = _library_calls(qkv, g, frames)
+            kw = dict(num_heads=H, num_frames=frames, scale=scale)
+            ckw = dict(num_heads=H, scale=scale)
+
+            if (b, frames) in FWD_CASES:
+                out = torch.empty((b, s, H * DH), dtype=dtype, device="cuda")
+                runs = {
+                    "space_attention_fwd": (
+                        lambda: _kernels.space_attention_fwd(flat, out, **kw),
+                        lambda: grouped_reference(qkv, scale=scale, axis="space",
+                                                  num_frames=frames),
+                        slice(1, None)),
+                    "time_attention_fwd": (
+                        lambda: _kernels.time_attention_fwd(flat, out, **kw),
+                        lambda: grouped_reference(qkv, scale=scale, axis="time",
+                                                  num_frames=frames),
+                        slice(1, None)),
+                    "cls_row_attention_fwd": (
+                        lambda: _kernels.cls_row_attention_fwd(flat, out, **ckw),
+                        lambda: cls_row_reference(qkv, scale=scale),
+                        slice(0, 1)),
+                }
+                for name, (kernel, plain, rows) in runs.items():
+                    out.fill_(float("nan"))
+                    kernel()
+                    torch.cuda.synchronize()
+                    ref = plain().reshape(b, -1, H * DH)
+                    got = out[:, rows]
+                    if not torch.isfinite(got).all():
+                        raise AssertionError(f"{name}: non-finite output rows")
+                    err = (got.float() - ref.float()).abs().max().item()
+                    if not err <= TOL[dtype]:
+                        raise AssertionError(f"{name} {dtype} B={b} S={s}: "
+                                             f"error {err} > {TOL[dtype]}")
+                    record(name, dtype, b, frames, err, "abs", _time_ms(kernel),
+                           _time_ms(plain), _time_ms(library[name]))
+
+            if (b, frames) in BWD_CASES:
+                dqkv = torch.empty_like(flat)
+                for axis in ("space", "time"):
+                    name = f"{axis}_attention_bwd"
+                    stats, parts = _kernels.attention_bwd_scratch(
+                        flat, num_heads=H, num_frames=frames, axis=axis)
+                    launch = getattr(_kernels, name)
+                    kernel = lambda: launch(flat, gflat, dqkv, stats, parts, **kw)
+                    plain = lambda: divided_attention_backward_reference(
+                        qkv, g, scale=scale, axis=axis, num_frames=frames,
+                        rows="grouped")
+                    dqkv.fill_(float("nan"))
+                    kernel()
+                    torch.cuda.synchronize()
+                    got = dqkv.view(b, s, 3, H, DH).clone()
+                    if not torch.isnan(got[:, 0]).all():
+                        raise AssertionError(f"{name} wrote sequence row 0")
+                    # row 0: dq is 0 for the grouped rows; dk/dv of the CLS
+                    # key are the sum of the blocks' partials (K6 adds them)
+                    got[:, 0, 0] = 0
+                    got[:, 0, 1:] = parts.sum(2).permute(0, 2, 1, 3).to(dtype)
+                    if not torch.isfinite(got).all():
+                        raise AssertionError(f"{name}: non-finite gradient")
+                    err, rel_cls, rel = _rel_errs(got, plain())
+                    if not max(rel_cls, rel) <= TOL[dtype]:
+                        raise AssertionError(
+                            f"{name} {dtype} B={b} S={s}: relative error CLS "
+                            f"row {rel_cls}, patch rows {rel} > {TOL[dtype]}")
+                    record(name, dtype, b, frames, err,
+                           f"rel cls row {rel_cls:.2e} patch rows {rel:.2e}",
+                           _time_ms(kernel), _time_ms(plain),
+                           _time_ms(library[name]))
+                name = "cls_row_attention_bwd"
+                dqkv.zero_()
+                _kernels.cls_row_attention_bwd(flat, gflat, dqkv,
+                                               torch.zeros_like(parts), **ckw)
                 torch.cuda.synchronize()
-                ref = plain().reshape(B, -1, H * DH)
-                got = out[:, rows]
-                if not torch.isfinite(got).all():
-                    raise AssertionError(f"{name}: non-finite output rows")
-                err = (got.float() - ref.float()).abs().max().item()
-                ms, plain_ms = _time_ms(kernel), _time_ms(plain)
-                tag = f"{str(dtype).split('.')[-1]} S={s}"
-                print(f"[3 kernels] {name:22s} {tag:14s} max_abs_err={err:.3e} "
-                      f"(tol {TOL[dtype]:.0e})  kernel {ms:.4f} ms  plain "
-                      f"{plain_ms:.4f} ms", flush=True)
-                if not err <= TOL[dtype]:
-                    raise AssertionError(f"{name} {tag}: error {err} > "
-                                         f"{TOL[dtype]}")
-                r = results[name]
-                r["max_abs_err"] = max(r["max_abs_err"], err)
-                if dtype == torch.bfloat16 and frames == 16:
-                    r["ms"], r["plain_ms"] = ms, plain_ms
+                plain = lambda: divided_attention_backward_reference(
+                    qkv, g, scale=scale, axis="space", num_frames=frames,
+                    rows="cls")
+                err, rel_cls, rel = _rel_errs(dqkv.view(b, s, 3, H, DH), plain())
+                if not max(rel_cls, rel) <= TOL[dtype]:
+                    raise AssertionError(
+                        f"{name} {dtype} B={b} S={s}: relative error CLS row "
+                        f"{rel_cls}, patch rows {rel} > {TOL[dtype]}")
+                # timed as the step runs it: adding to rows K4/K5 wrote
+                kernel = lambda: _kernels.cls_row_attention_bwd(
+                    flat, gflat, dqkv, parts, **ckw)
+                record(name, dtype, b, frames, err,
+                       f"rel cls row {rel_cls:.2e} patch rows {rel:.2e}",
+                       _time_ms(kernel), _time_ms(plain),
+                       _time_ms(library[name]))
+            del library
+            torch.cuda.empty_cache()
     return results
 
 
-def phase_tiny() -> None:
-    overrides = [
+def _tiny_config():
+    return load_train_config(None, [
         "model.video.img_size=64", "model.video.embed_dim=128",
         "model.video.depth=4", "model.video.num_heads=2",
         "model.video.num_frames=4", "model.text.vocab_size=1000",
         "model.text.hidden_size=128", "model.text.num_layers=4",
         "model.text.num_heads=2", "model.text.intermediate_size=256",
         "model.text.max_position_embeddings=40",
+        "model.text.hidden_dropout=0.0", "model.text.attn_dropout=0.0",
         "model.fusion.num_fuse_block=2", "model.fusion.dim_video=128",
         "model.fusion.dim_text=128", "model.fusion.hidden_size=128",
-        "model.projection_dim=64",
-    ]
-    mcfg = cli.load_train_config(None, overrides).model
-    cpu_model = random_init_(EgoVLPv2(mcfg, device="cpu"),
-                             torch.Generator().manual_seed(1)).eval()
-    gpu_model = EgoVLPv2(mcfg, device="cuda").eval()
+        "model.projection_dim=64", "model.remat=false", "path_remat=false",
+    ])
+
+
+def phase_tiny() -> None:
+    cfg = _tiny_config()
+    cpu_model = random_init_(EgoVLPv2(cfg.model, device="cpu"),
+                             torch.Generator().manual_seed(1))
+    gpu_model = EgoVLPv2(cfg.model, device="cuda")
     gpu_model.load_state_dict(cpu_model.state_dict(), strict=True)
+    models = (("cpu", cpu_model), ("cuda", gpu_model))
+
+    # inference: the EgoMCQ step
     rng = np.random.default_rng(2)
     video5 = rng.standard_normal((2, 5, 4, 64, 64, 3)).astype(np.float32)
     ids = rng.integers(3, 1000, (2, 15))
     ids[:, 0], ids[0, 9:] = 0, 1  # BOS; padding in item 0
     mask = (ids != 1).astype(np.int64)
     outs = {}
-    before = dict(_kernels.launch_counts)
-    for dev, model in (("cpu", cpu_model), ("cuda", gpu_model)):
-        o = make_egomcq_eval_step(model)(video5, ids, mask)
+    _kernels.reset_launch_counts()
+    for dev, model in models:
+        o = make_egomcq_eval_step(model.eval())(video5, ids, mask)
         outs[dev] = {k: v.cpu() for k, v in o.items()}
     errs = {k: (outs["cuda"][k] - outs["cpu"][k]).abs().max().item()
             for k in ("vtc", "vtm")}
-    launched = {k: _kernels.launch_counts[k] - before[k] for k in before}
-    print(f"[4 tiny] cuda vs cpu max_abs_err {errs} (tol 1e-3), launches "
-          f"{launched}", flush=True)
+    print(f"[4 tiny] egomcq cuda vs cpu max_abs_err {errs} (tol 1e-3)",
+          flush=True)
     if not all(e <= 1e-3 for e in errs.values()):
         raise AssertionError(f"tiny model: cuda and cpu disagree: {errs}")
+
+    # training: one step's losses and gradients, the same mined indices
+    batch = synthetic_batch(cfg, 6, np.random.default_rng(3))
+    mined = ITMIndices(torch.tensor([0, 3, 2, 5, 4, 1]),
+                       torch.tensor([0, 1, 2, 3, 0, 5]),
+                       torch.tensor([1, 0, 1, 0, 0, 0]))
+    mine = train_step_module.mine_itm_indices
+    losses, grads = {}, {}
+    try:
+        for dev, model in models:
+            train_step_module.mine_itm_indices = lambda *a, dev=dev, **k: \
+                ITMIndices(*(t.to(dev) for t in mined))
+            model.train().zero_grad(set_to_none=True)
+            loss, metrics = train_step_module.pretrain_loss_fn(
+                model, train_step_module.batch_to_device(batch, torch.device(dev)),
+                None, cfg=cfg)
+            loss.backward()
+            losses[dev] = {k: v.item() for k, v in metrics.items()}
+            grads[dev] = {n: p.grad.cpu() for n, p in model.named_parameters()}
+    finally:
+        train_step_module.mine_itm_indices = mine
+    loss_err = max(abs(losses["cuda"][k] - losses["cpu"][k]) for k in losses["cpu"])
+    worst, worst_name = 0.0, ""
+    for name, ref in grads["cpu"].items():
+        rel = ((grads["cuda"][name] - ref).abs().max()
+               / ref.abs().max().clamp_min(1e-6)).item()
+        if rel > worst:
+            worst, worst_name = rel, name
+    launched = dict(_kernels.launch_counts)
+    print(f"[4 tiny] train step cuda vs cpu: losses {losses['cuda']} max_abs_err "
+          f"{loss_err:.2e} (tol 1e-3); {len(grads['cpu'])} parameter gradients, "
+          f"worst {worst:.2e} of max |cpu gradient| at {worst_name} (tol 1e-3); "
+          f"launches {launched}", flush=True)
+    if not (loss_err <= 1e-3 and worst <= 1e-3):
+        raise AssertionError("tiny model: cuda and cpu training steps disagree")
     if not all(launched.values()):
         raise AssertionError(f"tiny model on cuda skipped a kernel: {launched}")
 
 
-def phase_slice() -> dict:
+def phase_egomcq() -> dict:
+    """Returns path -> the launch counts of that path's own run."""
     base = ["egomcq", "--config", "configs/eval_egomcq.json", "--device",
             "cuda", "--val_batches", "2"]
-    _kernels.reset_launch_counts()
-    seen = dict(_kernels.launch_counts)
+    by_path = {}
     for label, extra in (("16f", []), ("4f", ["--set",
                                               "model.video.num_frames=4"])):
+        _kernels.reset_launch_counts()
         res = cli.main(base + extra)
         counts = dict(_kernels.launch_counts)
-        grew = {k: counts[k] - seen[k] for k in counts}
-        seen = counts
         scores = res["scores"]
         finite = all(np.isfinite(v).all() for v in scores.values())
         steps_ms = [round(x * 1e3, 1) for x in res["step_seconds"]]
         step_s = res["step_seconds"][-1]  # the first step carries warm-up
         shapes = {k: v.shape for k, v in scores.items()}
-        print(f"[5 slice] egomcq {label}: metrics {res['metrics']} | step "
+        print(f"[5 slices] egomcq {label}: metrics {res['metrics']} | step "
               f"{step_s * 1e3:.1f} ms (one sample: the last of steps "
               f"{steps_ms} ms, input copy included) | "
               f"{res['clips_per_step'] / step_s:.2f} clips/s | scores "
-              f"{shapes} finite={finite} | launches {grew}", flush=True)
+              f"{shapes} finite={finite} | launches {counts}", flush=True)
         if not finite or set(scores) != {"vtc", "vtm"}:
             raise AssertionError(f"egomcq {label}: bad scores {scores}")
-        if not all(grew.values()):
+        if not all(counts[k] for k in counts if k.endswith("_fwd")):
             raise AssertionError(f"egomcq {label}: a kernel was not launched: "
-                                 f"{grew}")
-    return seen
+                                 f"{counts}")
+        by_path[f"egomcq_{label}"] = counts
+    return by_path
+
+
+def phase_pretrain() -> dict:
+    args = ["pretrain", "--synthetic", "--device", "cuda", "--steps_per_epoch",
+            str(PRETRAIN_STEPS), "--set", *PRETRAIN_SETS]
+    torch.cuda.reset_peak_memory_stats()
+    _kernels.reset_launch_counts()
+    res = cli.main(args)
+    counts = dict(_kernels.launch_counts)
+    peak = torch.cuda.max_memory_allocated()
+    rows = res["logged"]
+    if len(rows) != PRETRAIN_STEPS:
+        raise AssertionError(f"pretrain logged {len(rows)} steps")
+    for row in rows:
+        if not all(np.isfinite(v) for v in row.values()):
+            raise AssertionError(f"pretrain: non-finite loss part in {row}")
+    per_step = {k: v / PRETRAIN_STEPS for k, v in counts.items()}
+    if not all(v >= 1 and v == int(v) for v in per_step.values()):
+        raise AssertionError(f"pretrain: launches a step {per_step}")
+    cfg = load_train_config(None, PRETRAIN_SETS)
+    fresh = training_init_(EgoVLPv2(cfg.model, device="cpu"),
+                           torch.Generator().manual_seed(cfg.seed))
+    moved = sum(not torch.equal(p.detach().cpu(), q.detach())
+                for p, q in zip(res["model"].parameters(), fresh.parameters()))
+    n_params = sum(1 for _ in fresh.parameters())
+    steps_ms = [s * 1e3 for s in res["step_seconds"]]
+    warm = float(np.median(steps_ms[2:]))  # the first two carry warm-up
+    print(f"[5 slices] pretrain b16 4f bf16: {PRETRAIN_STEPS} steps, last "
+          f"{rows[-1]} | step ms {[round(x, 1) for x in steps_ms]}, median of "
+          f"the last {PRETRAIN_STEPS - 2} {warm:.1f} ms = "
+          f"{res['clips_per_step'] / warm * 1e3:.2f} clips/s | launches a "
+          f"step {per_step} | parameters changed {moved}/{n_params} | peak "
+          f"memory {peak / 2**30:.2f} GiB", flush=True)
+    if moved < n_params // 2:
+        raise AssertionError(f"pretrain: only {moved}/{n_params} parameters "
+                             "changed")
+    return counts
 
 
 def main() -> None:
-    name = phase_device()
+    smi = phase_device()
     phase_build()
     results = phase_kernels()
     phase_tiny()
-    launches = phase_slice()
-    if "jax" in sys.modules or "flax" in sys.modules:
-        raise AssertionError("the port imported jax or flax")
+    by_path = phase_egomcq()
+    by_path["pretrain"] = phase_pretrain()
+    bad = sorted(m for m in sys.modules
+                 if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
+                                        "egovlpv2_tpu"))
+    if bad:
+        raise AssertionError(f"the port imported {bad}")
+    # `launches` is the pretrain run's own count (the one path that runs
+    # all six kernels); each path's count stands beside it, never summed.
+    # One launch of a grouped backward wrapper is two __global__ launches
+    # (a query pass, then a key pass).
     print(json.dumps({"kernels": [
-        {"name": k, "route": "cuda", "source": SOURCE, "replaces": KERNELS[k],
-         "launches": launches[k], "max_abs_err": results[k]["max_abs_err"],
-         "ms": results[k]["ms"], "plain_ms": results[k]["plain_ms"]}
+        {"name": k, "route": "cuda", "source": KERNELS[k][0],
+         "replaces": KERNELS[k][1], "launches": by_path["pretrain"][k],
+         "launches_a_pretrain_step": by_path["pretrain"][k] // PRETRAIN_STEPS,
+         "launches_by_path": {path: c[k] for path, c in by_path.items()},
+         **results[k]}
         for k in KERNELS]}))
+    print(smi)
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
 
 
 if __name__ == "__main__":

@@ -1,16 +1,30 @@
 """Command line of the port (counterpart of `egovlpv2_tpu/cli.py`).
 
 Subcommands:
-  egomcq — EgoMCQ zero-shot validation, synthetic batches unless --meta is
-           given. The flags are those of the JAX CLI's `egomcq`, without
-           the JAX multi-host ones, plus --device.
+  pretrain — EgoClip pre-training steps (EgoNCE + MLM + ITM) on synthetic
+             batches (--synthetic). Prints one JSON line a logged step
+             with the loss parts and the step's milliseconds.
+
+    python -m egovlpv2_torch.cli pretrain --synthetic --device cuda \
+        --config configs/pretrain_egoclip.json --steps_per_epoch 8 \
+        --set global_batch_size=16 model.remat=false path_remat=false
+
+  egomcq   — EgoMCQ zero-shot validation on synthetic batches. The flags
+             are those of the JAX CLI's `egomcq`, without the JAX
+             multi-host ones, plus --device.
 
     python -m egovlpv2_torch.cli egomcq --config configs/eval_egomcq.json \
         --device cuda --val_batches 2
 
+Not ported yet, and refused with a NotImplementedError that names the
+ROADMAP item: real data (`--meta`, pretrain without --synthetic), which
+needs the file readers and loaders of `egovlpv2_tpu/data/`; checkpoints
+(`--ckpt`, `--save_dir`, `--resume`).
+
 Without a checkpoint every parameter is drawn from a torch.Generator seeded
-with the config's `seed` (`weights.random_init_`). `--device cuda` on a
-machine without CUDA raises; it never carries on on the CPU.
+with the config's `seed` (`weights.random_init_` for egomcq,
+`weights.training_init_` for pretrain). `--device cuda` on a machine
+without CUDA raises; it never carries on on the CPU.
 """
 
 from __future__ import annotations
@@ -22,7 +36,41 @@ import time
 import numpy as np
 import torch
 
-from egovlpv2_tpu.cli import _make_egomcq_batches, load_train_config
+from egovlpv2_torch.core.config import load_train_config
+from egovlpv2_torch.data.tokenizer import Tokenizer
+
+
+def _device(name: str) -> torch.device:
+    device = torch.device(name)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("--device cuda was asked for, but CUDA is not "
+                           "available")
+    return device
+
+
+def _synthetic_egomcq_batches(cfg, tokenizer_name: str, batch_size: int,
+                              n_batches: int):
+    """callable(epoch) -> iterator of synthetic EgoMCQ batches
+    (video5/ids/mask/answer/type), the draws of the JAX CLI's."""
+    tok = Tokenizer(tokenizer_name, max_len=cfg.max_text_len,
+                    vocab_cap=cfg.model.text.vocab_size)
+    v = cfg.model.video
+
+    def batches(epoch: int = 0):
+        rng = np.random.default_rng(1234 + epoch)
+        for _ in range(n_batches):
+            enc = tok(["someone does something"] * batch_size)
+            yield {
+                "video5": rng.standard_normal(
+                    (batch_size, 5, v.num_frames, v.img_size, v.img_size,
+                     v.in_chans)).astype(np.float32),
+                "ids": enc["text_ids"],
+                "mask": enc["text_mask"],
+                "answer": rng.integers(0, 5, batch_size),
+                "type": rng.integers(1, 3, batch_size),
+            }
+
+    return batches
 
 
 def _recorded(step, device: torch.device, record: list):
@@ -47,19 +95,22 @@ def cmd_egomcq(args) -> dict:
     from egovlpv2_torch.tasks.egomcq import evaluate_egomcq, make_egomcq_eval_step
     from egovlpv2_torch.weights import random_init_
 
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("--device cuda was asked for, but CUDA is not "
-                           "available")
+    device = _device(args.device)
     if args.ckpt:
         raise NotImplementedError(
             "checkpoint import into egovlpv2_torch is not ported yet "
             "(ROADMAP.md A8, checkpoints)")
+    if args.meta:
+        raise NotImplementedError(
+            "EgoMCQ files (--meta) need the dataset readers and the loader "
+            "of egovlpv2_tpu/data/, which are not ported yet (ROADMAP.md "
+            "A7, data readers and loaders); run without --meta for "
+            "synthetic batches")
     cfg = load_train_config(args.config, args.set)
     model = EgoVLPv2(cfg.model, device=device).eval()
     random_init_(model, torch.Generator().manual_seed(cfg.seed))
-    batches = _make_egomcq_batches(args, cfg, args.tokenizer,
-                                   batch_size=args.batch_size)
+    batches = _synthetic_egomcq_batches(cfg, args.tokenizer, args.batch_size,
+                                        args.val_batches)
     record = []
     step = _recorded(make_egomcq_eval_step(model, with_vtm=not args.vtc_only),
                      device, record)
@@ -79,24 +130,70 @@ def cmd_egomcq(args) -> dict:
             "clips_per_step": clips}
 
 
+def cmd_pretrain(args) -> dict:
+    from egovlpv2_torch.tasks.pretrain import build_pretrain, synthetic_batch
+
+    device = _device(args.device)
+    if not args.synthetic:
+        raise NotImplementedError(
+            "pre-training on EgoClip files needs the dataset readers and the "
+            "loader of egovlpv2_tpu/data/, which are not ported yet "
+            "(ROADMAP.md A7, data readers and loaders); pass --synthetic")
+    if args.save_dir or args.resume:
+        raise NotImplementedError(
+            "checkpoint save and resume are not ported yet (ROADMAP.md A8, "
+            "checkpoints); run without --save_dir and --resume")
+    cfg = load_train_config(args.config, args.set)
+    model, _, _, train_step = build_pretrain(cfg, device=device)
+    logged, seconds = [], []
+    step = 0
+    for epoch in range(args.epochs):
+        for i in range(args.steps_per_epoch):
+            batch = synthetic_batch(cfg, cfg.global_batch_size,
+                                    np.random.default_rng(epoch * 100003 + i))
+            t0 = time.perf_counter()
+            metrics = train_step(batch)
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            seconds.append(time.perf_counter() - t0)
+            step += 1
+            if step % args.log_every == 0:
+                row = {"epoch": epoch, "step": step,
+                       **{k: float(v) for k, v in metrics.items()},
+                       "step_ms": round(seconds[-1] * 1e3, 3)}
+                logged.append(row)
+                print(json.dumps(row), flush=True)
+    return {"model": model, "logged": logged, "step_seconds": seconds,
+            "clips_per_step": cfg.global_batch_size}
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser("egovlpv2-torch")
     sub = parser.add_subparsers(dest="cmd", required=True)
+
+    p = sub.add_parser("pretrain")
+    p.add_argument("--config", default=None)
+    p.add_argument("--set", nargs="*", default=[], help="dotted.key=value")
+    p.add_argument("--synthetic", action="store_true")
+    p.add_argument("--epochs", type=int, default=1)
+    p.add_argument("--steps_per_epoch", type=int, default=10)
+    p.add_argument("--log_every", type=int, default=1)
+    p.add_argument("--save_dir", default=None, help="not ported yet: raises")
+    p.add_argument("--resume", action="store_true",
+                   help="not ported yet: raises")
+    p.add_argument("--device", default="cuda", help="cuda, cuda:<i> or cpu")
+    p.set_defaults(fn=cmd_pretrain)
 
     e = sub.add_parser("egomcq")
     e.add_argument("--config", default=None)
     e.add_argument("--set", nargs="*", default=[], help="dotted.key=value")
     e.add_argument("--tokenizer", default="roberta-base")
-    e.add_argument("--meta", default=None)
-    e.add_argument("--data", default=None)
-    e.add_argument("--num_workers", type=int, default=4)
+    e.add_argument("--meta", default=None, help="not ported yet: raises")
     e.add_argument("--ckpt", default=None, help="not ported yet: raises")
     e.add_argument("--batch_size", type=int, default=4)
     e.add_argument("--val_batches", type=int, default=2,
                    help="synthetic-mode batch count")
     e.add_argument("--vtc_only", action="store_true")
-    e.add_argument("--device_norm", action="store_true",
-                   help="ship uint8 frames and normalize on device")
     e.add_argument("--out", default=None, help="write metrics JSON here")
     e.add_argument("--device", default="cuda", help="cuda, cuda:<i> or cpu")
     e.set_defaults(fn=cmd_egomcq)

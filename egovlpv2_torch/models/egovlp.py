@@ -1,10 +1,12 @@
 """EgoVLPv2: dual encoders plus the fusion-in-the-backbone stack (port of
-`egovlpv2_tpu/models/egovlp.py`, inference methods).
+`egovlpv2_tpu/models/egovlp.py`).
 
 The fused path has its own CLS token and final LayerNorm (eps
 `fusion.ln_eps`), distinct from the dual video tower's. At each fused
 depth, text attends the video tokens from *before* that depth's update.
-The `*_from_video` and MLM training variants come with the training slice.
+Where the JAX methods take `deterministic`, the module's `train()` /
+`eval()` mode decides; `set_generator` hands every dropout of the model
+the generator its masks are drawn from.
 """
 
 from __future__ import annotations
@@ -14,7 +16,7 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
-from egovlpv2_tpu.core.config import ModelConfig
+from egovlpv2_torch.core.config import ModelConfig
 from egovlpv2_torch.models.dense import Dense
 from egovlpv2_torch.models.heads import ITMHead, MLMHead, Pooler
 from egovlpv2_torch.models.text import TextEncoder
@@ -82,9 +84,19 @@ class EgoVLPv2(nn.Module):
             self.mlm_score = MLMHead(cfg.fusion.hidden_size,
                                      cfg.text.vocab_size, **kw)
 
+    def set_generator(self, generator: Optional[torch.Generator]) -> None:
+        """Every random draw of the model in training mode (dropout masks,
+        DropPath, attention-probability dropout) comes from `generator`,
+        which must live on the model's device; None gives them back to
+        PyTorch's global generator."""
+        for module in self.modules():
+            if hasattr(module, "generator"):
+                module.generator = generator
+
     # ---------------- dual towers ----------------
 
     def patchify(self, video: torch.Tensor) -> torch.Tensor:
+        """Patch-embed once for reuse across the EgoNCE/ITM/MLM passes."""
         return self.video_model.patchify(video)
 
     def _num_frames(self, video, video_tokens, num_frames) -> int:
@@ -175,6 +187,56 @@ class EgoVLPv2(nn.Module):
         v_cls, t = self.fused_encode(video, input_ids, attention_mask,
                                      video_tokens=video_tokens)
         return self._itm_head_from(v_cls, t)
+
+    def mlm_forward(self, video: Optional[torch.Tensor],
+                    mlm_input_ids: torch.Tensor, attention_mask: torch.Tensor,
+                    video_tokens: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """MLM logits [B, St, vocab]."""
+        _, t = self.fused_encode(video, mlm_input_ids, attention_mask,
+                                 video_tokens=video_tokens)
+        return self.mlm_score(self.cross_modal_text_transform(t))
+
+    def _frames_from_unfused(self, v_un: torch.Tensor) -> int:
+        return (v_un.shape[1] - 1) // self.cfg.video.patches_per_frame
+
+    def mlm_forward_from_video(self, v_un: torch.Tensor,
+                               mlm_input_ids: torch.Tensor,
+                               attention_mask: torch.Tensor) -> torch.Tensor:
+        """MLM logits from precomputed unfused video tokens. The video side
+        of the fused paths is text-independent through the unfused blocks,
+        so MLM and ITM can share one unfused-video pass."""
+        f = self._frames_from_unfused(v_un)
+        t = self.text_unfused(mlm_input_ids, attention_mask)
+        _, t = self.fuse_from_unfused(v_un, t, attention_mask, f)
+        return self.mlm_score(self.cross_modal_text_transform(t))
+
+    def itm_forward_from_video(self, v_un: torch.Tensor,
+                               input_ids: torch.Tensor,
+                               attention_mask: torch.Tensor) -> torch.Tensor:
+        """ITM logits from (already gathered) unfused video tokens."""
+        f = self._frames_from_unfused(v_un)
+        t = self.text_unfused(input_ids, attention_mask)
+        v_cls, t = self.fuse_from_unfused(v_un, t, attention_mask, f)
+        return self._itm_head_from(v_cls, t)
+
+    def mlm_itm_forward_from_video(
+            self, v_un_mlm: torch.Tensor, mlm_input_ids: torch.Tensor,
+            mlm_attention_mask: torch.Tensor, v_un_itm: torch.Tensor,
+            itm_input_ids: torch.Tensor, itm_attention_mask: torch.Tensor
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """MLM + ITM fused stacks batched into one 2B-wide pass; examples
+        are independent along the batch, so this equals the two separate
+        passes. Returns (mlm_logits, itm_logits)."""
+        b = v_un_mlm.shape[0]
+        f = self._frames_from_unfused(v_un_mlm)
+        v_un = torch.cat([v_un_mlm, v_un_itm], dim=0)
+        ids = torch.cat([mlm_input_ids, itm_input_ids], dim=0)
+        mask = torch.cat([mlm_attention_mask, itm_attention_mask], dim=0)
+        t = self.text_unfused(ids, mask)
+        v_cls, t = self.fuse_from_unfused(v_un, t, mask, f)
+        mlm_logits = self.mlm_score(self.cross_modal_text_transform(t[:b]))
+        itm_logits = self._itm_head_from(v_cls[b:], t[b:])
+        return mlm_logits, itm_logits
 
     def forward(self, video: torch.Tensor, input_ids: torch.Tensor,
                 attention_mask: torch.Tensor):

@@ -33,10 +33,7 @@ class ITMHead(nn.Module):
 
 
 class MLMHead(nn.Module):
-    """dense + gelu + LN (eps 1e-12), then a vocab decoder with its own bias.
-
-    Eval on EgoMCQ does not run it; it is here so the parameter tree is
-    complete."""
+    """dense + gelu + LN (eps 1e-12), then a vocab decoder with its own bias."""
 
     def __init__(self, hidden_size: int, vocab_size: int, dtype=None,
                  device=None):

@@ -8,7 +8,10 @@ As in the JAX package and the reference `EgoVLPv2/model/roberta.py`:
   * `last_norm=False` skips the final FFN LayerNorm (its parameters stay);
   * position ids skip padding: cumsum(mask) * mask + pad_idx.
 
-Dropout is identity at eval; it comes with the training slice.
+In `train()` mode the hidden dropout (`cfg.hidden_dropout`, after the
+embeddings, the attention output and the FFN output) and the dropout of
+the attention probabilities (`cfg.attn_dropout`) are on; both draw from
+the generator `EgoVLPv2.set_generator` hands them.
 """
 
 from __future__ import annotations
@@ -19,8 +22,9 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
-from egovlpv2_tpu.core.config import FusionConfig, TextEncoderConfig
+from egovlpv2_torch.core.config import FusionConfig, TextEncoderConfig
 from egovlpv2_torch.models.dense import Dense
+from egovlpv2_torch.models.dropout import Dropout
 from egovlpv2_torch.ops.attention import (attend, make_additive_mask,
                                           merge_heads, split_heads)
 from egovlpv2_torch.ops.layernorm import LayerNorm
@@ -44,6 +48,7 @@ class TextEmbeddings(nn.Module):
                                                   device=device)
         self.LayerNorm = LayerNorm(d, eps=cfg.ln_eps, dtype=dtype,
                                    device=device)
+        self.drop = Dropout(cfg.hidden_dropout)
 
     def forward(self, input_ids: torch.Tensor) -> torch.Tensor:
         word = self.word_embeddings(input_ids)
@@ -53,7 +58,7 @@ class TextEmbeddings(nn.Module):
         x = word + ttype + pos  # f32 sum, then the compute dtype
         if self.dtype is not None:
             x = x.to(self.dtype)
-        return self.LayerNorm(x)
+        return self.drop(self.LayerNorm(x))
 
 
 class TextSelfAttention(nn.Module):
@@ -66,6 +71,9 @@ class TextSelfAttention(nn.Module):
         kv_dim = kv_dim or d
         self.num_heads = cfg.num_heads
         self.scale = cfg.head_dim ** -0.5
+        self.attn_dropout = cfg.attn_dropout
+        self.generator: Optional[torch.Generator] = None
+        self.drop = Dropout(cfg.hidden_dropout)
         kw = dict(dtype=dtype, device=device)
         self.query = Dense(d, d, **kw)
         self.key = Dense(kv_dim, d, **kw)
@@ -78,8 +86,10 @@ class TextSelfAttention(nn.Module):
         q = split_heads(self.query(hidden), h)
         k = split_heads(self.key(kv_source), h)
         v = split_heads(self.value(kv_source), h)
-        out = attend(q, k, v, scale=self.scale, bias=bias)
-        return self.out_dense(merge_heads(out))
+        out = attend(q, k, v, scale=self.scale, bias=bias,
+                     prob_dropout=self.attn_dropout if self.training else 0.0,
+                     generator=self.generator)
+        return self.drop(self.out_dense(merge_heads(out)))
 
 
 class TextLayer(nn.Module):
@@ -98,6 +108,7 @@ class TextLayer(nn.Module):
         self.intermediate = Dense(d, cfg.intermediate_size, **kw)
         self.output = Dense(cfg.intermediate_size, d, **kw)
         self.output_LayerNorm = LayerNorm(d, eps=cfg.ln_eps, **kw)
+        self.drop = Dropout(cfg.hidden_dropout)
 
     def forward(self, hidden: torch.Tensor, bias: Optional[torch.Tensor] = None,
                 video: Optional[torch.Tensor] = None,
@@ -108,7 +119,8 @@ class TextLayer(nn.Module):
             attn_out = self.alpha_t2i.to(attn_out.dtype) * cross + attn_out
         # Post-LN over (self + gated cross + residual), roberta.py:488.
         attn_out = self.attention_LayerNorm(attn_out + hidden)
-        out = self.output(F.gelu(self.intermediate(attn_out))) + attn_out
+        out = self.drop(self.output(F.gelu(self.intermediate(attn_out))))
+        out = out + attn_out
         return self.output_LayerNorm(out) if last_norm else out
 
 

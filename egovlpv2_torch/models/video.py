@@ -14,8 +14,9 @@ Semantics, as in the JAX package and the reference
     projection: x += alpha_i2t * proj(attend(q(norm(x)), kv(text))).
 
 Tokens are [B, S, D] with S = 1 + F*N, CLS first, frame-major patches.
-Dropout and DropPath are identity at eval; their training behaviour comes
-with the training slice.
+Dropout and DropPath act in `train()` mode only and are inert at the
+default rates (0.0); they draw from the generator `EgoVLPv2.set_generator`
+hands them.
 """
 
 from __future__ import annotations
@@ -26,22 +27,44 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
-from egovlpv2_tpu.core.config import NORM_STATS, FusionConfig, VideoEncoderConfig
+from egovlpv2_torch.core.config import NORM_STATS, FusionConfig, VideoEncoderConfig
 from egovlpv2_torch.models.dense import Dense
+from egovlpv2_torch.models.dropout import Dropout
 from egovlpv2_torch.ops.attention import attend
 from egovlpv2_torch.ops.divided import divided_attention
 from egovlpv2_torch.ops.layernorm import LayerNorm
 
 
+class DropPath(nn.Module):
+    """Per-sample stochastic depth (timm's DropPath): in training, a whole
+    sample's branch is dropped with probability `rate` and the kept ones
+    are divided by 1 - rate."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = rate
+        self.generator: Optional[torch.Generator] = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.rate == 0.0 or not self.training:
+            return x
+        keep = 1.0 - self.rate
+        shape = (x.shape[0],) + (1,) * (x.dim() - 1)
+        mask = torch.rand(shape, device=x.device,
+                          generator=self.generator) < keep
+        return torch.where(mask, x / keep, torch.zeros_like(x))
+
+
 class Mlp(nn.Module):
     def __init__(self, in_dim: int, hidden_dim: int, out_dim: int,
-                 dtype=None, device=None):
+                 drop: float = 0.0, dtype=None, device=None):
         super().__init__()
         self.fc1 = Dense(in_dim, hidden_dim, dtype=dtype, device=device)
         self.fc2 = Dense(hidden_dim, out_dim, dtype=dtype, device=device)
+        self.drop = Dropout(drop)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.fc2(F.gelu(self.fc1(x)))
+        return self.drop(self.fc2(self.drop(F.gelu(self.fc1(x)))))
 
 
 class DividedAttention(nn.Module):
@@ -59,6 +82,7 @@ class DividedAttention(nn.Module):
         kw = dict(dtype=dtype, device=device)
         self.qkv = Dense(d, 3 * d, bias=cfg.qkv_bias, **kw)
         self.proj = Dense(d, d, **kw)
+        self.drop = Dropout(cfg.drop_rate)
         if fused:
             self.qkv_text_i2t = Dense(fusion.dim_text, 2 * d,
                                       bias=cfg.qkv_bias, **kw)
@@ -76,7 +100,7 @@ class DividedAttention(nn.Module):
         qkv = self.qkv(x).view(b, s, 3, h, dh)
         out = divided_attention(qkv, scale=scale, axis=self.axis,
                                 num_frames=num_frames).reshape(b, s, d)
-        x = self.proj(out)
+        x = self.drop(self.proj(out))
         if self.fused and text is not None:
             st = text.shape[1]
             kv_t = self.qkv_text_i2t(text).view(b, st, 2, h, dh)
@@ -85,23 +109,25 @@ class DividedAttention(nn.Module):
             q_t = self.qkv_i2t(self.norm_i2t_i(x)).view(b, s, h, dh)
             y = attend(q_t.transpose(1, 2), k_t, v_t, scale=scale,
                        bias=text_bias)
-            y = self.proj_i2t(y.transpose(1, 2).reshape(b, s, d))
+            y = self.drop(self.proj_i2t(y.transpose(1, 2).reshape(b, s, d)))
             x = x + self.alpha_i2t.to(x.dtype) * y
         return x
 
 
 class SpaceTimeBlock(nn.Module):
     def __init__(self, cfg: VideoEncoderConfig, fusion: FusionConfig,
-                 fused: bool, dtype=None, device=None):
+                 fused: bool, drop_path: float = 0.0, dtype=None,
+                 device=None):
         super().__init__()
         kw = dict(dtype=dtype, device=device)
         d = cfg.embed_dim
+        self.drop_path = DropPath(drop_path)
         self.norm3 = LayerNorm(d, eps=cfg.ln_eps, **kw)
         self.timeattn = DividedAttention(cfg, fusion, "time", **kw)
         self.norm1 = LayerNorm(d, eps=cfg.ln_eps, **kw)
         self.attn = DividedAttention(cfg, fusion, "space", fused=fused, **kw)
         self.norm2 = LayerNorm(d, eps=cfg.ln_eps, **kw)
-        self.mlp = Mlp(d, int(d * cfg.mlp_ratio), d, **kw)
+        self.mlp = Mlp(d, int(d * cfg.mlp_ratio), d, drop=cfg.drop_rate, **kw)
 
     def forward(self, x: torch.Tensor, num_frames: int,
                 text: Optional[torch.Tensor] = None,
@@ -110,8 +136,9 @@ class SpaceTimeBlock(nn.Module):
         space_out = self.attn(self.norm1(x + time_out), num_frames,
                               text=text, text_bias=text_bias)
         # 'frozen-in-time' residual: the persistent stream skips time-attn.
-        space_residual = x + space_out
-        return space_residual + self.mlp(self.norm2(space_residual))
+        space_residual = x + self.drop_path(space_out)
+        return space_residual + self.drop_path(
+            self.mlp(self.norm2(space_residual)))
 
 
 class PatchEmbed(nn.Module):
@@ -156,10 +183,14 @@ class SpaceTimeViT(nn.Module):
         self.temporal_embed = nn.Parameter(
             torch.zeros(1, cfg.num_frames, d, device=device))
         num_unfused = cfg.depth - fusion.num_fuse_block
+        dpr = [cfg.drop_path_rate * i / max(cfg.depth - 1, 1)
+               for i in range(cfg.depth)]  # linspace(0, rate, depth)
         self.blocks = nn.ModuleList(
-            SpaceTimeBlock(cfg, fusion, fused=(i >= num_unfused), **kw)
+            SpaceTimeBlock(cfg, fusion, fused=(i >= num_unfused),
+                           drop_path=dpr[i], **kw)
             for i in range(cfg.depth))
         self.norm = LayerNorm(d, eps=cfg.ln_eps, **kw)
+        self.pos_drop = Dropout(cfg.drop_rate)
 
     def patchify(self, video: torch.Tensor) -> torch.Tensor:
         """[B, F, H, W, C] -> [B, F*N, D] (frame-major, row-major patches).
@@ -198,7 +229,7 @@ class SpaceTimeViT(nn.Module):
         cls = self.cls_token if cls_token is None else cls_token
         cls = cls.to(tokens.dtype).expand(b, 1, self.cfg.embed_dim)
         x = torch.cat([cls, tokens], dim=1)
-        return x + self.total_pos_embed(f, x.shape[1]).to(x.dtype)
+        return self.pos_drop(x + self.total_pos_embed(f, x.shape[1]).to(x.dtype))
 
     def run_blocks(self, x: torch.Tensor, num_frames: int, start: int = 0,
                    end: Optional[int] = None,

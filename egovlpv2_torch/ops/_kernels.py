@@ -1,11 +1,12 @@
 """Build and bind the hand-written CUDA kernels of `csrc/`.
 
-The sources are compiled with `nvcc` for `sm_90a` into a shared library
-with a plain C interface, named by a hash of the sources and flags, under
-`build/egovlpv2_torch/` of the checkout, at first CUDA use; it is loaded
-with `ctypes`. Each wrapper checks its tensors, launches on PyTorch's
-current stream, raises if the launch returned a CUDA error, and adds one
-to its entry of `launch_counts`.
+Each source is compiled with `nvcc` for `sm_90a` into a shared library of
+its own with a plain C interface, named by a hash of the sources and flags,
+under `build/egovlpv2_torch/` of the checkout, at first CUDA use; the
+compilers of all sources run side by side. The libraries are loaded with
+`ctypes`. Each wrapper checks its tensors, launches on PyTorch's current
+stream, raises if the launch returned a CUDA error, and adds one to its
+entry of `launch_counts`.
 
 Nothing here runs at import: the CPU tests import this module on machines
 without `nvcc` or a card.
@@ -20,10 +21,21 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
+from types import SimpleNamespace
 
 import torch
 
-_SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "divided_attention.cu"
+_CSRC = Path(__file__).resolve().parents[1] / "csrc"
+_HEADERS = ("attention_common.cuh",)
+# source -> the C functions it exports
+_SOURCES = {
+    "divided_attention.cu": (
+        "space_attention_fwd", "time_attention_fwd", "cls_row_attention_fwd",
+        "cuda_error_string"),
+    "divided_attention_bwd.cu": (
+        "space_attention_bwd", "time_attention_bwd", "cls_row_attention_bwd",
+        "attention_bwd_parts"),
+}
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "egovlpv2_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
@@ -32,7 +44,8 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 # Launches of each kernel since the last reset, counted where they launch.
 launch_counts = {"space_attention_fwd": 0, "time_attention_fwd": 0,
-                 "cls_row_attention_fwd": 0}
+                 "cls_row_attention_fwd": 0, "space_attention_bwd": 0,
+                 "time_attention_bwd": 0, "cls_row_attention_bwd": 0}
 
 
 def reset_launch_counts() -> None:
@@ -53,44 +66,72 @@ def _nvcc() -> str:
     return path
 
 
-def library_path() -> Path:
-    """Where the library for the current sources and flags lives."""
-    digest = hashlib.sha256(_SOURCE.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"divided_attention_{digest}.so"
+def library_paths() -> dict:
+    """source name -> where its library for the current sources and flags
+    lives."""
+    shared = b"".join((_CSRC / h).read_bytes() for h in _HEADERS) \
+        + " ".join(NVCC_FLAGS).encode()
+    out = {}
+    for source in _SOURCES:
+        digest = hashlib.sha256((_CSRC / source).read_bytes()
+                                + shared).hexdigest()[:16]
+        out[source] = BUILD_DIR / f"{Path(source).stem}_{digest}.so"
+    return out
 
 
-def build() -> Path:
-    """Compile the kernels unless a library for these sources exists."""
-    lib = library_path()
-    if lib.exists():
-        return lib
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_SOURCE)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}"
-                           f"\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, lib)  # atomic: a concurrent build never loads half a file
-    return lib
+def build() -> dict:
+    """Compile every source whose library is missing, all at once."""
+    libs = library_paths()
+    procs = []
+    for source, lib in libs.items():
+        if lib.exists():
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_CSRC / source)]
+        procs.append((cmd, tmp, lib, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    failures = []
+    for cmd, tmp, lib, proc in procs:  # wait for all before raising
+        output, _ = proc.communicate()
+        if proc.returncode != 0:
+            failures.append(f"nvcc failed ({proc.returncode}):\n"
+                            f"{' '.join(cmd)}\n{output}")
+        else:
+            os.replace(tmp, lib)  # atomic: no one loads half a file
+    if failures:
+        raise RuntimeError("\n".join(failures))
+    return libs
 
 
 @functools.lru_cache(maxsize=None)
-def load() -> ctypes.CDLL:
-    """Build (if needed) and load the kernels' library, once a process."""
-    lib = ctypes.CDLL(str(build()))
+def load() -> SimpleNamespace:
+    """Build (if needed) and load the kernels' libraries, once a process.
+    Returns the C functions by name."""
+    fns = SimpleNamespace()
+    for source, lib in build().items():
+        cdll = ctypes.CDLL(str(lib))
+        for name in _SOURCES[source]:
+            setattr(fns, name, getattr(cdll, name))
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    for name in ("space_attention_fwd", "time_attention_fwd"):
-        fn = getattr(lib, name)
+    for fn in (fns.space_attention_fwd, fns.time_attention_fwd):
         fn.argtypes = [ptr, ptr, i32, i32, i32, i32, i32, i32, f32, ptr]
         fn.restype = i32
-    lib.cls_row_attention_fwd.argtypes = [ptr, ptr, i32, i32, i32, i32, i32,
+    fns.cls_row_attention_fwd.argtypes = [ptr, ptr, i32, i32, i32, i32, i32,
                                           f32, ptr]
-    lib.cls_row_attention_fwd.restype = i32
-    lib.cuda_error_string.argtypes = [i32]
-    lib.cuda_error_string.restype = ctypes.c_char_p
-    return lib
+    fns.cls_row_attention_fwd.restype = i32
+    for fn in (fns.space_attention_bwd, fns.time_attention_bwd):
+        fn.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32,
+                       f32, ptr]
+        fn.restype = i32
+    fns.cls_row_attention_bwd.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32,
+                                          i32, i32, i32, f32, ptr]
+    fns.cls_row_attention_bwd.restype = i32
+    fns.attention_bwd_parts.argtypes = [i32, i32, i32, i32, i32]
+    fns.attention_bwd_parts.restype = i32
+    fns.cuda_error_string.argtypes = [i32]
+    fns.cuda_error_string.restype = ctypes.c_char_p
+    return fns
 
 
 def _check(qkv: torch.Tensor, out: torch.Tensor, num_heads: int,
@@ -162,6 +203,121 @@ def cls_row_attention_fwd(qkv: torch.Tensor, out: torch.Tensor, *,
         stream = torch.cuda.current_stream(qkv.device).cuda_stream
         code = load().cls_row_attention_fwd(
             qkv.data_ptr(), out.data_ptr(), _DTYPE_CODES[qkv.dtype], b, s,
+            num_heads, dh, float(scale), stream)
+    _raise_on_error(name, code)
+    launch_counts[name] += 1
+
+
+# ---------------- backward ----------------
+
+
+def _check_bwd(qkv: torch.Tensor, g: torch.Tensor, dqkv: torch.Tensor,
+               num_heads: int, num_frames: int) -> tuple:
+    b, s, dh = _check(qkv, g, num_heads, num_frames)
+    if dqkv.device != qkv.device or dqkv.dtype != qkv.dtype \
+            or dqkv.shape != qkv.shape:
+        raise ValueError(f"dqkv must match qkv ({tuple(qkv.shape)}, "
+                         f"{qkv.dtype}, {qkv.device}), got "
+                         f"{tuple(dqkv.shape)}, {dqkv.dtype}, {dqkv.device}")
+    if not dqkv.is_contiguous() or dqkv.data_ptr() % 16:
+        raise ValueError("kernel needs a contiguous, 16-byte aligned dqkv")
+    return b, s, dh
+
+
+def _check_scratch(name: str, t: torch.Tensor, shape: tuple,
+                   device: torch.device) -> None:
+    if t.device != device or t.dtype != torch.float32 \
+            or tuple(t.shape) != shape or not t.is_contiguous():
+        raise ValueError(f"{name} must be a contiguous float32 {shape} on "
+                         f"{device}, got {tuple(t.shape)} {t.dtype} {t.device}")
+
+
+def _bwd_parts(name: str, dtype: torch.dtype, s: int, dh: int,
+               num_frames: int) -> int:
+    return load().attention_bwd_parts(int(name == "time_attention_bwd"),
+                                      _DTYPE_CODES[dtype], s, dh, num_frames)
+
+
+def attention_bwd_scratch(qkv: torch.Tensor, *, num_heads: int,
+                          num_frames: int, axis: str) -> tuple:
+    """The f32 scratch of one backward on `axis` ("space" or "time"):
+    `stats` [2, B, H, S] (each patch row's log-sum-exp and delta) and
+    `cls_part` [B, H, parts, 2, Dh] (the blocks' shares of the CLS key's dk
+    and dv). Uninitialised: the grouped backward fills both."""
+    if qkv.device.type != "cuda":
+        raise ValueError(f"kernel scratch needs a CUDA qkv, got {qkv.device}")
+    if qkv.dtype not in _DTYPE_CODES:
+        raise TypeError(f"kernel takes float32 or bfloat16, got {qkv.dtype}")
+    b, s, w3 = qkv.shape
+    dh = w3 // (3 * num_heads)
+    parts = _bwd_parts(f"{axis}_attention_bwd", qkv.dtype, s, dh, num_frames)
+    stats = torch.empty((2, b, num_heads, s), dtype=torch.float32,
+                        device=qkv.device)
+    cls_part = torch.empty((b, num_heads, parts, 2, dh), dtype=torch.float32,
+                           device=qkv.device)
+    return stats, cls_part
+
+
+def _launch_grouped_bwd(name: str, qkv, g, dqkv, stats, cls_part, *,
+                        num_heads, num_frames, scale):
+    b, s, dh = _check_bwd(qkv, g, dqkv, num_heads, num_frames)
+    fns = load()
+    parts = _bwd_parts(name, qkv.dtype, s, dh, num_frames)
+    _check_scratch("stats", stats, (2, b, num_heads, s), qkv.device)
+    _check_scratch("cls_part", cls_part, (b, num_heads, parts, 2, dh),
+                   qkv.device)
+    with torch.cuda.device(qkv.device):
+        stream = torch.cuda.current_stream(qkv.device).cuda_stream
+        code = getattr(fns, name)(
+            qkv.data_ptr(), g.data_ptr(), dqkv.data_ptr(), stats.data_ptr(),
+            cls_part.data_ptr(), _DTYPE_CODES[qkv.dtype], b, s, num_heads, dh,
+            num_frames, float(scale), stream)
+    _raise_on_error(name, code)
+    launch_counts[name] += 1
+
+
+def space_attention_bwd(qkv: torch.Tensor, g: torch.Tensor,
+                        dqkv: torch.Tensor, stats: torch.Tensor,
+                        cls_part: torch.Tensor, *, num_heads: int,
+                        num_frames: int, scale: float) -> None:
+    """K4: backward of K1. From qkv [B, S, 3*H*Dh] and the cotangent
+    g [B, S, H*Dh] of the output, writes rows 1..S-1 of dq, dk and dv into
+    dqkv (the layout of qkv), and the scratch of `attention_bwd_scratch`.
+    Row 0 of dqkv is left to `cls_row_attention_bwd`."""
+    _launch_grouped_bwd("space_attention_bwd", qkv, g, dqkv, stats, cls_part,
+                        num_heads=num_heads, num_frames=num_frames,
+                        scale=scale)
+
+
+def time_attention_bwd(qkv: torch.Tensor, g: torch.Tensor,
+                       dqkv: torch.Tensor, stats: torch.Tensor,
+                       cls_part: torch.Tensor, *, num_heads: int,
+                       num_frames: int, scale: float) -> None:
+    """K5: backward of K2; arguments as `space_attention_bwd`."""
+    _launch_grouped_bwd("time_attention_bwd", qkv, g, dqkv, stats, cls_part,
+                        num_heads=num_heads, num_frames=num_frames,
+                        scale=scale)
+
+
+def cls_row_attention_bwd(qkv: torch.Tensor, g: torch.Tensor,
+                          dqkv: torch.Tensor, cls_part: torch.Tensor, *,
+                          num_heads: int, scale: float) -> None:
+    """K6: backward of K3, after K4 or K5 on the same stream. Writes row 0
+    of dq, adds the CLS query's share to rows 1..S-1 of dk and dv in place,
+    and writes row 0 of dk and dv: that share plus the sum of `cls_part`
+    over its parts."""
+    name = "cls_row_attention_bwd"
+    b, s, dh = _check_bwd(qkv, g, dqkv, num_heads, 1)
+    if cls_part.dim() != 5:
+        raise ValueError("cls_part must be [B, H, parts, 2, Dh]")
+    parts = cls_part.shape[2]
+    _check_scratch("cls_part", cls_part, (b, num_heads, parts, 2, dh),
+                   qkv.device)
+    with torch.cuda.device(qkv.device):
+        stream = torch.cuda.current_stream(qkv.device).cuda_stream
+        code = load().cls_row_attention_bwd(
+            qkv.data_ptr(), g.data_ptr(), dqkv.data_ptr(),
+            cls_part.data_ptr(), parts, _DTYPE_CODES[qkv.dtype], b, s,
             num_heads, dh, float(scale), stream)
     _raise_on_error(name, code)
     launch_counts[name] += 1

@@ -5,7 +5,9 @@
 written out: q is scaled in its own dtype, the logits and the softmax are
 float32, and the PV product is stored in the compute dtype. The JAX
 package runs this as XLA einsums too (text self-attention, i2t and t2i
-never reach its flash kernel at 15 text tokens), so it is plain torch.
+never reach its flash kernel at 15 text tokens, and probability dropout
+forces its einsum path anyway), so it is plain torch and autograd
+differentiates it.
 """
 
 from __future__ import annotations
@@ -26,11 +28,17 @@ def make_additive_mask(attention_mask: torch.Tensor,
 
 
 def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, scale: float,
-           bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+           bias: Optional[torch.Tensor] = None, prob_dropout: float = 0.0,
+           generator: Optional[torch.Generator] = None) -> torch.Tensor:
     """Scaled dot-product attention over the last two axes.
 
     q [..., Sq, Dh], k and v [..., Sk, Dh]; `bias` is additive and
     broadcasts to [..., Sq, Sk]. Returns [..., Sq, Dh] in q.dtype.
+
+    `prob_dropout` > 0 drops attention probabilities (the reference trains
+    text attention with p = 0.1): a Bernoulli keep-mask with probability
+    1 - p drawn from `generator` (None: PyTorch's global one), kept
+    probabilities divided by 1 - p.
     """
     qs = q * torch.tensor(scale, dtype=q.dtype)
     # bf16 products are exact in f32, so an f32 matmul of the upcast
@@ -39,6 +47,11 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, scale: float,
     if bias is not None:
         logits = logits + bias.float()
     probs = torch.softmax(logits, dim=-1)
+    if prob_dropout > 0.0:
+        keep = 1.0 - prob_dropout
+        mask = torch.rand(probs.shape, device=probs.device,
+                          generator=generator) < keep
+        probs = torch.where(mask, probs / keep, torch.zeros_like(probs))
     return torch.matmul(probs.to(q.dtype), v)
 
 

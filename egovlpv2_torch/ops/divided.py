@@ -8,12 +8,17 @@ own patch column across frames (time axis), plus the CLS key.
 
 `divided_attention` dispatches on the device of its input:
   * a CPU tensor takes the plain PyTorch version,
-    `divided_attention_reference`;
-  * a CUDA tensor takes the hand-written kernels of
-    `csrc/divided_attention.cu` (K1 space or K2 time for rows 1..S-1, K3
-    for the CLS row), which read q, k and v by stride from the qkv Linear
-    output; a kernel that cannot build or launch raises;
+    `divided_attention_reference`, and autograd differentiates it;
+  * a CUDA tensor takes the hand-written kernels of `csrc/`, forward
+    (K1 space or K2 time for rows 1..S-1, K3 for the CLS row) and
+    backward (K4 space or K5 time, then K6 for the CLS row), which read
+    q, k and v by stride from the qkv Linear output and write dqkv in the
+    same layout; a kernel that cannot build or launch raises;
   * any other device raises.
+
+`divided_attention_backward_reference` is the plain version of the
+backward: autograd through `divided_attention_reference`. The tests and
+`chip_smoke.py` hold K4-K6 against it; nothing on the card's path calls it.
 """
 
 from __future__ import annotations
@@ -66,6 +71,71 @@ def divided_attention_reference(qkv: torch.Tensor, *, scale: float, axis: str,
     ], dim=1)
 
 
+def divided_attention_backward_reference(qkv: torch.Tensor, g: torch.Tensor,
+                                        *, scale: float, axis: str,
+                                        num_frames: int,
+                                        rows: str = "all") -> torch.Tensor:
+    """Plain PyTorch backward: the gradient of sum(out * g) w.r.t. qkv.
+
+    qkv [B, S, 3, H, Dh], g [B, S, H, Dh] -> dqkv [B, S, 3, H, Dh] in
+    qkv.dtype. `rows` picks the part of the output that is differentiated:
+    "all", "grouped" (rows 1..S-1, what K4/K5 compute) or "cls" (row 0,
+    what K6 computes); g keeps its full shape either way."""
+    leaf = qkv.detach().requires_grad_(True)
+    with torch.enable_grad():
+        if rows == "all":
+            out = divided_attention_reference(leaf, scale=scale, axis=axis,
+                                              num_frames=num_frames)
+        elif rows == "grouped":
+            out, g = grouped_reference(leaf, scale=scale, axis=axis,
+                                       num_frames=num_frames), g[:, 1:]
+        elif rows == "cls":
+            out, g = cls_row_reference(leaf, scale=scale), g[:, :1]
+        else:
+            raise ValueError(f"rows must be all, grouped or cls, got {rows!r}")
+        (dqkv,) = torch.autograd.grad(out, leaf, g)
+    return dqkv
+
+
+class _DividedAttentionKernels(torch.autograd.Function):
+    """The CUDA kernels as one differentiable function of the flat qkv
+    [B, S, 3*H*Dh] -> [B, S, H*Dh]. Only qkv is saved: the backward kernels
+    recompute the softmax from it."""
+
+    @staticmethod
+    def forward(ctx, flat, num_heads, num_frames, scale, axis):
+        b, s, w3 = flat.shape
+        out = torch.empty((b, s, w3 // 3), dtype=flat.dtype,
+                          device=flat.device)
+        grouped_fwd = (_kernels.space_attention_fwd if axis == "space"
+                       else _kernels.time_attention_fwd)
+        grouped_fwd(flat, out, num_heads=num_heads, num_frames=num_frames,
+                    scale=scale)
+        _kernels.cls_row_attention_fwd(flat, out, num_heads=num_heads,
+                                       scale=scale)
+        ctx.save_for_backward(flat)
+        ctx.attrs = (num_heads, num_frames, scale, axis)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        (flat,) = ctx.saved_tensors
+        num_heads, num_frames, scale, axis = ctx.attrs
+        # Autograd may hand over a view (of the proj Linear's input grad);
+        # the kernels read rows by one stride, so it is copied then.
+        g = g.contiguous()
+        dqkv = torch.empty_like(flat)
+        stats, cls_part = _kernels.attention_bwd_scratch(
+            flat, num_heads=num_heads, num_frames=num_frames, axis=axis)
+        grouped_bwd = (_kernels.space_attention_bwd if axis == "space"
+                       else _kernels.time_attention_bwd)
+        grouped_bwd(flat, g, dqkv, stats, cls_part, num_heads=num_heads,
+                    num_frames=num_frames, scale=scale)
+        _kernels.cls_row_attention_bwd(flat, g, dqkv, cls_part,
+                                       num_heads=num_heads, scale=scale)
+        return dqkv, None, None, None, None
+
+
 def divided_attention(qkv: torch.Tensor, *, scale: float, axis: str,
                       num_frames: int) -> torch.Tensor:
     """Divided space/time self-attention with the CLS splice.
@@ -84,10 +154,6 @@ def divided_attention(qkv: torch.Tensor, *, scale: float, axis: str,
     if not qkv.is_contiguous():
         raise ValueError("divided_attention needs a contiguous qkv")
     b, s, _, h, dh = qkv.shape
-    flat = qkv.view(b, s, 3 * h * dh)
-    out = torch.empty((b, s, h * dh), dtype=qkv.dtype, device=qkv.device)
-    grouped_fwd = (_kernels.space_attention_fwd if axis == "space"
-                   else _kernels.time_attention_fwd)
-    grouped_fwd(flat, out, num_heads=h, num_frames=num_frames, scale=scale)
-    _kernels.cls_row_attention_fwd(flat, out, num_heads=h, scale=scale)
+    out = _DividedAttentionKernels.apply(qkv.view(b, s, 3 * h * dh), h,
+                                         num_frames, scale, axis)
     return out.view(b, s, h, dh)

@@ -5,7 +5,7 @@ Per item, 5 candidate videos against 1 query text. VTC is the batched
 cosine similarity of the dual embeddings; VTM is softmax(ITM logits)[:, 1]
 of the fused stack with the text repeated 5 times; the ensemble is
 VTC + VTM. Accuracy is split into inter-video (type 1) and intra-video
-(type 2) questions by `egovlpv2_tpu.metrics.retrieval.egomcq_accuracy`.
+(type 2) questions by `metrics/retrieval.py::egomcq_accuracy`.
 """
 
 from __future__ import annotations
@@ -15,6 +15,7 @@ from typing import Callable, Dict, Iterable
 import numpy as np
 import torch
 
+from egovlpv2_torch.metrics.retrieval import egomcq_accuracy
 from egovlpv2_torch.models.egovlp import EgoVLPv2, sim_matrix_batch
 
 
@@ -51,8 +52,6 @@ def make_egomcq_eval_step(model: EgoVLPv2, with_vtm: bool = True
 
 def evaluate_egomcq(eval_step, batches: Iterable[dict]) -> Dict[str, float]:
     """batches yield dicts with video5/ids/mask/answer/type (numpy)."""
-    from egovlpv2_tpu.metrics.retrieval import egomcq_accuracy
-
     vtc_all, vtm_all, labels, types = [], [], [], []
     for batch in batches:
         out = eval_step(batch["video5"], batch["ids"], batch["mask"])

@@ -37,6 +37,7 @@ from torch.autograd import DeviceType
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from egovlpv2_torch import cli  # noqa: E402
+from egovlpv2_torch.core.config import load_train_config  # noqa: E402
 from egovlpv2_torch.models.egovlp import EgoVLPv2  # noqa: E402
 from egovlpv2_torch.tasks.egomcq import make_egomcq_eval_step  # noqa: E402
 from egovlpv2_torch.weights import random_init_  # noqa: E402
@@ -85,7 +86,7 @@ def _copy_ms(*arrays) -> float:
 
 
 def profile_step(frames: int, warm_ms: float, out_dir: str) -> None:
-    cfg = cli.load_train_config(CONFIG, [f"model.video.num_frames={frames}"])
+    cfg = load_train_config(CONFIG, [f"model.video.num_frames={frames}"])
     model = EgoVLPv2(cfg.model, device="cuda").eval()
     random_init_(model, torch.Generator().manual_seed(cfg.seed))
     step = make_egomcq_eval_step(model)

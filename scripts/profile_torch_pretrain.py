@@ -1,0 +1,140 @@
+"""Time and profile the PyTorch port's pretrain step on one CUDA card.
+
+    python3 scripts/profile_torch_pretrain.py [--steps 8] [--batch 16] \
+        [--out chiprun_out/profile]
+
+At full width (TimeSformer-B/16 + RoBERTa-base, 6 fused blocks each, ITM
+and MLM heads, projection 4096), 4 frames at 224, 15 text tokens, bf16, no
+rematerialisation, synthetic batches, weights from the config's seed:
+
+  1. timing  — `egovlpv2_torch.cli pretrain --synthetic` for --steps steps.
+               Each step is timed from the host's numpy batch to the end of
+               its device work (forward, backward, AdamW), the input copy
+               included. Prints every step, the median of the warm ones (all
+               but the first two), clips/s and the peak device memory.
+  2. profile — one more step of a fresh trainer under torch.profiler, after
+               two warm steps. Prints the device time of its kernels by
+               kind, the number of device events and the device's busy
+               share: kernel time over that step's wall time (one stream,
+               so nothing overlaps) and, because the profiler slows the
+               host, also over the median warm step of phase 1. The
+               profiler's op table goes to
+               <out>/prof_pretrain.txt.
+
+The card's name and power limit (nvidia-smi) head the output.
+"""
+
+import argparse
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+from torch.autograd import DeviceType
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+from egovlpv2_torch import cli  # noqa: E402
+from egovlpv2_torch.core.config import load_train_config  # noqa: E402
+from egovlpv2_torch.tasks.pretrain import (build_pretrain,  # noqa: E402
+                                           synthetic_batch)
+
+KINDS = (  # first match wins
+    ("memcpy", ("memcpy",)),
+    ("hand kernels, forward (K1/K2/K3)", ("space_fwd_kernel", "time_fwd_kernel",
+                                           "cls_row_fwd_kernel")),
+    ("hand kernels, backward (K4/K5/K6)", ("bwd_query_kernel",
+                                            "bwd_key_kernel",
+                                            "cls_row_bwd_kernel")),
+    ("GEMM (cuBLAS)", ("gemm", "nvjet", "cutlass", "xmma", "gemv")),
+    ("optimizer (AdamW, foreach)", ("multi_tensor", "adam")),
+    ("reductions", ("reduce_kernel",)),
+)
+
+
+def _sets(batch: int) -> list:
+    return ["model.compute_dtype=bfloat16", "model.remat=false",
+            "path_remat=false", "optim.max_steps=1000",
+            f"global_batch_size={batch}"]
+
+
+def _kind(kernel_name: str) -> str:
+    name = kernel_name.lower()
+    for kind, marks in KINDS:
+        if any(m in name for m in marks):
+            return kind
+    return "elementwise and copies"
+
+
+def time_steps(batch: int, steps: int) -> float:
+    """Prints the steps' times; returns the median of the warm ones, ms."""
+    torch.cuda.reset_peak_memory_stats()
+    res = cli.main(["pretrain", "--synthetic", "--device", "cuda",
+                    "--steps_per_epoch", str(steps), "--set", *_sets(batch)])
+    ms = [s * 1e3 for s in res["step_seconds"]]
+    warm = statistics.median(ms[2:])
+    print(f"[timing] steps {[round(x, 2) for x in ms]} ms | median of "
+          f"{len(ms) - 2} warm {warm:.2f} ms | "
+          f"{res['clips_per_step'] / warm * 1e3:.2f} clips/s | peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    return warm
+
+
+def profile_step(batch: int, out_dir: str, warm_ms: float) -> None:
+    cfg = load_train_config(None, _sets(batch))
+    _, _, _, step = build_pretrain(cfg, device="cuda")
+    data = synthetic_batch(cfg, batch, np.random.default_rng(0))
+    for _ in range(2):
+        step(data)
+    torch.cuda.synchronize()
+    activities = [torch.profiler.ProfilerActivity.CPU,
+                  torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        t0 = time.perf_counter()
+        step(data)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    table = prof.key_averages()
+    kinds, events = {}, 0
+    for e in table:
+        if e.device_type == DeviceType.CUDA:
+            kinds[_kind(e.key)] = (kinds.get(_kind(e.key), 0.0)
+                                   + e.self_device_time_total / 1e3)
+            events += e.count
+    device_ms = sum(kinds.values())
+    split = ", ".join(f"{k} {v:.2f}" for k, v in
+                      sorted(kinds.items(), key=lambda kv: -kv[1]))
+    print(f"[profile] profiled step wall {wall_ms:.2f} ms | {events} device "
+          f"events | by kind (ms): {split} | device {device_ms:.2f} ms = busy "
+          f"{100 * device_ms / wall_ms:.1f}% of the profiled step (the profiler "
+          f"slows the host), {100 * device_ms / warm_ms:.1f}% of the median "
+          f"warm step of {warm_ms:.2f} ms", flush=True)
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, "prof_pretrain.txt")
+    with open(path, "w") as f:
+        f.write(table.table(sort_by="self_device_time_total", row_limit=80))
+    print(f"[profile] op table: {path}", flush=True)
+
+
+def main(argv=None) -> None:
+    p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    p.add_argument("--steps", type=int, default=8)
+    p.add_argument("--batch", type=int, default=16)
+    p.add_argument("--out", default="chiprun_out/profile")
+    args = p.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_torch_pretrain: CUDA is not available")
+    print(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip())
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    warm_ms = time_steps(args.batch, args.steps)
+    profile_step(args.batch, args.out, warm_ms)
+
+
+if __name__ == "__main__":
+    main()

@@ -18,11 +18,39 @@ import torch
 
 from egovlpv2_torch.ops import _kernels
 from egovlpv2_torch.ops.divided import (divided_attention,
+                                        divided_attention_backward_reference,
                                         divided_attention_reference)
 
 torch.set_num_threads(2)
 
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+# Backward: max abs error of each of dq, dk, dv, relative to max |reference|
+# of that tensor, because a gradient's scale follows the cotangent's; the
+# CLS row (sequence row 0) and the patch rows are each held to their own
+# maximum, because the CLS key gathers from every query and its dk/dv are
+# many times a patch key's. f32:
+# another summation order. bf16: the kernels keep P, dP and dS in f32 and
+# round only the stores, where the plain version and its autograd round P
+# and dS to bf16 before each product; K6 also rounds the dk/dv rows of
+# K4/K5 a second time when it adds the CLS query's share in place.
+BWD_RTOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+CASES = [
+    # (B, F, N, H, Dh): slice shapes, odd group sizes, head dims that leave
+    # idle lanes (24, 72), the largest head dim, one frame, one patch, and
+    # query tiles and key chunks of the tensor-core space kernel that end
+    # part-way (N = 70, 130).
+    (2, 4, 196, 12, 64),
+    (1, 16, 196, 2, 64),
+    (2, 3, 5, 3, 8),
+    (2, 5, 7, 2, 24),
+    (1, 2, 33, 2, 72),
+    (1, 4, 16, 2, 128),
+    (1, 1, 9, 2, 16),
+    (3, 6, 1, 1, 32),
+    (1, 2, 70, 2, 48),
+    (1, 3, 130, 1, 80),
+]
 
 
 @pytest.fixture
@@ -41,22 +69,7 @@ def _qkv(seed, b, s, h, dh, dtype=torch.float32, device="cpu"):
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("axis", ["space", "time"])
-@pytest.mark.parametrize("case", [
-    # (B, F, N, H, Dh): slice shapes, odd group sizes, head dims that leave
-    # idle lanes (24, 72), the largest head dim, one frame, one patch, and
-    # query tiles and key chunks of the tensor-core space kernel that end
-    # part-way (N = 70, 130).
-    (2, 4, 196, 12, 64),
-    (1, 16, 196, 2, 64),
-    (2, 3, 5, 3, 8),
-    (2, 5, 7, 2, 24),
-    (1, 2, 33, 2, 72),
-    (1, 4, 16, 2, 128),
-    (1, 1, 9, 2, 16),
-    (3, 6, 1, 1, 32),
-    (1, 2, 70, 2, 48),
-    (1, 3, 130, 1, 80),
-])
+@pytest.mark.parametrize("case", CASES)
 def test_kernels_match_plain(cuda, case, axis, dtype):
     b, f, n, h, dh = case
     qkv = _qkv(0, b, 1 + f * n, h, dh, dtype, cuda)
@@ -72,6 +85,84 @@ def test_kernels_match_plain(cuda, case, axis, dtype):
     assert _kernels.launch_counts[grouped] == before[grouped] + 1
     assert (_kernels.launch_counts["cls_row_attention_fwd"]
             == before["cls_row_attention_fwd"] + 1)
+
+
+def _rel_errs(got, ref):
+    """Max abs error of dq, dk, dv ([B, S, 3, H, Dh] split on dim 2), on
+    the CLS row and on the patch rows, each relative to max |ref| of those
+    rows of that tensor: six figures."""
+    return [((got[:, rows, i].float() - ref[:, rows, i].float()).abs().max()
+             / ref[:, rows, i].float().abs().max().clamp_min(1e-30)).item()
+            for i in range(3) for rows in (slice(0, 1), slice(1, None))]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("axis", ["space", "time"])
+@pytest.mark.parametrize("case", CASES)
+def test_backward_kernels_match_plain(cuda, case, axis, dtype):
+    """The whole gradient through the autograd Function (K4 or K5, then
+    K6), with a cotangent that is a non-contiguous view."""
+    b, f, n, h, dh = case
+    s = 1 + f * n
+    qkv = _qkv(0, b, s, h, dh, dtype, cuda)
+    g = _qkv(1, b, s, h, dh, dtype, cuda)[:, :, 1]  # a strided view
+    assert not g.is_contiguous()
+    leaf = qkv.clone().requires_grad_(True)
+    before = dict(_kernels.launch_counts)
+    out = divided_attention(leaf, scale=dh ** -0.5, axis=axis, num_frames=f)
+    out.backward(g)
+    torch.cuda.synchronize()
+    ref = divided_attention_backward_reference(qkv, g, scale=dh ** -0.5,
+                                               axis=axis, num_frames=f)
+    assert leaf.grad.shape == ref.shape and leaf.grad.dtype == dtype
+    assert torch.isfinite(leaf.grad).all()
+    errs = _rel_errs(leaf.grad, ref)
+    assert max(errs) <= BWD_RTOL[dtype], errs
+    grouped = "space_attention_bwd" if axis == "space" else "time_attention_bwd"
+    other = "time_attention_bwd" if axis == "space" else "space_attention_bwd"
+    assert _kernels.launch_counts[grouped] == before[grouped] + 1
+    assert _kernels.launch_counts[other] == before[other]
+    assert (_kernels.launch_counts["cls_row_attention_bwd"]
+            == before["cls_row_attention_bwd"] + 1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("axis", ["space", "time"])
+def test_backward_kernels_one_by_one(cuda, axis, dtype):
+    """K4/K5 alone against the gradient of rows 1..S-1 (the CLS key's row
+    from the summed partials), and K6 alone, on a zeroed dqkv and zero
+    partials, against the gradient of row 0."""
+    b, f, n, h, dh = 2, 4, 50, 3, 64
+    s, scale = 1 + f * n, dh ** -0.5
+    qkv = _qkv(2, b, s, h, dh, dtype, cuda)
+    g = _qkv(3, b, s, h, dh, dtype, cuda)[:, :, 0].contiguous()
+    flat, gflat = qkv.view(b, s, -1), g.view(b, s, -1)
+    kw = dict(scale=scale, axis=axis, num_frames=f)
+    stats, parts = _kernels.attention_bwd_scratch(flat, num_heads=h,
+                                                  num_frames=f, axis=axis)
+    dqkv = torch.full_like(flat, float("nan"))
+    launch = (_kernels.space_attention_bwd if axis == "space"
+              else _kernels.time_attention_bwd)
+    launch(flat, gflat, dqkv, stats, parts, num_heads=h, num_frames=f,
+           scale=scale)
+    torch.cuda.synchronize()
+    ref = divided_attention_backward_reference(qkv, g, rows="grouped", **kw)
+    got = dqkv.view(b, s, 3, h, dh).clone()
+    assert torch.isnan(got[:, 0]).all()  # row 0 is K6's
+    got[:, 0, 0] = 0  # no patch row's output depends on the CLS query
+    got[:, 0, 1:] = parts.sum(2).permute(0, 2, 1, 3).to(dtype)
+    errs = _rel_errs(got, ref)
+    assert max(errs) <= BWD_RTOL[dtype], errs
+
+    dqkv.zero_()
+    _kernels.cls_row_attention_bwd(flat, gflat, dqkv, torch.zeros_like(parts),
+                                   num_heads=h, scale=scale)
+    torch.cuda.synchronize()
+    ref = divided_attention_backward_reference(qkv, g, rows="cls", **kw)
+    errs = _rel_errs(dqkv.view(b, s, 3, h, dh), ref)
+    assert max(errs) <= BWD_RTOL[dtype], errs
 
 
 @pytest.mark.gpu
@@ -116,9 +207,23 @@ def test_kernel_wrappers_refuse_cpu_tensors_before_building():
             launch(qkv, out, num_heads=2, num_frames=2, scale=1.0)
     with pytest.raises(ValueError, match="CUDA"):
         _kernels.cls_row_attention_fwd(qkv, out, num_heads=2, scale=1.0)
-    lib = _kernels.library_path()
-    assert lib.parent == _kernels.BUILD_DIR
-    assert lib.parent.parts[-2:] == ("build", "egovlpv2_torch")
+    dq = torch.zeros_like(qkv)
+    stats, parts = torch.zeros(2, 1, 2, 5), torch.zeros(1, 2, 1, 2, 8)
+    for launch in (_kernels.space_attention_bwd, _kernels.time_attention_bwd):
+        with pytest.raises(ValueError, match="CUDA"):
+            launch(qkv, out, dq, stats, parts, num_heads=2, num_frames=2,
+                   scale=1.0)
+    with pytest.raises(ValueError, match="CUDA"):
+        _kernels.cls_row_attention_bwd(qkv, out, dq, parts, num_heads=2,
+                                       scale=1.0)
+    with pytest.raises(ValueError, match="CUDA"):
+        _kernels.attention_bwd_scratch(qkv, num_heads=2, num_frames=2,
+                                       axis="space")
+    libs = _kernels.library_paths()
+    assert set(libs) == {"divided_attention.cu", "divided_attention_bwd.cu"}
+    for lib in libs.values():
+        assert lib.parent == _kernels.BUILD_DIR
+        assert lib.parent.parts[-2:] == ("build", "egovlpv2_torch")
 
 
 def test_reference_row_semantics():
@@ -146,13 +251,19 @@ def test_reference_row_semantics():
 
 
 def test_port_imports_no_jax():
-    """Every module of the port imports without jax or flax."""
+    """Every module of the port, chip_smoke.py and the port's scripts
+    import in a fresh interpreter without jax, flax, optax or the JAX
+    package."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import egovlpv2_torch\n"
         "for m in pkgutil.walk_packages(egovlpv2_torch.__path__, 'egovlpv2_torch.'):\n"
         "    importlib.import_module(m.name)\n"
-        "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'flax'))\n"
+        "import chip_smoke\n"
+        "sys.path.insert(0, 'scripts')\n"
+        "import profile_torch_egomcq, profile_torch_pretrain\n"
+        "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
+        "('jax', 'jaxlib', 'flax', 'optax', 'egovlpv2_tpu'))\n"
         "assert not bad, bad\n"
         "print(len([k for k in sys.modules if k.startswith('egovlpv2_torch')]))\n"
     )
@@ -160,4 +271,4 @@ def test_port_imports_no_jax():
                           text=True, timeout=240,
                           cwd=Path(__file__).resolve().parents[1])
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip()) >= 14
+    assert int(proc.stdout.strip()) >= 28

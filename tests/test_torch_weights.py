@@ -1,5 +1,6 @@
 """The weight bridge between the flax tree of egovlpv2_tpu and the
-state_dict of egovlpv2_torch, and the port's seeded random fill."""
+state_dict of egovlpv2_torch (parameters, and trees shaped like them:
+gradients), and the port's seeded random fill."""
 
 import jax
 import jax.numpy as jnp
@@ -10,8 +11,8 @@ from flax import traverse_util
 from egovlpv2_tpu.models.egovlp import EgoVLPv2 as JaxEgoVLPv2
 from egovlpv2_torch.models.egovlp import EgoVLPv2
 from egovlpv2_torch.ops.layernorm import LayerNorm
-from egovlpv2_torch.weights import (flax_from_state_dict, random_init_,
-                                    state_dict_from_flax)
+from egovlpv2_torch.weights import (flax_from_state_dict, flax_path,
+                                    random_init_, state_dict_from_flax)
 from torch_parity import TINY, perturb
 
 torch.set_num_threads(2)
@@ -46,6 +47,29 @@ def test_bridge_loads_strictly_and_round_trips_exactly():
     again = state_dict_from_flax(flax_from_state_dict(model.state_dict()))
     for name, tensor in model.state_dict().items():
         assert torch.equal(again[name], tensor), name
+
+
+def test_no_leaf_and_no_parameter_is_left_unmapped():
+    """init_all's tree (dual towers, fused stack, ITM and MLM heads) and
+    the port's parameters map one to one, by name and by shape; a tree of
+    gradients takes the same way."""
+    params = _flax_params()
+    flat = traverse_util.flatten_dict(params)
+    model = EgoVLPv2(TINY)
+    named = dict(model.named_parameters())
+    assert not list(model.named_buffers())
+    paths = {flax_path(name, p.dim()): name for name, p in named.items()}
+    assert len(paths) == len(named) and set(paths) == set(flat)
+    assert any(p[0] == "mlm_score" for p in paths)
+    grads = traverse_util.unflatten_dict(
+        {path: np.full(np.shape(v), i, np.float32)
+         for i, (path, v) in enumerate(sorted(flat.items()))})
+    bridged = state_dict_from_flax(grads)
+    assert set(bridged) == set(named)
+    for i, (path, _) in enumerate(sorted(flat.items())):
+        name = paths[path]
+        assert bridged[name].shape == named[name].shape, name
+        assert (bridged[name] == i).all(), name
 
 
 def test_bridge_layouts():
