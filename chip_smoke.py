@@ -8,18 +8,21 @@ Run from the root of a checkout on a machine with one card:
 Phases, each printing its own lines; any failure raises and exits non-zero:
   1. device   — CUDA present; the card's name and power limit (nvidia-smi);
                 TF32 off for matmul and cuDNN.
-  2. build    — nvcc builds the kernels of csrc/ into build/egovlpv2_torch/,
-                one compiler a source, side by side.
+  2. build    — nvcc builds the three sources of csrc/ into
+                build/egovlpv2_torch/, one compiler a source, side by side.
   3. kernels  — each kernel against its plain PyTorch version on the card,
-                H=12, Dh=64, bf16 and f32, with its time, the plain
-                version's, one library call's (`library_ms`) and its bound:
+                bf16 and f32, with its time, the plain version's, one
+                library call's (`library_ms`) and its bound. Attention,
+                H=12, Dh=64:
                 forward K1 space, K2 time, K3 CLS row at B=20, S=785 and
-                S=3137 (the EgoMCQ shapes) and B=16, S=785 (the pretrain
-                step's); max abs error <= 2e-2 in bf16 (the kernel keeps
+                S=3137 (the EgoMCQ shapes), B=16, S=785 (the pretrain
+                step's) and B=8, S=6273 (the 32-frame fine-tune's); max abs
+                error <= 2e-2 in bf16 (the kernel keeps
                 P.V in f32 where the plain version rounds P to bf16) and
                 <= 1e-4 in f32 (another summation order);
                 backward K4 space, K5 time, K6 CLS row at B=16, S=785 and
-                S=3137 against autograd through the plain version; max abs
+                S=3137 and B=8, S=6273 against autograd through the plain
+                version; max abs
                 error of each of dq, dk, dv <= 2e-2 (bf16) / 1e-4 (f32) of
                 max |reference| of that tensor, the CLS row and the patch
                 rows each by its own maximum (a gradient's scale follows
@@ -28,24 +31,45 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
                 round only the stores, the plain version rounds P and dS to
                 bf16; K6 rounds the dk/dv rows a second time when it adds
                 to them).
+                LayerNorm K7 forward and K8 backward at R x D = 12,560 x
+                768 (the pretrain step's), 50,184 x 768 (the fine-tune's),
+                240 x 768 (text rows) and 301 x 776, eps 1e-5 and 1e-12,
+                against `layernorm_reference` and
+                `layernorm_backward_reference`: y and dx within 2e-2 (bf16:
+                one rounding step where the f32 values differ in their last
+                bits) / 1e-5 (f32: a row's sums in another order) of max
+                |reference|, dscale and dbias within 1e-3 of max
+                |reference| (f32 sums over the rows in another order); the
+                times are taken over input sets that together exceed the
+                L2 cache. Library: `F.layer_norm` and its autograd backward.
   4. tiny     — one small model (depth 4, 2 fused, width 128, 2 heads of
                 64, 4 frames of 4x4 patches) from one seeded state_dict on
                 the card (kernels) and on the CPU (plain), f32: EgoMCQ VTC
                 and VTM agree within 1e-3; one training step's loss parts
                 within 1e-3 and every parameter's gradient within 1e-3 of
                 max |cpu gradient|, from the same batch and mined indices,
-                dropout 0; all six kernels launched.
+                dropout 0; the same for one dual fine-tune step (small
+                projection, NormSoftmax), without and with per-block
+                rematerialisation; all eight kernels launched.
   5. slices   — at full width (TimeSformer-B + RoBERTa-base, 6 fused blocks
                 each, ITM and MLM heads, projection 4096), bf16:
                 `egovlpv2_torch.cli egomcq` from configs/eval_egomcq.json
                 at 16 frames, batch 4 x 5 candidates, then 4 frames: every
-                score finite, the three forward kernels launched;
+                score finite, the four forward kernels launched;
                 `egovlpv2_torch.cli pretrain --synthetic`: batch 16, 4
                 frames, no remat: every loss part finite at every step,
-                parameters changed, all six kernels launched every step.
+                parameters changed, all eight kernels launched every step;
+                `egovlpv2_torch.cli ft-charades --synthetic` from
+                configs/ft_charades.json (32 frames, S=6273, small
+                projection at 256, 30 text tokens), batch 8: 5 steps
+                without rematerialisation, then 2 steps of a fresh trainer
+                with `model.remat` as the file has it: every loss finite,
+                parameters changed, all eight kernels launched every step.
 Then one JSON line of the kernels and, last, the result line.
 """
 
+import dataclasses
+import gc
 import json
 import subprocess
 import sys
@@ -60,16 +84,19 @@ from egovlpv2_torch.core.config import load_train_config
 from egovlpv2_torch.models.egovlp import EgoVLPv2
 from egovlpv2_torch.objectives.itm_mining import ITMIndices
 from egovlpv2_torch.ops import _kernels
+from egovlpv2_torch.ops import layernorm as ln
 from egovlpv2_torch.ops.divided import (cls_row_reference,
                                         divided_attention_backward_reference,
                                         grouped_reference)
 from egovlpv2_torch.tasks.egomcq import make_egomcq_eval_step
 from egovlpv2_torch.tasks.pretrain import synthetic_batch
+from egovlpv2_torch.tasks.retrieval import dual_loss_fn
 from egovlpv2_torch.train import step as train_step_module
 from egovlpv2_torch.weights import random_init_, training_init_
 
 FWD_SOURCE = "egovlpv2_torch/csrc/divided_attention.cu"
 BWD_SOURCE = "egovlpv2_torch/csrc/divided_attention_bwd.cu"
+LN_SOURCE = "egovlpv2_torch/csrc/layernorm.cu"
 KERNELS = {  # name -> (source, the TPU kernel body it replaces)
     "space_attention_fwd": (FWD_SOURCE, "egovlpv2_tpu/ops/divided.py:774"),
     "time_attention_fwd": (FWD_SOURCE, "egovlpv2_tpu/ops/divided.py:811"),
@@ -77,12 +104,21 @@ KERNELS = {  # name -> (source, the TPU kernel body it replaces)
     "space_attention_bwd": (BWD_SOURCE, "egovlpv2_tpu/ops/divided.py:623"),
     "time_attention_bwd": (BWD_SOURCE, "egovlpv2_tpu/ops/divided.py:957"),
     "cls_row_attention_bwd": (BWD_SOURCE, "egovlpv2_tpu/ops/divided.py:377"),
+    "layernorm_fwd": (LN_SOURCE, "egovlpv2_tpu/ops/layernorm.py:52"),
+    "layernorm_bwd": (LN_SOURCE, "egovlpv2_tpu/ops/layernorm.py:65"),
 }
 TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}  # forward abs, backward rel
 H, DH, N = 12, 64, 196  # ViT-B heads, 14x14 patches
-FWD_CASES = ((20, 4), (20, 16), (16, 4))  # (B, frames)
-BWD_CASES = ((16, 4), (16, 16))
+FWD_CASES = ((20, 4), (20, 16), (16, 4), (8, 32))  # (B, frames)
+BWD_CASES = ((16, 4), (16, 16), (8, 32))
 MAIN_CASE = (torch.bfloat16, 16, 4)  # the pretrain step's: the JSON line's times
+# LayerNorm: (rows, D); y and dx, then dscale and dbias, of max |reference|
+LN_CASES = ((16 * 785, 768), (8 * 6273, 768), (240, 768), (301, 776))
+LN_MAIN_CASE = (torch.bfloat16, 16 * 785, 768)
+LN_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-5}
+LN_SUM_TOL = 1e-3
+LN_EPS = (1e-5, 1e-12)
+L2_BYTES = 50e6  # timed LayerNorm calls walk input sets of 4x this in all
 TIME_ITERS = 20  # timed calls of a kernel or its plain version, after 3 warm
 # The card's published peaks (NVIDIA H100 SXM data sheet, dense).
 PEAK_BYTES_S = 3.35e12
@@ -91,6 +127,10 @@ PRETRAIN_STEPS = 6
 PRETRAIN_SETS = ["model.compute_dtype=bfloat16", "model.remat=false",
                  "path_remat=false", "optim.max_steps=1000",
                  "global_batch_size=16"]
+FINETUNE_CONFIG = "configs/ft_charades.json"
+FINETUNE_SETS = ["global_batch_size=8", "optim.max_steps=1000"]
+FINETUNE_RUNS = (("ft_charades_32f", "model.remat=false", 5),
+                 ("ft_charades_32f_remat", "model.remat=true", 2))
 
 
 def _time_ms(fn) -> float:
@@ -132,6 +172,31 @@ def bound_ms(name: str, dtype, b: int, s: int, frames: int) -> tuple:
     t_bytes = rows * head_rows * e / PEAK_BYTES_S
     t_flops = products * 2 * b * H * queries * keys * DH / PEAK_FLOPS[dtype]
     return max(t_bytes, t_flops) * 1e3, "bytes" if t_bytes >= t_flops else "operations"
+
+
+def ln_bound_ms(name: str, dtype, rows: int, d: int) -> tuple:
+    """The same for one LayerNorm call on x [rows, d]: the forward reads x,
+    scale and bias and writes y; the backward reads x, g and scale and
+    writes dx, dscale and dbias. Its arithmetic is float32 on the CUDA
+    cores: about 8 operations an element forward (two sums, the
+    normalisation, the affine), about 20 backward."""
+    e = torch.finfo(dtype).bits // 8
+    fwd = name.endswith("_fwd")
+    t_bytes = ((2 if fwd else 3) * rows * d * e + (2 if fwd else 3) * d * 4) \
+        / PEAK_BYTES_S
+    t_flops = (8 if fwd else 20) * rows * d / PEAK_FLOPS[torch.float32]
+    return max(t_bytes, t_flops) * 1e3, "bytes" if t_bytes >= t_flops else "operations"
+
+
+def _reset_counts() -> None:
+    _kernels.reset_launch_counts()
+    ln.contiguous_copies.update(x=0, g=0)
+
+
+def _free() -> None:
+    """Drop what the last phase left on the card before the next builds."""
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def phase_device() -> str:
@@ -340,7 +405,125 @@ def phase_kernels() -> dict:
                        _time_ms(library[name]))
             del library
             torch.cuda.empty_cache()
+    phase_layernorm(results)
     return results
+
+
+def phase_layernorm(results: dict) -> None:
+    """K7 and K8 against their plain versions at LN_CASES; the times of
+    LN_MAIN_CASE go into `results`."""
+    gen = torch.Generator(device="cuda").manual_seed(1)
+
+    def rel(got, ref):
+        ref = ref.float()
+        return ((got.float() - ref).abs().max() / ref.abs().max().clamp_min(1e-30)).item()
+
+    for dtype in (torch.bfloat16, torch.float32):
+        for rows, d in LN_CASES:
+            e = torch.finfo(dtype).bits // 8
+            n_sets = int(min(8, max(1, -(-4 * L2_BYTES // (3 * rows * d * e)))))
+            sets = []
+            for _ in range(n_sets):
+                # an offset mean: E[x^2] - E[x]^2 is then not a two-pass variance
+                x = (torch.randn((rows, d), generator=gen, device="cuda") * 0.7
+                     + 1.5).to(dtype)
+                g = torch.randn((rows, d), generator=gen, device="cuda").to(dtype)
+                sets.append((x, g, torch.empty_like(x), torch.empty_like(x)))
+            scale = 1 + 0.2 * torch.randn(d, generator=gen, device="cuda")
+            bias = 0.2 * torch.randn(d, generator=gen, device="cuda")
+            dscale, dbias = torch.empty_like(scale), torch.empty_like(scale)
+            partials = _kernels.layernorm_bwd_scratch(sets[0][0])
+            x, g, y, dx = sets[0]
+            errs = {"layernorm_fwd": 0.0, "layernorm_bwd": 0.0}
+            checks = {}
+            for eps in LN_EPS:
+                y.fill_(float("nan"))
+                dx.fill_(float("nan"))
+                dscale.fill_(float("nan"))
+                dbias.fill_(float("nan"))
+                _kernels.layernorm_fwd(x, scale, bias, y, eps=eps)
+                _kernels.layernorm_bwd(x, scale, g, dx, dscale, dbias, partials,
+                                       eps=eps)
+                torch.cuda.synchronize()
+                ref_y = ln.layernorm_reference(x, scale, bias, eps=eps)
+                ref_dx, ref_ds, ref_db = ln.layernorm_backward_reference(
+                    x, scale, g, eps)
+                for t in (y, dx, dscale, dbias):
+                    if not torch.isfinite(t).all():
+                        raise AssertionError(f"layernorm {dtype} {rows}x{d} eps "
+                                             f"{eps}: non-finite output")
+                r_y, r_dx = rel(y, ref_y), rel(dx, ref_dx)
+                r_ds, r_db = rel(dscale, ref_ds), rel(dbias, ref_db)
+                if not (max(r_y, r_dx) <= LN_TOL[dtype]
+                        and max(r_ds, r_db) <= LN_SUM_TOL):
+                    raise AssertionError(
+                        f"layernorm {dtype} {rows}x{d} eps {eps}: relative "
+                        f"error y {r_y}, dx {r_dx} > {LN_TOL[dtype]} or dscale "
+                        f"{r_ds}, dbias {r_db} > {LN_SUM_TOL}")
+                errs["layernorm_fwd"] = max(
+                    errs["layernorm_fwd"], (y.float() - ref_y.float()).abs().max().item())
+                errs["layernorm_bwd"] = max(
+                    errs["layernorm_bwd"], (dx.float() - ref_dx.float()).abs().max().item())
+                checks[eps] = (f"rel y {r_y:.2e}", f"rel dx {r_dx:.2e} dscale "
+                               f"{r_ds:.2e} dbias {r_db:.2e}")
+
+            eps = LN_EPS[0]
+            turn = {"i": 0}
+
+            def next_set():
+                turn["i"] += 1
+                return sets[turn["i"] % n_sets]
+
+            # the library call takes its parameters in x's dtype
+            w, b = scale.to(dtype), bias.to(dtype)
+            graphs = []
+            for x_, g_, _, _ in sets:
+                leaves = [t.detach().requires_grad_(True) for t in (x_, w, b)]
+                graphs.append((F.layer_norm(leaves[0], (d,), leaves[1], leaves[2],
+                                            eps), leaves, g_))
+
+            def kernel_fwd():
+                x_, _, y_, _ = next_set()
+                _kernels.layernorm_fwd(x_, scale, bias, y_, eps=eps)
+
+            def kernel_bwd():
+                x_, g_, _, dx_ = next_set()
+                _kernels.layernorm_bwd(x_, scale, g_, dx_, dscale, dbias, partials,
+                                       eps=eps)
+
+            def plain_bwd():
+                x_, g_, _, _ = next_set()
+                ln.layernorm_backward_reference(x_, scale, g_, eps)
+
+            def library_bwd():
+                out, leaves, g_ = graphs[(turn["i"] + 1) % n_sets]
+                turn["i"] += 1
+                torch.autograd.grad(out, leaves, g_, retain_graph=True)
+
+            runs = {
+                "layernorm_fwd": (
+                    kernel_fwd,
+                    lambda: ln.layernorm_reference(next_set()[0], scale, bias, eps=eps),
+                    lambda: F.layer_norm(next_set()[0], (d,), w, b, eps)),
+                "layernorm_bwd": (kernel_bwd, plain_bwd, library_bwd),
+            }
+            for i, (name, (kernel, plain, library)) in enumerate(runs.items()):
+                ms, plain_ms, lib_ms = _time_ms(kernel), _time_ms(plain), _time_ms(library)
+                least, by = ln_bound_ms(name, dtype, rows, d)
+                tag = f"{str(dtype).split('.')[-1]} R={rows} D={d}"
+                check = "; ".join(f"eps {k:g}: {v[i]}" for k, v in checks.items())
+                print(f"[3 kernels] {name:22s} {tag:24s} err={errs[name]:.3e} "
+                      f"({check}; tol {LN_TOL[dtype]:.0e}, sums {LN_SUM_TOL:.0e})  "
+                      f"kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  library "
+                      f"{lib_ms:.4f} ms  bound {least:.4f} ms ({by})  "
+                      f"[{n_sets} input sets]", flush=True)
+                r = results[name]
+                r["max_abs_err"] = max(r["max_abs_err"], errs[name])
+                if (dtype, rows, d) == LN_MAIN_CASE:
+                    r.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                             bound_ms=least, bound_by=by, shape=tag)
+            del sets, graphs
+            torch.cuda.empty_cache()
 
 
 def _tiny_config():
@@ -373,7 +556,7 @@ def phase_tiny() -> None:
     ids[:, 0], ids[0, 9:] = 0, 1  # BOS; padding in item 0
     mask = (ids != 1).astype(np.int64)
     outs = {}
-    _kernels.reset_launch_counts()
+    _reset_counts()
     for dev, model in models:
         o = make_egomcq_eval_step(model.eval())(video5, ids, mask)
         outs[dev] = {k: v.cpu() for k, v in o.items()}
@@ -404,6 +587,50 @@ def phase_tiny() -> None:
             grads[dev] = {n: p.grad.cpu() for n, p in model.named_parameters()}
     finally:
         train_step_module.mine_itm_indices = mine
+    _compare_tiny_steps("pretrain step", losses, grads)
+    launched = dict(_kernels.launch_counts)
+    if not all(launched.values()):
+        raise AssertionError(f"tiny model on cuda skipped a kernel: {launched}")
+
+    # the dual fine-tune step, without and with one checkpoint region a block
+    rng = np.random.default_rng(4)
+    dual_batch = {"video": rng.standard_normal((6, 4, 64, 64, 3)).astype(np.float32),
+                  "text_ids": rng.integers(3, 1000, (6, 15)),
+                  "text_mask": np.ones((6, 15), np.int64)}
+    dual_batch["text_ids"][:, 0] = 0
+    dual_batch["text_ids"][0, 9:], dual_batch["text_mask"][0, 9:] = 1, 0
+    for remat in (False, True):
+        dual_cfg = dataclasses.replace(
+            cfg, model=dataclasses.replace(
+                cfg.model, projection="small", with_itm_head=False,
+                with_mlm_head=False, remat=remat),
+            loss=dataclasses.replace(cfg.loss, type="NormSoftmax"))
+        cpu_dual = random_init_(EgoVLPv2(dual_cfg.model, device="cpu"),
+                                torch.Generator().manual_seed(5))
+        gpu_dual = EgoVLPv2(dual_cfg.model, device="cuda")
+        gpu_dual.load_state_dict(cpu_dual.state_dict(), strict=True)
+        losses, grads = {}, {}
+        before = dict(_kernels.launch_counts)
+        for dev, model in (("cpu", cpu_dual), ("cuda", gpu_dual)):
+            model.train()
+            loss, metrics = dual_loss_fn(
+                model, train_step_module.batch_to_device(dual_batch, torch.device(dev)),
+                cfg=dual_cfg)
+            loss.backward()
+            losses[dev] = {k: v.item() for k, v in metrics.items()}
+            grads[dev] = {n: p.grad.cpu() for n, p in model.named_parameters()
+                          if p.grad is not None}
+        if set(grads["cpu"]) != set(grads["cuda"]):
+            raise AssertionError("tiny dual step: other parameters have gradients")
+        _compare_tiny_steps(f"dual step, remat {remat}", losses, grads)
+        if not all(_kernels.launch_counts[k] > before[k] for k in before):
+            raise AssertionError(f"tiny dual step on cuda skipped a kernel: "
+                                 f"{before} -> {_kernels.launch_counts}")
+
+
+def _compare_tiny_steps(what: str, losses: dict, grads: dict) -> None:
+    """cuda against cpu: loss parts within 1e-3, every gradient within 1e-3
+    of max |cpu gradient| of its tensor."""
     loss_err = max(abs(losses["cuda"][k] - losses["cpu"][k]) for k in losses["cpu"])
     worst, worst_name = 0.0, ""
     for name, ref in grads["cpu"].items():
@@ -411,15 +638,12 @@ def phase_tiny() -> None:
                / ref.abs().max().clamp_min(1e-6)).item()
         if rel > worst:
             worst, worst_name = rel, name
-    launched = dict(_kernels.launch_counts)
-    print(f"[4 tiny] train step cuda vs cpu: losses {losses['cuda']} max_abs_err "
+    print(f"[4 tiny] {what} cuda vs cpu: losses {losses['cuda']} max_abs_err "
           f"{loss_err:.2e} (tol 1e-3); {len(grads['cpu'])} parameter gradients, "
           f"worst {worst:.2e} of max |cpu gradient| at {worst_name} (tol 1e-3); "
-          f"launches {launched}", flush=True)
+          f"launches so far {dict(_kernels.launch_counts)}", flush=True)
     if not (loss_err <= 1e-3 and worst <= 1e-3):
-        raise AssertionError("tiny model: cuda and cpu training steps disagree")
-    if not all(launched.values()):
-        raise AssertionError(f"tiny model on cuda skipped a kernel: {launched}")
+        raise AssertionError(f"tiny model, {what}: cuda and cpu disagree")
 
 
 def phase_egomcq() -> dict:
@@ -429,7 +653,7 @@ def phase_egomcq() -> dict:
     by_path = {}
     for label, extra in (("16f", []), ("4f", ["--set",
                                               "model.video.num_frames=4"])):
-        _kernels.reset_launch_counts()
+        _reset_counts()
         res = cli.main(base + extra)
         counts = dict(_kernels.launch_counts)
         scores = res["scores"]
@@ -441,13 +665,16 @@ def phase_egomcq() -> dict:
               f"{step_s * 1e3:.1f} ms (one sample: the last of steps "
               f"{steps_ms} ms, input copy included) | "
               f"{res['clips_per_step'] / step_s:.2f} clips/s | scores "
-              f"{shapes} finite={finite} | launches {counts}", flush=True)
+              f"{shapes} finite={finite} | launches {counts} | LayerNorm inputs "
+              f"copied to make them contiguous {ln.contiguous_copies}", flush=True)
         if not finite or set(scores) != {"vtc", "vtm"}:
             raise AssertionError(f"egomcq {label}: bad scores {scores}")
         if not all(counts[k] for k in counts if k.endswith("_fwd")):
             raise AssertionError(f"egomcq {label}: a kernel was not launched: "
                                  f"{counts}")
         by_path[f"egomcq_{label}"] = counts
+        del res
+        _free()
     return by_path
 
 
@@ -455,7 +682,7 @@ def phase_pretrain() -> dict:
     args = ["pretrain", "--synthetic", "--device", "cuda", "--steps_per_epoch",
             str(PRETRAIN_STEPS), "--set", *PRETRAIN_SETS]
     torch.cuda.reset_peak_memory_stats()
-    _kernels.reset_launch_counts()
+    _reset_counts()
     res = cli.main(args)
     counts = dict(_kernels.launch_counts)
     peak = torch.cuda.max_memory_allocated()
@@ -480,12 +707,64 @@ def phase_pretrain() -> dict:
           f"{rows[-1]} | step ms {[round(x, 1) for x in steps_ms]}, median of "
           f"the last {PRETRAIN_STEPS - 2} {warm:.1f} ms = "
           f"{res['clips_per_step'] / warm * 1e3:.2f} clips/s | launches a "
-          f"step {per_step} | parameters changed {moved}/{n_params} | peak "
-          f"memory {peak / 2**30:.2f} GiB", flush=True)
+          f"step {per_step} | LayerNorm inputs copied to make them contiguous "
+          f"{ln.contiguous_copies} | parameters changed {moved}/{n_params} | "
+          f"peak memory {peak / 2**30:.2f} GiB", flush=True)
     if moved < n_params // 2:
         raise AssertionError(f"pretrain: only {moved}/{n_params} parameters "
                              "changed")
+    del res
+    _free()
     return counts
+
+
+def phase_finetune() -> dict:
+    """The 32-frame Charades-Ego fine-tune through `cli ft-charades`, first
+    without rematerialisation, then with one checkpoint region a block.
+    Returns run -> the launch counts of that run."""
+    by_run = {}
+    for label, remat_set, steps in FINETUNE_RUNS:
+        args = ["ft-charades", "--synthetic", "--device", "cuda", "--config",
+                FINETUNE_CONFIG, "--steps_per_epoch", str(steps), "--set",
+                *FINETUNE_SETS, remat_set]
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts()
+        res = cli.main(args)
+        counts = dict(_kernels.launch_counts)
+        peak = torch.cuda.max_memory_allocated()
+        rows, cfg = res["logged"], res["config"]
+        if len(rows) != steps:
+            raise AssertionError(f"{label} logged {len(rows)} steps")
+        if not all(np.isfinite(row["loss_total"]) for row in rows):
+            raise AssertionError(f"{label}: non-finite loss in {rows}")
+        per_step = {k: v / steps for k, v in counts.items()}
+        if not all(v >= 1 and v == int(v) for v in per_step.values()):
+            raise AssertionError(f"{label}: launches a step {per_step}")
+        fresh = training_init_(EgoVLPv2(cfg.model, device="cpu"),
+                               torch.Generator().manual_seed(cfg.seed))
+        moved = sum(not torch.equal(p.detach().cpu(), q.detach())
+                    for p, q in zip(res["model"].parameters(), fresh.parameters()))
+        n_params = sum(1 for _ in fresh.parameters())
+        steps_ms = [s * 1e3 for s in res["step_seconds"]]
+        warm = float(np.median(steps_ms[2:])) if steps > 2 else steps_ms[-1]
+        v = cfg.model.video
+        print(f"[5 slices] {label} b{cfg.global_batch_size} {v.num_frames}f "
+              f"S={v.seq_len} {cfg.model.compute_dtype} {remat_set}: {steps} "
+              f"steps, losses {[round(r['loss_total'], 4) for r in rows]} | step "
+              f"ms {[round(x, 1) for x in steps_ms]}, "
+              f"{'median of the last ' + str(steps - 2) if steps > 2 else 'the last'}"
+              f" {warm:.1f} ms = {res['clips_per_step'] / warm * 1e3:.2f} "
+              f"clips/s | launches a step {per_step} | LayerNorm inputs copied "
+              f"to make them contiguous {ln.contiguous_copies} | parameters "
+              f"changed {moved}/{n_params} | peak memory {peak / 2**30:.2f} GiB",
+              flush=True)
+        if moved < n_params // 2:
+            raise AssertionError(f"{label}: only {moved}/{n_params} parameters "
+                                 "changed")
+        by_run[label] = counts
+        del res, fresh
+        _free()
+    return by_run
 
 
 def main() -> None:
@@ -495,15 +774,17 @@ def main() -> None:
     phase_tiny()
     by_path = phase_egomcq()
     by_path["pretrain"] = phase_pretrain()
+    by_path.update(phase_finetune())
     bad = sorted(m for m in sys.modules
                  if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
                                         "egovlpv2_tpu"))
     if bad:
         raise AssertionError(f"the port imported {bad}")
-    # `launches` is the pretrain run's own count (the one path that runs
-    # all six kernels); each path's count stands beside it, never summed.
-    # One launch of a grouped backward wrapper is two __global__ launches
-    # (a query pass, then a key pass).
+    # `launches` is the pretrain run's own count (it and the fine-tune run
+    # all eight kernels); each path's count stands beside it, never summed.
+    # One launch of a grouped attention backward wrapper is two __global__
+    # launches (a query pass, then a key pass), one of the LayerNorm
+    # backward two as well (the rows, then the sum of the blocks' partials).
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": KERNELS[k][0],
          "replaces": KERNELS[k][1], "launches": by_path["pretrain"][k],

@@ -16,20 +16,33 @@ Subcommands:
     python -m egovlpv2_torch.cli egomcq --config configs/eval_egomcq.json \
         --device cuda --val_batches 2
 
+  ft-charades, ft-epic — the dual-encoder fine-tunes (Charades-Ego with
+             NormSoftmax, EK-100 MIR with AdaptiveMaxMargin and per-row
+             relevancy weights) on synthetic batches (--synthetic): small
+             projection at 256, no ITM/MLM heads, 30 text tokens. Prints
+             one JSON line a logged step with the loss and the step's
+             milliseconds.
+
+    python -m egovlpv2_torch.cli ft-charades --synthetic --device cuda \
+        --config configs/ft_charades.json --steps_per_epoch 5 \
+        --set global_batch_size=8 model.remat=false
+
 Not ported yet, and refused with a NotImplementedError that names the
-ROADMAP item: real data (`--meta`, pretrain without --synthetic), which
-needs the file readers and loaders of `egovlpv2_tpu/data/`; checkpoints
-(`--ckpt`, `--save_dir`, `--resume`).
+ROADMAP item: real data (`--meta`, `--val_meta`, pretrain or a fine-tune
+without --synthetic, `--device_norm`), which needs the file readers and
+loaders of `egovlpv2_tpu/data/`; checkpoints (`--ckpt`, `--save_dir`,
+`--resume`); the retrieval visualizer (`--visualize`).
 
 Without a checkpoint every parameter is drawn from a torch.Generator seeded
 with the config's `seed` (`weights.random_init_` for egomcq,
-`weights.training_init_` for pretrain). `--device cuda` on a machine
+`weights.training_init_` for pretrain and the fine-tunes). `--device cuda` on a machine
 without CUDA raises; it never carries on on the CPU.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import time
 
@@ -145,12 +158,25 @@ def cmd_pretrain(args) -> dict:
             "checkpoints); run without --save_dir and --resume")
     cfg = load_train_config(args.config, args.set)
     model, _, _, train_step = build_pretrain(cfg, device=device)
+    logged, seconds = _train_loop(
+        args, device, train_step,
+        lambda epoch: (synthetic_batch(
+            cfg, cfg.global_batch_size,
+            np.random.default_rng(epoch * 100003 + i))
+            for i in range(args.steps_per_epoch)))
+    return {"model": model, "logged": logged, "step_seconds": seconds,
+            "clips_per_step": cfg.global_batch_size}
+
+
+def _train_loop(args, device, train_step, batches) -> tuple:
+    """The epochs of `pretrain` and the fine-tunes over `batches(epoch)`:
+    every step is timed on the host's clock from its numpy batch to the end
+    of its device work, and every `--log_every`-th prints one JSON line.
+    Returns (logged rows, step seconds)."""
     logged, seconds = [], []
     step = 0
     for epoch in range(args.epochs):
-        for i in range(args.steps_per_epoch):
-            batch = synthetic_batch(cfg, cfg.global_batch_size,
-                                    np.random.default_rng(epoch * 100003 + i))
+        for batch in batches(epoch):
             t0 = time.perf_counter()
             metrics = train_step(batch)
             if device.type == "cuda":
@@ -163,8 +189,55 @@ def cmd_pretrain(args) -> dict:
                        "step_ms": round(seconds[-1] * 1e3, 3)}
                 logged.append(row)
                 print(json.dumps(row), flush=True)
-    return {"model": model, "logged": logged, "step_seconds": seconds,
-            "clips_per_step": cfg.global_batch_size}
+    return logged, seconds
+
+
+def cmd_dual_ft(args) -> dict:
+    """ft-charades / ft-epic (`args.dataset`): the JAX CLI's `_run_dual_ft`
+    on synthetic batches."""
+    from egovlpv2_torch.tasks.retrieval import build_dual, synthetic_dual_batch
+
+    device = _device(args.device)
+    if args.ckpt or args.save_dir or args.resume:
+        raise NotImplementedError(
+            "checkpoint import, save and resume are not ported yet "
+            "(ROADMAP.md A8, checkpoints); run without --ckpt, --save_dir "
+            "and --resume")
+    if not args.synthetic or args.meta or args.val_meta or args.device_norm:
+        raise NotImplementedError(
+            "fine-tuning and validating on Charades-Ego / EK-100 files "
+            "(--meta, --val_meta, --device_norm) need the dataset readers "
+            "and the loader of egovlpv2_tpu/data/, which are not ported yet "
+            "(ROADMAP.md A7, data readers and loaders); pass --synthetic")
+    if args.visualize:
+        raise NotImplementedError(
+            "the retrieval visualizer (--visualize) is not ported yet "
+            "(ROADMAP.md A10, the rest of the CLI)")
+    cfg = load_train_config(args.config, args.set)
+    epic = args.dataset == "epic"
+    # retrieval fine-tunes use the small projections + Dual loss
+    cfg = dataclasses.replace(
+        cfg,
+        model=dataclasses.replace(cfg.model, projection="small",
+                                  projection_dim=256, with_itm_head=False,
+                                  with_mlm_head=False),
+        loss=dataclasses.replace(
+            cfg.loss, type="AdaptiveMaxMargin" if epic else "NormSoftmax"),
+        max_text_len=30,  # fine-tunes tokenize at 30 (trainer_epic.py:134)
+    )
+    model, _, _, train_step = build_dual(cfg, device=device)
+    tok = Tokenizer(args.tokenizer, max_len=cfg.max_text_len,
+                    vocab_cap=cfg.model.text.vocab_size)
+
+    def batches(epoch):
+        rng = np.random.default_rng(epoch)
+        for _ in range(args.steps_per_epoch):
+            yield synthetic_dual_batch(cfg, cfg.global_batch_size, rng, tok,
+                                       relevancy=epic)
+
+    logged, seconds = _train_loop(args, device, train_step, batches)
+    return {"model": model, "config": cfg, "logged": logged,
+            "step_seconds": seconds, "clips_per_step": cfg.global_batch_size}
 
 
 def main(argv=None):
@@ -197,6 +270,24 @@ def main(argv=None):
     e.add_argument("--out", default=None, help="write metrics JSON here")
     e.add_argument("--device", default="cuda", help="cuda, cuda:<i> or cpu")
     e.set_defaults(fn=cmd_egomcq)
+
+    for name, dataset in (("ft-charades", "charades"), ("ft-epic", "epic")):
+        f = sub.add_parser(name)
+        f.add_argument("--config", default=None)
+        f.add_argument("--set", nargs="*", default=[], help="dotted.key=value")
+        f.add_argument("--tokenizer", default="roberta-base")
+        f.add_argument("--synthetic", action="store_true")
+        f.add_argument("--epochs", type=int, default=1)
+        f.add_argument("--steps_per_epoch", type=int, default=10)
+        f.add_argument("--log_every", type=int, default=1)
+        for flag in ("--meta", "--val_meta", "--ckpt", "--save_dir"):
+            f.add_argument(flag, default=None, help="not ported yet: raises")
+        for flag in ("--resume", "--device_norm", "--visualize"):
+            f.add_argument(flag, action="store_true",
+                           help="not ported yet: raises")
+        f.add_argument("--device", default="cuda",
+                       help="cuda, cuda:<i> or cpu")
+        f.set_defaults(fn=cmd_dual_ft, dataset=dataset)
 
     args = parser.parse_args(argv)
     return args.fn(args)

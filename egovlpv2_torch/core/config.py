@@ -7,9 +7,10 @@ One frozen dataclass tree, hashable and serializable. Two fields name
 machinery of the JAX package and are kept so those files still load:
   * `model.attn_impl` is ignored: the port picks by device (a CUDA tensor
     takes the hand-written kernels, a CPU tensor the plain version);
-  * `model.remat` (per-block rematerialisation) is refused by the port's
-    training step when set, and ignored at evaluation; `path_remat` (one
-    checkpoint region per objective path) is honoured.
+  * `model.remat` makes every video block and text layer one
+    `torch.utils.checkpoint` region in training and is ignored at
+    evaluation; `path_remat` (one region per objective path) is honoured
+    where `model.remat` is off.
 `load_train_config` and `apply_overrides` are the JSON loader and the
 `--set dotted.key=value` overrides of the command line.
 """

@@ -1,12 +1,39 @@
 """`Dropout`: the counterpart of flax's `nn.Dropout`, drawing from an
-explicit `torch.Generator`."""
+explicit `torch.Generator`; and `checkpoint_region`, rematerialisation
+that replays that generator's draws."""
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Dict, Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
+
+
+def checkpoint_region(fn: Callable,
+                      generator: Optional[torch.Generator]) -> Callable:
+    """`fn` as one checkpoint region: its activations are dropped after
+    the forward and rebuilt in the backward. `checkpoint` restores only
+    PyTorch's global generators for the rebuild, so the state of the
+    model's own generator is put back here, and the rebuild draws the
+    dropout masks of the first run."""
+    first: Dict[str, torch.Tensor] = {}
+
+    def run(*args):
+        if generator is None:
+            return fn(*args)
+        if "state" not in first:
+            first["state"] = generator.get_state()
+            return fn(*args)
+        now = generator.get_state()
+        generator.set_state(first["state"])
+        try:
+            return fn(*args)
+        finally:
+            generator.set_state(now)
+
+    return lambda *args: checkpoint(run, *args, use_reentrant=False)
 
 
 class Dropout(nn.Module):

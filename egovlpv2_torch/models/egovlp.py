@@ -60,8 +60,10 @@ class EgoVLPv2(nn.Module):
         dtype = getattr(torch, cfg.compute_dtype)
         kw = dict(dtype=dtype, device=device)
         dv, dt = cfg.video.embed_dim, cfg.text.hidden_size
-        self.video_model = SpaceTimeViT(cfg.video, cfg.fusion, **kw)
-        self.text_model = TextEncoder(cfg.text, cfg.fusion, **kw)
+        self.video_model = SpaceTimeViT(cfg.video, cfg.fusion,
+                                        remat=cfg.remat, **kw)
+        self.text_model = TextEncoder(cfg.text, cfg.fusion, remat=cfg.remat,
+                                      **kw)
         if cfg.projection == "minimal":
             self.txt_proj = _ProjMLP(dt, cfg.projection_dim, **kw)
             self.vid_proj = _ProjMLP(dv, cfg.projection_dim, **kw)

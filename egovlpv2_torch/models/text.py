@@ -11,7 +11,9 @@ As in the JAX package and the reference `EgoVLPv2/model/roberta.py`:
 In `train()` mode the hidden dropout (`cfg.hidden_dropout`, after the
 embeddings, the attention output and the FFN output) and the dropout of
 the attention probabilities (`cfg.attn_dropout`) are on; both draw from
-the generator `EgoVLPv2.set_generator` hands them.
+the generator `EgoVLPv2.set_generator` hands them. With `remat` every
+layer is one checkpoint region in `train()` mode (flax's
+`nn.remat(TextLayer)`).
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ from torch.nn import functional as F
 
 from egovlpv2_torch.core.config import FusionConfig, TextEncoderConfig
 from egovlpv2_torch.models.dense import Dense
-from egovlpv2_torch.models.dropout import Dropout
+from egovlpv2_torch.models.dropout import Dropout, checkpoint_region
 from egovlpv2_torch.ops.attention import (attend, make_additive_mask,
                                           merge_heads, split_heads)
 from egovlpv2_torch.ops.layernorm import LayerNorm
@@ -128,9 +130,11 @@ class TextEncoder(nn.Module):
     """The text tower, with staged execution for the fused paths."""
 
     def __init__(self, cfg: TextEncoderConfig, fusion: FusionConfig,
-                 dtype=None, device=None):
+                 dtype=None, device=None, remat: bool = False):
         super().__init__()
         self.cfg = cfg
+        self.remat = remat
+        self.generator: Optional[torch.Generator] = None
         kw = dict(dtype=dtype, device=device)
         self.embeddings = TextEmbeddings(cfg, **kw)
         num_unfused = cfg.num_layers - fusion.num_fuse_block
@@ -148,11 +152,17 @@ class TextEncoder(nn.Module):
         end = self.cfg.num_layers if end is None else end
         for i in range(start, end):
             ln = last_norm if i == end - 1 else True
-            hidden = self.layer[i](hidden, bias, video, ln)
+            hidden = self.run_layer(hidden, i, bias, video, ln)
         return hidden
 
     def run_layer(self, hidden, i, bias=None, video=None, last_norm=True):
-        return self.layer[i](hidden, bias, video, last_norm)
+        layer = self.layer[i]
+        if self.remat and self.training and torch.is_grad_enabled():
+            return checkpoint_region(
+                lambda hidden, bias, video: layer(hidden, bias, video,
+                                                  last_norm),
+                self.generator)(hidden, bias, video)
+        return layer(hidden, bias, video, last_norm)
 
     def forward(self, input_ids: torch.Tensor,
                 attention_mask: torch.Tensor) -> torch.Tensor:

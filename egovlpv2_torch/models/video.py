@@ -16,7 +16,9 @@ Semantics, as in the JAX package and the reference
 Tokens are [B, S, D] with S = 1 + F*N, CLS first, frame-major patches.
 Dropout and DropPath act in `train()` mode only and are inert at the
 default rates (0.0); they draw from the generator `EgoVLPv2.set_generator`
-hands them.
+hands them. With `remat` every block is one checkpoint region in `train()`
+mode (flax's `nn.remat(SpaceTimeBlock)`): its activations are rebuilt in
+the backward, with the dropout masks of the first run.
 """
 
 from __future__ import annotations
@@ -29,7 +31,7 @@ from torch.nn import functional as F
 
 from egovlpv2_torch.core.config import NORM_STATS, FusionConfig, VideoEncoderConfig
 from egovlpv2_torch.models.dense import Dense
-from egovlpv2_torch.models.dropout import Dropout
+from egovlpv2_torch.models.dropout import Dropout, checkpoint_region
 from egovlpv2_torch.ops.attention import attend
 from egovlpv2_torch.ops.divided import divided_attention
 from egovlpv2_torch.ops.layernorm import LayerNorm
@@ -171,9 +173,11 @@ class SpaceTimeViT(nn.Module):
     """The video tower, with staged execution for the fused paths."""
 
     def __init__(self, cfg: VideoEncoderConfig, fusion: FusionConfig,
-                 dtype=None, device=None):
+                 dtype=None, device=None, remat: bool = False):
         super().__init__()
         self.cfg = cfg
+        self.remat = remat
+        self.generator: Optional[torch.Generator] = None
         d = cfg.embed_dim
         kw = dict(dtype=dtype, device=device)
         self.patch_embed = PatchEmbed(cfg.in_chans, d, cfg.patch_size, **kw)
@@ -236,12 +240,17 @@ class SpaceTimeViT(nn.Module):
                    text: Optional[torch.Tensor] = None,
                    text_bias: Optional[torch.Tensor] = None) -> torch.Tensor:
         end = self.cfg.depth if end is None else end
-        for blk in self.blocks[start:end]:
-            x = blk(x, num_frames, text, text_bias)
+        for i in range(start, end):
+            x = self.run_block(x, i, num_frames, text, text_bias)
         return x
 
     def run_block(self, x, i, num_frames, text=None, text_bias=None):
-        return self.blocks[i](x, num_frames, text, text_bias)
+        blk = self.blocks[i]
+        if self.remat and self.training and torch.is_grad_enabled():
+            return checkpoint_region(
+                lambda x, text, text_bias: blk(x, num_frames, text, text_bias),
+                self.generator)(x, text, text_bias)
+        return blk(x, num_frames, text, text_bias)
 
     def finalize(self, x: torch.Tensor) -> torch.Tensor:
         """Final LN -> CLS feature."""

@@ -35,6 +35,7 @@ _SOURCES = {
     "divided_attention_bwd.cu": (
         "space_attention_bwd", "time_attention_bwd", "cls_row_attention_bwd",
         "attention_bwd_parts"),
+    "layernorm.cu": ("layernorm_fwd", "layernorm_bwd", "layernorm_bwd_parts"),
 }
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "egovlpv2_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -45,7 +46,8 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # Launches of each kernel since the last reset, counted where they launch.
 launch_counts = {"space_attention_fwd": 0, "time_attention_fwd": 0,
                  "cls_row_attention_fwd": 0, "space_attention_bwd": 0,
-                 "time_attention_bwd": 0, "cls_row_attention_bwd": 0}
+                 "time_attention_bwd": 0, "cls_row_attention_bwd": 0,
+                 "layernorm_fwd": 0, "layernorm_bwd": 0}
 
 
 def reset_launch_counts() -> None:
@@ -129,6 +131,13 @@ def load() -> SimpleNamespace:
     fns.cls_row_attention_bwd.restype = i32
     fns.attention_bwd_parts.argtypes = [i32, i32, i32, i32, i32]
     fns.attention_bwd_parts.restype = i32
+    fns.layernorm_fwd.argtypes = [ptr, ptr, ptr, ptr, i32, i32, f32, i32, ptr]
+    fns.layernorm_fwd.restype = i32
+    fns.layernorm_bwd.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32,
+                                  f32, i32, ptr]
+    fns.layernorm_bwd.restype = i32
+    fns.layernorm_bwd_parts.argtypes = [i32, i32]
+    fns.layernorm_bwd_parts.restype = i32
     fns.cuda_error_string.argtypes = [i32]
     fns.cuda_error_string.restype = ctypes.c_char_p
     return fns
@@ -319,5 +328,90 @@ def cls_row_attention_bwd(qkv: torch.Tensor, g: torch.Tensor,
             qkv.data_ptr(), g.data_ptr(), dqkv.data_ptr(),
             cls_part.data_ptr(), parts, _DTYPE_CODES[qkv.dtype], b, s,
             num_heads, dh, float(scale), stream)
+    _raise_on_error(name, code)
+    launch_counts[name] += 1
+
+
+# ---------------- LayerNorm ----------------
+
+LN_MAX_DIM = 8192  # the widest row `csrc/layernorm.cu` holds in registers
+
+
+def _check_ln_rows(name: str, t: torch.Tensor, like: torch.Tensor) -> None:
+    if t.device != like.device or t.dtype != like.dtype \
+            or t.shape != like.shape:
+        raise ValueError(f"{name} must match x ({tuple(like.shape)}, "
+                         f"{like.dtype}, {like.device}), got "
+                         f"{tuple(t.shape)}, {t.dtype}, {t.device}")
+    if not t.is_contiguous() or t.data_ptr() % 16:
+        raise ValueError(f"kernel needs a contiguous, 16-byte aligned {name}")
+
+
+def _check_ln(x: torch.Tensor, **params: torch.Tensor) -> tuple:
+    """x [R, D] and the float32 [D] tensors `params`; returns (R, D)."""
+    if x.device.type != "cuda":
+        raise ValueError(f"kernel needs x on a CUDA device, got {x.device}")
+    if x.dtype not in _DTYPE_CODES:
+        raise TypeError(f"kernel takes float32 or bfloat16, got {x.dtype}")
+    if x.dim() != 2:
+        raise ValueError(f"kernel takes x [R, D], got {tuple(x.shape)}")
+    rows, d = x.shape
+    if rows < 1 or d < 8 or d % 8 or d > LN_MAX_DIM:
+        raise ValueError(f"LayerNorm kernel takes R >= 1 rows of D a multiple "
+                         f"of 8 up to {LN_MAX_DIM}, got x {tuple(x.shape)}")
+    if not x.is_contiguous() or x.data_ptr() % 16:
+        raise ValueError("kernel needs a contiguous, 16-byte aligned x")
+    for name, t in params.items():
+        _check_scratch(name, t, (d,), x.device)
+        if t.data_ptr() % 16:
+            raise ValueError(f"kernel needs a 16-byte aligned {name}")
+    return rows, d
+
+
+def layernorm_fwd(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                  y: torch.Tensor, *, eps: float) -> None:
+    """K7: y = LayerNorm(x) over the last axis, written into `y`.
+
+    x and y [R, D] float32 or bfloat16, scale and bias float32 [D]."""
+    name = "layernorm_fwd"
+    rows, d = _check_ln(x, scale=scale, bias=bias)
+    _check_ln_rows("y", y, x)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        code = load().layernorm_fwd(
+            x.data_ptr(), scale.data_ptr(), bias.data_ptr(), y.data_ptr(),
+            rows, d, float(eps), _DTYPE_CODES[x.dtype], stream)
+    _raise_on_error(name, code)
+    launch_counts[name] += 1
+
+
+def layernorm_bwd_scratch(x: torch.Tensor) -> torch.Tensor:
+    """The f32 scratch of one LayerNorm backward on x [R, D]: the blocks'
+    column sums [parts, 2, D], sized from the grid the kernel launches.
+    Uninitialised: the kernel fills it."""
+    rows, d = _check_ln(x)
+    parts = load().layernorm_bwd_parts(rows, d)
+    return torch.empty((parts, 2, d), dtype=torch.float32, device=x.device)
+
+
+def layernorm_bwd(x: torch.Tensor, scale: torch.Tensor, g: torch.Tensor,
+                  dx: torch.Tensor, dscale: torch.Tensor, dbias: torch.Tensor,
+                  partials: torch.Tensor, *, eps: float) -> None:
+    """K8: backward of K7 from x, scale and the cotangent g of y. Writes dx
+    (x's shape and dtype) and the float32 [D] dscale and dbias; `partials`
+    is the scratch of `layernorm_bwd_scratch`. Two `__global__` launches:
+    the pass over the rows, then the sum of the blocks' partials."""
+    name = "layernorm_bwd"
+    rows, d = _check_ln(x, scale=scale, dscale=dscale, dbias=dbias)
+    _check_ln_rows("g", g, x)
+    _check_ln_rows("dx", dx, x)
+    parts = load().layernorm_bwd_parts(rows, d)
+    _check_scratch("partials", partials, (parts, 2, d), x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        code = load().layernorm_bwd(
+            x.data_ptr(), scale.data_ptr(), g.data_ptr(), dx.data_ptr(),
+            dscale.data_ptr(), dbias.data_ptr(), partials.data_ptr(), rows, d,
+            float(eps), _DTYPE_CODES[x.dtype], stream)
     _raise_on_error(name, code)
     launch_counts[name] += 1

@@ -66,9 +66,8 @@ def synthetic_batch(cfg: TrainConfig, batch_size: int,
 
 def tiny_train_config() -> TrainConfig:
     """Small-but-complete pretrain config: every architectural feature on
-    (fusion blocks, both heads) at toy widths. `model.remat` is True as in
-    the JAX package's; the port's step refuses it, so callers of the step
-    replace it."""
+    (fusion blocks, both heads) at toy widths, `model.remat` on, as the
+    JAX package's."""
     return TrainConfig(
         model=ModelConfig(
             video=VideoEncoderConfig(

@@ -22,7 +22,7 @@ over the peak, so the first update runs at lr 0, as in optax.
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict, List, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
@@ -97,12 +97,18 @@ def param_groups(cfg: OptimConfig, model: nn.Module) -> List[dict]:
             for g, ps in members.items() if ps]
 
 
-def make_optimizer(cfg: OptimConfig, model: nn.Module):
+def make_optimizer(cfg: OptimConfig, model: nn.Module,
+                   lr_scale: Optional[Callable[[int], float]] = None):
     """Returns (AdamW over the six groups, its LambdaLR). Step the
     scheduler once after every optimizer step. `cfg.grad_clip` is applied
-    by the training step (`clip_grad_norm_`)."""
+    by the training step (`clip_grad_norm_`). `lr_scale(count)` multiplies
+    the schedule (the fine-tunes' epoch-milestone decay,
+    `tasks.retrieval.epoch_milestone_schedule`)."""
     optimizer = torch.optim.AdamW(param_groups(cfg, model), betas=cfg.betas,
                                   eps=cfg.eps)
-    scheduler = torch.optim.lr_scheduler.LambdaLR(optimizer,
-                                                  make_schedule(cfg))
+    factor = make_schedule(cfg)
+    if lr_scale is not None:
+        base = factor
+        factor = lambda count: base(count) * lr_scale(count)
+    scheduler = torch.optim.lr_scheduler.LambdaLR(optimizer, factor)
     return optimizer, scheduler

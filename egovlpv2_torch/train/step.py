@@ -13,51 +13,29 @@ and `trainer/trainer_egoclip.py:91-200`).
 
 `path_remat` wraps each objective path in one
 `torch.utils.checkpoint.checkpoint(..., use_reentrant=False)` region, under
-the JAX package's condition (`path_remat and not model.remat`). Per-block
-rematerialisation (`model.remat`) is not ported: the step refuses it.
+the JAX package's condition (`path_remat and not model.remat`). With
+`model.remat` the towers make every block a region of its own
+(`models/video.py`, `models/text.py`).
 The JAX package's `EGOVLP_MERGED_FUSED` branch (one 2B-wide fused stack, a
 measured loss there) is left behind.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
 
 from egovlpv2_torch.core.config import TrainConfig
+from egovlpv2_torch.models.dropout import checkpoint_region
 from egovlpv2_torch.models.egovlp import EgoVLPv2, sim_matrix
 from egovlpv2_torch.objectives.itm_mining import mine_itm_indices
 from egovlpv2_torch.objectives.losses import (egonce_loss, itm_loss,
                                               masked_lm_loss,
                                               norm_softmax_loss)
-
-
-def _region(fn: Callable, generator: Optional[torch.Generator]) -> Callable:
-    """`fn` as one checkpoint region: its activations are dropped after
-    the forward and rebuilt in the backward. `checkpoint` restores only
-    PyTorch's global generators for the rebuild, so the state of the
-    model's own generator is put back here, and the rebuild draws the
-    dropout masks of the first run."""
-    first: Dict[str, torch.Tensor] = {}
-
-    def run(*args):
-        if generator is None:
-            return fn(*args)
-        if "state" not in first:
-            first["state"] = generator.get_state()
-            return fn(*args)
-        now = generator.get_state()
-        generator.set_state(first["state"])
-        try:
-            return fn(*args)
-        finally:
-            generator.set_state(now)
-
-    return lambda *args: checkpoint(run, *args, use_reentrant=False)
 
 
 def pretrain_loss_fn(model: EgoVLPv2, batch: Dict[str, torch.Tensor],
@@ -70,17 +48,14 @@ def pretrain_loss_fn(model: EgoVLPv2, batch: Dict[str, torch.Tensor],
     `generator` draws the ITM mining (the dropout masks come from the one
     given to `model.set_generator`, as a rule the same). Dropout follows
     the model's `train()` / `eval()` mode."""
-    if cfg.model.remat:
-        raise NotImplementedError(
-            "per-block rematerialisation (model.remat) is not ported "
-            "(ROADMAP.md, 'Still to port': remat per block); set "
-            "model.remat=false and use path_remat")
     lcfg = cfg.loss
     if path_remat is None:
         path_remat = cfg.path_remat
+    # one region a path only where the blocks are not regions themselves
+    path_remat = path_remat and not cfg.model.remat
 
     def bound(method: Callable) -> Callable:
-        return _region(method, generator) if path_remat else method
+        return checkpoint_region(method, generator) if path_remat else method
 
     ids, mask = batch["text_ids"], batch["text_mask"]
     # patchify once, reused by all three paths (kept, not rematerialised)
@@ -142,12 +117,17 @@ def batch_to_device(batch: Dict[str, np.ndarray],
 def make_train_step(model: EgoVLPv2, cfg: TrainConfig,
                     optimizer: torch.optim.Optimizer, scheduler,
                     generator: Optional[torch.Generator] = None,
-                    loss_scale: float = 1.0):
+                    loss_scale: float = 1.0,
+                    loss_fn: Optional[Callable] = None):
     """Returns step(batch) -> metrics: forward, backward, the optional
     gradient clip, one AdamW update and one scheduler step, in place on
     `model`. Metrics are detached tensors on the model's device (no
     synchronisation here); `grad_norm` joins them when
-    `cfg.log_grad_norm`."""
+    `cfg.log_grad_norm`. `loss_fn(model, batch)` returns (loss, metrics);
+    the default is `pretrain_loss_fn` with `generator` and `loss_scale`."""
+    if loss_fn is None:
+        loss_fn = functools.partial(pretrain_loss_fn, generator=generator,
+                                    cfg=cfg, loss_scale=loss_scale)
     device = next(model.parameters()).device
     params = [p for p in model.parameters() if p.requires_grad]
     model.set_generator(generator)
@@ -155,10 +135,14 @@ def make_train_step(model: EgoVLPv2, cfg: TrainConfig,
     def step(batch) -> Dict[str, torch.Tensor]:
         model.train()
         optimizer.zero_grad(set_to_none=True)
-        loss, metrics = pretrain_loss_fn(
-            model, batch_to_device(batch, device), generator, cfg=cfg,
-            loss_scale=loss_scale)
+        loss, metrics = loss_fn(model, batch_to_device(batch, device))
         loss.backward()
+        # A parameter the loss does not reach (the fusion gates of a dual
+        # model) has a zero gradient in the JAX package, where every leaf
+        # has one; it gets one here, so AdamW decays it alike.
+        for p in params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
         if cfg.optim.grad_clip is not None:
             norm = nn.utils.clip_grad_norm_(params, cfg.optim.grad_clip)
         elif cfg.log_grad_norm:

@@ -45,6 +45,7 @@ from egovlpv2_torch.weights import random_init_  # noqa: E402
 CONFIG = "configs/eval_egomcq.json"
 BATCH = 4
 HAND_KERNELS = ("space_fwd_kernel", "time_fwd_kernel", "cls_row_fwd_kernel")
+LN_KERNELS = ("layernorm_fwd_kernel",)
 GEMM_MARKS = ("gemm", "nvjet", "cutlass", "xmma")
 
 
@@ -54,6 +55,8 @@ def _kind(kernel_name: str) -> str:
         return "memcpy"
     if any(k in kernel_name for k in HAND_KERNELS):
         return "hand kernels (K1/K2/K3)"
+    if any(k in kernel_name for k in LN_KERNELS):
+        return "hand kernels, LayerNorm (K7)"
     if any(m in name for m in GEMM_MARKS):
         return "GEMM (cuBLAS)"
     if "reduce_kernel" in name:

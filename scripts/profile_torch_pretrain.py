@@ -49,6 +49,9 @@ KINDS = (  # first match wins
     ("hand kernels, backward (K4/K5/K6)", ("bwd_query_kernel",
                                             "bwd_key_kernel",
                                             "cls_row_bwd_kernel")),
+    ("hand kernels, LayerNorm (K7/K8)", ("layernorm_fwd_kernel",
+                                          "layernorm_bwd_kernel",
+                                          "layernorm_bwd_sum_kernel")),
     ("GEMM (cuBLAS)", ("gemm", "nvjet", "cutlass", "xmma", "gemv")),
     ("optimizer (AdamW, foreach)", ("multi_tensor", "adam")),
     ("reductions", ("reduce_kernel",)),
@@ -87,6 +90,14 @@ def profile_step(batch: int, out_dir: str, warm_ms: float) -> None:
     cfg = load_train_config(None, _sets(batch))
     _, _, _, step = build_pretrain(cfg, device="cuda")
     data = synthetic_batch(cfg, batch, np.random.default_rng(0))
+    profile_train_step(step, data, os.path.join(out_dir, "prof_pretrain.txt"),
+                       warm_ms)
+
+
+def profile_train_step(step, data, path: str, warm_ms: float) -> None:
+    """Two warm steps of `step(data)`, then one under torch.profiler: prints
+    its device time by kind, its device events and the busy share, and
+    writes the op table to `path`."""
     for _ in range(2):
         step(data)
     torch.cuda.synchronize()
@@ -112,8 +123,7 @@ def profile_step(batch: int, out_dir: str, warm_ms: float) -> None:
           f"{100 * device_ms / wall_ms:.1f}% of the profiled step (the profiler "
           f"slows the host), {100 * device_ms / warm_ms:.1f}% of the median "
           f"warm step of {warm_ms:.2f} ms", flush=True)
-    os.makedirs(out_dir, exist_ok=True)
-    path = os.path.join(out_dir, "prof_pretrain.txt")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
     with open(path, "w") as f:
         f.write(table.table(sort_by="self_device_time_total", row_limit=80))
     print(f"[profile] op table: {path}", flush=True)

@@ -119,6 +119,65 @@ def test_egomcq_accuracy_matches():
                 == jmetrics.egomcq_accuracy(preds, labels, types))
 
 
+def _metric_cases():
+    """name -> arguments, from one seed: similarities with ties, a
+    relevancy matrix with a 1 in every row and column, multi-hot targets
+    with an empty row and an empty class."""
+    rng = np.random.default_rng(11)
+    sims = np.round(rng.standard_normal((12, 12)), 1)  # rounded: ties
+    sims20 = rng.standard_normal((20, 10))  # two captions a video
+    mask = rng.random(20) < 0.8
+    mask[::2] = True  # every video keeps a caption
+    rel = np.round(rng.random((9, 7)), 2)
+    rel[np.arange(9), rng.integers(0, 7, 9)] = 1.0
+    rel[rng.integers(0, 9, 7), np.arange(7)] = 1.0
+    sim_vt = rng.standard_normal((9, 7))
+    gt = (rng.random((30, 6)) < 0.3).astype(np.int64)
+    gt[0], gt[:, 5] = 0, 0
+    gt[1, :5] = 1
+    sub = rng.standard_normal((30, 6))
+    preds = rng.standard_normal((15, 4))
+    labels = rng.integers(0, 4, 15)
+    return {
+        "t2v_metrics": [(sims,), (sims20,), (sims20, mask)],
+        "v2t_metrics": [(sims,), (sims20,), (sims20, mask)],
+        "calculate_k_counts": [(rel,)],
+        "calculate_nDCG": [(sim_vt, rel), (sim_vt, rel, None, None, "none")],
+        "calculate_mAP": [(sim_vt, rel)],
+        "mir_metrics": [(sim_vt, rel)],
+        "oscc_accuracy": [(preds, labels)],
+        "pnr_distance": [(preds, labels), (preds, labels, np.full(15, 30.0))],
+        "per_class_ap": [(sub, gt)],
+        "charades_map": [(sub, gt)],
+    }
+
+
+@pytest.mark.parametrize("name", sorted(_metric_cases()))
+def test_retrieval_metric_copy_matches(name):
+    """Each function of the port's `metrics/retrieval.py` gives what its
+    original gives, exactly (the same numpy calls on the same inputs)."""
+
+    def same(a, b):
+        if isinstance(a, dict):
+            assert list(a) == list(b)
+            for key in a:
+                same(a[key], b[key])
+        elif isinstance(a, tuple):
+            assert len(a) == len(b)
+            for x, y in zip(a, b):
+                same(x, y)
+        else:
+            np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+
+    for args in _metric_cases()[name]:
+        with np.errstate(invalid="ignore", divide="ignore"):
+            same(getattr(tmetrics, name)(*args), getattr(jmetrics, name)(*args))
+    public = lambda m: {n for n, f in vars(m).items()
+                        if callable(f) and not n.startswith("_")
+                        and getattr(f, "__module__", "") == m.__name__}
+    assert public(tmetrics) == public(jmetrics) >= set(_metric_cases())
+
+
 def test_synthetic_egomcq_batches_match(monkeypatch):
     monkeypatch.setenv("HF_HUB_OFFLINE", "1")
     sets = ["model.video.img_size=32", "model.video.num_frames=2",

@@ -17,6 +17,7 @@ import pytest
 import torch
 
 from egovlpv2_torch.ops import _kernels
+from egovlpv2_torch.ops import layernorm as ln
 from egovlpv2_torch.ops.divided import (divided_attention,
                                         divided_attention_backward_reference,
                                         divided_attention_reference)
@@ -180,6 +181,129 @@ def test_kernel_wrapper_rejects_what_it_cannot_take(cuda):
         divided_attention(qkv, scale=1.0, axis="space", num_frames=2)
 
 
+# LayerNorm (K7, K8). y and dx are held to max |reference| of the tensor:
+# 1e-5 in f32 (sums over a row in another order, rsqrt within 2 ulp), 2e-2
+# in bf16 (at most one bf16 step where the f32 values differ in the last
+# bits before the rounding). dscale and dbias are f32 sums over the rows in
+# another order than the plain version's: 1e-3 of max |reference|.
+LN_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+LN_CASES = [
+    # (R, D): the model's width with many, few and one row; the narrowest
+    # row; widths that leave lanes idle; one, two, four and eight warps a
+    # row, the widest row; strips of several rows a block in the backward.
+    (1570, 768), (240, 768), (1, 768), (7, 8), (301, 776), (33, 32),
+    (65, 128), (9, 1024), (130, 1032), (5, 2048), (3, 4096), (2, 8192),
+    (4500, 256),
+]
+
+
+def _ln_inputs(r, d, dtype, device):
+    rs = np.random.RandomState(r + d)
+    # an offset mean: E[x^2] - E[x]^2 then differs from a two-pass variance
+    x = torch.from_numpy((rs.randn(r, d) * 0.7 + 1.5).astype(np.float32))
+    g = torch.from_numpy(rs.randn(r, d).astype(np.float32))
+    scale = torch.from_numpy((1 + 0.2 * rs.randn(d)).astype(np.float32))
+    bias = torch.from_numpy((0.2 * rs.randn(d)).astype(np.float32))
+    return (x.to(device=device, dtype=dtype), g.to(device=device, dtype=dtype),
+            scale.to(device), bias.to(device))
+
+
+def _ln_rel(got, ref):
+    ref = ref.float()
+    return ((got.float() - ref).abs().max()
+            / ref.abs().max().clamp_min(1e-30)).item()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("eps", [1e-5, 1e-12])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", LN_CASES)
+def test_layernorm_kernels_match_plain(cuda, case, dtype, eps):
+    """K7 and K8 through the autograd Function against the plain forward
+    and the plain backward, twice: the backward has no atomics, so its
+    results repeat bit for bit."""
+    r, d = case
+    x, g, scale, bias = _ln_inputs(r, d, dtype, cuda)
+    before = dict(_kernels.launch_counts)
+    runs = []
+    for _ in range(2):
+        leaves = [t.clone().requires_grad_(True) for t in (x, scale, bias)]
+        y = ln.layernorm(*leaves, eps=eps)
+        y.backward(g)
+        torch.cuda.synchronize()
+        runs.append((y.detach(), *(t.grad for t in leaves)))
+    y, dx, dscale, dbias = runs[0]
+    assert y.dtype == dx.dtype == dtype and y.shape == dx.shape == x.shape
+    assert dscale.dtype == dbias.dtype == torch.float32
+    ref_y = ln.layernorm_reference(x, scale, bias, eps=eps)
+    ref_dx, ref_dscale, ref_dbias = ln.layernorm_backward_reference(
+        x, scale, g, eps)
+    assert _ln_rel(y, ref_y) <= LN_TOL[dtype]
+    assert _ln_rel(dx, ref_dx) <= LN_TOL[dtype]
+    assert _ln_rel(dscale, ref_dscale) <= 1e-3
+    assert _ln_rel(dbias, ref_dbias) <= 1e-3
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+    assert _kernels.launch_counts["layernorm_fwd"] == before["layernorm_fwd"] + 2
+    assert _kernels.launch_counts["layernorm_bwd"] == before["layernorm_bwd"] + 2
+
+
+@pytest.mark.gpu
+def test_layernorm_kernels_take_views_and_leading_axes(cuda):
+    """A sliced input and a strided cotangent are copied once each, and the
+    gradient comes back in the input's shape."""
+    x, g, scale, bias = _ln_inputs(6 * 10, 64, torch.bfloat16, cuda)
+    x, g = x.view(6, 10, 64), g.view(6, 10, 64)
+    leaf = x.clone().requires_grad_(True)
+    ln.contiguous_copies.update(x=0, g=0)
+    y = ln.layernorm(leaf[:, 0], scale, bias, eps=1e-5)
+    y.backward(g.transpose(0, 1)[0])
+    torch.cuda.synchronize()
+    assert ln.contiguous_copies == {"x": 1, "g": 1}
+    ref_dx, _, _ = ln.layernorm_backward_reference(
+        x[:, 0], scale, g.transpose(0, 1)[0], 1e-5)
+    assert leaf.grad.shape == x.shape
+    assert not leaf.grad[:, 1:].any()
+    assert _ln_rel(leaf.grad[:, 0], ref_dx) <= LN_TOL[torch.bfloat16]
+
+
+@pytest.mark.gpu
+def test_layernorm_wrapper_rejects_what_it_cannot_take(cuda):
+    w = torch.ones(12, device=cuda)
+    with pytest.raises(ValueError, match=r"\(4, 12\)"):  # D not a multiple of 8
+        ln.layernorm(torch.zeros(4, 12, device=cuda), w, w)
+    wide = torch.ones(8200, device=cuda)
+    with pytest.raises(ValueError, match=r"\(2, 8200\)"):
+        ln.layernorm(torch.zeros(2, 8200, device=cuda), wide, wide)
+    w = torch.ones(16, device=cuda)
+    with pytest.raises(TypeError):
+        ln.layernorm(torch.zeros(4, 16, device=cuda, dtype=torch.float16), w, w)
+    with pytest.raises(ValueError, match="float32"):
+        ln.layernorm(torch.zeros(4, 16, device=cuda), w.double(), w)
+
+
+def test_layernorm_cpu_tensor_takes_the_plain_versions():
+    """The Function's CPU route: the plain forward, and the written-out
+    backward within 1e-6 of autograd through the plain forward (f32, the
+    same formulas in another order); no kernel is launched."""
+    x, g, scale, bias = _ln_inputs(21, 40, torch.float32, "cpu")
+    x, g = x.view(3, 7, 40), g.view(3, 7, 40)
+    before = dict(_kernels.launch_counts)
+    grads = []
+    for fn in (ln.layernorm, ln.layernorm_reference):
+        leaves = [t.clone().requires_grad_(True) for t in (x, scale, bias)]
+        y = fn(*leaves, eps=1e-6)
+        y.backward(g)
+        grads.append((y.detach(), *(t.grad for t in leaves)))
+    assert torch.equal(grads[0][0], grads[1][0])
+    for got, ref in zip(grads[0][1:], grads[1][1:]):
+        assert got.shape == ref.shape
+        assert _ln_rel(got, ref) <= 1e-6
+    assert _kernels.launch_counts == before
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        ln.layernorm(torch.empty(2, 8, device="meta"), scale[:8], bias[:8])
+
+
 def test_cpu_tensor_takes_the_plain_version():
     qkv = _qkv(2, 2, 1 + 3 * 4, 2, 8)
     before = dict(_kernels.launch_counts)
@@ -220,7 +344,16 @@ def test_kernel_wrappers_refuse_cpu_tensors_before_building():
         _kernels.attention_bwd_scratch(qkv, num_heads=2, num_frames=2,
                                        axis="space")
     libs = _kernels.library_paths()
-    assert set(libs) == {"divided_attention.cu", "divided_attention_bwd.cu"}
+    x, w = torch.zeros(4, 16), torch.ones(16)
+    with pytest.raises(ValueError, match="CUDA"):
+        _kernels.layernorm_fwd(x, w, w, torch.empty_like(x), eps=1e-5)
+    with pytest.raises(ValueError, match="CUDA"):
+        _kernels.layernorm_bwd(x, w, x, torch.empty_like(x), w.clone(),
+                               w.clone(), torch.zeros(1, 2, 16), eps=1e-5)
+    with pytest.raises(ValueError, match="CUDA"):
+        _kernels.layernorm_bwd_scratch(x)
+    assert set(libs) == {"divided_attention.cu", "divided_attention_bwd.cu",
+                         "layernorm.cu"}
     for lib in libs.values():
         assert lib.parent == _kernels.BUILD_DIR
         assert lib.parent.parts[-2:] == ("build", "egovlpv2_torch")
@@ -262,6 +395,7 @@ def test_port_imports_no_jax():
         "import chip_smoke\n"
         "sys.path.insert(0, 'scripts')\n"
         "import profile_torch_egomcq, profile_torch_pretrain\n"
+        "import profile_torch_finetune\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'egovlpv2_tpu'))\n"
         "assert not bad, bad\n"
@@ -271,4 +405,4 @@ def test_port_imports_no_jax():
                           text=True, timeout=240,
                           cwd=Path(__file__).resolve().parents[1])
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip()) >= 28
+    assert int(proc.stdout.strip()) >= 29

@@ -1,9 +1,11 @@
 """egovlpv2_torch.ops against egovlpv2_tpu.ops on the CPU: the plain
-divided attention against the JAX Pallas kernel (interpret mode), and
-`attend` / `layernorm` against their JAX versions."""
+divided attention and the plain LayerNorm (forward and backward) against
+the JAX Pallas kernels (interpret mode), and `attend` / `layernorm`
+against their JAX versions."""
 
 import numpy as np
 import pytest
+import jax
 import jax.numpy as jnp
 import torch
 from jax.experimental.pallas import tpu as pltpu
@@ -89,3 +91,38 @@ def test_layernorm_matches_jax(dtype, tol):
     module.weight.data = torch.from_numpy(scale)
     module.bias.data = torch.from_numpy(bias)
     torch.testing.assert_close(module(torch.from_numpy(x)), got)
+
+
+@pytest.mark.parametrize("dtype, tol", [("float32", 1e-5), ("bfloat16", 2e-2)])
+@pytest.mark.parametrize("rows", [300, 7])  # 300: a partial last row tile
+@pytest.mark.parametrize("d", [128, 256])
+def test_plain_layernorm_matches_jax_pallas(d, rows, dtype, tol):
+    """`layernorm_reference` and `layernorm_backward_reference` against the
+    JAX package's Pallas LN kernels, forward and `jax.vjp`. Tolerance, of
+    max |reference| of each tensor: 1e-5 in f32 (row and column sums in
+    another order), 2e-2 in bf16 (one rounding step of y or dx where the
+    f32 values differ in their last bits); dscale and dbias are f32 on
+    both sides, sums of 300 products: 1e-5 in f32, 1e-3 from bf16 inputs."""
+    rs = np.random.RandomState(rows + d)
+    x = (rs.randn(rows, d) * 0.5 + 1.0).astype(np.float32)
+    g = rs.randn(rows, d).astype(np.float32)
+    scale = (1 + 0.1 * rs.randn(d)).astype(np.float32)
+    bias = (0.1 * rs.randn(d)).astype(np.float32)
+    jd, td = getattr(jnp, dtype), getattr(torch, dtype)
+    with pltpu.force_tpu_interpret_mode():
+        ref_y, vjp = jax.vjp(
+            lambda x, s, b: jln.layernorm(x, s, b, eps=1e-5, impl="pallas"),
+            jnp.asarray(x, jd), jnp.asarray(scale), jnp.asarray(bias))
+        ref = (ref_y, *vjp(jnp.asarray(g, jd)))
+    tx, tg = torch.from_numpy(x).to(td), torch.from_numpy(g).to(td)
+    ts, tb = torch.from_numpy(scale), torch.from_numpy(bias)
+    got = (tln.layernorm_reference(tx, ts, tb, eps=1e-5),
+           *tln.layernorm_backward_reference(tx, ts, tg, 1e-5))
+    sum_tol = 1e-5 if dtype == "float32" else 1e-3
+    for name, a, r, t in zip(("y", "dx", "dscale", "dbias"), got, ref,
+                             (tol, tol, sum_tol, sum_tol)):
+        r = np.asarray(r.astype(jnp.float32))
+        assert a.shape == r.shape, name
+        assert a.dtype == (td if name in ("y", "dx") else torch.float32), name
+        np.testing.assert_allclose(a.float().numpy(), r, rtol=0,
+                                   atol=t * np.abs(r).max(), err_msg=name)

@@ -2,8 +2,9 @@
 the CPU, f32: from the same parameters, the same synthetic batch and the
 same mined ITM indices, `pretrain_loss_fn` gives the same loss parts and
 the same gradient for every parameter, and three optimizer steps give the
-same parameters. Then the port's own machinery: path rematerialisation,
-dropout under it, the refusals, and the `pretrain` command."""
+same parameters. Then the port's own machinery: path and per-block
+rematerialisation, dropout under them, the refusals, and the `pretrain`
+command."""
 
 import dataclasses
 
@@ -298,11 +299,37 @@ def test_training_mode_dropout_is_on_and_eval_is_not():
 
 
 def test_step_refuses_per_block_remat():
+    """It refused once; now `tiny_train_config`, with `model.remat` on as
+    the JAX package's, runs as given: every block is a checkpoint region
+    and the paths are not (`path_remat and not model.remat`)."""
     cfg = tpretrain.tiny_train_config()
-    assert cfg.model.remat
+    assert cfg.model.remat and cfg.path_remat
     model, _, _, train = tpretrain.build_pretrain(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        train(tpretrain.synthetic_batch(cfg, 4))
+    assert model.video_model.remat and model.text_model.remat
+    metrics = train(tpretrain.synthetic_batch(cfg, 4))
+    assert set(metrics) == set(PARTS)
+    assert all(torch.isfinite(v) for v in metrics.values())
+
+
+@pytest.mark.parametrize("dropout", [0.0, 0.1], ids=["no_dropout", "dropout"])
+def test_block_remat_gives_the_same_gradients(dropout):
+    """`model.remat`: one checkpoint region a video block and a text layer,
+    in all three objective paths; the same losses and gradients as without
+    it, to f32 rounding, with the dropout masks of the first run."""
+    cfg = _configs()[1]
+    text = tconfig.replace(cfg.model.text, hidden_dropout=dropout, attn_dropout=dropout)
+    video = tconfig.replace(cfg.model.video, drop_rate=dropout, drop_path_rate=dropout)
+    cfg = tconfig.replace(cfg, model=tconfig.replace(cfg.model, text=text, video=video))
+    remat_cfg = tconfig.replace(cfg, model=tconfig.replace(cfg.model, remat=True))
+    batch = tpretrain.synthetic_batch(cfg, BATCH, np.random.default_rng(2))
+    plain_m, plain = _grads(cfg, batch, seed=0, path_remat=False)
+    # path_remat is asked for and gives way to the blocks' own regions
+    remat_m, remat = _grads(remat_cfg, batch, seed=0, path_remat=True)
+    for key in PARTS:
+        torch.testing.assert_close(remat_m[key], plain_m[key], rtol=1e-6, atol=1e-6)
+    for name in plain:
+        torch.testing.assert_close(remat[name], plain[name], rtol=1e-5, atol=1e-6,
+                                   msg=lambda m, name=name: f"{name}: {m}")
 
 
 def test_training_init_follows_the_jax_init():
