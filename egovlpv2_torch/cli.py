@@ -27,14 +27,29 @@ Subcommands:
         --config configs/ft_charades.json --steps_per_epoch 5 \
         --set global_batch_size=8 model.remat=false
 
+  extract  — EgoMQ-style dense window features: one [N_windows,
+             projection_dim] .npy/.pt a clip, from uint8 frames normalised
+             on the device, in inner batches of --inner_batch windows.
+             --synthetic <n_frames> takes seeded uint8 frames in place of
+             --videos (one clip, `synthetic`). Prints the shape and the
+             milliseconds of every inner batch.
+
+    python -m egovlpv2_torch.cli extract --config configs/extract_mq.json \
+        --device cuda --synthetic 2048 --out feats/ [--ckpt published.pth]
+
+`--ckpt <file.pth>` (egomcq, extract, pretrain, the fine-tunes) imports a
+checkpoint under the reference's names (`train/checkpoint_import.py`), the
+temporal embedding inflated to the config's frame count.
+
 Not ported yet, and refused with a NotImplementedError that names the
-ROADMAP item: real data (`--meta`, `--val_meta`, pretrain or a fine-tune
-without --synthetic, `--device_norm`), which needs the file readers and
-loaders of `egovlpv2_tpu/data/`; checkpoints (`--ckpt`, `--save_dir`,
-`--resume`); the retrieval visualizer (`--visualize`).
+ROADMAP item: real data (`--meta`, `--val_meta`, `--videos`, pretrain or a
+fine-tune without --synthetic, `--device_norm`), which needs the file
+readers and loaders of `egovlpv2_tpu/data/`; checkpoints saved by training
+(`--ckpt <directory>`, `--save_dir`, `--resume`); the retrieval visualizer
+(`--visualize`).
 
 Without a checkpoint every parameter is drawn from a torch.Generator seeded
-with the config's `seed` (`weights.random_init_` for egomcq,
+with the config's `seed` (`weights.random_init_` for egomcq and extract,
 `weights.training_init_` for pretrain and the fine-tunes). `--device cuda` on a machine
 without CUDA raises; it never carries on on the CPU.
 """
@@ -44,6 +59,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import os
 import time
 
 import numpy as np
@@ -59,6 +75,34 @@ def _device(name: str) -> torch.device:
         raise RuntimeError("--device cuda was asked for, but CUDA is not "
                            "available")
     return device
+
+
+def _checkpoint_file(ckpt_path):
+    """`--ckpt` as given, once it is known to be no directory: a directory
+    is a checkpoint saved by training, which is not ported."""
+    if ckpt_path and os.path.isdir(ckpt_path):
+        raise NotImplementedError(
+            f"--ckpt {ckpt_path} is a directory: checkpoints saved by "
+            "training (train/checkpoint.py) are not ported yet (ROADMAP.md "
+            "A8, checkpoints); pass a reference .pth file")
+    return ckpt_path
+
+
+def _load_checkpoint(model, cfg, ckpt_path) -> None:
+    """Overlay the reference-named checkpoint file `ckpt_path` onto
+    `model`, in place (the JAX CLI's `_load_params`); None leaves the
+    seeded parameters."""
+    if not ckpt_path:
+        return
+    from egovlpv2_torch.train.checkpoint_import import (
+        import_reference_checkpoint, load_torch_state_dict)
+
+    state_dict, report = import_reference_checkpoint(
+        load_torch_state_dict(ckpt_path), model.state_dict(),
+        num_frames=cfg.model.video.num_frames)
+    model.load_state_dict(state_dict, strict=True)
+    print(f"imported {len(report['imported'])} tensors from {ckpt_path} "
+          f"({len(report['skipped'])} skipped)")
 
 
 def _synthetic_egomcq_batches(cfg, tokenizer_name: str, batch_size: int,
@@ -109,10 +153,7 @@ def cmd_egomcq(args) -> dict:
     from egovlpv2_torch.weights import random_init_
 
     device = _device(args.device)
-    if args.ckpt:
-        raise NotImplementedError(
-            "checkpoint import into egovlpv2_torch is not ported yet "
-            "(ROADMAP.md A8, checkpoints)")
+    ckpt = _checkpoint_file(args.ckpt)
     if args.meta:
         raise NotImplementedError(
             "EgoMCQ files (--meta) need the dataset readers and the loader "
@@ -122,6 +163,7 @@ def cmd_egomcq(args) -> dict:
     cfg = load_train_config(args.config, args.set)
     model = EgoVLPv2(cfg.model, device=device).eval()
     random_init_(model, torch.Generator().manual_seed(cfg.seed))
+    _load_checkpoint(model, cfg, ckpt)
     batches = _synthetic_egomcq_batches(cfg, args.tokenizer, args.batch_size,
                                         args.val_batches)
     record = []
@@ -143,10 +185,50 @@ def cmd_egomcq(args) -> dict:
             "clips_per_step": clips}
 
 
+def cmd_extract(args) -> dict:
+    """MQ-style dense window features: one .npy/.pt per clip (test_mq.py)."""
+    from egovlpv2_torch.models.egovlp import EgoVLPv2
+    from egovlpv2_torch.tasks.extract import FeatureExtractor, save_features
+    from egovlpv2_torch.weights import random_init_
+
+    device = _device(args.device)
+    ckpt = _checkpoint_file(args.ckpt)
+    if args.videos:
+        raise NotImplementedError(
+            "video files (--videos) need the file readers and the eval "
+            "transform of egovlpv2_tpu/data/, which are not ported yet "
+            "(ROADMAP.md A7, data readers and loaders); pass --synthetic "
+            "<n_frames> for seeded frames")
+    if not args.synthetic or args.synthetic < 1:
+        raise ValueError("extract needs --synthetic <n_frames> (>= 1)")
+    cfg = load_train_config(args.config, args.set)
+    model = EgoVLPv2(cfg.model, device=device).eval()
+    random_init_(model, torch.Generator().manual_seed(cfg.seed))
+    _load_checkpoint(model, cfg, ckpt)
+    # normalize on the device: ship compact uint8 windows (4x fewer
+    # host-to-device bytes) and apply (x/255 - mean)/std there
+    ex = FeatureExtractor(model, inner_batch=args.inner_batch,
+                          device_norm="imagenet")
+    v = cfg.model.video
+    res = args.input_res
+    uid = "synthetic"  # the one clip; a file's stem once --videos is ported
+    frames = np.random.default_rng(cfg.seed).integers(
+        0, 256, (args.synthetic, res, res, v.in_chans), dtype=np.uint8)
+    feats = ex.clip_features(frames, v.num_frames)
+    save_features(os.path.join(args.out, uid), feats)
+    print(f"{uid}: {feats.shape}")
+    batches = [{"shape": list(shape), "ms": round(ms, 3)}
+               for shape, ms in ex.batch_log]
+    print(json.dumps({"device": str(device), "inner_batches": batches}))
+    return {"features": {uid: feats}, "inner_batches": ex.batch_log,
+            "model": model}
+
+
 def cmd_pretrain(args) -> dict:
     from egovlpv2_torch.tasks.pretrain import build_pretrain, synthetic_batch
 
     device = _device(args.device)
+    ckpt = _checkpoint_file(args.ckpt)
     if not args.synthetic:
         raise NotImplementedError(
             "pre-training on EgoClip files needs the dataset readers and the "
@@ -158,6 +240,7 @@ def cmd_pretrain(args) -> dict:
             "checkpoints); run without --save_dir and --resume")
     cfg = load_train_config(args.config, args.set)
     model, _, _, train_step = build_pretrain(cfg, device=device)
+    _load_checkpoint(model, cfg, ckpt)
     logged, seconds = _train_loop(
         args, device, train_step,
         lambda epoch: (synthetic_batch(
@@ -198,11 +281,11 @@ def cmd_dual_ft(args) -> dict:
     from egovlpv2_torch.tasks.retrieval import build_dual, synthetic_dual_batch
 
     device = _device(args.device)
-    if args.ckpt or args.save_dir or args.resume:
+    ckpt = _checkpoint_file(args.ckpt)
+    if args.save_dir or args.resume:
         raise NotImplementedError(
-            "checkpoint import, save and resume are not ported yet "
-            "(ROADMAP.md A8, checkpoints); run without --ckpt, --save_dir "
-            "and --resume")
+            "checkpoint save and resume are not ported yet (ROADMAP.md A8, "
+            "checkpoints); run without --save_dir and --resume")
     if not args.synthetic or args.meta or args.val_meta or args.device_norm:
         raise NotImplementedError(
             "fine-tuning and validating on Charades-Ego / EK-100 files "
@@ -226,6 +309,7 @@ def cmd_dual_ft(args) -> dict:
         max_text_len=30,  # fine-tunes tokenize at 30 (trainer_epic.py:134)
     )
     model, _, _, train_step = build_dual(cfg, device=device)
+    _load_checkpoint(model, cfg, ckpt)
     tok = Tokenizer(args.tokenizer, max_len=cfg.max_text_len,
                     vocab_cap=cfg.model.text.vocab_size)
 
@@ -251,6 +335,7 @@ def main(argv=None):
     p.add_argument("--epochs", type=int, default=1)
     p.add_argument("--steps_per_epoch", type=int, default=10)
     p.add_argument("--log_every", type=int, default=1)
+    p.add_argument("--ckpt", default=None, help="reference .pth to import")
     p.add_argument("--save_dir", default=None, help="not ported yet: raises")
     p.add_argument("--resume", action="store_true",
                    help="not ported yet: raises")
@@ -262,7 +347,7 @@ def main(argv=None):
     e.add_argument("--set", nargs="*", default=[], help="dotted.key=value")
     e.add_argument("--tokenizer", default="roberta-base")
     e.add_argument("--meta", default=None, help="not ported yet: raises")
-    e.add_argument("--ckpt", default=None, help="not ported yet: raises")
+    e.add_argument("--ckpt", default=None, help="reference .pth to import")
     e.add_argument("--batch_size", type=int, default=4)
     e.add_argument("--val_batches", type=int, default=2,
                    help="synthetic-mode batch count")
@@ -270,6 +355,20 @@ def main(argv=None):
     e.add_argument("--out", default=None, help="write metrics JSON here")
     e.add_argument("--device", default="cuda", help="cuda, cuda:<i> or cpu")
     e.set_defaults(fn=cmd_egomcq)
+
+    x = sub.add_parser("extract")
+    x.add_argument("--config", default=None)
+    x.add_argument("--set", nargs="*", default=[], help="dotted.key=value")
+    x.add_argument("--ckpt", default=None, help="reference .pth to import")
+    x.add_argument("--videos", default=None,
+                   help="glob of video files; not ported yet: raises")
+    x.add_argument("--synthetic", type=int, default=None, metavar="N_FRAMES",
+                   help="seeded uint8 frames in place of --videos, one clip")
+    x.add_argument("--out", required=True, help="output feature dir")
+    x.add_argument("--inner_batch", type=int, default=64)
+    x.add_argument("--input_res", type=int, default=224)
+    x.add_argument("--device", default="cuda", help="cuda, cuda:<i> or cpu")
+    x.set_defaults(fn=cmd_extract)
 
     for name, dataset in (("ft-charades", "charades"), ("ft-epic", "epic")):
         f = sub.add_parser(name)
@@ -280,7 +379,9 @@ def main(argv=None):
         f.add_argument("--epochs", type=int, default=1)
         f.add_argument("--steps_per_epoch", type=int, default=10)
         f.add_argument("--log_every", type=int, default=1)
-        for flag in ("--meta", "--val_meta", "--ckpt", "--save_dir"):
+        f.add_argument("--ckpt", default=None,
+                       help="reference .pth to import")
+        for flag in ("--meta", "--val_meta", "--save_dir"):
             f.add_argument(flag, default=None, help="not ported yet: raises")
         for flag in ("--resume", "--device_norm", "--visualize"):
             f.add_argument(flag, action="store_true",

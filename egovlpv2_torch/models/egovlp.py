@@ -127,6 +127,16 @@ class EgoVLPv2(nn.Module):
             x = self.txt_proj(x)
         return x
 
+    def compute_text_tokens(self, input_ids: torch.Tensor,
+                            attention_mask: torch.Tensor,
+                            project: bool = True) -> torch.Tensor:
+        """Every token of the dual text tower [B, S, D] (`compute_text`
+        keeps the first alone)."""
+        x = self.text_model(input_ids, attention_mask)
+        if project and self.txt_proj is not None:
+            x = self.txt_proj(x)
+        return x
+
     # ---------------- fused stack ----------------
 
     def video_unfused(self, video: Optional[torch.Tensor],

@@ -36,6 +36,7 @@ _SOURCES = {
         "space_attention_bwd", "time_attention_bwd", "cls_row_attention_bwd",
         "attention_bwd_parts"),
     "layernorm.cu": ("layernorm_fwd", "layernorm_bwd", "layernorm_bwd_parts"),
+    "fused_attention.cu": ("fused_attention_fwd",),
 }
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "egovlpv2_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -47,7 +48,8 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 launch_counts = {"space_attention_fwd": 0, "time_attention_fwd": 0,
                  "cls_row_attention_fwd": 0, "space_attention_bwd": 0,
                  "time_attention_bwd": 0, "cls_row_attention_bwd": 0,
-                 "layernorm_fwd": 0, "layernorm_bwd": 0}
+                 "layernorm_fwd": 0, "layernorm_bwd": 0,
+                 "fused_attention_fwd": 0}
 
 
 def reset_launch_counts() -> None:
@@ -116,6 +118,7 @@ def load() -> SimpleNamespace:
         for name in _SOURCES[source]:
             setattr(fns, name, getattr(cdll, name))
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    i64 = ctypes.c_int64
     for fn in (fns.space_attention_fwd, fns.time_attention_fwd):
         fn.argtypes = [ptr, ptr, i32, i32, i32, i32, i32, i32, f32, ptr]
         fn.restype = i32
@@ -138,6 +141,9 @@ def load() -> SimpleNamespace:
     fns.layernorm_bwd.restype = i32
     fns.layernorm_bwd_parts.argtypes = [i32, i32]
     fns.layernorm_bwd_parts.restype = i32
+    fns.fused_attention_fwd.argtypes = [ptr] * 5 + [i32] * 6 + [i64] * 14 \
+        + [f32, ptr]
+    fns.fused_attention_fwd.restype = i32
     fns.cuda_error_string.argtypes = [i32]
     fns.cuda_error_string.restype = ctypes.c_char_p
     return fns
@@ -413,5 +419,88 @@ def layernorm_bwd(x: torch.Tensor, scale: torch.Tensor, g: torch.Tensor,
             x.data_ptr(), scale.data_ptr(), g.data_ptr(), dx.data_ptr(),
             dscale.data_ptr(), dbias.data_ptr(), partials.data_ptr(), rows, d,
             float(eps), _DTYPE_CODES[x.dtype], stream)
+    _raise_on_error(name, code)
+    launch_counts[name] += 1
+
+
+# ---------------- fused attention ----------------
+
+
+def attention_strides(t: torch.Tensor):
+    """The (batch, head, row) strides, in elements, of a [B, H, S, Dh] tensor
+    the attention kernel can read or write by stride (Dh contiguous, every
+    row 16-byte aligned), else None."""
+    sb, sh, ss, sd = t.stride()
+    b, h, s, _ = t.shape
+    per16 = 16 // t.element_size()
+    if sd != 1 or t.data_ptr() % 16 or (s > 1 and ss % per16) \
+            or (h > 1 and sh % per16) or (b > 1 and sb % per16):
+        return None
+    return sb, sh, ss
+
+
+def _check_strided(name: str, t: torch.Tensor, like: torch.Tensor,
+                   shape: tuple) -> tuple:
+    """`t` on `like`'s device, of its dtype and of `shape`; returns its
+    `attention_strides`."""
+    if t.device != like.device or t.dtype != like.dtype \
+            or tuple(t.shape) != shape:
+        raise ValueError(f"{name} must be {shape} {like.dtype} on "
+                         f"{like.device}, got {tuple(t.shape)} {t.dtype} "
+                         f"{t.device}")
+    strides = attention_strides(t)
+    if strides is None:
+        raise ValueError(f"kernel needs {name} with a contiguous head dim and "
+                         f"16-byte aligned rows, got strides {t.stride()}")
+    return strides
+
+
+def fused_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        bias, out: torch.Tensor, *, scale: float) -> None:
+    """K9: out = softmax((q * scale) @ k^T + bias) @ v, written into `out`.
+
+    q and out [B, H, Sq, Dh], k and v [B, H, Sk, Dh], float32 or bfloat16,
+    each read or written by its own strides (Dh contiguous, rows 16-byte
+    aligned); `bias` is None or a float32 additive row [B or 1, H or 1, 1,
+    Sk], Sk contiguous, broadcast over the axes of size 1."""
+    name = "fused_attention_fwd"
+    if q.device.type != "cuda":
+        raise ValueError(f"kernel needs q on a CUDA device, got {q.device}")
+    if q.dtype not in _DTYPE_CODES:
+        raise TypeError(f"kernel takes float32 or bfloat16, got {q.dtype}")
+    if q.dim() != 4 or k.dim() != 4:
+        raise ValueError(f"kernel takes q [B, H, Sq, Dh] and k, v [B, H, Sk, "
+                         f"Dh], got {tuple(q.shape)} and {tuple(k.shape)}")
+    b, h, sq, dh = q.shape
+    sk = k.shape[2]
+    if dh < 8 or dh % 8 or dh > 128 or sq < 1 or sk < 1:
+        raise ValueError(f"attention kernel takes a head dim that is a "
+                         f"multiple of 8 up to 128 and Sq, Sk >= 1, got q "
+                         f"{tuple(q.shape)}, k {tuple(k.shape)}")
+    strides = (*_check_strided("q", q, q, (b, h, sq, dh)),
+               *_check_strided("k", k, q, (b, h, sk, dh)),
+               *_check_strided("v", v, q, (b, h, sk, dh)),
+               *_check_strided("out", out, q, (b, h, sq, dh)))
+    bias_ptr, bias_b, bias_h = None, 0, 0
+    if bias is not None:
+        if bias.device != q.device or bias.dtype != torch.float32 \
+                or bias.dim() != 4 or bias.shape[0] not in (1, b) \
+                or bias.shape[1] not in (1, h) \
+                or tuple(bias.shape[2:]) != (1, sk) \
+                or (sk > 1 and bias.stride(3) != 1):
+            raise ValueError(f"bias must be float32 [{b} or 1, {h} or 1, 1, "
+                             f"{sk}] on {q.device} with contiguous keys, got "
+                             f"{tuple(bias.shape)} {bias.dtype} {bias.device} "
+                             f"strides {bias.stride()}")
+        bias_ptr = bias.data_ptr()
+        bias_b = bias.stride(0) if bias.shape[0] > 1 else 0
+        bias_h = bias.stride(1) if bias.shape[1] > 1 else 0
+
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        code = load().fused_attention_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), bias_ptr,
+            out.data_ptr(), _DTYPE_CODES[q.dtype], b, h, sq, sk, dh,
+            *strides, bias_b, bias_h, float(scale), stream)
     _raise_on_error(name, code)
     launch_counts[name] += 1

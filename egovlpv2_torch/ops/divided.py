@@ -26,7 +26,7 @@ from __future__ import annotations
 import torch
 
 from egovlpv2_torch.ops import _kernels
-from egovlpv2_torch.ops.attention import attend
+from egovlpv2_torch.ops.attention import attend_plain
 
 _AXES = ("space", "time")
 
@@ -34,7 +34,7 @@ _AXES = ("space", "time")
 def cls_row_reference(qkv: torch.Tensor, *, scale: float) -> torch.Tensor:
     """Row 0 of the output: the CLS query over all S keys. [B, 1, H, Dh]."""
     q, k, v = qkv.permute(2, 0, 3, 1, 4).unbind(0)  # [B, H, S, Dh] each
-    return attend(q[:, :, :1], k, v, scale=scale).transpose(1, 2)
+    return attend_plain(q[:, :, :1], k, v, scale=scale).transpose(1, 2)
 
 
 def grouped_reference(qkv: torch.Tensor, *, scale: float, axis: str,
@@ -56,7 +56,7 @@ def grouped_reference(qkv: torch.Tensor, *, scale: float, axis: str,
     g = qg.shape[2]
     kg = torch.cat([k[:, :, None, :1].expand(b, h, g, 1, dh), kg], dim=3)
     vg = torch.cat([v[:, :, None, :1].expand(b, h, g, 1, dh), vg], dim=3)
-    out = attend(qg, kg, vg, scale=scale)
+    out = attend_plain(qg, kg, vg, scale=scale)
     if axis == "time":
         out = out.transpose(2, 3)
     return out.reshape(b, h, f * n, dh).transpose(1, 2)

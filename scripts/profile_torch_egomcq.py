@@ -46,6 +46,7 @@ CONFIG = "configs/eval_egomcq.json"
 BATCH = 4
 HAND_KERNELS = ("space_fwd_kernel", "time_fwd_kernel", "cls_row_fwd_kernel")
 LN_KERNELS = ("layernorm_fwd_kernel",)
+FLASH_KERNELS = ("fused_attention_fwd_kernel", "fused_fwd_kernel")
 GEMM_MARKS = ("gemm", "nvjet", "cutlass", "xmma")
 
 
@@ -57,6 +58,8 @@ def _kind(kernel_name: str) -> str:
         return "hand kernels (K1/K2/K3)"
     if any(k in kernel_name for k in LN_KERNELS):
         return "hand kernels, LayerNorm (K7)"
+    if any(k in kernel_name for k in FLASH_KERNELS):
+        return "hand kernel, fused attention (K9)"
     if any(m in name for m in GEMM_MARKS):
         return "GEMM (cuBLAS)"
     if "reduce_kernel" in name:

@@ -52,6 +52,8 @@ KINDS = (  # first match wins
     ("hand kernels, LayerNorm (K7/K8)", ("layernorm_fwd_kernel",
                                           "layernorm_bwd_kernel",
                                           "layernorm_bwd_sum_kernel")),
+    ("hand kernel, fused attention (K9)", ("fused_attention_fwd_kernel",
+                                           "fused_fwd_kernel")),
     ("GEMM (cuBLAS)", ("gemm", "nvjet", "cutlass", "xmma", "gemv")),
     ("optimizer (AdamW, foreach)", ("multi_tensor", "adam")),
     ("reductions", ("reduce_kernel",)),

@@ -73,9 +73,10 @@ def test_cli_egomcq_runs_on_cpu():
     assert all(0.0 <= v <= 100.0 for v in res["metrics"].values())
 
 
-def test_cli_refuses_what_it_cannot_do():
+def test_cli_refuses_what_it_cannot_do(tmp_path):
+    # a directory is a checkpoint saved by training; a .pth file imports
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cli.main(["egomcq", "--device", "cpu", "--ckpt", "model.pth"])
+        cli.main(["egomcq", "--device", "cpu", "--ckpt", str(tmp_path)])
     if torch.cuda.is_available():
         pytest.skip("the CUDA refusal needs a machine without CUDA")
     with pytest.raises(RuntimeError, match="CUDA is not available"):

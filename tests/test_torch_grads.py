@@ -143,7 +143,7 @@ def test_attend_dropout_draws_from_its_generator():
     q = torch.zeros(4, 8, 32, 16)  # zero logits: uniform probabilities 1/64
     k = torch.zeros(4, 8, 64, 16)
     v = torch.eye(64).expand(4, 8, 64, 64).contiguous()  # out = the probs
-    def run(seed, p=0.1):
+    def run(seed, p=0.1, v=v):
         gen = torch.Generator().manual_seed(seed)
         return tattn.attend(q, k, v, scale=1.0, prob_dropout=p, generator=gen), gen
     a, _ = run(0)
@@ -153,7 +153,8 @@ def test_attend_dropout_draws_from_its_generator():
     kept = a > 0
     assert abs(kept.float().mean().item() - 0.9) < 0.01  # 65,536 draws
     torch.testing.assert_close(a[kept], torch.full_like(a[kept], 1 / 64 / 0.9))
-    plain, gen = run(0, p=0.0)
+    # without dropout the fused path runs: v's width is the head dim there
+    plain, gen = run(0, p=0.0, v=v[..., :16].contiguous())
     assert torch.equal(gen.get_state(), torch.Generator().manual_seed(0).get_state())
     torch.testing.assert_close(plain, torch.full_like(plain, 1 / 64))
 

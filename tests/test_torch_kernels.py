@@ -17,7 +17,10 @@ import pytest
 import torch
 
 from egovlpv2_torch.ops import _kernels
+from egovlpv2_torch.ops import flash
 from egovlpv2_torch.ops import layernorm as ln
+from egovlpv2_torch.ops.attention import (attend, attend_plain,
+                                          make_additive_mask)
 from egovlpv2_torch.ops.divided import (divided_attention,
                                         divided_attention_backward_reference,
                                         divided_attention_reference)
@@ -282,6 +285,156 @@ def test_layernorm_wrapper_rejects_what_it_cannot_take(cuda):
         ln.layernorm(torch.zeros(4, 16, device=cuda), w.double(), w)
 
 
+# Fused attention (K9) against `flash_attention_reference` on the same values
+# in f32, not rounded: max abs error of max |reference|, 1e-4 in f32 (sums
+# over the keys in another order, expf within 2 ulp) and 4e-3 in bf16 (both
+# forms keep P in f32 as the reference does, the tensor-core form as two bf16
+# terms, so what is left is the one rounding of the output: 2^-8 of the
+# largest value).
+FLASH_TOL = {torch.float32: 1e-4, torch.bfloat16: 4e-3}
+FLASH_CASES = [
+    # (B, H, Sq, Sk, Dh, layout, bias): text self-attention at 15 and 30
+    # tokens; i2t (many queries, few keys, k and v slices of one packed
+    # projection); t2i (few queries, keys split over a block's warps);
+    # lengths above the JAX package's threshold; an odd case; one query row;
+    # one key; the narrowest and the widest head dim.
+    (4, 12, 15, 15, 64, "heads", "mask"),
+    (2, 12, 30, 30, 64, "heads", "mask"),
+    (2, 12, 785, 15, 64, "packed", "mask"),
+    (2, 12, 15, 785, 64, "heads", None),
+    (1, 2, 30, 3137, 64, "heads", None),
+    (2, 3, 197, 197, 64, "heads", None),
+    (2, 2, 64, 64, 64, "plain", "mask"),
+    (2, 3, 37, 33, 40, "plain", "mask"),
+    (1, 2, 1, 300, 64, "heads", "mask"),
+    (2, 2, 9, 1, 16, "plain", None),
+    (3, 2, 50, 70, 8, "heads", "mask"),
+    (1, 2, 20, 500, 128, "heads", "masked_row"),
+    (2, 2, 16, 20, 64, "heads", "masked_row"),
+]
+
+
+def _flash_inputs(case, dtype, device):
+    """q, k, v [B, H, S, Dh] and the bias, laid out as the models give
+    them: "heads" transposed views of [B, S, H*Dh] projections, "packed" k
+    and v slices of one [B, Sk, 2, H, Dh] projection, "plain" contiguous."""
+    b, h, sq, sk, dh, layout, bias_kind = case
+    rs = np.random.RandomState(sq * 7 + sk)
+
+    def proj(s, parts=1):
+        x = torch.from_numpy(rs.randn(b, s, parts, h, dh).astype(np.float32))
+        return x.to(device=device, dtype=dtype)
+
+    q = proj(sq)[:, :, 0].transpose(1, 2)
+    if layout == "packed":
+        kv = proj(sk, 2).permute(2, 0, 3, 1, 4)
+        k, v = kv[0], kv[1]
+    else:
+        k, v = (proj(sk)[:, :, 0].transpose(1, 2) for _ in range(2))
+    if layout == "plain":
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    bias = None
+    if bias_kind is not None:
+        mask = (rs.rand(b, sk) > 0.3).astype(np.int64)
+        mask[:, 0] = 1
+        if bias_kind == "masked_row":
+            mask[0] = 0  # every key of batch 0 masked: uniform over them
+        bias = make_additive_mask(torch.from_numpy(mask)).to(device)
+    return q, k, v, bias
+
+
+def _flash_rel(got, ref):
+    ref = ref.float()
+    return ((got.float() - ref).abs().max()
+            / ref.abs().max().clamp_min(1e-30)).item()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", FLASH_CASES)
+def test_fused_attention_kernel_matches_plain(cuda, case, dtype):
+    """K9 through `attend`, forward and gradients, twice: no atomics, so
+    the results repeat bit for bit; no input is copied."""
+    b, h, sq, sk, dh = case[:5]
+    q, k, v, bias = _flash_inputs(case, dtype, cuda)
+    g = torch.from_numpy(np.random.RandomState(5).randn(b, h, sq, dh).astype(
+        np.float32)).to(device=cuda, dtype=dtype)
+    before = dict(_kernels.launch_counts)
+    flash.contiguous_copies.update(q=0, k=0, v=0, bias=0)
+    runs = []
+    for _ in range(2):
+        leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+        out = attend(*leaves, scale=dh ** -0.5, bias=bias)
+        out.backward(g)
+        torch.cuda.synchronize()
+        runs.append((out.detach(), *(t.grad for t in leaves)))
+    out = attend(q, k, v, scale=dh ** -0.5, bias=bias)  # the strided views
+    torch.cuda.synchronize()
+    assert _kernels.launch_counts["fused_attention_fwd"] \
+        == before["fused_attention_fwd"] + 3
+    assert flash.contiguous_copies == {"q": 0, "k": 0, "v": 0, "bias": 0}
+    assert out.shape == (b, h, sq, dh) and out.dtype == dtype
+    assert out.transpose(1, 2).reshape(b, sq, h * dh).data_ptr() == out.data_ptr()
+    ref = flash.flash_attention_reference(q.float(), k.float(), v.float(),
+                                          scale=dh ** -0.5, bias=bias)
+    assert torch.isfinite(out).all()
+    assert _flash_rel(out, ref) <= FLASH_TOL[dtype]
+    assert _flash_rel(runs[0][0], ref) <= FLASH_TOL[dtype]
+    if case[6] == "masked_row":
+        uniform = v[0].float().mean(dim=-2, keepdim=True).expand(h, sq, dh)
+        assert _flash_rel(out[0], uniform) <= FLASH_TOL[dtype]
+    # gradients against autograd through the plain version
+    leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+    flash.flash_attention_reference(*leaves, scale=dh ** -0.5,
+                                    bias=bias).backward(g)
+    for got, leaf in zip(runs[0][1:], leaves):
+        assert got.shape == leaf.shape and got.dtype == dtype
+        assert _flash_rel(got, leaf.grad) <= BWD_RTOL[dtype]
+    for a, b_ in zip(*runs):
+        assert torch.equal(a, b_)
+
+
+@pytest.mark.gpu
+def test_fused_attention_takes_leading_axes_and_counts_copies(cuda):
+    """Any number of leading axes; an input the kernel cannot read by
+    stride is copied and counted."""
+    rs = np.random.RandomState(6)
+    q = torch.from_numpy(rs.randn(2, 3, 2, 37, 40).astype(np.float32)).to(cuda)
+    k = torch.from_numpy(rs.randn(2, 3, 2, 33, 40).astype(np.float32)).to(cuda)
+    v = torch.from_numpy(rs.randn(2, 3, 2, 33, 40).astype(np.float32)).to(cuda)
+    flash.contiguous_copies.update(q=0, k=0, v=0, bias=0)
+    for lead in (5, 3, 2):
+        qq, kk, vv = (t[(0,) * (5 - lead)] for t in (q, k, v))
+        got = flash.flash_attention(qq, kk, vv, scale=0.2)
+        ref = flash.flash_attention_reference(qq, kk, vv, scale=0.2)
+        assert got.shape == ref.shape
+        assert _flash_rel(got, ref) <= TOL[torch.float32]
+    assert flash.contiguous_copies == {"q": 0, "k": 0, "v": 0, "bias": 0}
+    kt = k.transpose(-1, -2).contiguous().transpose(-1, -2)  # Dh strided
+    got = flash.flash_attention(q, kt, v, scale=0.2,
+                                bias=torch.zeros(1, 33, device=cuda,
+                                                 dtype=torch.float64))
+    assert _flash_rel(got, flash.flash_attention_reference(
+        q, k, v, scale=0.2)) <= TOL[torch.float32]
+    assert flash.contiguous_copies == {"q": 0, "k": 1, "v": 0, "bias": 1}
+
+
+@pytest.mark.gpu
+def test_attend_with_dropout_keeps_the_plain_path_on_the_card(cuda):
+    q, k, v, bias = _flash_inputs(FLASH_CASES[0], torch.bfloat16, cuda)
+    before = dict(_kernels.launch_counts)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    out = attend(q, k, v, scale=0.125, bias=bias, prob_dropout=0.1,
+                 generator=gen)
+    assert out.shape == q.shape and _kernels.launch_counts == before
+    attend(q, k, v, scale=0.125, bias=bias)
+    assert _kernels.launch_counts["fused_attention_fwd"] \
+        == before["fused_attention_fwd"] + 1
+    # the plain code agrees with the kernel but for its rounding of P
+    assert _flash_rel(attend_plain(q, k, v, scale=0.125, bias=bias),
+                      attend(q, k, v, scale=0.125, bias=bias)) <= 2e-2
+
+
 def test_layernorm_cpu_tensor_takes_the_plain_versions():
     """The Function's CPU route: the plain forward, and the written-out
     backward within 1e-6 of autograd through the plain forward (f32, the
@@ -352,8 +505,12 @@ def test_kernel_wrappers_refuse_cpu_tensors_before_building():
                                w.clone(), torch.zeros(1, 2, 16), eps=1e-5)
     with pytest.raises(ValueError, match="CUDA"):
         _kernels.layernorm_bwd_scratch(x)
+    q4 = torch.zeros(1, 2, 5, 8)
+    with pytest.raises(ValueError, match="CUDA"):
+        _kernels.fused_attention_fwd(q4, q4, q4, None, torch.empty_like(q4),
+                                     scale=1.0)
     assert set(libs) == {"divided_attention.cu", "divided_attention_bwd.cu",
-                         "layernorm.cu"}
+                         "layernorm.cu", "fused_attention.cu"}
     for lib in libs.values():
         assert lib.parent == _kernels.BUILD_DIR
         assert lib.parent.parts[-2:] == ("build", "egovlpv2_torch")
@@ -395,7 +552,8 @@ def test_port_imports_no_jax():
         "import chip_smoke\n"
         "sys.path.insert(0, 'scripts')\n"
         "import profile_torch_egomcq, profile_torch_pretrain\n"
-        "import profile_torch_finetune\n"
+        "import profile_torch_finetune, profile_torch_extract\n"
+        "import profile_torch_flash\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'egovlpv2_tpu'))\n"
         "assert not bad, bad\n"
@@ -405,4 +563,4 @@ def test_port_imports_no_jax():
                           text=True, timeout=240,
                           cwd=Path(__file__).resolve().parents[1])
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip()) >= 29
+    assert int(proc.stdout.strip()) >= 35

@@ -462,10 +462,11 @@ def test_synthetic_dual_batch_matches_the_jax_cli_draws(monkeypatch):
     assert set(second) == {"video", "text_ids", "text_mask"}
 
 
-def test_cli_dual_finetune_refuses_what_is_not_ported():
+def test_cli_dual_finetune_refuses_what_is_not_ported(tmp_path):
     for command in ("ft-charades", "ft-epic"):
         base = [command, "--device", "cpu"]
-        for extra, what in ((["--synthetic", "--ckpt", "w.pth"], "checkpoints"),
+        # a checkpoint directory is one saved by training; a .pth imports
+        for extra, what in ((["--synthetic", "--ckpt", str(tmp_path)], "checkpoints"),
                             (["--synthetic", "--save_dir", "out"], "checkpoints"),
                             (["--synthetic", "--resume"], "checkpoints"),
                             ([], "data readers"),
