@@ -8,24 +8,28 @@ Run from the root of a checkout on a machine with one card:
 Phases, each printing its own lines; any failure raises and exits non-zero:
   1. device   — CUDA present; the card's name and power limit (nvidia-smi);
                 TF32 off for matmul and cuDNN.
-  2. build    — nvcc builds the four sources of csrc/ into
+  2. build    — nvcc builds the five sources of csrc/ into
                 build/egovlpv2_torch/, one compiler a source, side by side.
   3. kernels  — each kernel against its plain PyTorch version on the card,
                 bf16 and f32, with its time, the plain version's, one
-                library call's (`library_ms`) and its bound. Attention,
-                H=12, Dh=64:
+                library call's (`library_ms`) and its bound. Every time is
+                device time from torch.profiler: all the kernels and copies
+                of 20 calls after 3 warm, over 20 (a CUDA-event window
+                would also take in the card's waits for the host).
+                Attention, H=12, Dh=64:
                 forward K1 space, K2 time, K3 CLS row at B=20, S=785 and
                 S=3137 (the EgoMCQ shapes), B=16, S=785 (the pretrain
                 step's), B=8, S=6273 (the 32-frame fine-tune's), B=64,
-                S=3137 (an MQ or NLQ inner batch) and B=16, S=981 (a QFVS
-                inner batch: 5 frames), against the plain version on the
+                S=3137 (an MQ or NLQ inner batch), B=16, S=981 (a QFVS
+                inner batch: 5 frames) and B=8, S=785 (the EgoTaskQA
+                step's, where f32 takes K10/K11), against the plain version on the
                 same values raised to f32 (in bf16 the plain version rounds
                 P, and two bf16 results one step apart at a value of 4 or
                 more differ by 3.1e-2 already; it is timed in bf16); max abs
                 error <= 2e-2 in bf16 and <= 1e-4 in f32 (another summation
                 order);
                 backward K4 space, K5 time, K6 CLS row at B=16, S=785 and
-                S=3137 and B=8, S=6273 against autograd through the plain
+                S=3137, B=8, S=6273 and B=8, S=785 against autograd through the plain
                 version; max abs
                 error of each of dq, dk, dv <= 2e-2 (bf16) / 1e-4 (f32) of
                 max |reference| of that tensor, the CLS row and the patch
@@ -56,8 +60,9 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
                 and B=3, L=15; i2t and t2i at B=16, S=785, at B=20, S=3137,
                 at B=64, S=3137 (NLQ) and at B=16, S=981 (QFVS), L=15;
                 B=16 at Sq=Sk=197 and Sq=Sk=64; with a padding mask where the
-                models have one, one batch row fully masked; and an odd case
-                (Dh=40, Sq=37, Sk=33, on the CUDA cores in bf16 too); max abs
+                models have one, one batch row fully masked; and two odd
+                cases (Dh=40 and Dh=12, Sq=37, Sk=33, on the CUDA cores in
+                bf16 too; Dh=12 element by element); max abs
                 error of max |reference| <= 4e-3 in bf16 against the
                 reference on the same values in f32, not rounded (the
                 kernel keeps P in f32 as the reference does, so what is left
@@ -65,18 +70,33 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
                 largest value) / 1e-4 (f32: another summation order); no
                 input copied. Plain: today's
                 `attend_plain`. Library: one
-                `F.scaled_dot_product_attention` call. Where the host needs
-                as long to issue a call as the timer reads, the time is the
-                wrapper's host time, not the kernel's, and is marked.
+                `F.scaled_dot_product_attention` call. Beside K9's device
+                time: K9's own kernel time, the device events of a call,
+                and a CUDA-event window's time and the host's a call over
+                the same calls.
+                General divided attention K10 (forward) and K11 (backward)
+                at GENERAL_CASES: f32 at the EgoTaskQA shape (B=8, S=785,
+                both axes) on the packed qkv and on a permuted view of a
+                [3, B, H, S, Dh] tensor; f32 space at 6 frames (S=1177, the
+                frame-block regime of TPU rows 3/4); bf16 time at F=12,
+                N=64 (S=769, row 1d's regime); Dh=12 in f32 and bf16, H=2;
+                against the plain version on the same values in f32, within
+                1e-4 (f32) / 2e-2 (bf16) of max |reference|, dq, dk and dv
+                with the CLS row and the patch rows each by its own
+                maximum. Library: `scaled_dot_product_attention` with the
+                dense [S, S] additive mask, and its autograd backward.
   4. tiny     — one small model (depth 4, 2 fused, width 128, 2 heads of
                 64, 4 frames of 4x4 patches) from one seeded state_dict on
-                the card (kernels) and on the CPU (plain), f32: EgoMCQ VTC
+                the card (kernels: f32 takes K10/K11, K1-K6 none) and on
+                the CPU (plain), f32: EgoMCQ VTC
                 and VTM agree within 1e-3; one training step's loss parts
                 within 1e-3 and every parameter's gradient within 1e-3 of
                 max |cpu gradient|, from the same batch and mined indices,
                 dropout 0; the same for one dual fine-tune step (small
                 projection, NormSoftmax), without and with per-block
-                rematerialisation; all nine kernels launched; then the
+                rematerialisation; K7-K11 launched, K1-K6 not; the
+                EgoTaskQA model at a head dim of 12 (width 24, 2 heads):
+                logits, loss and every gradient within 1e-3; then the
                 outputs of `FeatureExtractor` (MQ features from uint8 frames,
                 NLQ fused features, raw query tokens) and of
                 `QFVSExtractor.extract_video` (5 frames a clip) within 1e-3
@@ -106,7 +126,16 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
                 frames at 5 frames a clip (80 clips, S=981, inner batch 16,
                 two concepts and one oracle prompt): every output finite and
                 of its shape, K1, K2, K3 and K7 launched on all three, K9 on
-                the two fused ones, no K9 input copied.
+                the two fused ones, no K9 input copied; none of K10/K11 on
+                a bf16 path;
+                `run_egotaskqa` (tasks/orchestrators.py) at the
+                `TrainConfig` defaults, float32 (4 frames at 224, S=785, 15
+                tokens), batch 8, 5 steps on seeded in-memory items over
+                100 synthetic answers, then the evaluation over 2 batches:
+                every loss finite, K11 24 launches a step and K10 48 (each
+                block's forward again in the backward: `model.remat` is on
+                in the defaults), K1-K6 none; step ms, clips/s, peak
+                memory.
 Then one JSON line of the kernels and, last, the result line.
 """
 
@@ -121,21 +150,29 @@ import time
 
 import numpy as np
 import torch
+from torch.autograd import DeviceType
 from torch.nn import functional as F
+from torch.profiler import ProfilerActivity, profile
 
 from egovlpv2_torch import cli
 from egovlpv2_torch.core.config import load_train_config
+from egovlpv2_torch.data.loader import default_collate
+from egovlpv2_torch.downstream.taskqa import (make_qa_model,
+                                              synthetic_qa_items)
 from egovlpv2_torch.models.egovlp import EgoVLPv2
 from egovlpv2_torch.objectives.itm_mining import ITMIndices
+from egovlpv2_torch.objectives.losses import cross_entropy_loss
 from egovlpv2_torch.data.tokenizer import Tokenizer
 from egovlpv2_torch.ops import _kernels, flash
 from egovlpv2_torch.ops import layernorm as ln
 from egovlpv2_torch.ops.attention import attend_plain, make_additive_mask
 from egovlpv2_torch.ops.divided import (cls_row_reference,
                                         divided_attention_backward_reference,
+                                        divided_attention_reference,
                                         grouped_reference)
 from egovlpv2_torch.tasks.egomcq import make_egomcq_eval_step
 from egovlpv2_torch.tasks.extract import FeatureExtractor, extract_nlq_features
+from egovlpv2_torch.tasks.orchestrators import run_egotaskqa
 from egovlpv2_torch.tasks.pretrain import synthetic_batch
 from egovlpv2_torch.tasks.qfvs_extract import QFVSExtractor
 from egovlpv2_torch.tasks.retrieval import dual_loss_fn
@@ -146,6 +183,7 @@ FWD_SOURCE = "egovlpv2_torch/csrc/divided_attention.cu"
 BWD_SOURCE = "egovlpv2_torch/csrc/divided_attention_bwd.cu"
 LN_SOURCE = "egovlpv2_torch/csrc/layernorm.cu"
 FLASH_SOURCE = "egovlpv2_torch/csrc/fused_attention.cu"
+GENERAL_SOURCE = "egovlpv2_torch/csrc/divided_attention_general.cu"
 KERNELS = {  # name -> (source, the TPU kernel body it replaces)
     "space_attention_fwd": (FWD_SOURCE, "egovlpv2_tpu/ops/divided.py:774"),
     "time_attention_fwd": (FWD_SOURCE, "egovlpv2_tpu/ops/divided.py:811"),
@@ -156,12 +194,30 @@ KERNELS = {  # name -> (source, the TPU kernel body it replaces)
     "layernorm_fwd": (LN_SOURCE, "egovlpv2_tpu/ops/layernorm.py:52"),
     "layernorm_bwd": (LN_SOURCE, "egovlpv2_tpu/ops/layernorm.py:65"),
     "fused_attention_fwd": (FLASH_SOURCE, "egovlpv2_tpu/ops/flash.py:37"),
+    "divided_attention_general_fwd": (GENERAL_SOURCE,
+                                      "egovlpv2_tpu/ops/divided.py:544"),
+    "divided_attention_general_bwd": (GENERAL_SOURCE,
+                                      "egovlpv2_tpu/ops/divided.py:565"),
 }
+# K10/K11 replace row 1d too: the dense masked branch of the packed kernels.
+ALSO_REPLACES = {
+    "divided_attention_general_fwd": ["egovlpv2_tpu/ops/divided.py:855"],
+    "divided_attention_general_bwd": ["egovlpv2_tpu/ops/divided.py:915"],
+}
+GROUPED_KERNELS = tuple(KERNELS)[:6]  # K1-K6: bf16, contiguous, Dh % 8 == 0
+GENERAL_KERNELS = ("divided_attention_general_fwd",
+                   "divided_attention_general_bwd")  # K10/K11: the rest
+# the kernels of the bf16 paths (pretrain, EgoMCQ, extraction): K1-K9
+BF16_PATH_KERNELS = tuple(k for k in KERNELS if k not in GENERAL_KERNELS)
+# the path whose run gives a kernel's `launches` in the JSON line
+MAIN_PATH = {k: "taskqa" if k in GENERAL_KERNELS else "pretrain"
+             for k in KERNELS}
 TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}  # forward abs, backward rel
 H, DH, N = 12, 64, 196  # ViT-B heads, 14x14 patches
-# (B, frames)
-FWD_CASES = ((20, 4), (20, 16), (16, 4), (8, 32), (64, 16), (16, 5))
-BWD_CASES = ((16, 4), (16, 16), (8, 32))
+# (B, frames); (8, 4) is the EgoTaskQA step's shape, where f32 takes K10/K11:
+# K1-K6's f32 forms are timed there beside them
+FWD_CASES = ((20, 4), (20, 16), (16, 4), (8, 32), (64, 16), (16, 5), (8, 4))
+BWD_CASES = ((16, 4), (16, 16), (8, 32), (8, 4))
 MAIN_CASE = (torch.bfloat16, 16, 4)  # the pretrain step's: the JSON line's times
 # LayerNorm: (rows, D); y and dx, then dscale and dbias, of max |reference|
 LN_CASES = ((16 * 785, 768), (8 * 6273, 768), (64 * 3137, 768),
@@ -189,11 +245,30 @@ FLASH_CASES = (
     ("above 32", 16, H, 197, 197, DH, "heads", False),
     ("above 32", 16, H, 64, 64, DH, "heads", True),
     ("odd", 3, 5, 37, 33, 40, "heads", True),
+    ("odd", 3, 2, 37, 33, 12, "heads", True),
 )
 FLASH_MAIN_CASE = (torch.bfloat16, "i2t", 16, 785)  # the pretrain step's
 # K9 in bf16 is held to the reference on the same values in f32, unrounded:
 # P stays f32 in both, so only the output's one rounding is left (2^-8).
 FLASH_TOL = {torch.bfloat16: 4e-3, torch.float32: 1e-4}
+# General divided attention, K10 and K11: (label, layout, dtype, axis, B, F,
+# N, H, Dh). Layout "packed": the [B, S, 3, H, Dh] view of the qkv Linear
+# output (row 1d's); "permuted": a permute of a [3, B, H, S, Dh] tensor (rows
+# 3 and 4's), read by stride without a copy.
+GENERAL_CASES = (
+    ("taskqa", "packed", torch.float32, "space", 8, 4, N, H, DH),
+    ("taskqa", "packed", torch.float32, "time", 8, 4, N, H, DH),
+    ("taskqa", "permuted", torch.float32, "space", 8, 4, N, H, DH),
+    ("taskqa", "permuted", torch.float32, "time", 8, 4, N, H, DH),
+    ("rows 3/4 frame-block", "packed", torch.float32, "space", 2, 6, N, H, DH),
+    ("row 1d", "packed", torch.bfloat16, "time", 16, 12, 64, H, DH),
+    ("Dh=12", "packed", torch.float32, "space", 4, 4, N, 2, 12),
+    ("Dh=12", "packed", torch.bfloat16, "time", 4, 4, N, 2, 12),
+)
+GENERAL_MAIN_CASE = ("taskqa", "packed", torch.float32, "space")
+# of max |reference|, each against the plain version on the same values in
+# f32 (the kernels keep P, dP and dS in f32 and round only the stores)
+GENERAL_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
 L2_BYTES = 50e6  # timed LayerNorm calls walk input sets of 4x this in all
 TIME_ITERS = 20  # timed calls of a kernel or its plain version, after 3 warm
 # The card's published peaks (NVIDIA H100 SXM data sheet, dense).
@@ -209,31 +284,46 @@ FINETUNE_RUNS = (("ft_charades_32f", "model.remat=false", 5),
                  ("ft_charades_32f_remat", "model.remat=true", 2))
 # K9 stays out of the fine-tune: its text attention drops probabilities in
 # training, which is the plain path.
-FINETUNE_KERNELS = tuple(k for k in KERNELS if k != "fused_attention_fwd")
+FINETUNE_KERNELS = tuple(k for k in BF16_PATH_KERNELS
+                         if k != "fused_attention_fwd")
 EXTRACT_CONFIG = "configs/extract_mq.json"
 EXTRACT_FRAMES = 2048  # 128 windows of 16 frames: two inner batches of 64
 NLQ_QUERIES = ("where did I put the scissors", "what did I pour in the bowl")
 QFVS_FRAMES, QFVS_INNER_BATCH = 400, 16
 QFVS_CONCEPTS, QFVS_ORACLE = ("cup", "street"), "cup and street"
+# EgoTaskQA: TrainConfig defaults (4 frames at 224, S=785, f32, 15 tokens),
+# batch 8, seeded in-memory items over a synthetic answer set
+TASKQA_STEPS, TASKQA_BATCH, TASKQA_ANSWERS, TASKQA_VAL_BATCHES = 5, 8, 100, 2
+QA_TYPES = ("descriptive", "predictive", "explanatory", "counterfactual")
+
+
+def _device_events(fn) -> dict:
+    """`fn` TIME_ITERS times under torch.profiler, after 3 warm calls: the
+    device time a call, in ms, of each kernel or copy it ran, by name."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(TIME_ITERS):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key: e.self_device_time_total / 1e3 / TIME_ITERS
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total}
 
 
 def _time_ms(fn) -> float:
-    for _ in range(3):
-        fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(TIME_ITERS):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / TIME_ITERS
+    """The device time of a call of `fn`: all the kernels and copies it
+    runs, from the profiler. A CUDA-event window over the calls would also
+    take in the time the card waits for the host to issue the next call."""
+    return sum(_device_events(fn).values())
 
 
-def _time_with_host_ms(fn) -> tuple:
-    """`_time_ms` of `fn`, and the host's own time a call in the same loop
-    (before it waits for the card): where the two are about equal the
-    number is the wrapper's host time, not the kernel's."""
+def _window_ms(fn) -> tuple:
+    """A CUDA-event window over TIME_ITERS calls of `fn`, a call, and the
+    host's own time a call in the same loop (before it waits for the card):
+    set beside `_time_ms`, they show what the window adds to the device
+    time."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
@@ -300,6 +390,25 @@ def flash_bound_ms(dtype, b: int, h: int, sq: int, sk: int, dh: int,
     t_bytes = ((2 * sq + 2 * sk) * b * h * dh * e + masked * b * sk * 4) \
         / PEAK_BYTES_S
     t_flops = 4 * b * h * sq * sk * dh / PEAK_FLOPS[dtype]
+    return max(t_bytes, t_flops) * 1e3, "bytes" if t_bytes >= t_flops else "operations"
+
+
+def general_bound_ms(name: str, dtype, b: int, frames: int, n: int, h: int,
+                     dh: int, axis: str) -> tuple:
+    """The same for one call of K10 or K11 at S = 1 + frames * n: the
+    forward reads q, k, v and writes the output, the backward reads q, k, v
+    and the cotangent and writes dq, dk, dv ([B, S, H, Dh] each); the
+    operations are 4 Dh a live (query, key) pair forward (two products, 2 a
+    multiply-add) and 10 Dh backward (five products), over the pairs this
+    function has: row 0 against all S keys, a patch row against the CLS key
+    and its group (N keys on the space axis, F on the time axis). Returns
+    (ms, "bytes" or "operations")."""
+    e = torch.finfo(dtype).bits // 8
+    s = 1 + frames * n
+    pairs = s + (s - 1) * (1 + (n if axis == "space" else frames))
+    fwd = name.endswith("_fwd")
+    t_bytes = (4 if fwd else 7) * b * s * h * dh * e / PEAK_BYTES_S
+    t_flops = (4 if fwd else 10) * dh * pairs * b * h / PEAK_FLOPS[dtype]
     return max(t_bytes, t_flops) * 1e3, "bytes" if t_bytes >= t_flops else "operations"
 
 
@@ -525,6 +634,7 @@ def phase_kernels() -> dict:
             torch.cuda.empty_cache()
     phase_layernorm(results)
     phase_flash(results)
+    phase_general(results)
     return results
 
 
@@ -703,18 +813,21 @@ def phase_flash(results: dict) -> None:
                                          f"is not uniform: {uerr}")
             qc, kc, vc = q.contiguous(), k.contiguous(), v.contiguous()
             lib_mask = None if bias is None else bias.to(dtype)
-            ms, host_ms = _time_with_host_ms(kernel)
+            events = _device_events(kernel)
+            ms = sum(events.values())
+            own_ms = sum(t for key, t in events.items() if "fused" in key)
+            window_ms, host_ms = _window_ms(kernel)
             plain_ms = _time_ms(lambda: attend_plain(q, k, v, scale=scale, bias=bias))
             lib_ms = _time_ms(lambda: F.scaled_dot_product_attention(
                 qc, kc, vc, attn_mask=lib_mask, scale=scale))
             least, by = flash_bound_ms(dtype, b, h, sq, sk, dh, masked)
-            tag = f"{str(dtype).split('.')[-1]} {label} B={b} Sq={sq} Sk={sk}"
-            note = (f"  [the wrapper's host time: {host_ms:.4f} ms a call]"
-                    if host_ms >= 0.8 * ms else "")
-            print(f"[3 kernels] {name:22s} {tag:36s} err={err:.3e} (rel "
+            tag = f"{str(dtype).split('.')[-1]} {label} B={b} Sq={sq} Sk={sk} Dh={dh}"
+            print(f"[3 kernels] {name:22s} {tag:42s} err={err:.3e} (rel "
                   f"{rel:.2e}, tol {FLASH_TOL[dtype]:.0e})  kernel {ms:.4f} ms  plain "
                   f"{plain_ms:.4f} ms  library {lib_ms:.4f} ms  bound "
-                  f"{least:.4f} ms ({by}){note}", flush=True)
+                  f"{least:.4f} ms ({by})  [device events {len(events)}, K9's own "
+                  f"{own_ms:.4f} ms; an event window {window_ms:.4f} ms and the "
+                  f"host {host_ms:.4f} ms a call]", flush=True)
             r = results[name]
             r["max_abs_err"] = max(r["max_abs_err"], err)
             if (dtype, label, b, sq) == FLASH_MAIN_CASE:
@@ -722,6 +835,108 @@ def phase_flash(results: dict) -> None:
                          bound_ms=least, bound_by=by, shape=tag)
             del q, k, v, qc, kc, vc, got, ref
             torch.cuda.empty_cache()
+
+
+def _general_qkv(gen, layout: str, dtype, b: int, s: int, h: int, dh: int):
+    """qkv [B, S, 3, H, Dh]: the packed projection, or a permuted view of a
+    [3, B, H, S, Dh] tensor."""
+    if layout == "packed":
+        return torch.randn((b, s, 3, h, dh), generator=gen,
+                           device="cuda").to(dtype)
+    return torch.randn((3, b, h, s, dh), generator=gen,
+                       device="cuda").to(dtype).permute(1, 3, 0, 2, 4)
+
+
+def _dense_mask(axis: str, frames: int, n: int, dtype) -> torch.Tensor:
+    """The [S, S] additive mask of `_mask_bias`: 0 where the query is the
+    CLS row, the key is the CLS key or the two share a group, -1e9
+    elsewhere. For the library call only: the kernels take the mask from
+    indices."""
+    i = torch.arange(frames * n, device="cuda")
+    group = i // n if axis == "space" else i % n
+    live = torch.ones((1 + frames * n,) * 2, dtype=torch.bool, device="cuda")
+    live[1:, 1:] = group[:, None] == group[None, :]
+    return torch.zeros(live.shape, dtype=dtype,
+                       device="cuda").masked_fill(~live, -1e9)
+
+
+def phase_general(results: dict) -> None:
+    """K10 and K11 against the plain version, on the same values in f32, at
+    GENERAL_CASES; the times of GENERAL_MAIN_CASE go into `results`.
+    Library: one `scaled_dot_product_attention` call with the dense
+    additive mask (and its autograd backward), timed only."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    for label, layout, dtype, axis, b, frames, n, h, dh in GENERAL_CASES:
+        s = 1 + frames * n
+        scale = dh ** -0.5
+        kw = dict(scale=scale, axis=axis, num_frames=frames)
+        qkv = _general_qkv(gen, layout, dtype, b, s, h, dh)
+        g = torch.randn((b, s, h, dh), generator=gen, device="cuda").to(dtype)
+        out = torch.full((b, s, h, dh), float("nan"), dtype=dtype,
+                         device="cuda")
+        dqkv = torch.full_like(qkv, float("nan"))  # qkv's strides
+        runs = {
+            "divided_attention_general_fwd": lambda: (
+                _kernels.divided_attention_general_fwd(qkv, out, **kw)),
+            "divided_attention_general_bwd": lambda: (
+                _kernels.divided_attention_general_bwd(qkv, g, dqkv, **kw)),
+        }
+        for kernel in runs.values():
+            kernel()
+        torch.cuda.synchronize()
+        ref = divided_attention_reference(qkv.float(), **kw)
+        dref = divided_attention_backward_reference(qkv.float(), g.float(),
+                                                    **kw)
+        if not (torch.isfinite(out).all() and torch.isfinite(dqkv).all()):
+            raise AssertionError(f"K10/K11 {label}: non-finite output")
+        fwd_err = (out.float() - ref).abs().max().item()
+        fwd_rel = fwd_err / ref.abs().max().item()
+        bwd_err, rel_cls, rel = _rel_errs(dqkv, dref)
+        checks = {"divided_attention_general_fwd": (fwd_err, fwd_rel,
+                                                    f"rel {fwd_rel:.2e}"),
+                  "divided_attention_general_bwd": (
+                      bwd_err, max(rel_cls, rel),
+                      f"rel cls row {rel_cls:.2e} patch rows {rel:.2e}")}
+        tag = (f"{str(dtype).split('.')[-1]} {axis} {layout} B={b} S={s} "
+               f"H={h} Dh={dh} ({label})")
+        for name, (err, worst, check) in checks.items():
+            if not worst <= GENERAL_TOL[dtype]:
+                raise AssertionError(f"{name} {tag}: error {worst} of max "
+                                     f"|reference| > {GENERAL_TOL[dtype]}")
+        # the plain versions as timed: in the input dtype
+        q, k, v = (t.contiguous() for t in qkv.permute(2, 0, 3, 1, 4).unbind(0))
+        mask = _dense_mask(axis, frames, n, dtype)
+        leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        lib_out = F.scaled_dot_product_attention(*leaves, attn_mask=mask,
+                                                 scale=scale)
+        cot = g.transpose(1, 2).contiguous()
+        plain = {
+            "divided_attention_general_fwd": (
+                lambda: divided_attention_reference(qkv, **kw),
+                lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                                       scale=scale)),
+            "divided_attention_general_bwd": (
+                lambda: divided_attention_backward_reference(qkv, g, **kw),
+                lambda: torch.autograd.grad(lib_out, leaves, cot,
+                                            retain_graph=True)),
+        }
+        for name, kernel in runs.items():
+            err, _, check = checks[name]
+            ms = _time_ms(kernel)
+            plain_ms, lib_ms = (_time_ms(fn) for fn in plain[name])
+            least, by = general_bound_ms(name, dtype, b, frames, n, h, dh,
+                                         axis)
+            print(f"[3 kernels] {name:30s} {tag:58s} err={err:.3e} ({check}, "
+                  f"tol {GENERAL_TOL[dtype]:.0e})  kernel {ms:.4f} ms  plain "
+                  f"{plain_ms:.4f} ms  library {lib_ms:.4f} ms  bound "
+                  f"{least:.4f} ms ({by})", flush=True)
+            r = results[name]
+            r["max_abs_err"] = max(r["max_abs_err"], err)
+            if (label, layout, dtype, axis) == GENERAL_MAIN_CASE:
+                r.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                         bound_ms=least, bound_by=by, shape=tag)
+        del qkv, g, out, dqkv, ref, dref, q, k, v, mask, leaves, lib_out
+        torch.cuda.empty_cache()
 
 
 _TINY_SETS = [
@@ -789,9 +1004,7 @@ def phase_tiny() -> None:
     finally:
         train_step_module.mine_itm_indices = mine
     _compare_tiny_steps("pretrain step", losses, grads)
-    launched = dict(_kernels.launch_counts)
-    if not all(launched.values()):
-        raise AssertionError(f"tiny model on cuda skipped a kernel: {launched}")
+    _check_f32_launches("tiny model", {}, dict(_kernels.launch_counts))
 
     # the dual fine-tune step, without and with one checkpoint region a block
     rng = np.random.default_rng(4)
@@ -824,9 +1037,8 @@ def phase_tiny() -> None:
         if set(grads["cpu"]) != set(grads["cuda"]):
             raise AssertionError("tiny dual step: other parameters have gradients")
         _compare_tiny_steps(f"dual step, remat {remat}", losses, grads)
-        if not all(_kernels.launch_counts[k] > before[k] for k in before):
-            raise AssertionError(f"tiny dual step on cuda skipped a kernel: "
-                                 f"{before} -> {_kernels.launch_counts}")
+        _check_f32_launches(f"tiny dual step, remat {remat}", before,
+                            dict(_kernels.launch_counts))
 
 
 def phase_tiny_extract() -> None:
@@ -880,6 +1092,60 @@ def phase_tiny_extract() -> None:
                              f"{change_points}")
 
 
+# The QA model at a head dim of 12 (width 24, 2 heads, video and text): no
+# head dim K1-K6 or the tensor-core K9 take.
+_TINY_QA_SETS = [*_TINY_SETS, "model.video.embed_dim=24",
+                 "model.text.hidden_size=24", "model.text.intermediate_size=48",
+                 "model.fusion.dim_video=24", "model.fusion.dim_text=24",
+                 "model.fusion.hidden_size=24", "model.projection_dim=16"]
+
+
+def phase_tiny_qa() -> None:
+    """The EgoTaskQA model at a head dim of 12 from one seeded state_dict on
+    the card (kernels) and on the CPU (plain), f32, dropout off (eval mode):
+    logits and the cross-entropy within 1e-3, every parameter's gradient
+    within 1e-3 of max |cpu gradient|; K7-K11 launched, K1-K6 not."""
+    cfg = load_train_config(None, _TINY_QA_SETS)
+    answers = 7
+    cpu = random_init_(make_qa_model(cfg.model, answers, device="cpu"),
+                       torch.Generator().manual_seed(9))
+    gpu = make_qa_model(cfg.model, answers, device="cuda")
+    gpu.load_state_dict(cpu.state_dict(), strict=True)
+    batch = default_collate(synthetic_qa_items(
+        cfg.model, 4, answers, 15, np.random.default_rng(10)))
+    batch.pop("reasoning_types")
+    logits, losses, grads = {}, {}, {}
+    _reset_counts()
+    for dev, model in (("cpu", cpu), ("cuda", gpu)):
+        model.eval().zero_grad(set_to_none=True)
+        t = train_step_module.batch_to_device(batch, torch.device(dev))
+        out = model(t["video"], t["text_ids"], t["text_mask"])
+        loss = cross_entropy_loss(out, t["answer"])
+        loss.backward()
+        logits[dev] = out.detach().cpu()
+        losses[dev] = {"loss": loss.item()}
+        grads[dev] = {n: p.grad.cpu() for n, p in model.named_parameters()
+                      if p.grad is not None}
+    err = (logits["cuda"] - logits["cpu"]).abs().max().item()
+    print(f"[4 tiny] qa model Dh=12 cuda vs cpu: logits {tuple(logits['cpu'].shape)}"
+          f" max_abs_err {err:.2e} (tol 1e-3)", flush=True)
+    if not err <= 1e-3 or set(grads["cpu"]) != set(grads["cuda"]):
+        raise AssertionError(f"tiny qa model: cuda and cpu disagree: logits "
+                             f"{err}, or other parameters have gradients")
+    _compare_tiny_steps("qa model Dh=12", losses, grads)
+    _check_f32_launches("tiny qa model", {}, dict(_kernels.launch_counts))
+
+
+def _check_f32_launches(what: str, before: dict, after: dict) -> None:
+    """A float32 model on the card: K7-K11 launched since `before` (empty:
+    since 0), and none of K1-K6, which the dispatch keeps for bf16."""
+    ran = {k: after[k] - before.get(k, 0) for k in after}
+    if not all(ran[k] for k in KERNELS if k not in GROUPED_KERNELS) \
+            or any(ran[k] for k in GROUPED_KERNELS):
+        raise AssertionError(f"{what}: launches {ran}: float32 takes K7-K11 "
+                             f"and none of K1-K6")
+
+
 def _compare_tiny_steps(what: str, losses: dict, grads: dict) -> None:
     """cuda against cpu: loss parts within 1e-3, every gradient within 1e-3
     of max |cpu gradient| of its tensor."""
@@ -929,9 +1195,10 @@ def phase_egomcq() -> dict:
         _no_flash_copies(f"egomcq {label}")
         if not finite or set(scores) != {"vtc", "vtm"}:
             raise AssertionError(f"egomcq {label}: bad scores {scores}")
-        if not all(counts[k] for k in counts if k.endswith("_fwd")):
-            raise AssertionError(f"egomcq {label}: a kernel was not launched: "
-                                 f"{counts}")
+        if not all(counts[k] for k in BF16_PATH_KERNELS if k.endswith("_fwd")) \
+                or any(counts[k] for k in GENERAL_KERNELS):
+            raise AssertionError(f"egomcq {label}: a kernel was not launched, "
+                                 f"or K10/K11 was: {counts}")
         by_path[f"egomcq_{label}"] = counts
         del res
         _free()
@@ -953,7 +1220,9 @@ def phase_pretrain() -> dict:
         if not all(np.isfinite(v) for v in row.values()):
             raise AssertionError(f"pretrain: non-finite loss part in {row}")
     per_step = {k: v / PRETRAIN_STEPS for k, v in counts.items()}
-    if not all(v >= 1 and v == int(v) for v in per_step.values()):
+    if not all(per_step[k] >= 1 and per_step[k] == int(per_step[k])
+               for k in BF16_PATH_KERNELS) \
+            or any(counts[k] for k in GENERAL_KERNELS):
         raise AssertionError(f"pretrain: launches a step {per_step}")
     cfg = load_train_config(None, PRETRAIN_SETS)
     fresh = training_init_(EgoVLPv2(cfg.model, device="cpu"),
@@ -1001,7 +1270,8 @@ def phase_finetune() -> dict:
             raise AssertionError(f"{label}: non-finite loss in {rows}")
         per_step = {k: v / steps for k, v in counts.items()}
         if not all(per_step[k] >= 1 and per_step[k] == int(per_step[k])
-                   for k in FINETUNE_KERNELS):
+                   for k in FINETUNE_KERNELS) \
+                or any(counts[k] for k in GENERAL_KERNELS):
             raise AssertionError(f"{label}: launches a step {per_step}")
         fresh = training_init_(EgoVLPv2(cfg.model, device="cpu"),
                                torch.Generator().manual_seed(cfg.seed))
@@ -1041,8 +1311,10 @@ def _check_extract(path: str, counts: dict, fused: bool) -> None:
             "cls_row_attention_fwd", "layernorm_fwd"]
     if fused:
         need.append("fused_attention_fwd")
-    if not all(counts[k] for k in need):
-        raise AssertionError(f"{path}: a kernel was not launched: {counts}")
+    if not all(counts[k] for k in need) \
+            or any(counts[k] for k in GENERAL_KERNELS):
+        raise AssertionError(f"{path}: a kernel was not launched, or K10/K11 "
+                             f"was: {counts}")
     _no_flash_copies(path)
 
 
@@ -1148,16 +1420,78 @@ def phase_extract() -> dict:
     return by_path
 
 
+def phase_taskqa() -> dict:
+    """The EgoTaskQA fine-tune through `run_egotaskqa` at full width
+    (TimeSformer-B + RoBERTa-base, 6 fused blocks each, the QA head), the
+    TrainConfig defaults: 4 frames at 224, S=785, float32, 15 tokens; batch
+    8, TASKQA_STEPS steps, then the evaluation over TASKQA_VAL_BATCHES
+    batches. Every step: a finite loss, K11 24 launches (12 blocks, two
+    axes), K10 as many again where `model.remat` (on in the defaults, as in
+    the JAX package) recomputes each block's forward in the backward, K1-K6
+    none. Returns the run's launch counts."""
+    cfg = load_train_config(None, [])
+    items = synthetic_qa_items(
+        cfg.model, (TASKQA_STEPS + TASKQA_VAL_BATCHES) * TASKQA_BATCH,
+        TASKQA_ANSWERS, cfg.max_text_len, np.random.default_rng(cfg.seed),
+        QA_TYPES)
+    cut = TASKQA_STEPS * TASKQA_BATCH
+    rows, seconds, at_step = [], [], []
+
+    def on_step(step, metrics, sec):
+        rows.append(metrics)
+        seconds.append(sec)
+        at_step.append(dict(_kernels.launch_counts))
+
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    metrics = run_egotaskqa(cfg.model, items[:cut], items[cut:],
+                            TASKQA_ANSWERS, reasoning_types=QA_TYPES,
+                            epochs=1, batch_size=TASKQA_BATCH, device="cuda",
+                            on_step=on_step)
+    counts = dict(_kernels.launch_counts)
+    peak = torch.cuda.max_memory_allocated()
+    per_step = [{k: c[k] - (at_step[i - 1][k] if i else 0) for k in c}
+                for i, c in enumerate(at_step)]
+    steps_ms = [x * 1e3 for x in seconds]
+    warm = float(np.median(steps_ms[2:]))  # the first two carry warm-up
+    v = cfg.model.video
+    print(f"[5 slices] taskqa b{TASKQA_BATCH} {v.num_frames}f S={v.seq_len} "
+          f"{cfg.model.compute_dtype}, {TASKQA_ANSWERS} answers: "
+          f"{len(rows)} steps, losses {[round(r['loss_total'], 4) for r in rows]}"
+          f" | step ms {[round(x, 1) for x in steps_ms]}, median of the last "
+          f"{len(steps_ms) - 2} {warm:.1f} ms = {TASKQA_BATCH / warm * 1e3:.2f}"
+          f" clips/s | launches a step { {k: n for k, n in per_step[-1].items() if n} }"
+          f" | launches in all (steps and evaluation) "
+          f"{ {k: n for k, n in counts.items() if n} } | evaluation {metrics}"
+          f" | peak memory {peak / 2**30:.2f} GiB", flush=True)
+    if len(rows) != TASKQA_STEPS \
+            or not all(np.isfinite(r["loss_total"]) for r in rows):
+        raise AssertionError(f"taskqa: steps {rows}")
+    want = {"divided_attention_general_fwd": 24 * (1 + cfg.model.remat),
+            "divided_attention_general_bwd": 24}
+    for n in per_step:
+        if any(n[k] != want[k] for k in GENERAL_KERNELS) \
+                or any(n[k] for k in GROUPED_KERNELS):
+            raise AssertionError(f"taskqa: launches a step {n}: K10/K11 "
+                                 f"{want}, K1-K6 none")
+    if not ("acc" in metrics and all(np.isfinite(x) for x in metrics.values())):
+        raise AssertionError(f"taskqa: evaluation {metrics}")
+    _free()
+    return counts
+
+
 def main() -> None:
     smi = phase_device()
     phase_build()
     results = phase_kernels()
     phase_tiny()
+    phase_tiny_qa()
     phase_tiny_extract()
     by_path = phase_egomcq()
     by_path["pretrain"] = phase_pretrain()
     by_path.update(phase_finetune())
     by_path.update(phase_extract())
+    by_path["taskqa"] = phase_taskqa()
     for path in ("egomcq_16f", "egomcq_4f", "pretrain"):
         if not by_path[path]["fused_attention_fwd"]:
             raise AssertionError(f"{path}: K9 was not launched")
@@ -1166,18 +1500,22 @@ def main() -> None:
                                         "egovlpv2_tpu"))
     if bad:
         raise AssertionError(f"the port imported {bad}")
-    # `launches` is the pretrain run's own count (it runs all nine kernels);
-    # each path's count stands beside it, never summed.
-    # One launch of a grouped attention backward wrapper is two __global__
-    # launches (a query pass, then a key pass), one of the LayerNorm
-    # backward two as well (the rows, then the sum of the blocks' partials).
+    # `launches` is the count of the kernel's main path's own run: the
+    # pretrain run for K1-K9 (the bf16 paths), the EgoTaskQA run (steps and
+    # evaluation) for K10/K11; each path's count stands beside it, never
+    # summed. One launch of a divided attention backward wrapper is two
+    # __global__ launches (a query pass, then a key pass), one of the
+    # LayerNorm backward two as well (the rows, then the sum of the blocks'
+    # partials).
+    steps = {"pretrain": PRETRAIN_STEPS, "taskqa": TASKQA_STEPS}
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": KERNELS[k][0],
-         "replaces": KERNELS[k][1], "launches": by_path["pretrain"][k],
-         "launches_a_pretrain_step": by_path["pretrain"][k] // PRETRAIN_STEPS,
+         "replaces": KERNELS[k][1],
+         **({"also_replaces": ALSO_REPLACES[k]} if k in ALSO_REPLACES else {}),
+         "main_path": MAIN_PATH[k], "launches": by_path[MAIN_PATH[k]][k],
          "launches_by_path": {path: c[k] for path, c in by_path.items()},
          **results[k]}
-        for k in KERNELS]}))
+        for k in KERNELS], "steps_by_path": steps}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

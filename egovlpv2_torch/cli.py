@@ -37,16 +37,35 @@ Subcommands:
     python -m egovlpv2_torch.cli extract --config configs/extract_mq.json \
         --device cuda --synthetic 2048 --out feats/ [--ckpt published.pth]
 
-`--ckpt <file.pth>` (egomcq, extract, pretrain, the fine-tunes) imports a
+  taskqa   — EgoTaskQA: the fused backbone + QA head fine-tuned on QA json
+             files over interval videos (`--videos` dir of <interval>.mp4),
+             then overall and per-reasoning-type accuracy, printed (and
+             written to --metrics_out) as one JSON line; one JSON line a
+             training step with its loss and milliseconds. `--save_dir`
+             checkpoints every epoch, `--resume` continues from the latest,
+             `--test_only` evaluates it. The float32 path runs with TF32 off.
+
+    python -m egovlpv2_torch.cli taskqa --device cuda --qa_train train.json \
+        --qa_val val.json --videos videos/ --answer_set answer_set.txt \
+        --reasoning_types all_reasoning_types.txt --save_dir qa_ckpt
+
+`--ckpt <file.pth>` (egomcq, extract, pretrain, the fine-tunes, taskqa) imports a
 checkpoint under the reference's names (`train/checkpoint_import.py`), the
 temporal embedding inflated to the config's frame count.
 
 Not ported yet, and refused with a NotImplementedError that names the
-ROADMAP item: real data (`--meta`, `--val_meta`, `--videos`, pretrain or a
-fine-tune without --synthetic, `--device_norm`), which needs the file
-readers and loaders of `egovlpv2_tpu/data/`; checkpoints saved by training
-(`--ckpt <directory>`, `--save_dir`, `--resume`); the retrieval visualizer
-(`--visualize`).
+ROADMAP item (every flag of the JAX CLI's parsers parses, but the
+multi-host ones, which wait for ROADMAP.md A9): real data for pretrain,
+egomcq, extract and the fine-tunes (`--meta`, `--data`, `--val_meta`,
+`--val_data`, `--videos` of extract, `--device_norm`, `--num_workers`,
+`--neg_param`, `--classes`, `--val_batch_size`, `--sliding_window_stride`,
+pretrain or a fine-tune without --synthetic), which needs the rest of the
+readers and loaders of `egovlpv2_tpu/data/` (A7); checkpoints of pretrain
+and the fine-tunes (`--ckpt <directory>`, `--save_dir`, `--resume`,
+`--ckpt_every`: A8); the training loop's validation and monitor
+(`--val_synthetic`, `--val_batches` of pretrain, `--val_vtc_only`,
+`--monitor`, `--early_stop`, `--init_val`: A10a); the retrieval visualizer
+(`--visualize`: A10).
 
 Without a checkpoint every parameter is drawn from a torch.Generator seeded
 with the config's `seed` (`weights.random_init_` for egomcq and extract,
@@ -75,6 +94,50 @@ def _device(name: str) -> torch.device:
         raise RuntimeError("--device cuda was asked for, but CUDA is not "
                            "available")
     return device
+
+
+_A7 = ("the dataset readers and the loader of egovlpv2_tpu/data/, which are "
+       "not ported yet (ROADMAP.md A7, data readers and loaders)")
+_A8 = ("checkpoint save and resume of pretrain and the fine-tunes, which "
+       "are not ported yet (ROADMAP.md A8, checkpoints)")
+_A10A = ("the training loop's validation, monitor and early stop, which are "
+         "not ported yet (ROADMAP.md A10a, the training loop)")
+# Flags of the JAX CLI that the port parses and refuses when given: the
+# command -> {flag: (store_true?, what it needs)}.
+_NOT_PORTED = {
+    "pretrain": {"--meta": (False, _A7), "--data": (False, _A7),
+                 "--num_workers": (False, _A7), "--device_norm": (True, _A7),
+                 "--neg_param": (False, _A7), "--val_meta": (False, _A7),
+                 "--val_data": (False, _A7), "--ckpt_every": (False, _A8),
+                 "--val_synthetic": (True, _A10A),
+                 "--val_batches": (False, _A10A),
+                 "--val_vtc_only": (True, _A10A), "--monitor": (False, _A10A),
+                 "--early_stop": (False, _A10A), "--init_val": (True, _A10A)},
+    "egomcq": {"--data": (False, _A7), "--num_workers": (False, _A7),
+               "--device_norm": (True, _A7)},
+    "ft": {"--data": (False, _A7), "--num_workers": (False, _A7),
+           "--val_data": (False, _A7), "--val_batch_size": (False, _A7),
+           "--classes": (False, _A7), "--sliding_window_stride": (False, _A7),
+           "--init_val": (True, _A10A)},
+}
+
+
+def _add_not_ported(parser, command: str) -> None:
+    for flag, (switch, _) in _NOT_PORTED[command].items():
+        if switch:
+            parser.add_argument(flag, action="store_true",
+                                help="not ported yet: raises")
+        else:
+            parser.add_argument(flag, default=None,
+                                help="not ported yet: raises")
+    parser.set_defaults(not_ported=command)
+
+
+def _refuse_not_ported(args) -> None:
+    """Raises NotImplementedError for the first not-ported flag given."""
+    for flag, (_, needs) in _NOT_PORTED[args.not_ported].items():
+        if getattr(args, flag.lstrip("-")) not in (None, False):
+            raise NotImplementedError(f"{flag} needs {needs}")
 
 
 def _checkpoint_file(ckpt_path):
@@ -152,6 +215,7 @@ def cmd_egomcq(args) -> dict:
     from egovlpv2_torch.tasks.egomcq import evaluate_egomcq, make_egomcq_eval_step
     from egovlpv2_torch.weights import random_init_
 
+    _refuse_not_ported(args)
     device = _device(args.device)
     ckpt = _checkpoint_file(args.ckpt)
     if args.meta:
@@ -227,6 +291,7 @@ def cmd_extract(args) -> dict:
 def cmd_pretrain(args) -> dict:
     from egovlpv2_torch.tasks.pretrain import build_pretrain, synthetic_batch
 
+    _refuse_not_ported(args)
     device = _device(args.device)
     ckpt = _checkpoint_file(args.ckpt)
     if not args.synthetic:
@@ -241,12 +306,18 @@ def cmd_pretrain(args) -> dict:
     cfg = load_train_config(args.config, args.set)
     model, _, _, train_step = build_pretrain(cfg, device=device)
     _load_checkpoint(model, cfg, ckpt)
+    # the epoch cap in loader samples (trainer_egoclip.py:108), synthetic
+    # epochs too; without scene negatives a step takes the global batch
+    steps = args.steps_per_epoch
+    if cfg.max_samples_per_epoch:
+        steps = min(steps, max(1, cfg.max_samples_per_epoch
+                               // cfg.global_batch_size))
     logged, seconds = _train_loop(
         args, device, train_step,
         lambda epoch: (synthetic_batch(
             cfg, cfg.global_batch_size,
             np.random.default_rng(epoch * 100003 + i))
-            for i in range(args.steps_per_epoch)))
+            for i in range(steps)))
     return {"model": model, "logged": logged, "step_seconds": seconds,
             "clips_per_step": cfg.global_batch_size}
 
@@ -280,6 +351,7 @@ def cmd_dual_ft(args) -> dict:
     on synthetic batches."""
     from egovlpv2_torch.tasks.retrieval import build_dual, synthetic_dual_batch
 
+    _refuse_not_ported(args)
     device = _device(args.device)
     ckpt = _checkpoint_file(args.ckpt)
     if args.save_dir or args.resume:
@@ -324,6 +396,85 @@ def cmd_dual_ft(args) -> dict:
             "step_seconds": seconds, "clips_per_step": cfg.global_batch_size}
 
 
+def _emit_metrics(metrics: dict, out) -> None:
+    """One JSON line of `metrics` on stdout, and into the file `out`."""
+    line = json.dumps({k: float(v) for k, v in metrics.items()})
+    print(line)
+    if out:
+        os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)
+        with open(out, "w") as f:
+            f.write(line + "\n")
+
+
+class _TokenizedQA:
+    """The QA dataset with each question tokenized into text_ids/text_mask."""
+
+    def __init__(self, ds, tok: Tokenizer):
+        self.ds, self.tok = ds, tok
+
+    def __len__(self):
+        return len(self.ds)
+
+    def __getitem__(self, i):
+        item = self.ds[i]
+        enc = self.tok([item.pop("text")])
+        item["text_ids"] = enc["text_ids"][0]
+        item["text_mask"] = enc["text_mask"][0]
+        return item
+
+
+def cmd_taskqa(args) -> dict:
+    """EgoTaskQA: QA json + interval videos -> fused backbone + QA head ->
+    overall / per-reasoning-type accuracy (EgoTaskQA/main_end2end.py:84-185,
+    with the --resume and --test_only modes of :164-200)."""
+    from egovlpv2_torch.downstream.datasets import EgoTaskQADataset
+    from egovlpv2_torch.models.egovlp import EgoVLPv2
+    from egovlpv2_torch.tasks.orchestrators import run_egotaskqa
+    from egovlpv2_torch.weights import training_init_
+
+    device = _device(args.device)
+    ckpt = _checkpoint_file(args.ckpt)
+    cfg = load_train_config(args.config, args.set)
+    with open(args.answer_set) as f:  # output_dim == len(answers)
+        num_answers = len([line for line in f if line.strip()])
+    reasoning_types = []
+    if args.reasoning_types:
+        with open(args.reasoning_types) as f:
+            reasoning_types = [line.strip() for line in f if line.strip()]
+    tok = Tokenizer(args.tokenizer, max_len=cfg.max_text_len,
+                    vocab_cap=cfg.model.text.vocab_size)
+
+    def dataset(qa_json, split):
+        return _TokenizedQA(EgoTaskQADataset(
+            qa_json, args.videos, num_frames=cfg.model.video.num_frames,
+            input_res=cfg.model.video.img_size, split=split), tok)
+
+    backbone = None
+    if ckpt:
+        # the checkpoint over a seeded model, as the JAX CLI's _load_params
+        model = training_init_(EgoVLPv2(cfg.model, device="cpu"),
+                               torch.Generator().manual_seed(0))
+        _load_checkpoint(model, cfg, ckpt)
+        backbone = model.state_dict()
+    logged, seconds = [], []
+
+    def on_step(step, metrics, sec):
+        seconds.append(sec)
+        row = {"step": step, **metrics, "step_ms": round(sec * 1e3, 3)}
+        logged.append(row)
+        print(json.dumps(row), flush=True)
+
+    metrics = run_egotaskqa(
+        cfg.model, dataset(args.qa_train, "train"), dataset(args.qa_val, "val"),
+        num_answers, reasoning_types=reasoning_types, epochs=args.epochs,
+        batch_size=args.batch_size, lr=args.lr, save_dir=args.save_dir,
+        resume=args.resume, test_only=args.test_only,
+        backbone_state_dict=backbone, device=device, on_step=on_step)
+    _emit_metrics(metrics, args.metrics_out)
+    return {"metrics": metrics, "logged": logged, "step_seconds": seconds,
+            "clips_per_step": args.batch_size}
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser("egovlpv2-torch")
     sub = parser.add_subparsers(dest="cmd", required=True)
@@ -339,7 +490,9 @@ def main(argv=None):
     p.add_argument("--save_dir", default=None, help="not ported yet: raises")
     p.add_argument("--resume", action="store_true",
                    help="not ported yet: raises")
+    p.add_argument("--tokenizer", default="roberta-base")
     p.add_argument("--device", default="cuda", help="cuda, cuda:<i> or cpu")
+    _add_not_ported(p, "pretrain")
     p.set_defaults(fn=cmd_pretrain)
 
     e = sub.add_parser("egomcq")
@@ -354,6 +507,7 @@ def main(argv=None):
     e.add_argument("--vtc_only", action="store_true")
     e.add_argument("--out", default=None, help="write metrics JSON here")
     e.add_argument("--device", default="cuda", help="cuda, cuda:<i> or cpu")
+    _add_not_ported(e, "egomcq")
     e.set_defaults(fn=cmd_egomcq)
 
     x = sub.add_parser("extract")
@@ -377,7 +531,7 @@ def main(argv=None):
         f.add_argument("--tokenizer", default="roberta-base")
         f.add_argument("--synthetic", action="store_true")
         f.add_argument("--epochs", type=int, default=1)
-        f.add_argument("--steps_per_epoch", type=int, default=10)
+        f.add_argument("--steps_per_epoch", type=int, default=4)
         f.add_argument("--log_every", type=int, default=1)
         f.add_argument("--ckpt", default=None,
                        help="reference .pth to import")
@@ -388,7 +542,31 @@ def main(argv=None):
                            help="not ported yet: raises")
         f.add_argument("--device", default="cuda",
                        help="cuda, cuda:<i> or cpu")
+        _add_not_ported(f, "ft")
         f.set_defaults(fn=cmd_dual_ft, dataset=dataset)
+
+    t = sub.add_parser("taskqa", help="EgoTaskQA: QA fine-tune + accuracy")
+    t.add_argument("--config", default=None)
+    t.add_argument("--set", nargs="*", default=[], help="dotted.key=value")
+    t.add_argument("--tokenizer", default="roberta-base")
+    t.add_argument("--qa_train", required=True, help="train QA json")
+    t.add_argument("--qa_val", required=True, help="val/test QA json")
+    t.add_argument("--videos", required=True, help="interval .mp4 dir")
+    t.add_argument("--answer_set", required=True,
+                   help="answer_set.txt (one answer per line)")
+    t.add_argument("--reasoning_types", default=None,
+                   help="all_reasoning_types.txt")
+    t.add_argument("--ckpt", default=None,
+                   help="pretrained backbone: a reference .pth to import")
+    t.add_argument("--save_dir", default=None)
+    t.add_argument("--resume", action="store_true")
+    t.add_argument("--test_only", action="store_true")
+    t.add_argument("--epochs", type=int, default=1)
+    t.add_argument("--batch_size", type=int, default=8)
+    t.add_argument("--lr", type=float, default=2e-4)
+    t.add_argument("--metrics_out", default=None)
+    t.add_argument("--device", default="cuda", help="cuda, cuda:<i> or cpu")
+    t.set_defaults(fn=cmd_taskqa)
 
     args = parser.parse_args(argv)
     return args.fn(args)

@@ -38,7 +38,9 @@
 // models make. Everything else (f32, other head dims) runs on the CUDA
 // cores, in the simplest form that is right: a group of G threads owns one
 // query row of one head, each thread 8 consecutive elements of the head dim
-// (16 B of bf16), as in divided_attention.cu; a block of 256 threads takes
+// (16 B of bf16, one vector load; element by element where the head dim is
+// not a multiple of 8, the last thread's slice cut short), as in
+// divided_attention.cu; a block of 256 threads takes
 // 256/G query rows of one (batch, head), and each group streams all the keys
 // kChunk at a time with an online softmax (the running max starts at -inf).
 // The groups of a warp hold neighbouring query rows, so a key is one
@@ -52,12 +54,44 @@ namespace {
 
 constexpr int kChunk = 8;  // keys scored between softmax rescales
 
+__device__ __forceinline__ float widen(float x) { return x; }
+__device__ __forceinline__ float widen(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+// A thread's slice of a row: n of its kVec elements lie inside the head dim.
+// kWhole: the head dim is a multiple of kVec and rows are 16-byte aligned
+// (the Python wrapper checks it), so the slice is one vector load.
+template <bool kWhole, typename T>
+__device__ __forceinline__ void load_slice(const T* p, int n,
+                                           float (&o)[kVec]) {
+  if constexpr (kWhole) {
+    load_vec(p, o);
+  } else {
+#pragma unroll
+    for (int e = 0; e < kVec; ++e) o[e] = e < n ? widen(p[e]) : 0.f;
+  }
+}
+
+template <bool kWhole, typename T>
+__device__ __forceinline__ void store_slice(T* p, int n,
+                                            const float (&v)[kVec]) {
+  if constexpr (kWhole) {
+    store_vec(p, v);
+  } else {
+#pragma unroll
+    for (int e = 0; e < kVec; ++e) {
+      if (e < n) store_one(p + e, v[e]);
+    }
+  }
+}
+
 // Elements between the batches, heads and sequence rows of one tensor.
 struct Strides {
   int64_t b, h, s;
 };
 
-template <typename T, int G>
+template <typename T, int G, bool kWhole>
 __global__ void __launch_bounds__(kThreads)
     fused_attention_fwd_kernel(const T* __restrict__ q,
                                const T* __restrict__ k,
@@ -78,6 +112,7 @@ __global__ void __launch_bounds__(kThreads)
   const bool on = lane * kVec < Dh;     // false on padding lanes
 
   const int64_t col = (int64_t)lane * kVec;
+  const int n = Dh - lane * kVec;       // elements of the slice in the head
   const T* kp = k + b * ks.b + h * ks.h + col;
   const T* vp = v + b * vs.b + h * vs.h + col;
   const float* bp = bias ? bias + b * bias_b + h * bias_h : nullptr;
@@ -85,7 +120,9 @@ __global__ void __launch_bounds__(kThreads)
   float qv[kVec];
 #pragma unroll
   for (int e = 0; e < kVec; ++e) qv[e] = 0.f;
-  if (on) load_vec(q + b * qs.b + h * qs.h + r * qs.s + col, qv);
+  if (on) {
+    load_slice<kWhole>(q + b * qs.b + h * qs.h + r * qs.s + col, n, qv);
+  }
 #pragma unroll
   for (int e = 0; e < kVec; ++e) qv[e] *= scale;
 
@@ -104,7 +141,7 @@ __global__ void __launch_bounds__(kThreads)
       float part = 0.f;
       if (on && valid) {
         float kv[kVec];
-        load_vec(kp + key * ks.s, kv);
+        load_slice<kWhole>(kp + key * ks.s, n, kv);
 #pragma unroll
         for (int e = 0; e < kVec; ++e) part = fmaf(qv[e], kv[e], part);
       }
@@ -126,7 +163,7 @@ __global__ void __launch_bounds__(kThreads)
       l += p;
       if (on && key < Sk) {
         float vv[kVec];
-        load_vec(vp + key * vs.s, vv);
+        load_slice<kWhole>(vp + key * vs.s, n, vv);
 #pragma unroll
         for (int e = 0; e < kVec; ++e) acc[e] = fmaf(p, vv[e], acc[e]);
       }
@@ -139,7 +176,8 @@ __global__ void __launch_bounds__(kThreads)
     const float inv = 1.f / l;
 #pragma unroll
     for (int e = 0; e < kVec; ++e) o[e] = acc[e] * inv;
-    store_vec(out + b * os.b + h * os.h + r * os.s + col, o);
+    store_slice<kWhole>(out + b * os.b + h * os.h + r * os.s + col, n,
+                        o);
   }
 }
 
@@ -409,7 +447,7 @@ __global__ void __launch_bounds__(kWarps * 32)
 
 }  // namespace mma
 
-template <typename T, int G>
+template <typename T, int G, bool kWhole>
 int launch(const void* q, const void* k, const void* v, const float* bias,
            void* out, int B, int H, int Sq, int Sk, int Dh, Strides qs,
            Strides ks, Strides vs, Strides os, int64_t bias_b, int64_t bias_h,
@@ -418,7 +456,8 @@ int launch(const void* q, const void* k, const void* v, const float* bias,
   const int tiles = (Sq + rows - 1) / rows;
   const int64_t blocks = (int64_t)B * H * tiles;
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  fused_attention_fwd_kernel<T, G><<<(unsigned)blocks, kThreads, 0, stream>>>(
+  fused_attention_fwd_kernel<T, G, kWhole>
+      <<<(unsigned)blocks, kThreads, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), bias, static_cast<T*>(out), H, Sq, Sk, Dh, qs,
       ks, vs, os, bias_b, bias_h, tiles, scale);
@@ -463,8 +502,11 @@ int dispatch_group(const void* q, const void* k, const void* v,
                    int64_t bias_b, int64_t bias_h, float scale,
                    cudaStream_t stream) {
 #define EGOVLP_LAUNCH(G)                                                     \
-  return launch<T, G>(q, k, v, bias, out, B, H, Sq, Sk, Dh, qs, ks, vs, os, \
-                      bias_b, bias_h, scale, stream)
+  return Dh % kVec == 0                                                      \
+             ? launch<T, G, true>(q, k, v, bias, out, B, H, Sq, Sk, Dh, qs,  \
+                                  ks, vs, os, bias_b, bias_h, scale, stream) \
+             : launch<T, G, false>(q, k, v, bias, out, B, H, Sq, Sk, Dh, qs, \
+                                   ks, vs, os, bias_b, bias_h, scale, stream)
   switch (group_size(Dh)) {
     case 1: EGOVLP_LAUNCH(1);
     case 2: EGOVLP_LAUNCH(2);
@@ -482,8 +524,9 @@ extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16. `bias` may be null (no bias). Strides
 // are in elements; the Python wrapper has checked the shapes, the dtype,
-// that the head dim is contiguous and a multiple of 8 up to 128, and that
-// every pointer and stride keeps 16-byte alignment.
+// that the head dim is contiguous and at most 128, and, where the head dim
+// is a multiple of 8, that every pointer and stride keeps 16-byte
+// alignment.
 int fused_attention_fwd(const void* q, const void* k, const void* v,
                         const void* bias, void* out, int dtype, int B, int H,
                         int Sq, int Sk, int Dh, int64_t q_b, int64_t q_h,

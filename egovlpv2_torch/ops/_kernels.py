@@ -37,6 +37,9 @@ _SOURCES = {
         "attention_bwd_parts"),
     "layernorm.cu": ("layernorm_fwd", "layernorm_bwd", "layernorm_bwd_parts"),
     "fused_attention.cu": ("fused_attention_fwd",),
+    "divided_attention_general.cu": (
+        "general_attention_fwd", "general_attention_bwd",
+        "general_attention_bwd_parts"),
 }
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "egovlpv2_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -49,7 +52,9 @@ launch_counts = {"space_attention_fwd": 0, "time_attention_fwd": 0,
                  "cls_row_attention_fwd": 0, "space_attention_bwd": 0,
                  "time_attention_bwd": 0, "cls_row_attention_bwd": 0,
                  "layernorm_fwd": 0, "layernorm_bwd": 0,
-                 "fused_attention_fwd": 0}
+                 "fused_attention_fwd": 0,
+                 "divided_attention_general_fwd": 0,
+                 "divided_attention_general_bwd": 0}
 
 
 def reset_launch_counts() -> None:
@@ -144,6 +149,14 @@ def load() -> SimpleNamespace:
     fns.fused_attention_fwd.argtypes = [ptr] * 5 + [i32] * 6 + [i64] * 14 \
         + [f32, ptr]
     fns.fused_attention_fwd.restype = i32
+    fns.general_attention_fwd.argtypes = [ptr, ptr] + [i32] * 7 + [f32] \
+        + [ptr] * 3
+    fns.general_attention_fwd.restype = i32
+    fns.general_attention_bwd.argtypes = [ptr] * 5 + [i32] * 7 + [f32] \
+        + [ptr] * 4
+    fns.general_attention_bwd.restype = i32
+    fns.general_attention_bwd_parts.argtypes = [i32]
+    fns.general_attention_bwd_parts.restype = i32
     fns.cuda_error_string.argtypes = [i32]
     fns.cuda_error_string.restype = ctypes.c_char_p
     return fns
@@ -428,13 +441,16 @@ def layernorm_bwd(x: torch.Tensor, scale: torch.Tensor, g: torch.Tensor,
 
 def attention_strides(t: torch.Tensor):
     """The (batch, head, row) strides, in elements, of a [B, H, S, Dh] tensor
-    the attention kernel can read or write by stride (Dh contiguous, every
-    row 16-byte aligned), else None."""
+    the attention kernel can read or write by stride (Dh contiguous; where Dh
+    is a multiple of 8, every row 16-byte aligned, as its vector loads need),
+    else None."""
     sb, sh, ss, sd = t.stride()
-    b, h, s, _ = t.shape
+    b, h, s, dh = t.shape
+    if sd != 1 and dh > 1:
+        return None
     per16 = 16 // t.element_size()
-    if sd != 1 or t.data_ptr() % 16 or (s > 1 and ss % per16) \
-            or (h > 1 and sh % per16) or (b > 1 and sb % per16):
+    if dh % 8 == 0 and (t.data_ptr() % 16 or (s > 1 and ss % per16)
+                        or (h > 1 and sh % per16) or (b > 1 and sb % per16)):
         return None
     return sb, sh, ss
 
@@ -450,8 +466,9 @@ def _check_strided(name: str, t: torch.Tensor, like: torch.Tensor,
                          f"{t.device}")
     strides = attention_strides(t)
     if strides is None:
-        raise ValueError(f"kernel needs {name} with a contiguous head dim and "
-                         f"16-byte aligned rows, got strides {t.stride()}")
+        raise ValueError(f"kernel needs {name} with a contiguous head dim "
+                         f"(and 16-byte aligned rows where it is a multiple "
+                         f"of 8), got strides {t.stride()}")
     return strides
 
 
@@ -460,9 +477,10 @@ def fused_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """K9: out = softmax((q * scale) @ k^T + bias) @ v, written into `out`.
 
     q and out [B, H, Sq, Dh], k and v [B, H, Sk, Dh], float32 or bfloat16,
-    each read or written by its own strides (Dh contiguous, rows 16-byte
-    aligned); `bias` is None or a float32 additive row [B or 1, H or 1, 1,
-    Sk], Sk contiguous, broadcast over the axes of size 1."""
+    any head dim up to 128, each read or written by its own strides (Dh
+    contiguous; rows 16-byte aligned where Dh is a multiple of 8); `bias`
+    is None or a float32 additive row [B or 1, H or 1, 1, Sk], Sk
+    contiguous, broadcast over the axes of size 1."""
     name = "fused_attention_fwd"
     if q.device.type != "cuda":
         raise ValueError(f"kernel needs q on a CUDA device, got {q.device}")
@@ -473,9 +491,9 @@ def fused_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"Dh], got {tuple(q.shape)} and {tuple(k.shape)}")
     b, h, sq, dh = q.shape
     sk = k.shape[2]
-    if dh < 8 or dh % 8 or dh > 128 or sq < 1 or sk < 1:
-        raise ValueError(f"attention kernel takes a head dim that is a "
-                         f"multiple of 8 up to 128 and Sq, Sk >= 1, got q "
+    if not 1 <= dh <= 128 or sq < 1 or sk < 1:
+        raise ValueError(f"attention kernel takes a head dim up to 128 and "
+                         f"Sq, Sk >= 1, got q "
                          f"{tuple(q.shape)}, k {tuple(k.shape)}")
     strides = (*_check_strided("q", q, q, (b, h, sq, dh)),
                *_check_strided("k", k, q, (b, h, sk, dh)),
@@ -502,5 +520,98 @@ def fused_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), bias_ptr,
             out.data_ptr(), _DTYPE_CODES[q.dtype], b, h, sq, sk, dh,
             *strides, bias_b, bias_h, float(scale), stream)
+    _raise_on_error(name, code)
+    launch_counts[name] += 1
+
+
+# ---------------- general divided attention ----------------
+
+GENERAL_MAX_DH = 256  # the widest head dim `csrc/divided_attention_general.cu` takes
+_AXIS_CODES = {"space": 0, "time": 1}
+
+
+def _strides_arg(t: torch.Tensor, component: bool):
+    """The element strides of a [B, S, 3, H, Dh] (`component`) or
+    [B, S, H, Dh] view as the kernels take them: (component, batch, row,
+    head, element), an int64[5] array."""
+    if component:
+        sb, sr, sc, sh, sd = t.stride()
+    else:
+        (sb, sr, sh, sd), sc = t.stride(), 0
+    return (ctypes.c_int64 * 5)(sc, sb, sr, sh, sd)
+
+
+def _check_general(qkv: torch.Tensor, axis: str, num_frames: int,
+                   **others: torch.Tensor) -> tuple:
+    """qkv [B, S, 3, H, Dh] on a CUDA device, float32 or bfloat16, with
+    S = 1 + num_frames * N; each of `others` [B, S, H, Dh] (or qkv's shape
+    for `dqkv`) of qkv's dtype on its device. Returns (B, S, H, Dh)."""
+    if qkv.device.type != "cuda":
+        raise ValueError(f"kernel needs qkv on a CUDA device, got {qkv.device}")
+    if qkv.dtype not in _DTYPE_CODES:
+        raise TypeError(f"kernel takes float32 or bfloat16, got {qkv.dtype}")
+    if qkv.dim() != 5 or qkv.shape[2] != 3:
+        raise ValueError(f"kernel takes qkv [B, S, 3, H, Dh], got "
+                         f"{tuple(qkv.shape)}")
+    if axis not in _AXIS_CODES:
+        raise ValueError(f"axis must be one of {tuple(_AXIS_CODES)}, got {axis!r}")
+    b, s, _, h, dh = qkv.shape
+    if not 1 <= dh <= GENERAL_MAX_DH:
+        raise ValueError(f"head dim {dh} must be in 1..{GENERAL_MAX_DH}")
+    if num_frames < 1 or s < 2 or (s - 1) % num_frames:
+        raise ValueError(f"S={s} is not 1 + {num_frames} frames * N patches")
+    if max(b, h) > 65535 or s >= 2 ** 31:
+        raise ValueError(f"B={b}, H={h} or S={s} is past the kernel's grid")
+    for name, t in others.items():
+        shape = tuple(qkv.shape) if name == "dqkv" else (b, s, h, dh)
+        if t.device != qkv.device or t.dtype != qkv.dtype \
+                or tuple(t.shape) != shape:
+            raise ValueError(f"{name} must be {shape} {qkv.dtype} on "
+                             f"{qkv.device}, got {tuple(t.shape)} {t.dtype} "
+                             f"{t.device}")
+    return b, s, h, dh
+
+
+def divided_attention_general_fwd(qkv: torch.Tensor, out: torch.Tensor, *,
+                                  scale: float, axis: str,
+                                  num_frames: int) -> None:
+    """K10: divided attention with the CLS splice over all S rows, written
+    into `out`. qkv [B, S, 3, H, Dh] and out [B, S, H, Dh], float32 or
+    bfloat16, any head dim up to GENERAL_MAX_DH, each read or written by its
+    own strides (any view)."""
+    name = "divided_attention_general_fwd"
+    b, s, h, dh = _check_general(qkv, axis, num_frames, out=out)
+    with torch.cuda.device(qkv.device):
+        stream = torch.cuda.current_stream(qkv.device).cuda_stream
+        code = load().general_attention_fwd(
+            qkv.data_ptr(), out.data_ptr(), _DTYPE_CODES[qkv.dtype], b, s, h,
+            dh, num_frames, _AXIS_CODES[axis], float(scale),
+            _strides_arg(qkv, True), _strides_arg(out, False), stream)
+    _raise_on_error(name, code)
+    launch_counts[name] += 1
+
+
+def divided_attention_general_bwd(qkv: torch.Tensor, g: torch.Tensor,
+                                  dqkv: torch.Tensor, *, scale: float,
+                                  axis: str, num_frames: int) -> None:
+    """K11: backward of K10. From qkv and the cotangent g [B, S, H, Dh] of
+    its output, writes dq, dk and dv into dqkv [B, S, 3, H, Dh]; each
+    tensor by its own strides. Two `__global__` launches (a query pass,
+    then a key pass) over f32 scratch allocated here."""
+    name = "divided_attention_general_bwd"
+    b, s, h, dh = _check_general(qkv, axis, num_frames, g=g, dqkv=dqkv)
+    fns = load()
+    parts = fns.general_attention_bwd_parts(s)
+    stats = torch.empty((2, b, h, s), dtype=torch.float32, device=qkv.device)
+    share = torch.empty((b, h, parts, 2, dh), dtype=torch.float32,
+                        device=qkv.device)
+    with torch.cuda.device(qkv.device):
+        stream = torch.cuda.current_stream(qkv.device).cuda_stream
+        code = fns.general_attention_bwd(
+            qkv.data_ptr(), g.data_ptr(), dqkv.data_ptr(), stats.data_ptr(),
+            share.data_ptr(), _DTYPE_CODES[qkv.dtype], b, s, h, dh,
+            num_frames, _AXIS_CODES[axis], float(scale),
+            _strides_arg(qkv, True), _strides_arg(g, False),
+            _strides_arg(dqkv, True), stream)
     _raise_on_error(name, code)
     launch_counts[name] += 1

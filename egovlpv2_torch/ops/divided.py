@@ -9,16 +9,25 @@ own patch column across frames (time axis), plus the CLS key.
 `divided_attention` dispatches on the device of its input:
   * a CPU tensor takes the plain PyTorch version,
     `divided_attention_reference`, and autograd differentiates it;
-  * a CUDA tensor takes the hand-written kernels of `csrc/`, forward
-    (K1 space or K2 time for rows 1..S-1, K3 for the CLS row) and
-    backward (K4 space or K5 time, then K6 for the CLS row), which read
-    q, k and v by stride from the qkv Linear output and write dqkv in the
-    same layout; a kernel that cannot build or launch raises;
+  * a CUDA tensor takes the hand-written kernels of `csrc/`, chosen by one
+    predicate, `grouped_kernels_take` (dtype, head dim, contiguity,
+    alignment):
+      - bf16, contiguous, 16-byte aligned, head dim a multiple of 8 up to
+        128: forward K1 space or K2 time for rows 1..S-1 and K3 for the CLS
+        row, backward K4 space or K5 time, then K6 for the CLS row; they
+        read q, k and v by stride from the qkv Linear output and write dqkv
+        in the same layout;
+      - any other float32 or bf16 input (f32, another head dim, a strided
+        view such as a permute of a [3, B, H, S, Dh] tensor): K10 forward
+        and K11 backward (`csrc/divided_attention_general.cu`), which read
+        every tensor by its strides, without a copy;
+    another dtype raises, and a kernel that cannot build or launch raises;
   * any other device raises.
 
 `divided_attention_backward_reference` is the plain version of the
 backward: autograd through `divided_attention_reference`. The tests and
-`chip_smoke.py` hold K4-K6 against it; nothing on the card's path calls it.
+`chip_smoke.py` hold K4-K6 and K11 against it; nothing on the card's path
+calls it.
 """
 
 from __future__ import annotations
@@ -136,12 +145,49 @@ class _DividedAttentionKernels(torch.autograd.Function):
         return dqkv, None, None, None, None
 
 
+class _DividedAttentionGeneral(torch.autograd.Function):
+    """K10 and K11 as one differentiable function of qkv [B, S, 3, H, Dh]
+    (any strides) -> [B, S, H, Dh]. Only qkv is saved: K11 recomputes the
+    softmax from it. dqkv takes qkv's strides where qkv is dense (a permuted
+    tensor), else it is contiguous; the cotangent is read as it comes."""
+
+    @staticmethod
+    def forward(ctx, qkv, scale, axis, num_frames):
+        b, s, _, h, dh = qkv.shape
+        out = torch.empty((b, s, h, dh), dtype=qkv.dtype, device=qkv.device)
+        _kernels.divided_attention_general_fwd(qkv, out, scale=scale,
+                                               axis=axis,
+                                               num_frames=num_frames)
+        ctx.save_for_backward(qkv)
+        ctx.attrs = (scale, axis, num_frames)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        (qkv,) = ctx.saved_tensors
+        scale, axis, num_frames = ctx.attrs
+        dqkv = torch.empty_like(qkv)
+        _kernels.divided_attention_general_bwd(qkv, g, dqkv, scale=scale,
+                                               axis=axis,
+                                               num_frames=num_frames)
+        return dqkv, None, None, None
+
+
+def grouped_kernels_take(qkv: torch.Tensor) -> bool:
+    """Whether K1-K6 take this CUDA qkv [B, S, 3, H, Dh]: bf16, contiguous,
+    16-byte aligned, head dim a multiple of 8 up to 128. K10/K11 take every
+    other float32 or bf16 input."""
+    dh = qkv.shape[-1]
+    return (qkv.dtype == torch.bfloat16 and qkv.is_contiguous()
+            and qkv.data_ptr() % 16 == 0 and dh % 8 == 0 and dh <= 128)
+
+
 def divided_attention(qkv: torch.Tensor, *, scale: float, axis: str,
                       num_frames: int) -> torch.Tensor:
     """Divided space/time self-attention with the CLS splice.
 
-    qkv: [B, S, 3, H, Dh], the reshape of the qkv Linear output, with
-    S = 1 + num_frames * N. Returns [B, S, H, Dh] in qkv.dtype.
+    qkv: [B, S, 3, H, Dh], as a rule the reshape of the qkv Linear output,
+    with S = 1 + num_frames * N. Returns [B, S, H, Dh] in qkv.dtype.
     """
     if axis not in _AXES:
         raise ValueError(f"axis must be one of {_AXES}, got {axis!r}")
@@ -151,8 +197,11 @@ def divided_attention(qkv: torch.Tensor, *, scale: float, axis: str,
     if qkv.device.type != "cuda":
         raise ValueError(f"divided_attention runs on cpu or cuda, not "
                          f"{qkv.device}")
-    if not qkv.is_contiguous():
-        raise ValueError("divided_attention needs a contiguous qkv")
+    if qkv.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"divided_attention on cuda takes float32 or "
+                        f"bfloat16, got {qkv.dtype}")
+    if not grouped_kernels_take(qkv):
+        return _DividedAttentionGeneral.apply(qkv, scale, axis, num_frames)
     b, s, _, h, dh = qkv.shape
     out = _DividedAttentionKernels.apply(qkv.view(b, s, 3 * h * dh), h,
                                          num_frames, scale, axis)

@@ -33,7 +33,8 @@ import torch
 from egovlpv2_torch.ops import _kernels
 
 # Inputs the kernel could not read by stride (a head dim that is not
-# contiguous, rows off 16-byte alignment, leading axes that do not fold into
+# contiguous, rows off 16-byte alignment at a head dim that is a multiple of
+# 8, leading axes that do not fold into
 # one without a copy, a bias that is not float32) and that were copied
 # first, since the last reset.
 contiguous_copies = {"q": 0, "k": 0, "v": 0, "bias": 0}
@@ -153,7 +154,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """Attention over the last two axes without probability dropout.
 
     q [..., Sq, Dh], k and v [..., Sk, Dh] with the same leading axes,
-    float32 or bfloat16, Dh a multiple of 8 up to 128, Sq and Sk >= 1;
+    float32 or bfloat16, any head dim up to 128, Sq and Sk >= 1;
     `bias` is additive, broadcastable to [..., Sq, Sk] and constant over Sq
     (shape [..., 1, Sk]: a padding mask), or None. Returns [..., Sq, Dh] in
     q.dtype. Anything else raises a ValueError with the shapes: the JAX
@@ -172,9 +173,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          f"of one dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
     sq, dh = q.shape[-2:]
     sk = k.shape[-2]
-    if dh % 8 or not 8 <= dh <= 128 or sq < 1 or sk < 1:
-        raise ValueError(f"flash_attention takes a head dim that is a multiple "
-                         f"of 8 up to 128 and Sq, Sk >= 1, got q "
+    if not 1 <= dh <= 128 or sq < 1 or sk < 1:
+        raise ValueError(f"flash_attention takes a head dim up to 128 and "
+                         f"Sq, Sk >= 1, got q "
                          f"{tuple(q.shape)}, k {tuple(k.shape)}")
     if bias is not None:
         _check_bias(bias, tuple(q.shape[:-2]), sq, sk)

@@ -13,6 +13,11 @@ reference quirks are kept, as they affect training dynamics:
   * the fusion gates alpha_i2t / alpha_t2i live in the cross-modal DECAY
     group (their names match "i2t"/"t2i" but not "bias").
 
+`make_adamw_warmup_cosine` is the one-group optimizer of the EgoTaskQA
+fine-tune (`optax.adamw(warmup_cosine_decay_schedule(0, lr, warmup,
+total), weight_decay=0.01)`): every parameter decays, biases and LayerNorm
+scales included.
+
 `torch.optim.AdamW` decays decoupled, p <- p (1 - lr wd), then steps by
 lr m/(sqrt(v) + eps): the same update as optax's -lr (u + wd p). The
 schedule is a `LambdaLR` whose factor at count c is optax's schedule at c
@@ -111,4 +116,39 @@ def make_optimizer(cfg: OptimConfig, model: nn.Module,
         base = factor
         factor = lambda count: base(count) * lr_scale(count)
     scheduler = torch.optim.lr_scheduler.LambdaLR(optimizer, factor)
+    return optimizer, scheduler
+
+
+def warmup_cosine_factor(warmup_steps: int, total_steps: int
+                         ) -> Callable[[int], float]:
+    """count -> `optax.warmup_cosine_decay_schedule(0, peak, warmup_steps,
+    total_steps)` at count, over the peak: linear from 0 over the warmup,
+    then a cosine to 0 over the remaining `total_steps - warmup_steps`
+    (which must be positive, as optax requires)."""
+    decay_steps = total_steps - warmup_steps
+    if not decay_steps > 0:
+        raise ValueError(f"the cosine needs positive decay steps, got "
+                         f"{total_steps} total - {warmup_steps} warmup")
+
+    def factor(count: int) -> float:
+        if count < warmup_steps:
+            return count / warmup_steps
+        done = min(count - warmup_steps, decay_steps) / decay_steps
+        return 0.5 * (1.0 + math.cos(math.pi * done))
+
+    return factor
+
+
+def make_adamw_warmup_cosine(model: nn.Module, lr: float, warmup_steps: int,
+                             total_steps: int, weight_decay: float = 0.01):
+    """Returns (AdamW over all of `model`'s parameters in one group, its
+    LambdaLR): optax.adamw's defaults, b1 0.9, b2 0.999, eps 1e-8 added
+    after the square root; the schedule is read at the update count before
+    the update, so the first update's learning rate is 0. Step the scheduler
+    once after every optimizer step."""
+    optimizer = torch.optim.AdamW(model.parameters(), lr=lr,
+                                  betas=(0.9, 0.999), eps=1e-8,
+                                  weight_decay=weight_decay)
+    scheduler = torch.optim.lr_scheduler.LambdaLR(
+        optimizer, warmup_cosine_factor(warmup_steps, total_steps))
     return optimizer, scheduler

@@ -18,6 +18,10 @@ layouts (the same transposes), so the tests compare gradients and updated
 parameters name by name. `flax_path` gives one parameter's flax path; the
 optimizer's group rules are written over those paths.
 
+`overlay_` copies the tensors two trees share (the EgoTaskQA fine-tune's
+overlay of a pretrained backbone onto the QA model's, which lacks the
+pretrain heads).
+
 Only numpy and torch are used here.
 """
 
@@ -96,6 +100,25 @@ def flax_from_state_dict(state_dict: Mapping[str, torch.Tensor]
             node = node.setdefault(m, {})
         node[leaf] = np.ascontiguousarray(arr).copy()
     return tree
+
+
+@torch.no_grad()
+def overlay_(module: nn.Module, state_dict: Mapping[str, torch.Tensor]) -> list:
+    """Intersection overlay, in place: every entry of `module`'s state_dict
+    whose name `state_dict` also holds takes that tensor (of the same
+    shape); the others keep their values, and names only `state_dict` has
+    are ignored (`run_egotaskqa`'s `overlay`, orchestrators.py:311-323).
+    Returns the names taken."""
+    taken = []
+    for name, dst in module.state_dict().items():
+        if name in state_dict:
+            src = state_dict[name]
+            if tuple(src.shape) != tuple(dst.shape):
+                raise ValueError(f"{name}: {tuple(src.shape)} does not fit "
+                                 f"{tuple(dst.shape)}")
+            dst.copy_(torch.as_tensor(src))
+            taken.append(name)
+    return taken
 
 
 @torch.no_grad()

@@ -23,7 +23,8 @@ from egovlpv2_torch.ops.attention import (attend, attend_plain,
                                           make_additive_mask)
 from egovlpv2_torch.ops.divided import (divided_attention,
                                         divided_attention_backward_reference,
-                                        divided_attention_reference)
+                                        divided_attention_reference,
+                                        grouped_kernels_take)
 
 torch.set_num_threads(2)
 
@@ -85,10 +86,13 @@ def test_kernels_match_plain(cuda, case, axis, dtype):
     assert got.shape == ref.shape and got.dtype == dtype
     err = (got.float() - ref.float()).abs().max().item()
     assert err <= TOL[dtype], err
+    # bf16 takes K1/K2 + K3, float32 the general kernel K10
+    launched = {k for k, v in _kernels.launch_counts.items() if v != before[k]}
     grouped = "space_attention_fwd" if axis == "space" else "time_attention_fwd"
-    assert _kernels.launch_counts[grouped] == before[grouped] + 1
-    assert (_kernels.launch_counts["cls_row_attention_fwd"]
-            == before["cls_row_attention_fwd"] + 1)
+    assert launched == ({grouped, "cls_row_attention_fwd"}
+                        if dtype == torch.bfloat16
+                        else {"divided_attention_general_fwd"})
+    assert all(_kernels.launch_counts[k] == before[k] + 1 for k in launched)
 
 
 def _rel_errs(got, ref):
@@ -105,8 +109,9 @@ def _rel_errs(got, ref):
 @pytest.mark.parametrize("axis", ["space", "time"])
 @pytest.mark.parametrize("case", CASES)
 def test_backward_kernels_match_plain(cuda, case, axis, dtype):
-    """The whole gradient through the autograd Function (K4 or K5, then
-    K6), with a cotangent that is a non-contiguous view."""
+    """The whole gradient through the autograd Function (bf16: K4 or K5,
+    then K6; float32: K11), with a cotangent that is a non-contiguous
+    view."""
     b, f, n, h, dh = case
     s = 1 + f * n
     qkv = _qkv(0, b, s, h, dh, dtype, cuda)
@@ -123,12 +128,13 @@ def test_backward_kernels_match_plain(cuda, case, axis, dtype):
     assert torch.isfinite(leaf.grad).all()
     errs = _rel_errs(leaf.grad, ref)
     assert max(errs) <= BWD_RTOL[dtype], errs
+    launched = {k for k, v in _kernels.launch_counts.items()
+                if v != before[k] and k.endswith("_bwd")}
     grouped = "space_attention_bwd" if axis == "space" else "time_attention_bwd"
-    other = "time_attention_bwd" if axis == "space" else "space_attention_bwd"
-    assert _kernels.launch_counts[grouped] == before[grouped] + 1
-    assert _kernels.launch_counts[other] == before[other]
-    assert (_kernels.launch_counts["cls_row_attention_bwd"]
-            == before["cls_row_attention_bwd"] + 1)
+    assert launched == ({grouped, "cls_row_attention_bwd"}
+                        if dtype == torch.bfloat16
+                        else {"divided_attention_general_bwd"})
+    assert all(_kernels.launch_counts[k] == before[k] + 1 for k in launched)
 
 
 @pytest.mark.gpu
@@ -179,9 +185,104 @@ def test_kernel_wrapper_rejects_what_it_cannot_take(cuda):
         _kernels.cls_row_attention_fwd(
             torch.zeros(1, 5, 48, device=cuda, dtype=torch.float16),
             out.half(), num_heads=2, scale=1.0)
-    qkv = _qkv(1, 2, 9, 2, 8, device=cuda).transpose(0, 1)
-    with pytest.raises(ValueError, match="contiguous"):
-        divided_attention(qkv, scale=1.0, axis="space", num_frames=2)
+    with pytest.raises(ValueError, match="contiguous"):  # every 2nd column
+        _kernels.space_attention_fwd(
+            torch.zeros(1, 5, 192, device=cuda)[:, :, ::2],
+            torch.empty(1, 5, 32, device=cuda), num_heads=2, num_frames=2,
+            scale=1.0)
+    # a view K1-K6 cannot read: divided_attention takes K10 instead
+    qkv = _qkv(1, 9, 2, 2, 8, device=cuda).transpose(0, 1)  # [2, 9, 3, 2, 8]
+    before = _kernels.launch_counts["divided_attention_general_fwd"]
+    got = divided_attention(qkv, scale=0.3, axis="space", num_frames=4)
+    ref = divided_attention_reference(qkv, scale=0.3, axis="space",
+                                      num_frames=4)
+    assert (got - ref).abs().max().item() <= TOL[torch.float32]
+    assert _kernels.launch_counts["divided_attention_general_fwd"] == before + 1
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        divided_attention(qkv.half(), scale=0.3, axis="space", num_frames=4)
+    with pytest.raises(ValueError, match="head dim"):
+        _kernels.divided_attention_general_fwd(
+            torch.zeros(1, 5, 3, 1, 264, device=cuda),
+            torch.zeros(1, 5, 1, 264, device=cuda), scale=1.0, axis="time",
+            num_frames=2)
+
+
+# The general divided attention (K10, K11): every CUDA input K1-K6 do not
+# take. (layout, dtype, axis, B, F, N, H, Dh): the EgoTaskQA step's shape
+# (f32) on the packed projection and on a permuted [3, B, H, S, Dh] tensor,
+# rows 3/4's frame-block regime (f32, space, 6 frames), row 1d's regime
+# (bf16, time, F=12, N=64: K10/K11 on a strided view, as K1-K6 take the
+# contiguous one) and an odd head dim. bf16 forward against the plain
+# version on the same values in f32.
+GENERAL_CASES = [
+    ("packed", torch.float32, "space", 8, 4, 196, 12, 64),
+    ("packed", torch.float32, "time", 8, 4, 196, 12, 64),
+    ("permuted", torch.float32, "space", 8, 4, 196, 12, 64),
+    ("permuted", torch.float32, "time", 8, 4, 196, 12, 64),
+    ("packed", torch.float32, "space", 2, 6, 196, 12, 64),
+    ("permuted", torch.bfloat16, "time", 16, 12, 64, 12, 64),
+    ("packed", torch.float32, "space", 2, 3, 10, 2, 12),
+    ("packed", torch.bfloat16, "time", 2, 3, 10, 2, 12),
+]
+
+
+def _general_qkv(seed, layout, b, s, h, dh, dtype, device):
+    """qkv [B, S, 3, H, Dh]: contiguous, or a permute of [3, B, H, S, Dh]."""
+    if layout == "packed":
+        return _qkv(seed, b, s, h, dh, dtype, device)
+    x = np.random.RandomState(seed).randn(3, b, h, s, dh).astype(np.float32)
+    return torch.from_numpy(x).to(device=device, dtype=dtype).permute(1, 3, 0, 2, 4)
+
+
+@pytest.mark.parametrize("layout, dtype, other", [
+    ("packed", torch.bfloat16, {}), ("packed", torch.float32, {}),
+    ("packed", torch.bfloat16, {"dh": 12}), ("packed", torch.bfloat16, {"dh": 136}),
+    ("permuted", torch.bfloat16, {}), ("offset", torch.bfloat16, {})])
+def test_one_predicate_picks_the_kernels(layout, dtype, other):
+    """K1-K6 take bf16, contiguous, 16-byte aligned, Dh a multiple of 8 up
+    to 128; K10/K11 everything else."""
+    dh = other.get("dh", 16)
+    if layout == "offset":  # contiguous but 2 bytes past an aligned start
+        qkv = torch.zeros(1 + 5 * 3 * 2 * dh, dtype=dtype)[1:].view(1, 5, 3, 2, dh)
+        assert qkv.is_contiguous() and qkv.data_ptr() % 16
+    else:
+        qkv = _general_qkv(0, layout, 1, 5, 2, dh, dtype, "cpu")
+    want = (layout == "packed" and dtype == torch.bfloat16 and dh % 8 == 0
+            and dh <= 128)
+    assert grouped_kernels_take(qkv) == want
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", GENERAL_CASES)
+def test_general_kernels_match_plain(cuda, case):
+    """K10 and K11 through `divided_attention` and its backward, no input
+    copied (dqkv comes back in qkv's layout): forward within 1e-4 (f32) /
+    2e-2 (bf16) of the plain version on the same values in f32; dq, dk, dv
+    within 1e-4 / 2e-2 of max |reference|, the CLS row and the patch rows
+    each by its own maximum."""
+    layout, dtype, axis, b, f, n, h, dh = case
+    s = 1 + f * n
+    qkv = _general_qkv(0, layout, b, s, h, dh, dtype, cuda)
+    assert not grouped_kernels_take(qkv) or layout == "packed"
+    g = _qkv(1, b, s, h, dh, dtype, cuda)[:, :, 1]  # a strided view
+    leaf = qkv.detach().requires_grad_(True)
+    before = dict(_kernels.launch_counts)
+    out = divided_attention(leaf, scale=dh ** -0.5, axis=axis, num_frames=f)
+    out.backward(g)
+    torch.cuda.synchronize()
+    launched = {k: v - before[k] for k, v in _kernels.launch_counts.items()
+                if v != before[k]}
+    assert launched == {"divided_attention_general_fwd": 1,
+                        "divided_attention_general_bwd": 1}
+    ref = divided_attention_reference(qkv.float(), scale=dh ** -0.5, axis=axis,
+                                      num_frames=f)
+    assert out.dtype == dtype and torch.isfinite(out).all()
+    assert (out.float() - ref).abs().max().item() <= TOL[dtype]
+    assert leaf.grad.stride() == qkv.stride()
+    dref = divided_attention_backward_reference(qkv, g, scale=dh ** -0.5,
+                                                axis=axis, num_frames=f)
+    errs = _rel_errs(leaf.grad, dref)
+    assert max(errs) <= BWD_RTOL[dtype], errs
 
 
 # LayerNorm (K7, K8). y and dx are held to max |reference| of the tensor:
@@ -297,7 +398,8 @@ FLASH_CASES = [
     # tokens; i2t (many queries, few keys, k and v slices of one packed
     # projection); t2i (few queries, keys split over a block's warps);
     # lengths above the JAX package's threshold; an odd case; one query row;
-    # one key; the narrowest and the widest head dim.
+    # one key; the narrowest and the widest head dim; head dims that are not
+    # a multiple of 8 (element by element, rows off 16-byte alignment).
     (4, 12, 15, 15, 64, "heads", "mask"),
     (2, 12, 30, 30, 64, "heads", "mask"),
     (2, 12, 785, 15, 64, "packed", "mask"),
@@ -311,6 +413,8 @@ FLASH_CASES = [
     (3, 2, 50, 70, 8, "heads", "mask"),
     (1, 2, 20, 500, 128, "heads", "masked_row"),
     (2, 2, 16, 20, 64, "heads", "masked_row"),
+    (2, 2, 37, 33, 12, "heads", "mask"),
+    (1, 3, 40, 20, 100, "packed", None),
 ]
 
 
@@ -509,8 +613,16 @@ def test_kernel_wrappers_refuse_cpu_tensors_before_building():
     with pytest.raises(ValueError, match="CUDA"):
         _kernels.fused_attention_fwd(q4, q4, q4, None, torch.empty_like(q4),
                                      scale=1.0)
+    q5 = torch.zeros(1, 5, 3, 2, 8)
+    with pytest.raises(ValueError, match="CUDA"):
+        _kernels.divided_attention_general_fwd(q5, q5[:, :, 0], scale=1.0,
+                                               axis="space", num_frames=2)
+    with pytest.raises(ValueError, match="CUDA"):
+        _kernels.divided_attention_general_bwd(q5, q5[:, :, 0], q5, scale=1.0,
+                                               axis="time", num_frames=2)
     assert set(libs) == {"divided_attention.cu", "divided_attention_bwd.cu",
-                         "layernorm.cu", "fused_attention.cu"}
+                         "layernorm.cu", "fused_attention.cu",
+                         "divided_attention_general.cu"}
     for lib in libs.values():
         assert lib.parent == _kernels.BUILD_DIR
         assert lib.parent.parts[-2:] == ("build", "egovlpv2_torch")
@@ -553,7 +665,7 @@ def test_port_imports_no_jax():
         "sys.path.insert(0, 'scripts')\n"
         "import profile_torch_egomcq, profile_torch_pretrain\n"
         "import profile_torch_finetune, profile_torch_extract\n"
-        "import profile_torch_flash\n"
+        "import profile_torch_flash, profile_torch_taskqa\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'egovlpv2_tpu'))\n"
         "assert not bad, bad\n"
