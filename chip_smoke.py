@@ -83,8 +83,11 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
                 against the plain version on the same values in f32, within
                 1e-4 (f32) / 2e-2 (bf16) of max |reference|, dq, dk and dv
                 with the CLS row and the patch rows each by its own
-                maximum. Library: `scaled_dot_product_attention` with the
-                dense [S, S] additive mask, and its autograd backward.
+                maximum; K10 twice on one input, bitwise equal (no
+                atomics), its time printed beside its time before the
+                tiled redesign (K10_BEFORE_MS). Library:
+                `scaled_dot_product_attention` with the dense [S, S]
+                additive mask, and its autograd backward.
   4. tiny     — one small model (depth 4, 2 fused, width 128, 2 heads of
                 64, 4 frames of 4x4 patches) from one seeded state_dict on
                 the card (kernels: f32 takes K10/K11, K1-K6 none) and on
@@ -266,6 +269,20 @@ GENERAL_CASES = (
     ("Dh=12", "packed", torch.bfloat16, "time", 4, 4, N, 2, 12),
 )
 GENERAL_MAIN_CASE = ("taskqa", "packed", torch.float32, "space")
+# K10's profiler device time a call before its tiled redesign (the one warp
+# a row form), ms, at GENERAL_CASES, as PERF.md section 6 records it (H100
+# 80GB HBM3, 700 W), printed beside this run's time; keyed by (label,
+# layout, dtype, axis).
+K10_BEFORE_MS = {
+    ("taskqa", "packed", torch.float32, "space"): 4.2556,
+    ("taskqa", "packed", torch.float32, "time"): 0.7308,
+    ("taskqa", "permuted", torch.float32, "space"): 4.0172,
+    ("taskqa", "permuted", torch.float32, "time"): 0.7305,
+    ("rows 3/4 frame-block", "packed", torch.float32, "space"): 1.3267,
+    ("row 1d", "packed", torch.bfloat16, "time"): 0.9147,
+    ("Dh=12", "packed", torch.float32, "space"): 0.4009,
+    ("Dh=12", "packed", torch.bfloat16, "time"): 0.3512,
+}
 # of max |reference|, each against the plain version on the same values in
 # f32 (the kernels keep P, dP and dS in f32 and round only the stores)
 GENERAL_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
@@ -883,7 +900,16 @@ def phase_general(results: dict) -> None:
         }
         for kernel in runs.values():
             kernel()
+        # K10 again on the same input: no atomics, so the same bits
+        out_again = torch.full_like(out, float("nan"))
+        _kernels.divided_attention_general_fwd(qkv, out_again, **kw)
         torch.cuda.synchronize()
+        if not torch.equal(out.view(torch.int16 if dtype == torch.bfloat16
+                                    else torch.int32),
+                           out_again.view(torch.int16 if dtype == torch.bfloat16
+                                          else torch.int32)):
+            raise AssertionError(f"K10 {label} {axis} {layout}: two runs on "
+                                 f"one input differ")
         ref = divided_attention_reference(qkv.float(), **kw)
         dref = divided_attention_backward_reference(qkv.float(), g.float(),
                                                     **kw)
@@ -926,16 +952,21 @@ def phase_general(results: dict) -> None:
             plain_ms, lib_ms = (_time_ms(fn) for fn in plain[name])
             least, by = general_bound_ms(name, dtype, b, frames, n, h, dh,
                                          axis)
+            before = (f" (before the tiles: "
+                      f"{K10_BEFORE_MS[(label, layout, dtype, axis)]:.4f} ms, "
+                      f"bitwise equal twice)"
+                      if name == "divided_attention_general_fwd" else "")
             print(f"[3 kernels] {name:30s} {tag:58s} err={err:.3e} ({check}, "
-                  f"tol {GENERAL_TOL[dtype]:.0e})  kernel {ms:.4f} ms  plain "
-                  f"{plain_ms:.4f} ms  library {lib_ms:.4f} ms  bound "
+                  f"tol {GENERAL_TOL[dtype]:.0e})  kernel {ms:.4f} ms{before}"
+                  f"  plain {plain_ms:.4f} ms  library {lib_ms:.4f} ms  bound "
                   f"{least:.4f} ms ({by})", flush=True)
             r = results[name]
             r["max_abs_err"] = max(r["max_abs_err"], err)
             if (label, layout, dtype, axis) == GENERAL_MAIN_CASE:
                 r.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                          bound_ms=least, bound_by=by, shape=tag)
-        del qkv, g, out, dqkv, ref, dref, q, k, v, mask, leaves, lib_out
+        del qkv, g, out, out_again, dqkv, ref, dref, q, k, v, mask, leaves
+        del lib_out
         torch.cuda.empty_cache()
 
 

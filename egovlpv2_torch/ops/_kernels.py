@@ -149,8 +149,8 @@ def load() -> SimpleNamespace:
     fns.fused_attention_fwd.argtypes = [ptr] * 5 + [i32] * 6 + [i64] * 14 \
         + [f32, ptr]
     fns.fused_attention_fwd.restype = i32
-    fns.general_attention_fwd.argtypes = [ptr, ptr] + [i32] * 7 + [f32] \
-        + [ptr] * 3
+    fns.general_attention_fwd.argtypes = [ptr] * 3 + [i32] * 7 + [f32] \
+        + [ptr] * 2 + [i32] * 8 + [ptr]
     fns.general_attention_fwd.restype = i32
     fns.general_attention_bwd.argtypes = [ptr] * 5 + [i32] * 7 + [f32] \
         + [ptr] * 4
@@ -572,21 +572,94 @@ def _check_general(qkv: torch.Tensor, axis: str, num_frames: int,
     return b, s, h, dh
 
 
+# K10's tiling (`csrc/divided_attention_general.cu`): 64 query rows a block,
+# 64 key rows a tile, as 16 x 16 threads of 4 x 4; P rows padded by 16.
+GENERAL_BLOCK_Q = GENERAL_BLOCK_K = 64
+SHARED_BYTES_MAX = 232448  # a block's dynamic shared memory on Hopper
+
+
+def general_fwd_geometry(dtype: torch.dtype, dh: int, s: int,
+                         num_frames: int, axis: str) -> SimpleNamespace:
+    """K10's launch geometry for qkv of `dtype` at head dim `dh` and
+    S = 1 + num_frames * N, on `axis`:
+      * `cols`: patch columns a group (N on the space axis, where a group
+        is a frame; on the time axis a group is `cols` columns over all
+        frames, F * cols <= 63 rows, so the rows and the CLS row share one
+        64-row tile, spread evenly over the groups);
+      * `parts`: groups, which is also the parts axis of the CLS row's f32
+        partials [B, H, parts, Dh + 2];
+      * `query_tiles`: 64-row tiles a group, the CLS row being unit 0;
+      * `ld`: the Q/K/V row stride in floats, the head dim padded to a
+        multiple of 4, then to an odd number of 16-byte words (no bank
+        conflicts between the 8 rows of a float4 read);
+      * `stages`: the K/V ring, 2 where a group has more than one key tile
+        and it fits in SHARED_BYTES_MAX, else 1;
+      * `shared_bytes`: Q, the K and V ring and P, all f32.
+    Pure, and the one place this geometry is decided: the CPU tests check
+    it, and the C entry point launches with it as given, refusing only tile
+    rows other than the 64 it was compiled for."""
+    if dtype not in _DTYPE_CODES:
+        raise TypeError(f"kernel takes float32 or bfloat16, got {dtype}")
+    if axis not in _AXIS_CODES:
+        raise ValueError(f"axis must be one of {tuple(_AXIS_CODES)}, got {axis!r}")
+    if not 1 <= dh <= GENERAL_MAX_DH:
+        raise ValueError(f"head dim {dh} must be in 1..{GENERAL_MAX_DH}")
+    if num_frames < 1 or s < 2 or (s - 1) % num_frames:
+        raise ValueError(f"S={s} is not 1 + {num_frames} frames * N patches")
+    bq, bk = GENERAL_BLOCK_Q, GENERAL_BLOCK_K
+    n = (s - 1) // num_frames
+    dp = -(-dh // 4) * 4
+    ld = dp if (dp // 4) % 2 else dp + 4
+
+    def shared(stages):
+        return 4 * (bq * ld + 2 * stages * bk * ld + bq * (bk + 16))
+
+    if axis == "space":
+        cols, parts, rows = n, num_frames, n
+    else:
+        widest = min(n, max(1, (bq - 1) // num_frames))
+        cols = -(-n // -(-n // widest))  # the same width in every group
+        parts = -(-n // cols)
+        rows = num_frames * cols
+    key_tiles = -(-(rows + 1) // bk)
+    stages = 2 if key_tiles > 1 and shared(2) <= SHARED_BYTES_MAX else 1
+    return SimpleNamespace(block_q=bq, block_k=bk, stages=stages,
+                           shared_bytes=shared(stages), parts=parts,
+                           query_tiles=-(-(rows + 1) // bq), cols=cols,
+                           ld=ld)
+
+
+def general_fwd_scratch(qkv: torch.Tensor, geometry: SimpleNamespace
+                        ) -> torch.Tensor:
+    """The f32 scratch of one K10 call on qkv [B, S, 3, H, Dh]: the CLS
+    row's partial (m, l, acc[Dh]) of each group, [B, H, parts, Dh + 2].
+    Uninitialised: the first launch fills it, the second reads it."""
+    b, _, _, h, dh = qkv.shape
+    return torch.empty((b, h, geometry.parts, dh + 2), dtype=torch.float32,
+                       device=qkv.device)
+
+
 def divided_attention_general_fwd(qkv: torch.Tensor, out: torch.Tensor, *,
                                   scale: float, axis: str,
                                   num_frames: int) -> None:
     """K10: divided attention with the CLS splice over all S rows, written
     into `out`. qkv [B, S, 3, H, Dh] and out [B, S, H, Dh], float32 or
     bfloat16, any head dim up to GENERAL_MAX_DH, each read or written by its
-    own strides (any view)."""
+    own strides (any view). Two `__global__` launches: the tiles of each
+    group (writing the CLS row's partials), then the merge of row 0."""
     name = "divided_attention_general_fwd"
     b, s, h, dh = _check_general(qkv, axis, num_frames, out=out)
+    geo = general_fwd_geometry(qkv.dtype, dh, s, num_frames, axis)
+    partials = general_fwd_scratch(qkv, geo)
     with torch.cuda.device(qkv.device):
         stream = torch.cuda.current_stream(qkv.device).cuda_stream
         code = load().general_attention_fwd(
-            qkv.data_ptr(), out.data_ptr(), _DTYPE_CODES[qkv.dtype], b, s, h,
-            dh, num_frames, _AXIS_CODES[axis], float(scale),
-            _strides_arg(qkv, True), _strides_arg(out, False), stream)
+            qkv.data_ptr(), out.data_ptr(), partials.data_ptr(),
+            _DTYPE_CODES[qkv.dtype], b, s, h, dh, num_frames,
+            _AXIS_CODES[axis], float(scale), _strides_arg(qkv, True),
+            _strides_arg(out, False), geo.block_q, geo.block_k, geo.cols,
+            geo.stages, geo.query_tiles, geo.parts, geo.ld, geo.shared_bytes,
+            stream)
     _raise_on_error(name, code)
     launch_counts[name] += 1
 

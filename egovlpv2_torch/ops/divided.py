@@ -27,7 +27,9 @@ own patch column across frames (time axis), plus the CLS key.
 `divided_attention_backward_reference` is the plain version of the
 backward: autograd through `divided_attention_reference`. The tests and
 `chip_smoke.py` hold K4-K6 and K11 against it; nothing on the card's path
-calls it.
+calls it. Nor does it call `cls_row_partials_reference` and
+`merge_cls_partials_reference`, the plain versions of K10's split of the
+CLS row across the groups and of its merge.
 """
 
 from __future__ import annotations
@@ -78,6 +80,54 @@ def divided_attention_reference(qkv: torch.Tensor, *, scale: float, axis: str,
         cls_row_reference(qkv, scale=scale),
         grouped_reference(qkv, scale=scale, axis=axis, num_frames=num_frames),
     ], dim=1)
+
+
+def _cls_group_rows(g: int, geometry, axis: str, num_frames: int,
+                    n: int) -> torch.Tensor:
+    """The sequence rows whose keys group `g` of K10 gives the CLS query:
+    its frame (space) or its run of `geometry.cols` patch columns over all
+    frames (time), frame-major; group 0 also the CLS key (row 0)."""
+    if axis == "space":
+        rows = 1 + g * n + torch.arange(n)
+    else:
+        c0 = g * geometry.cols
+        cols = torch.arange(c0, min(n, c0 + geometry.cols))
+        rows = (1 + torch.arange(num_frames)[:, None] * n + cols).reshape(-1)
+    return torch.cat([torch.zeros(1, dtype=rows.dtype), rows]) if g == 0 \
+        else rows
+
+
+def cls_row_partials_reference(qkv: torch.Tensor, *, scale: float, axis: str,
+                               num_frames: int) -> torch.Tensor:
+    """The plain version of K10's partials of the CLS query row: for each
+    group of `_kernels.general_fwd_geometry` (a frame on the space axis, a
+    run of patch columns on the time axis), the CLS query over that group's
+    keys as (m, l, acc): the largest logit scale * q.k, the sum of
+    exp(logit - m) and the sum of exp(logit - m) * v. qkv [B, S, 3, H, Dh]
+    -> f32 [B, H, parts, Dh + 2]. Nothing on the card's path calls it."""
+    b, s, _, h, dh = qkv.shape
+    geo = _kernels.general_fwd_geometry(qkv.dtype, dh, s, num_frames, axis)
+    n = (s - 1) // num_frames
+    q0 = qkv[:, 0, 0].float()  # [B, H, Dh]
+    parts = []
+    for g in range(geo.parts):
+        rows = _cls_group_rows(g, geo, axis, num_frames, n)
+        k, v = qkv[:, rows, 1].float(), qkv[:, rows, 2].float()  # [B, R, H, Dh]
+        logits = torch.einsum("bhd,brhd->bhr", q0, k) * scale
+        m = logits.amax(-1)
+        p = torch.exp(logits - m[..., None])
+        acc = torch.einsum("bhr,brhd->bhd", p, v)
+        parts.append(torch.cat([m[..., None], p.sum(-1)[..., None], acc], -1))
+    return torch.stack(parts, dim=2)
+
+
+def merge_cls_partials_reference(partials: torch.Tensor) -> torch.Tensor:
+    """The plain version of K10's second launch: the partials [B, H, parts,
+    Dh + 2] of `cls_row_partials_reference`, merged in group order into the
+    CLS row's output [B, H, Dh]."""
+    m, l, acc = partials[..., 0], partials[..., 1], partials[..., 2:]
+    w = torch.exp(m - m.amax(-1, keepdim=True))  # [B, H, parts]
+    return (acc * w[..., None]).sum(2) / (l * w).sum(2)[..., None]
 
 
 def divided_attention_backward_reference(qkv: torch.Tensor, g: torch.Tensor,

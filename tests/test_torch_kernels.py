@@ -285,6 +285,39 @@ def test_general_kernels_match_plain(cuda, case):
     assert max(errs) <= BWD_RTOL[dtype], errs
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("layout", ["packed", "permuted", "offset"])
+@pytest.mark.parametrize("dh", [1, 3, 12, 33, 64, 100, 129, 256])
+def test_general_fwd_any_head_dim_and_view(cuda, dh, layout, dtype):
+    """K10's tiles at head dims that fill 1 to 4 column groups a thread, on
+    a contiguous qkv (16-byte copies where the rows allow), a permuted one
+    and one two elements past an aligned start (element copies), both axes,
+    with groups whose rows end part-way through a tile (N = 70: two query
+    tiles a frame; F = 3: 21 columns a time group): within 1e-4 (f32) / 2e-2
+    (bf16) of the plain version on the same values in f32, and the same
+    bits from two runs."""
+    b, f, n, h = 2, 3, 70, 2
+    s = 1 + f * n
+    if layout == "offset":
+        flat = torch.from_numpy(np.random.RandomState(5).randn(
+            b * s * 3 * h * dh + 2).astype(np.float32)).to(cuda, dtype)
+        qkv = flat[2:].view(b, s, 3, h, dh)
+    else:
+        qkv = _general_qkv(5, layout, b, s, h, dh, dtype, cuda)
+    for axis in ("space", "time"):
+        kw = dict(scale=dh ** -0.5, axis=axis, num_frames=f)
+        outs = [torch.full((b, s, h, dh), float("nan"), dtype=dtype,
+                           device=cuda) for _ in range(2)]
+        for out in outs:
+            _kernels.divided_attention_general_fwd(qkv, out, **kw)
+        torch.cuda.synchronize()
+        ref = divided_attention_reference(qkv.float(), **kw)
+        err = (outs[0].float() - ref).abs().max() / ref.abs().max()
+        assert err.item() <= TOL[dtype], (axis, err.item())
+        assert torch.equal(outs[0], outs[1])
+
+
 # LayerNorm (K7, K8). y and dx are held to max |reference| of the tensor:
 # 1e-5 in f32 (sums over a row in another order, rsqrt within 2 ulp), 2e-2
 # in bf16 (at most one bf16 step where the f32 values differ in the last
