@@ -83,9 +83,12 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
                 against the plain version on the same values in f32, within
                 1e-4 (f32) / 2e-2 (bf16) of max |reference|, dq, dk and dv
                 with the CLS row and the patch rows each by its own
-                maximum; K10 twice on one input, bitwise equal (no
-                atomics), its time printed beside its time before the
-                tiled redesign (K10_BEFORE_MS). Library:
+                maximum; K10's lse within 1e-5 of max |reference| of
+                `row_lse_reference`; K11 from K10's output and lse, as the
+                autograd Function runs it; K10 and K11 each twice on one
+                input, bitwise equal (no atomics); each time printed beside
+                its time before the tiled redesign (K10_BEFORE_MS,
+                K11_BEFORE_MS) on the text line only. Library:
                 `scaled_dot_product_attention` with the dense [S, S]
                 additive mask, and its autograd backward.
   4. tiny     — one small model (depth 4, 2 fused, width 128, 2 heads of
@@ -172,7 +175,8 @@ from egovlpv2_torch.ops.attention import attend_plain, make_additive_mask
 from egovlpv2_torch.ops.divided import (cls_row_reference,
                                         divided_attention_backward_reference,
                                         divided_attention_reference,
-                                        grouped_reference)
+                                        grouped_reference, live_mask,
+                                        row_lse_reference)
 from egovlpv2_torch.tasks.egomcq import make_egomcq_eval_step
 from egovlpv2_torch.tasks.extract import FeatureExtractor, extract_nlq_features
 from egovlpv2_torch.tasks.orchestrators import run_egotaskqa
@@ -283,9 +287,24 @@ K10_BEFORE_MS = {
     ("Dh=12", "packed", torch.float32, "space"): 0.4009,
     ("Dh=12", "packed", torch.bfloat16, "time"): 0.3512,
 }
+# K11's device time a call before its tiled redesign (the one warp a row
+# form), ms, the same way: PERF.md section 6 (H100 80GB HBM3, 700 W).
+K11_BEFORE_MS = {
+    ("taskqa", "packed", torch.float32, "space"): 7.6505,
+    ("taskqa", "packed", torch.float32, "time"): 1.2476,
+    ("taskqa", "permuted", torch.float32, "space"): 7.6062,
+    ("taskqa", "permuted", torch.float32, "time"): 1.2444,
+    ("rows 3/4 frame-block", "packed", torch.float32, "space"): 3.9889,
+    ("row 1d", "packed", torch.bfloat16, "time"): 1.9689,
+    ("Dh=12", "packed", torch.float32, "space"): 1.1407,
+    ("Dh=12", "packed", torch.bfloat16, "time"): 0.4735,
+}
 # of max |reference|, each against the plain version on the same values in
 # f32 (the kernels keep P, dP and dS in f32 and round only the stores)
 GENERAL_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+# K10's lse, of max |reference|: f32 sums in another order (a bf16 input is
+# exact in f32, so the same holds there)
+GENERAL_LSE_TOL = 1e-5
 L2_BYTES = 50e6  # timed LayerNorm calls walk input sets of 4x this in all
 TIME_ITERS = 20  # timed calls of a kernel or its plain version, after 3 warm
 # The card's published peaks (NVIDIA H100 SXM data sheet, dense).
@@ -412,14 +431,16 @@ def flash_bound_ms(dtype, b: int, h: int, sq: int, sk: int, dh: int,
 
 def general_bound_ms(name: str, dtype, b: int, frames: int, n: int, h: int,
                      dh: int, axis: str) -> tuple:
-    """The same for one call of K10 or K11 at S = 1 + frames * n: the
-    forward reads q, k, v and writes the output, the backward reads q, k, v
-    and the cotangent and writes dq, dk, dv ([B, S, H, Dh] each); the
-    operations are 4 Dh a live (query, key) pair forward (two products, 2 a
-    multiply-add) and 10 Dh backward (five products), over the pairs this
-    function has: row 0 against all S keys, a patch row against the CLS key
-    and its group (N keys on the space axis, F on the time axis). Returns
-    (ms, "bytes" or "operations")."""
+    """The same for one call of K10 or K11 at S = 1 + frames * n, as the
+    function's least work: the forward reads q, k, v and writes the output,
+    the backward reads q, k, v and the cotangent and writes dq, dk, dv
+    ([B, S, H, Dh] each; the output and lse that K11 also reads are this
+    design's cost, not the function's); the operations are 4 Dh a live
+    (query, key) pair forward (two products, 2 a multiply-add) and 10 Dh
+    backward (five products), over the pairs this function has: row 0
+    against all S keys, a patch row against the CLS key and its group (N
+    keys on the space axis, F on the time axis). Returns (ms, "bytes" or
+    "operations")."""
     e = torch.finfo(dtype).bits // 8
     s = 1 + frames * n
     pairs = s + (s - 1) * (1 + (n if axis == "space" else frames))
@@ -869,57 +890,69 @@ def _dense_mask(axis: str, frames: int, n: int, dtype) -> torch.Tensor:
     CLS row, the key is the CLS key or the two share a group, -1e9
     elsewhere. For the library call only: the kernels take the mask from
     indices."""
-    i = torch.arange(frames * n, device="cuda")
-    group = i // n if axis == "space" else i % n
-    live = torch.ones((1 + frames * n,) * 2, dtype=torch.bool, device="cuda")
-    live[1:, 1:] = group[:, None] == group[None, :]
+    live = live_mask(1 + frames * n, frames, axis, "cuda")
     return torch.zeros(live.shape, dtype=dtype,
                        device="cuda").masked_fill(~live, -1e9)
 
 
+def _same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    ints = {torch.bfloat16: torch.int16, torch.float32: torch.int32}
+    return torch.equal(a.view(ints[a.dtype]), b.view(ints[b.dtype]))
+
+
 def phase_general(results: dict) -> None:
     """K10 and K11 against the plain version, on the same values in f32, at
-    GENERAL_CASES; the times of GENERAL_MAIN_CASE go into `results`.
-    Library: one `scaled_dot_product_attention` call with the dense
+    GENERAL_CASES; the times of GENERAL_MAIN_CASE go into `results`. K11
+    takes its output and lse from a K10 call, as the autograd Function
+    does. Library: one `scaled_dot_product_attention` call with the dense
     additive mask (and its autograd backward), timed only."""
     gen = torch.Generator(device="cuda").manual_seed(3)
     for label, layout, dtype, axis, b, frames, n, h, dh in GENERAL_CASES:
         s = 1 + frames * n
         scale = dh ** -0.5
         kw = dict(scale=scale, axis=axis, num_frames=frames)
+        key = (label, layout, dtype, axis)
         qkv = _general_qkv(gen, layout, dtype, b, s, h, dh)
         g = torch.randn((b, s, h, dh), generator=gen, device="cuda").to(dtype)
-        out = torch.full((b, s, h, dh), float("nan"), dtype=dtype,
-                         device="cuda")
-        dqkv = torch.full_like(qkv, float("nan"))  # qkv's strides
+        out, out_again = (torch.full((b, s, h, dh), float("nan"), dtype=dtype,
+                                     device="cuda") for _ in range(2))
+        lse, lse_again = (torch.full((b, h, s), float("nan"), device="cuda")
+                          for _ in range(2))
+        # qkv's strides
+        dqkv, dqkv_again = (torch.full_like(qkv, float("nan"))
+                            for _ in range(2))
         runs = {
             "divided_attention_general_fwd": lambda: (
-                _kernels.divided_attention_general_fwd(qkv, out, **kw)),
+                _kernels.divided_attention_general_fwd(qkv, out, lse, **kw)),
             "divided_attention_general_bwd": lambda: (
-                _kernels.divided_attention_general_bwd(qkv, g, dqkv, **kw)),
+                _kernels.divided_attention_general_bwd(qkv, out, lse, g, dqkv,
+                                                       **kw)),
         }
         for kernel in runs.values():
             kernel()
-        # K10 again on the same input: no atomics, so the same bits
-        out_again = torch.full_like(out, float("nan"))
-        _kernels.divided_attention_general_fwd(qkv, out_again, **kw)
+        # each again on the same input: no atomics, so the same bits
+        _kernels.divided_attention_general_fwd(qkv, out_again, lse_again, **kw)
+        _kernels.divided_attention_general_bwd(qkv, out, lse, g, dqkv_again,
+                                               **kw)
         torch.cuda.synchronize()
-        if not torch.equal(out.view(torch.int16 if dtype == torch.bfloat16
-                                    else torch.int32),
-                           out_again.view(torch.int16 if dtype == torch.bfloat16
-                                          else torch.int32)):
-            raise AssertionError(f"K10 {label} {axis} {layout}: two runs on "
-                                 f"one input differ")
+        for what, x, y in (("K10", out, out_again), ("K10 lse", lse, lse_again),
+                           ("K11", dqkv, dqkv_again)):
+            if not _same_bits(x, y):
+                raise AssertionError(f"{what} {label} {axis} {layout}: two "
+                                     f"runs on one input differ")
         ref = divided_attention_reference(qkv.float(), **kw)
+        lse_ref = row_lse_reference(qkv, **kw)
         dref = divided_attention_backward_reference(qkv.float(), g.float(),
                                                     **kw)
         if not (torch.isfinite(out).all() and torch.isfinite(dqkv).all()):
             raise AssertionError(f"K10/K11 {label}: non-finite output")
         fwd_err = (out.float() - ref).abs().max().item()
         fwd_rel = fwd_err / ref.abs().max().item()
+        lse_rel = ((lse - lse_ref).abs().max() / lse_ref.abs().max()).item()
         bwd_err, rel_cls, rel = _rel_errs(dqkv, dref)
-        checks = {"divided_attention_general_fwd": (fwd_err, fwd_rel,
-                                                    f"rel {fwd_rel:.2e}"),
+        checks = {"divided_attention_general_fwd": (
+                      fwd_err, fwd_rel, f"rel {fwd_rel:.2e}, lse rel "
+                      f"{lse_rel:.2e} (tol {GENERAL_LSE_TOL:.0e})"),
                   "divided_attention_general_bwd": (
                       bwd_err, max(rel_cls, rel),
                       f"rel cls row {rel_cls:.2e} patch rows {rel:.2e}")}
@@ -929,6 +962,9 @@ def phase_general(results: dict) -> None:
             if not worst <= GENERAL_TOL[dtype]:
                 raise AssertionError(f"{name} {tag}: error {worst} of max "
                                      f"|reference| > {GENERAL_TOL[dtype]}")
+        if not lse_rel <= GENERAL_LSE_TOL:
+            raise AssertionError(f"K10 lse {tag}: error {lse_rel} of max "
+                                 f"|reference| > {GENERAL_LSE_TOL}")
         # the plain versions as timed: in the input dtype
         q, k, v = (t.contiguous() for t in qkv.permute(2, 0, 3, 1, 4).unbind(0))
         mask = _dense_mask(axis, frames, n, dtype)
@@ -946,27 +982,26 @@ def phase_general(results: dict) -> None:
                 lambda: torch.autograd.grad(lib_out, leaves, cot,
                                             retain_graph=True)),
         }
+        before_ms = {"divided_attention_general_fwd": K10_BEFORE_MS[key],
+                     "divided_attention_general_bwd": K11_BEFORE_MS[key]}
         for name, kernel in runs.items():
             err, _, check = checks[name]
             ms = _time_ms(kernel)
             plain_ms, lib_ms = (_time_ms(fn) for fn in plain[name])
             least, by = general_bound_ms(name, dtype, b, frames, n, h, dh,
                                          axis)
-            before = (f" (before the tiles: "
-                      f"{K10_BEFORE_MS[(label, layout, dtype, axis)]:.4f} ms, "
-                      f"bitwise equal twice)"
-                      if name == "divided_attention_general_fwd" else "")
             print(f"[3 kernels] {name:30s} {tag:58s} err={err:.3e} ({check}, "
-                  f"tol {GENERAL_TOL[dtype]:.0e})  kernel {ms:.4f} ms{before}"
+                  f"tol {GENERAL_TOL[dtype]:.0e})  kernel {ms:.4f} ms (before "
+                  f"the tiles: {before_ms[name]:.4f} ms; bitwise equal twice)"
                   f"  plain {plain_ms:.4f} ms  library {lib_ms:.4f} ms  bound "
                   f"{least:.4f} ms ({by})", flush=True)
             r = results[name]
             r["max_abs_err"] = max(r["max_abs_err"], err)
-            if (label, layout, dtype, axis) == GENERAL_MAIN_CASE:
+            if key == GENERAL_MAIN_CASE:
                 r.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                          bound_ms=least, bound_by=by, shape=tag)
-        del qkv, g, out, out_again, dqkv, ref, dref, q, k, v, mask, leaves
-        del lib_out
+        del qkv, g, out, out_again, lse, lse_again, dqkv, dqkv_again, ref
+        del lse_ref, dref, q, k, v, mask, leaves, lib_out
         torch.cuda.empty_cache()
 
 

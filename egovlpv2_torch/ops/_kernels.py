@@ -38,8 +38,7 @@ _SOURCES = {
     "layernorm.cu": ("layernorm_fwd", "layernorm_bwd", "layernorm_bwd_parts"),
     "fused_attention.cu": ("fused_attention_fwd",),
     "divided_attention_general.cu": (
-        "general_attention_fwd", "general_attention_bwd",
-        "general_attention_bwd_parts"),
+        "general_attention_fwd", "general_attention_bwd"),
 }
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "egovlpv2_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -149,14 +148,12 @@ def load() -> SimpleNamespace:
     fns.fused_attention_fwd.argtypes = [ptr] * 5 + [i32] * 6 + [i64] * 14 \
         + [f32, ptr]
     fns.fused_attention_fwd.restype = i32
-    fns.general_attention_fwd.argtypes = [ptr] * 3 + [i32] * 7 + [f32] \
+    fns.general_attention_fwd.argtypes = [ptr] * 4 + [i32] * 7 + [f32] \
         + [ptr] * 2 + [i32] * 8 + [ptr]
     fns.general_attention_fwd.restype = i32
-    fns.general_attention_bwd.argtypes = [ptr] * 5 + [i32] * 7 + [f32] \
-        + [ptr] * 4
+    fns.general_attention_bwd.argtypes = [ptr] * 7 + [i32] * 7 + [f32] \
+        + [ptr] * 4 + [i32] * 11 + [ptr]
     fns.general_attention_bwd.restype = i32
-    fns.general_attention_bwd_parts.argtypes = [i32]
-    fns.general_attention_bwd_parts.restype = i32
     fns.cuda_error_string.argtypes = [i32]
     fns.cuda_error_string.restype = ctypes.c_char_p
     return fns
@@ -572,10 +569,15 @@ def _check_general(qkv: torch.Tensor, axis: str, num_frames: int,
     return b, s, h, dh
 
 
-# K10's tiling (`csrc/divided_attention_general.cu`): 64 query rows a block,
-# 64 key rows a tile, as 16 x 16 threads of 4 x 4; P rows padded by 16.
+# The tiling of K10 and K11 (`csrc/divided_attention_general.cu`): 64
+# resident rows a block, 64 rows a streamed tile (32 in K11 at the head dims
+# where 64 do not fit), as 16 x 16 threads of 4 x 4; score tiles padded by
+# 16 columns.
 GENERAL_BLOCK_Q = GENERAL_BLOCK_K = 64
 SHARED_BYTES_MAX = 232448  # a block's dynamic shared memory on Hopper
+# The most a block may hold and still share its SM with a second one: the
+# SM's 233,472 bytes less 1 KB reserved a block, halved.
+SHARED_BYTES_TWO = 115712
 
 
 def general_fwd_geometry(dtype: torch.dtype, dh: int, s: int,
@@ -629,6 +631,54 @@ def general_fwd_geometry(dtype: torch.dtype, dh: int, s: int,
                            ld=ld)
 
 
+def general_bwd_geometry(dtype: torch.dtype, dh: int, s: int,
+                         num_frames: int, axis: str) -> SimpleNamespace:
+    """K11's launch geometry, on K10's groups (`cols`, `parts`, `ld` and
+    the 64-unit tiles of `general_fwd_geometry`):
+      * `tiles`: 64-unit resident tiles a group, of queries in the query
+        pass and of keys in the key pass (the grid is tiles x parts, H, B);
+      * `query_pass`, `key_pass`: each pass's `rows` (the rows of a
+        streamed tile: 64, or 32 where 64 do not fit in SHARED_BYTES_MAX),
+        `stages` (the ring: 2 where the group has more than one streamed
+        tile and the second stage does not cost the SM its second block,
+        else 1) and `shared_bytes`: two resident tiles (Q and G, or K and
+        V), two streamed tiles a stage (K and V, or Q and G) and one score
+        tile (dS) in the query pass; in the key pass two score tiles (P^T
+        and dS^T) and the streamed rows' lse and delta a stage; all f32;
+      * the f32 scratch: `delta` [B, H, S] and `cls` [B, H, parts, 3, Dh]
+        (row 0's partials of dq and shares of dk and dv, one a group).
+    Pure, and the one place this geometry is decided: the C entry point
+    launches with it as given."""
+    fwd = general_fwd_geometry(dtype, dh, s, num_frames, axis)
+    bq, ld = fwd.block_q, fwd.ld
+    n = (s - 1) // num_frames
+    units = 1 + (n if axis == "space" else num_frames * fwd.cols)
+
+    def shared(rows, stages, scores):
+        # scores: 1 in the query pass, 2 in the key pass, which also
+        # stages 2 floats (lse, delta) a streamed row
+        return 4 * (2 * bq * ld + 2 * stages * rows * ld
+                    + scores * bq * (rows + 16)
+                    + (scores - 1) * 2 * stages * rows)
+
+    def pass_geometry(scores):
+        # 32 rows fit at every head dim up to GENERAL_MAX_DH
+        rows = next(r for r in (GENERAL_BLOCK_K, GENERAL_BLOCK_K // 2)
+                    if shared(r, 1, scores) <= SHARED_BYTES_MAX)
+        one = shared(rows, 1, scores)
+        room = SHARED_BYTES_TWO if one <= SHARED_BYTES_TWO \
+            else SHARED_BYTES_MAX
+        stages = 2 if -(-units // rows) > 1 \
+            and shared(rows, 2, scores) <= room else 1
+        return SimpleNamespace(rows=rows, stages=stages,
+                               shared_bytes=shared(rows, stages, scores))
+
+    return SimpleNamespace(block_q=bq, cols=fwd.cols, parts=fwd.parts,
+                           tiles=fwd.query_tiles, ld=ld,
+                           query_pass=pass_geometry(1),
+                           key_pass=pass_geometry(2))
+
+
 def general_fwd_scratch(qkv: torch.Tensor, geometry: SimpleNamespace
                         ) -> torch.Tensor:
     """The f32 scratch of one K10 call on qkv [B, S, 3, H, Dh]: the CLS
@@ -639,52 +689,74 @@ def general_fwd_scratch(qkv: torch.Tensor, geometry: SimpleNamespace
                        device=qkv.device)
 
 
-def divided_attention_general_fwd(qkv: torch.Tensor, out: torch.Tensor, *,
-                                  scale: float, axis: str,
-                                  num_frames: int) -> None:
+def general_bwd_scratch(qkv: torch.Tensor, geometry: SimpleNamespace
+                        ) -> tuple:
+    """The f32 scratch of one K11 call on qkv [B, S, 3, H, Dh]: `delta`
+    [B, H, S] (each row's g.o, from the query pass to the key pass) and
+    `cls` [B, H, parts, 3, Dh] (each group's partial of row 0's dq and
+    share of its dk and dv, before scale, for the merge). Uninitialised:
+    the passes fill them."""
+    b, s, _, h, dh = qkv.shape
+    delta = torch.empty((b, h, s), dtype=torch.float32, device=qkv.device)
+    cls = torch.empty((b, h, geometry.parts, 3, dh), dtype=torch.float32,
+                      device=qkv.device)
+    return delta, cls
+
+
+def divided_attention_general_fwd(qkv: torch.Tensor, out: torch.Tensor,
+                                  lse: torch.Tensor, *, scale: float,
+                                  axis: str, num_frames: int) -> None:
     """K10: divided attention with the CLS splice over all S rows, written
-    into `out`. qkv [B, S, 3, H, Dh] and out [B, S, H, Dh], float32 or
-    bfloat16, any head dim up to GENERAL_MAX_DH, each read or written by its
-    own strides (any view). Two `__global__` launches: the tiles of each
-    group (writing the CLS row's partials), then the merge of row 0."""
+    into `out`, and each row's log-sum-exp of its live logits scale * q.k
+    (natural log) into `lse`, f32 [B, H, S] contiguous. qkv [B, S, 3, H,
+    Dh] and out [B, S, H, Dh], float32 or bfloat16, any head dim up to
+    GENERAL_MAX_DH, each read or written by its own strides (any view). Two
+    `__global__` launches: the tiles of each group (writing the CLS row's
+    partials), then the merge of row 0."""
     name = "divided_attention_general_fwd"
     b, s, h, dh = _check_general(qkv, axis, num_frames, out=out)
+    _check_scratch("lse", lse, (b, h, s), qkv.device)
     geo = general_fwd_geometry(qkv.dtype, dh, s, num_frames, axis)
     partials = general_fwd_scratch(qkv, geo)
     with torch.cuda.device(qkv.device):
         stream = torch.cuda.current_stream(qkv.device).cuda_stream
         code = load().general_attention_fwd(
-            qkv.data_ptr(), out.data_ptr(), partials.data_ptr(),
-            _DTYPE_CODES[qkv.dtype], b, s, h, dh, num_frames,
-            _AXIS_CODES[axis], float(scale), _strides_arg(qkv, True),
-            _strides_arg(out, False), geo.block_q, geo.block_k, geo.cols,
-            geo.stages, geo.query_tiles, geo.parts, geo.ld, geo.shared_bytes,
-            stream)
+            qkv.data_ptr(), out.data_ptr(), lse.data_ptr(),
+            partials.data_ptr(), _DTYPE_CODES[qkv.dtype], b, s, h, dh,
+            num_frames, _AXIS_CODES[axis], float(scale),
+            _strides_arg(qkv, True), _strides_arg(out, False), geo.block_q,
+            geo.block_k, geo.cols, geo.stages, geo.query_tiles, geo.parts,
+            geo.ld, geo.shared_bytes, stream)
     _raise_on_error(name, code)
     launch_counts[name] += 1
 
 
-def divided_attention_general_bwd(qkv: torch.Tensor, g: torch.Tensor,
+def divided_attention_general_bwd(qkv: torch.Tensor, out: torch.Tensor,
+                                  lse: torch.Tensor, g: torch.Tensor,
                                   dqkv: torch.Tensor, *, scale: float,
                                   axis: str, num_frames: int) -> None:
-    """K11: backward of K10. From qkv and the cotangent g [B, S, H, Dh] of
-    its output, writes dq, dk and dv into dqkv [B, S, 3, H, Dh]; each
-    tensor by its own strides. Two `__global__` launches (a query pass,
-    then a key pass) over f32 scratch allocated here."""
+    """K11: backward of K10. From qkv, K10's `out` and `lse` and the
+    cotangent g [B, S, H, Dh] of out, writes dq, dk and dv into dqkv [B, S,
+    3, H, Dh]; each tensor by its own strides. Three `__global__` launches
+    (a query pass, a key pass and the merge of row 0) over the f32 scratch
+    of `general_bwd_scratch`, allocated here."""
     name = "divided_attention_general_bwd"
-    b, s, h, dh = _check_general(qkv, axis, num_frames, g=g, dqkv=dqkv)
-    fns = load()
-    parts = fns.general_attention_bwd_parts(s)
-    stats = torch.empty((2, b, h, s), dtype=torch.float32, device=qkv.device)
-    share = torch.empty((b, h, parts, 2, dh), dtype=torch.float32,
-                        device=qkv.device)
+    b, s, h, dh = _check_general(qkv, axis, num_frames, out=out, g=g,
+                                 dqkv=dqkv)
+    _check_scratch("lse", lse, (b, h, s), qkv.device)
+    geo = general_bwd_geometry(qkv.dtype, dh, s, num_frames, axis)
+    delta, cls = general_bwd_scratch(qkv, geo)
+    qp, kp = geo.query_pass, geo.key_pass
     with torch.cuda.device(qkv.device):
         stream = torch.cuda.current_stream(qkv.device).cuda_stream
-        code = fns.general_attention_bwd(
-            qkv.data_ptr(), g.data_ptr(), dqkv.data_ptr(), stats.data_ptr(),
-            share.data_ptr(), _DTYPE_CODES[qkv.dtype], b, s, h, dh,
-            num_frames, _AXIS_CODES[axis], float(scale),
-            _strides_arg(qkv, True), _strides_arg(g, False),
-            _strides_arg(dqkv, True), stream)
+        code = load().general_attention_bwd(
+            qkv.data_ptr(), out.data_ptr(), lse.data_ptr(), g.data_ptr(),
+            dqkv.data_ptr(), delta.data_ptr(), cls.data_ptr(),
+            _DTYPE_CODES[qkv.dtype], b, s, h, dh, num_frames,
+            _AXIS_CODES[axis], float(scale), _strides_arg(qkv, True),
+            _strides_arg(out, False), _strides_arg(g, False),
+            _strides_arg(dqkv, True), geo.block_q, geo.cols, geo.tiles,
+            geo.parts, geo.ld, qp.rows, qp.stages, qp.shared_bytes, kp.rows,
+            kp.stages, kp.shared_bytes, stream)
     _raise_on_error(name, code)
     launch_counts[name] += 1

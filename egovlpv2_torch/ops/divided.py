@@ -27,9 +27,13 @@ own patch column across frames (time axis), plus the CLS key.
 `divided_attention_backward_reference` is the plain version of the
 backward: autograd through `divided_attention_reference`. The tests and
 `chip_smoke.py` hold K4-K6 and K11 against it; nothing on the card's path
-calls it. Nor does it call `cls_row_partials_reference` and
-`merge_cls_partials_reference`, the plain versions of K10's split of the
-CLS row across the groups and of its merge.
+calls it. Nor does it call the plain versions of what K10 and K11 keep
+between their launches: `row_lse_reference` (K10's log-sum-exp of each
+row, which K11 reads), `cls_row_partials_reference` and
+`merge_cls_partials_reference` (K10's split of the CLS row across the
+groups and its merge), `cls_grad_partials_reference` and
+`merge_cls_grad_reference` (K11's per-group partials of row 0's gradient
+and their merge).
 """
 
 from __future__ import annotations
@@ -82,6 +86,30 @@ def divided_attention_reference(qkv: torch.Tensor, *, scale: float, axis: str,
     ], dim=1)
 
 
+def live_mask(s: int, num_frames: int, axis: str,
+              device=None) -> torch.Tensor:
+    """[S, S] bool: whether query row i attends key row j. Row 0 and the
+    CLS key everywhere; two patch rows where they share a frame (space) or
+    a patch column (time)."""
+    i = torch.arange(s - 1, device=device)
+    n = (s - 1) // num_frames
+    group = i // n if axis == "space" else i % n
+    live = torch.ones((s, s), dtype=torch.bool, device=device)
+    live[1:, 1:] = group[:, None] == group[None, :]
+    return live
+
+
+def row_lse_reference(qkv: torch.Tensor, *, scale: float, axis: str,
+                      num_frames: int) -> torch.Tensor:
+    """The plain version of K10's `lse`: each row's log-sum-exp of its live
+    logits scale * q.k, natural log, in f32. qkv [B, S, 3, H, Dh] ->
+    [B, H, S]."""
+    q, k, _ = qkv.float().permute(2, 0, 3, 1, 4).unbind(0)  # [B, H, S, Dh]
+    logits = torch.einsum("bhid,bhjd->bhij", q, k) * scale
+    live = live_mask(qkv.shape[1], num_frames, axis, qkv.device)
+    return logits.masked_fill(~live, float("-inf")).logsumexp(-1)
+
+
 def _cls_group_rows(g: int, geometry, axis: str, num_frames: int,
                     n: int) -> torch.Tensor:
     """The sequence rows whose keys group `g` of K10 gives the CLS query:
@@ -128,6 +156,59 @@ def merge_cls_partials_reference(partials: torch.Tensor) -> torch.Tensor:
     m, l, acc = partials[..., 0], partials[..., 1], partials[..., 2:]
     w = torch.exp(m - m.amax(-1, keepdim=True))  # [B, H, parts]
     return (acc * w[..., None]).sum(2) / (l * w).sum(2)[..., None]
+
+
+def cls_grad_partials_reference(qkv: torch.Tensor, g: torch.Tensor, *,
+                                scale: float, axis: str,
+                                num_frames: int) -> torch.Tensor:
+    """The plain version of K11's per-group scratch of row 0: for each
+    group of `_kernels.general_bwd_geometry`, with R its rows (group 0 also
+    row 0, the CLS row), P_ij = exp(scale q_i.k_j - lse_i) and dS_ij = P_ij
+    (g_i.v_j - g_i.o_i):
+      0: the CLS query's dq over the group's keys, sum_{j in R} dS_0j k_j;
+      1: the CLS key's dk from the group's queries, sum_{i in R} dS_i0 q_i;
+      2: its dv, sum_{i in R} P_i0 g_i;
+    before scale (dq and dk), in f32. qkv [B, S, 3, H, Dh], g [B, S, H, Dh]
+    -> [B, H, parts, 3, Dh]. Nothing on the card's path calls it."""
+    b, s, _, h, dh = qkv.shape
+    geo = _kernels.general_bwd_geometry(qkv.dtype, dh, s, num_frames, axis)
+    kw = dict(scale=scale, axis=axis, num_frames=num_frames)
+    x, gf = qkv.float(), g.float()
+    lse = row_lse_reference(x, **kw)  # [B, H, S]
+    delta = (gf * divided_attention_reference(x, **kw)).sum(-1)  # [B, S, H]
+    q, k, v = x.unbind(2)  # [B, S, H, Dh]
+    n = (s - 1) // num_frames
+    parts = []
+    for grp in range(geo.parts):
+        rows = _cls_group_rows(grp, geo, axis, num_frames, n)
+        # the CLS query over the group's keys
+        p0 = torch.exp(torch.einsum("bhd,brhd->bhr", q[:, 0], k[:, rows])
+                       * scale - lse[:, :, :1])
+        ds0 = p0 * (torch.einsum("bhd,brhd->bhr", gf[:, 0], v[:, rows])
+                    - delta[:, :1].transpose(1, 2))
+        dq = torch.einsum("bhr,brhd->bhd", ds0, k[:, rows])
+        # the group's queries on the CLS key
+        pi = torch.exp(torch.einsum("brhd,bhd->bhr", q[:, rows], k[:, 0])
+                       * scale - lse[:, :, rows])
+        dsi = pi * (torch.einsum("brhd,bhd->bhr", gf[:, rows], v[:, 0])
+                    - delta[:, rows].transpose(1, 2))
+        dk = torch.einsum("bhr,brhd->bhd", dsi, q[:, rows])
+        dv = torch.einsum("bhr,brhd->bhd", pi, gf[:, rows])
+        parts.append(torch.stack([dq, dk, dv], dim=2))
+    return torch.stack(parts, dim=2)
+
+
+def merge_cls_grad_reference(partials: torch.Tensor, *,
+                             scale: float) -> torch.Tensor:
+    """The plain version of K11's third launch: the partials [B, H, parts,
+    3, Dh] of `cls_grad_partials_reference` summed in group order, dq and
+    dk times scale: row 0 of dqkv, [B, 3, H, Dh]."""
+    total = partials[:, :, 0]
+    for x in range(1, partials.shape[2]):
+        total = total + partials[:, :, x]
+    mul = torch.tensor([scale, scale, 1.0], dtype=total.dtype,
+                       device=total.device)
+    return (total * mul[:, None]).transpose(1, 2)
 
 
 def divided_attention_backward_reference(qkv: torch.Tensor, g: torch.Tensor,
@@ -197,28 +278,31 @@ class _DividedAttentionKernels(torch.autograd.Function):
 
 class _DividedAttentionGeneral(torch.autograd.Function):
     """K10 and K11 as one differentiable function of qkv [B, S, 3, H, Dh]
-    (any strides) -> [B, S, H, Dh]. Only qkv is saved: K11 recomputes the
-    softmax from it. dqkv takes qkv's strides where qkv is dense (a permuted
-    tensor), else it is contiguous; the cotangent is read as it comes."""
+    (any strides) -> [B, S, H, Dh]. Saves qkv, the output (which the proj
+    Linear saves anyway, as its input) and K10's f32 log-sum-exp of each
+    row [B, H, S], so K11 does not recompute the forward. dqkv takes qkv's
+    strides where qkv is dense (a permuted tensor), else it is contiguous;
+    the cotangent is read as it comes."""
 
     @staticmethod
     def forward(ctx, qkv, scale, axis, num_frames):
         b, s, _, h, dh = qkv.shape
         out = torch.empty((b, s, h, dh), dtype=qkv.dtype, device=qkv.device)
-        _kernels.divided_attention_general_fwd(qkv, out, scale=scale,
+        lse = torch.empty((b, h, s), dtype=torch.float32, device=qkv.device)
+        _kernels.divided_attention_general_fwd(qkv, out, lse, scale=scale,
                                                axis=axis,
                                                num_frames=num_frames)
-        ctx.save_for_backward(qkv)
+        ctx.save_for_backward(qkv, out, lse)
         ctx.attrs = (scale, axis, num_frames)
         return out
 
     @staticmethod
     def backward(ctx, g):
-        (qkv,) = ctx.saved_tensors
+        qkv, out, lse = ctx.saved_tensors
         scale, axis, num_frames = ctx.attrs
         dqkv = torch.empty_like(qkv)
-        _kernels.divided_attention_general_bwd(qkv, g, dqkv, scale=scale,
-                                               axis=axis,
+        _kernels.divided_attention_general_bwd(qkv, out, lse, g, dqkv,
+                                               scale=scale, axis=axis,
                                                num_frames=num_frames)
         return dqkv, None, None, None
 

@@ -47,8 +47,7 @@ KINDS = (  # first match wins
     ("hand kernels, forward (K1/K2/K3)", ("space_fwd_kernel", "time_fwd_kernel",
                                            "cls_row_fwd_kernel")),
     ("hand kernels, general divided attention (K10/K11)", (
-        "general_fwd_kernel", "general_bwd_query_kernel",
-        "general_bwd_key_kernel")),
+        "general_fwd_", "general_bwd_")),  # the tiles, passes and merges
     ("hand kernels, backward (K4/K5/K6)", ("bwd_query_kernel",
                                             "bwd_key_kernel",
                                             "cls_row_bwd_kernel")),

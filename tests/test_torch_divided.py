@@ -13,9 +13,14 @@ within 2e-5 and the gradient of sum(out * cotangent) within 5e-5 of max
     `_packed_bwd_kernel`, reached on the time axis at F > 8 with S <= 1536.
 
 K10 splits the CLS query row across the groups of its tiling and merges
-the groups' partials in a second launch: their plain versions are held to
-row 0 of the same TPU kernels, and K10's launch geometry (a pure function)
-is checked at every head dim it takes.
+the groups' partials in a second launch, and writes each row's
+log-sum-exp for K11; K11 splits row 0's gradient the same way (the CLS
+query's dq over each group's keys, the CLS key's dk and dv from each
+group's queries) and merges it in a third launch. Their plain versions are
+held to the JAX package (row 0 of the TPU kernels' output and of their
+backward; the log-sum-exp of the logits under the TPU kernels' group
+bias), and the launch geometry of K10 and of K11 (pure functions) is
+checked at every head dim they take.
 """
 
 import numpy as np
@@ -27,10 +32,13 @@ from jax.experimental.pallas import tpu as pltpu
 
 from egovlpv2_tpu.ops import divided as jdiv
 from egovlpv2_torch.ops import _kernels
-from egovlpv2_torch.ops.divided import (cls_row_partials_reference,
+from egovlpv2_torch.ops.divided import (cls_grad_partials_reference,
+                                        cls_row_partials_reference,
                                         divided_attention,
                                         divided_attention_backward_reference,
-                                        merge_cls_partials_reference)
+                                        merge_cls_grad_reference,
+                                        merge_cls_partials_reference,
+                                        row_lse_reference)
 
 torch.set_num_threads(2)
 
@@ -144,3 +152,100 @@ def test_general_fwd_geometry(dtype, axis, s, frames):
         scratch = _kernels.general_fwd_scratch(qkv, geo)
         assert tuple(scratch.shape) == (2, 3, geo.parts, dh + 2)
         assert scratch.dtype == torch.float32
+
+
+@pytest.mark.parametrize("name", list(CLS_CASES))
+def test_row_lse_reference_matches_the_masked_logits(name):
+    """The plain version of K10's lse (which K11 reads): each row's
+    log-sum-exp, within 2e-5 of max |reference| of the log-sum-exp in JAX
+    of the logits scale * q.k under the TPU kernels' group bias
+    `_mask_bias` (-1e9 off the group; f32 sums in another order)."""
+    axis, b, f, n, h, dh, _ = CLS_CASES[name]
+    s = 1 + f * n
+    scale = dh ** -0.5
+    qkv = np.random.RandomState(13).randn(b, s, 3, h, dh).astype(np.float32)
+    logits = jnp.einsum("bihd,bjhd->bhij", jnp.asarray(qkv[:, :, 0]),
+                        jnp.asarray(qkv[:, :, 1]), precision="highest")
+    logits = logits * scale + jdiv._mask_bias(0, s, s, axis, n)
+    ref = np.asarray(jax.nn.logsumexp(logits, axis=-1))  # [B, H, S]
+    got = row_lse_reference(torch.from_numpy(qkv), scale=scale, axis=axis,
+                            num_frames=f)
+    assert got.shape == (b, h, s) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), ref, rtol=0,
+                               atol=2e-5 * np.abs(ref).max())
+
+
+@pytest.mark.parametrize("name", list(CLS_CASES))
+def test_cls_grad_partials_merge_to_the_tpu_kernels_row0(name, monkeypatch):
+    """The plain versions of K11's per-group partials of row 0 (the CLS
+    query's dq over each group's keys; the CLS key's dk and dv from each
+    group's queries), summed in group order, give row 0 of the TPU
+    kernels' backward (`jax.vjp` of `divided_attention`, interpret mode)
+    within 2e-5 of its max |reference| (f32 sums in another order)."""
+    axis, b, f, n, h, dh, window_min = CLS_CASES[name]
+    if window_min is not None:
+        monkeypatch.setattr(jdiv, "_SPACE_WINDOW_MIN_S", window_min)
+    s = 1 + f * n
+    scale = dh ** -0.5
+    rs = np.random.RandomState(17)
+    qkv = rs.randn(b, s, 3, h, dh).astype(np.float32)
+    ct = rs.randn(b, s, h, dh).astype(np.float32)
+    with pltpu.force_tpu_interpret_mode():
+        _, vjp = jax.vjp(lambda x: jdiv.divided_attention(
+            x, scale=scale, axis=axis, num_frames=f, impl="pallas"),
+            jnp.asarray(qkv))
+        (ref,) = vjp(jnp.asarray(ct))
+    ref = np.asarray(ref)[:, 0]  # [B, 3, H, Dh]
+    partials = cls_grad_partials_reference(
+        torch.from_numpy(qkv), torch.from_numpy(ct), scale=scale, axis=axis,
+        num_frames=f)
+    geo = _kernels.general_bwd_geometry(torch.float32, dh, s, f, axis)
+    assert partials.shape == (b, h, geo.parts, 3, dh)
+    got = merge_cls_grad_reference(partials, scale=scale)
+    np.testing.assert_allclose(got.numpy(), ref, rtol=0,
+                               atol=2e-5 * np.abs(ref).max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("axis", ["space", "time"])
+@pytest.mark.parametrize("s, frames", [(785, 4), (1177, 6)])
+def test_general_bwd_geometry(dtype, axis, s, frames):
+    """At every head dim K11 takes: K10's groups, row stride and 64-unit
+    tiles, which cover each group's rows and the CLS row; each pass's block
+    fits Hopper's 232,448 bytes by the kernel's own layout (two resident
+    64-row tiles, two streamed tiles a stage, one score tile in the query
+    pass; two in the key pass, and the streamed rows' lse and delta a
+    stage); streamed tiles of 64 rows, or of 32 only
+    where 64 do not fit (head dims above 128, where the kernel has them); a
+    second stage only where a group has two streamed tiles, and never at
+    the cost of a second block an SM (two at the EgoTaskQA head dim, 64);
+    the scratch's shapes."""
+    n = (s - 1) // frames
+    two, most = _kernels.SHARED_BYTES_TWO, _kernels.SHARED_BYTES_MAX
+    assert (two, most) == (115712, 232448)
+    for dh in range(1, _kernels.GENERAL_MAX_DH + 1):
+        fwd = _kernels.general_fwd_geometry(dtype, dh, s, frames, axis)
+        geo = _kernels.general_bwd_geometry(dtype, dh, s, frames, axis)
+        assert (geo.block_q, geo.cols, geo.parts, geo.tiles, geo.ld) == (
+            64, fwd.cols, fwd.parts, fwd.query_tiles, fwd.ld)
+        units = 1 + (n if axis == "space" else frames * geo.cols)
+        assert (geo.tiles - 1) * 64 < units <= geo.tiles * 64
+        for scores, p in ((1, geo.query_pass), (2, geo.key_pass)):
+            def layout(rows, stages):
+                return 4 * (2 * 64 * geo.ld + 2 * stages * rows * geo.ld
+                            + scores * 64 * (rows + 16)
+                            + (scores - 1) * 2 * stages * rows)
+            assert p.shared_bytes == layout(p.rows, p.stages) <= most
+            assert p.rows == 64 or (p.rows == 32 and dh > 128
+                                    and layout(64, 1) > most)
+            assert p.stages == 1 or (p.stages == 2 and -(-units // p.rows) > 1)
+            if layout(p.rows, 1) <= two:
+                assert p.shared_bytes <= two
+        if dh == 64:
+            assert max(geo.query_pass.shared_bytes,
+                       geo.key_pass.shared_bytes) <= two
+        qkv = torch.empty((2, s, 3, 3, dh), dtype=dtype, device="meta")
+        delta, cls = _kernels.general_bwd_scratch(qkv, geo)
+        assert tuple(delta.shape) == (2, 3, s)
+        assert tuple(cls.shape) == (2, 3, geo.parts, 3, dh)
+        assert delta.dtype == cls.dtype == torch.float32

@@ -24,7 +24,8 @@ from egovlpv2_torch.ops.attention import (attend, attend_plain,
 from egovlpv2_torch.ops.divided import (divided_attention,
                                         divided_attention_backward_reference,
                                         divided_attention_reference,
-                                        grouped_kernels_take)
+                                        grouped_kernels_take,
+                                        row_lse_reference)
 
 torch.set_num_threads(2)
 
@@ -203,7 +204,8 @@ def test_kernel_wrapper_rejects_what_it_cannot_take(cuda):
     with pytest.raises(ValueError, match="head dim"):
         _kernels.divided_attention_general_fwd(
             torch.zeros(1, 5, 3, 1, 264, device=cuda),
-            torch.zeros(1, 5, 1, 264, device=cuda), scale=1.0, axis="time",
+            torch.zeros(1, 5, 1, 264, device=cuda),
+            torch.zeros(1, 1, 5, device=cuda), scale=1.0, axis="time",
             num_frames=2)
 
 
@@ -268,14 +270,22 @@ def test_general_kernels_match_plain(cuda, case):
     leaf = qkv.detach().requires_grad_(True)
     before = dict(_kernels.launch_counts)
     out = divided_attention(leaf, scale=dh ** -0.5, axis=axis, num_frames=f)
+    # saved for K11 without a copy: qkv itself, the output, K10's lse
+    saved_qkv, saved_out, lse = out.grad_fn.saved_tensors
+    assert saved_qkv.data_ptr() == leaf.data_ptr()
+    assert saved_out.data_ptr() == out.data_ptr()
+    assert lse.shape == (b, h, s) and lse.dtype == torch.float32
+    kw = dict(scale=dh ** -0.5, axis=axis, num_frames=f)
+    lse_ref = row_lse_reference(qkv, **kw)
+    assert ((lse - lse_ref).abs().max() / lse_ref.abs().max()).item() <= 1e-5
+    del saved_qkv, saved_out, lse
     out.backward(g)
     torch.cuda.synchronize()
     launched = {k: v - before[k] for k, v in _kernels.launch_counts.items()
                 if v != before[k]}
     assert launched == {"divided_attention_general_fwd": 1,
                         "divided_attention_general_bwd": 1}
-    ref = divided_attention_reference(qkv.float(), scale=dh ** -0.5, axis=axis,
-                                      num_frames=f)
+    ref = divided_attention_reference(qkv.float(), **kw)
     assert out.dtype == dtype and torch.isfinite(out).all()
     assert (out.float() - ref).abs().max().item() <= TOL[dtype]
     assert leaf.grad.stride() == qkv.stride()
@@ -295,8 +305,9 @@ def test_general_fwd_any_head_dim_and_view(cuda, dh, layout, dtype):
     and one two elements past an aligned start (element copies), both axes,
     with groups whose rows end part-way through a tile (N = 70: two query
     tiles a frame; F = 3: 21 columns a time group): within 1e-4 (f32) / 2e-2
-    (bf16) of the plain version on the same values in f32, and the same
-    bits from two runs."""
+    (bf16) of the plain version on the same values in f32, each row's lse
+    within 1e-5 of max |reference| (the inputs are exact in f32 either
+    way), and the same bits from two runs."""
     b, f, n, h = 2, 3, 70, 2
     s = 1 + f * n
     if layout == "offset":
@@ -309,13 +320,60 @@ def test_general_fwd_any_head_dim_and_view(cuda, dh, layout, dtype):
         kw = dict(scale=dh ** -0.5, axis=axis, num_frames=f)
         outs = [torch.full((b, s, h, dh), float("nan"), dtype=dtype,
                            device=cuda) for _ in range(2)]
-        for out in outs:
-            _kernels.divided_attention_general_fwd(qkv, out, **kw)
+        lses = [torch.full((b, h, s), float("nan"), device=cuda)
+                for _ in range(2)]
+        for out, lse in zip(outs, lses):
+            _kernels.divided_attention_general_fwd(qkv, out, lse, **kw)
         torch.cuda.synchronize()
         ref = divided_attention_reference(qkv.float(), **kw)
         err = (outs[0].float() - ref).abs().max() / ref.abs().max()
         assert err.item() <= TOL[dtype], (axis, err.item())
-        assert torch.equal(outs[0], outs[1])
+        lse_ref = row_lse_reference(qkv, **kw)
+        lse_err = (lses[0] - lse_ref).abs().max() / lse_ref.abs().max()
+        assert lse_err.item() <= 1e-5, (axis, lse_err.item())
+        assert torch.equal(outs[0], outs[1]) and torch.equal(*lses)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("layout", ["packed", "permuted", "offset"])
+@pytest.mark.parametrize("dh", [1, 3, 12, 33, 64, 100, 129, 256])
+def test_general_bwd_any_head_dim_and_view(cuda, dh, layout, dtype):
+    """K11's query and key passes and merge at head dims that fill 1 to 4
+    column groups a thread (and at 256 the 32-row streamed tiles), on the
+    views of `test_general_fwd_any_head_dim_and_view`, both axes, with
+    groups whose rows end part-way through a tile (N = 70; F = 3), from
+    K10's output and lse and a strided cotangent: dq, dk, dv within 1e-4
+    (f32) / 2e-2 (bf16) of max |reference| on the same values in f32, the
+    CLS row and the patch rows each by its own maximum, dqkv in qkv's
+    strides, and the same bits from two runs."""
+    b, f, n, h = 2, 3, 70, 2
+    s = 1 + f * n
+    if layout == "offset":
+        flat = torch.from_numpy(np.random.RandomState(6).randn(
+            b * s * 3 * h * dh + 2).astype(np.float32)).to(cuda, dtype)
+        qkv = flat[2:].view(b, s, 3, h, dh)
+    else:
+        qkv = _general_qkv(6, layout, b, s, h, dh, dtype, cuda)
+    g = _qkv(7, b, s, h, dh, dtype, cuda)[:, :, 2]  # a strided view
+    for axis in ("space", "time"):
+        kw = dict(scale=dh ** -0.5, axis=axis, num_frames=f)
+        out = torch.empty((b, s, h, dh), dtype=dtype, device=cuda)
+        lse = torch.empty((b, h, s), dtype=torch.float32, device=cuda)
+        _kernels.divided_attention_general_fwd(qkv, out, lse, **kw)
+        grads = [torch.full_like(qkv, float("nan")) for _ in range(2)]
+        for dqkv in grads:
+            _kernels.divided_attention_general_bwd(qkv, out, lse, g, dqkv,
+                                                   **kw)
+        torch.cuda.synchronize()
+        if layout != "offset":
+            assert grads[0].stride() == qkv.stride()
+        ref = divided_attention_backward_reference(qkv.float(), g.float(),
+                                                   **kw)
+        assert torch.isfinite(grads[0]).all()
+        errs = _rel_errs(grads[0], ref)
+        assert max(errs) <= BWD_RTOL[dtype], (axis, errs)
+        assert torch.equal(grads[0], grads[1])
 
 
 # LayerNorm (K7, K8). y and dx are held to max |reference| of the tensor:
@@ -646,12 +704,14 @@ def test_kernel_wrappers_refuse_cpu_tensors_before_building():
     with pytest.raises(ValueError, match="CUDA"):
         _kernels.fused_attention_fwd(q4, q4, q4, None, torch.empty_like(q4),
                                      scale=1.0)
-    q5 = torch.zeros(1, 5, 3, 2, 8)
+    q5, lse = torch.zeros(1, 5, 3, 2, 8), torch.zeros(1, 2, 5)
     with pytest.raises(ValueError, match="CUDA"):
-        _kernels.divided_attention_general_fwd(q5, q5[:, :, 0], scale=1.0,
-                                               axis="space", num_frames=2)
+        _kernels.divided_attention_general_fwd(q5, q5[:, :, 0], lse,
+                                               scale=1.0, axis="space",
+                                               num_frames=2)
     with pytest.raises(ValueError, match="CUDA"):
-        _kernels.divided_attention_general_bwd(q5, q5[:, :, 0], q5, scale=1.0,
+        _kernels.divided_attention_general_bwd(q5, q5[:, :, 0], lse,
+                                               q5[:, :, 1], q5, scale=1.0,
                                                axis="time", num_frames=2)
     assert set(libs) == {"divided_attention.cu", "divided_attention_bwd.cu",
                          "layernorm.cu", "fused_attention.cu",
