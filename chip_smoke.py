@@ -27,7 +27,9 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
                 P, and two bf16 results one step apart at a value of 4 or
                 more differ by 3.1e-2 already; it is timed in bf16); max abs
                 error <= 2e-2 in bf16 and <= 1e-4 in f32 (another summation
-                order);
+                order); K3's lse0 within 1e-5 of max |reference| of row 0
+                of `row_lse_reference`, and K3 twice on one input gives the
+                same bits (its runs of keys merge in a fixed order);
                 backward K4 space, K5 time, K6 CLS row at B=16, S=785 and
                 S=3137, B=8, S=6273 and B=8, S=785 against autograd through the plain
                 version; max abs
@@ -38,7 +40,12 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
                 patch key's; the kernels keep P, dP and dS in f32 and
                 round only the stores, the plain version rounds P and dS to
                 bf16; K6 rounds the dk/dv rows a second time when it adds
-                to them).
+                to them); K6 is fed K3's output and lse0, as the autograd
+                Function runs it, twice on one input gives the same bits,
+                and is timed adding to the rows K4/K5 wrote. K3's and K6's
+                times before their split over runs of keys (K3_BEFORE_MS,
+                K6_BEFORE_MS) are printed beside the new ones on the text
+                line only.
                 LayerNorm K7 forward and K8 backward at R x D = 12,560 x
                 768 (the pretrain step's), 50,184 x 768 (the fine-tune's),
                 200,768 x 768 (an MQ or NLQ inner batch), 15,696 x 768 (a
@@ -58,7 +65,8 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
                 projection; k and v slices of one packed projection in i2t):
                 text self-attention at B=64, L=15, B=8, L=30 and (QFVS) B=16
                 and B=3, L=15; i2t and t2i at B=16, S=785, at B=20, S=3137,
-                at B=64, S=3137 (NLQ) and at B=16, S=981 (QFVS), L=15;
+                at B=64, S=3137 (NLQ) and at B=16, S=981 (QFVS), L=15,
+                and i2t at B=8, S=785 (the f32 EgoTaskQA step's);
                 B=16 at Sq=Sk=197 and Sq=Sk=64; with a padding mask where the
                 models have one, one batch row fully masked; and two odd
                 cases (Dh=40 and Dh=12, Sq=37, Sk=33, on the CUDA cores in
@@ -253,6 +261,8 @@ FLASH_CASES = (
     ("above 32", 16, H, 64, 64, DH, "heads", True),
     ("odd", 3, 5, 37, 33, 40, "heads", True),
     ("odd", 3, 2, 37, 33, 12, "heads", True),
+    # last, so the cases above keep their seeded inputs
+    ("i2t", 8, H, 785, 15, DH, "packed", True),  # EgoTaskQA's, in f32
 )
 FLASH_MAIN_CASE = (torch.bfloat16, "i2t", 16, 785)  # the pretrain step's
 # K9 in bf16 is held to the reference on the same values in f32, unrounded:
@@ -299,6 +309,28 @@ K11_BEFORE_MS = {
     ("Dh=12", "packed", torch.float32, "space"): 1.1407,
     ("Dh=12", "packed", torch.bfloat16, "time"): 0.4735,
 }
+# K3's and K6's profiler device time a call before their split over key
+# runs (one block a (batch, head)), ms, keyed by (dtype, B, frames): the
+# parent commit's phase 3 as PERF.md section 6 records it (H100 80GB HBM3,
+# 700 W), printed beside this run's time on the text line only.
+K3_BEFORE_MS = {
+    (torch.bfloat16, 8, 4): 0.0173, (torch.bfloat16, 8, 32): 0.2177,
+    (torch.bfloat16, 16, 4): 0.0292, (torch.bfloat16, 16, 5): 0.0391,
+    (torch.bfloat16, 20, 4): 0.0340, (torch.bfloat16, 20, 16): 0.1216,
+    (torch.bfloat16, 64, 16): 0.3021,
+    (torch.float32, 8, 4): 0.0266, (torch.float32, 8, 32): 0.2107,
+    (torch.float32, 16, 4): 0.0373, (torch.float32, 16, 5): 0.0445,
+    (torch.float32, 20, 4): 0.0418, (torch.float32, 20, 16): 0.1499,
+    (torch.float32, 64, 16): 0.4249,
+}
+K6_BEFORE_MS = {
+    (torch.bfloat16, 8, 4): 0.0602, (torch.bfloat16, 8, 32): 0.5445,
+    (torch.bfloat16, 16, 4): 0.0910, (torch.bfloat16, 16, 16): 0.3417,
+    (torch.float32, 8, 4): 0.0879, (torch.float32, 8, 32): 0.6437,
+    (torch.float32, 16, 4): 0.1270, (torch.float32, 16, 16): 0.4806,
+}
+CLS_ROW_BEFORE_MS = {"cls_row_attention_fwd": K3_BEFORE_MS,
+                     "cls_row_attention_bwd": K6_BEFORE_MS}
 # of max |reference|, each against the plain version on the same values in
 # f32 (the kernels keep P, dP and dS in f32 and round only the stores)
 GENERAL_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
@@ -335,17 +367,25 @@ QA_TYPES = ("descriptive", "predictive", "explanatory", "counterfactual")
 
 def _device_events(fn) -> dict:
     """`fn` TIME_ITERS times under torch.profiler, after 3 warm calls: the
-    device time a call, in ms, of each kernel or copy it ran, by name."""
+    device time a call, in ms, of each kernel or copy it ran, by name. A
+    profile that holds no device event (the tracer now and then hands back
+    none) is taken again, twice at most, and then raises."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(TIME_ITERS):
-            fn()
-        torch.cuda.synchronize()
-    return {e.key: e.self_device_time_total / 1e3 / TIME_ITERS
-            for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.self_device_time_total}
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(TIME_ITERS):
+                fn()
+            torch.cuda.synchronize()
+        events = {e.key: e.self_device_time_total / 1e3 / TIME_ITERS
+                  for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA
+                  and e.self_device_time_total}
+        if events:
+            return events
+    raise AssertionError("torch.profiler recorded no device event in three "
+                         "profiles of one call")
 
 
 def _time_ms(fn) -> float:
@@ -559,10 +599,13 @@ def phase_kernels() -> dict:
         s = 1 + frames * N
         least, by = bound_ms(name, dtype, b, s, frames)
         tag = f"{str(dtype).split('.')[-1]} B={b} S={s}"
+        before = CLS_ROW_BEFORE_MS.get(name, {}).get((dtype, b, frames))
+        was = "" if before is None else (
+            f" (before the key runs: {before:.4f} ms; bitwise equal twice)")
         print(f"[3 kernels] {name:22s} {tag:20s} err={err:.3e} ({check}, tol "
-              f"{TOL[dtype]:.0e})  kernel {ms:.4f} ms  plain {plain_ms:.4f} ms"
-              f"  library {lib_ms:.4f} ms  bound {least:.4f} ms ({by})",
-              flush=True)
+              f"{TOL[dtype]:.0e})  kernel {ms:.4f} ms{was}  plain "
+              f"{plain_ms:.4f} ms  library {lib_ms:.4f} ms  bound "
+              f"{least:.4f} ms ({by})", flush=True)
         r = results[name]
         r["max_abs_err"] = max(r["max_abs_err"], err)
         if (dtype, b, frames) == MAIN_CASE:
@@ -583,6 +626,7 @@ def phase_kernels() -> dict:
 
             if (b, frames) in FWD_CASES:
                 out = torch.empty((b, s, H * DH), dtype=dtype, device="cuda")
+                lse0 = torch.empty((b, H), device="cuda")
                 # (kernel, plain version as timed, the same on `x`, rows)
                 runs = {
                     "space_attention_fwd": (
@@ -596,7 +640,8 @@ def phase_kernels() -> dict:
                             x, scale=scale, axis="time", num_frames=frames),
                         slice(1, None)),
                     "cls_row_attention_fwd": (
-                        lambda: _kernels.cls_row_attention_fwd(flat, out, **ckw),
+                        lambda: _kernels.cls_row_attention_fwd(flat, out, lse0,
+                                                               **ckw),
                         lambda x=qkv: cls_row_reference(x, scale=scale),
                         slice(0, 1)),
                 }
@@ -613,7 +658,10 @@ def phase_kernels() -> dict:
                     if not err <= TOL[dtype]:
                         raise AssertionError(f"{name} {dtype} B={b} S={s}: "
                                              f"error {err} > {TOL[dtype]}")
-                    record(name, dtype, b, frames, err, "abs", _time_ms(kernel),
+                    check = "abs"
+                    if name == "cls_row_attention_fwd":
+                        check += _check_cls_row_fwd(qkv, flat, out, lse0)
+                    record(name, dtype, b, frames, err, check, _time_ms(kernel),
                            _time_ms(plain), _time_ms(library[name]))
 
             if (b, frames) in BWD_CASES:
@@ -649,10 +697,21 @@ def phase_kernels() -> dict:
                            _time_ms(kernel), _time_ms(plain),
                            _time_ms(library[name]))
                 name = "cls_row_attention_bwd"
+                # fed K3's output and lse0, as the autograd Function runs it
+                out0 = torch.empty((b, s, H * DH), dtype=dtype, device="cuda")
+                lse0 = torch.empty((b, H), device="cuda")
+                _kernels.cls_row_attention_fwd(flat, out0, lse0, **ckw)
                 dqkv.zero_()
-                _kernels.cls_row_attention_bwd(flat, gflat, dqkv,
-                                               torch.zeros_like(parts), **ckw)
+                dqkv_again = torch.zeros_like(dqkv)
+                zero_parts = torch.zeros_like(parts)
+                for d in (dqkv, dqkv_again):
+                    _kernels.cls_row_attention_bwd(flat, gflat, out0, lse0, d,
+                                                   zero_parts, **ckw)
                 torch.cuda.synchronize()
+                # no atomics: two runs on one input give the same bits
+                if not _same_bits(dqkv, dqkv_again):
+                    raise AssertionError(f"{name} {dtype} B={b} S={s}: two "
+                                         f"runs on one input differ")
                 plain = lambda: divided_attention_backward_reference(
                     qkv, g, scale=scale, axis="space", num_frames=frames,
                     rows="cls")
@@ -661,9 +720,10 @@ def phase_kernels() -> dict:
                     raise AssertionError(
                         f"{name} {dtype} B={b} S={s}: relative error CLS row "
                         f"{rel_cls}, patch rows {rel} > {TOL[dtype]}")
+                del dqkv_again, zero_parts
                 # timed as the step runs it: adding to rows K4/K5 wrote
                 kernel = lambda: _kernels.cls_row_attention_bwd(
-                    flat, gflat, dqkv, parts, **ckw)
+                    flat, gflat, out0, lse0, dqkv, parts, **ckw)
                 record(name, dtype, b, frames, err,
                        f"rel cls row {rel_cls:.2e} patch rows {rel:.2e}",
                        _time_ms(kernel), _time_ms(plain),
@@ -674,6 +734,36 @@ def phase_kernels() -> dict:
     phase_flash(results)
     phase_general(results)
     return results
+
+
+def _check_cls_row_fwd(qkv, flat, out, lse0) -> str:
+    """K3's lse0 (from the call just made) against row 0 of
+    `row_lse_reference` within GENERAL_LSE_TOL of max |reference|, and a
+    second K3 call on the same input: the same bits in row 0 and lse0 (the
+    partials are merged in a fixed order, no atomics). Returns the check's
+    text."""
+    b = qkv.shape[0]
+    scale = DH ** -0.5
+    out_again = torch.full_like(out, float("nan"))
+    lse_again = torch.full_like(lse0, float("nan"))
+    _kernels.cls_row_attention_fwd(flat, out_again, lse_again, num_heads=H,
+                                   scale=scale)
+    torch.cuda.synchronize()
+    if not (_same_bits(out[:, :1], out_again[:, :1])
+            and _same_bits(lse0, lse_again)):
+        raise AssertionError(f"cls_row_attention_fwd B={b}: two runs on one "
+                             f"input differ")
+    if not torch.isnan(out_again[:, 1:]).all():
+        raise AssertionError("cls_row_attention_fwd wrote rows past row 0")
+    # row 0 of `row_lse_reference`, without its [S, S] logits
+    x = qkv.float()
+    ref = (torch.einsum("bhd,bshd->bhs", x[:, 0, 0], x[:, :, 1])
+           * scale).logsumexp(-1)
+    rel = ((lse0 - ref).abs().max() / ref.abs().max()).item()
+    if not rel <= GENERAL_LSE_TOL:
+        raise AssertionError(f"cls_row_attention_fwd B={b}: lse0 error {rel} "
+                             f"of max |reference| > {GENERAL_LSE_TOL}")
+    return f", lse0 rel {rel:.2e} (tol {GENERAL_LSE_TOL:.0e})"
 
 
 def phase_layernorm(results: dict) -> None:

@@ -55,6 +55,61 @@ __device__ __forceinline__ void store_one(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16(v);
 }
 
+// The 8 elements a lane owns of one row, as loaded: a load is issued now and
+// converted to f32 only where it is used, so a thread can keep many rows'
+// loads in flight in few registers.
+template <typename T>
+struct Raw;
+template <>
+struct Raw<__nv_bfloat16> {
+  uint4 u;
+};
+template <>
+struct Raw<float> {
+  float4 a, b;
+};
+
+// Read-only rows (q, k, v, the cotangent, the output) through the
+// non-coherent cache.
+__device__ __forceinline__ void load_raw(const __nv_bfloat16* p,
+                                         Raw<__nv_bfloat16>& r) {
+  r.u = __ldg(reinterpret_cast<const uint4*>(p));
+}
+__device__ __forceinline__ void load_raw(const float* p, Raw<float>& r) {
+  r.a = __ldg(reinterpret_cast<const float4*>(p));
+  r.b = __ldg(reinterpret_cast<const float4*>(p) + 1);
+}
+// Rows an earlier kernel wrote and this one overwrites: plain loads.
+__device__ __forceinline__ void load_raw_rw(const __nv_bfloat16* p,
+                                            Raw<__nv_bfloat16>& r) {
+  r.u = *reinterpret_cast<const uint4*>(p);
+}
+__device__ __forceinline__ void load_raw_rw(const float* p, Raw<float>& r) {
+  r.a = reinterpret_cast<const float4*>(p)[0];
+  r.b = reinterpret_cast<const float4*>(p)[1];
+}
+__device__ __forceinline__ void zero_raw(Raw<__nv_bfloat16>& r) {
+  r.u = make_uint4(0, 0, 0, 0);
+}
+__device__ __forceinline__ void zero_raw(Raw<float>& r) {
+  r.a = r.b = make_float4(0.f, 0.f, 0.f, 0.f);
+}
+__device__ __forceinline__ void to_float(const Raw<__nv_bfloat16>& r,
+                                         float (&o)[kVec]) {
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&r.u);
+#pragma unroll
+  for (int i = 0; i < kVec / 2; ++i) {
+    const float2 f = __bfloat1622float2(h[i]);
+    o[2 * i] = f.x;
+    o[2 * i + 1] = f.y;
+  }
+}
+__device__ __forceinline__ void to_float(const Raw<float>& r,
+                                         float (&o)[kVec]) {
+  o[0] = r.a.x; o[1] = r.a.y; o[2] = r.a.z; o[3] = r.a.w;
+  o[4] = r.b.x; o[5] = r.b.y; o[6] = r.b.z; o[7] = r.b.w;
+}
+
 // Sum over the G lanes of a row group. Every lane of the warp must call it.
 template <int G>
 __device__ __forceinline__ float group_sum(float x) {
@@ -64,6 +119,31 @@ __device__ __forceinline__ float group_sum(float x) {
   }
   return x;
 }
+
+// Sum over the row groups of a warp, lane by lane of a group: afterwards
+// every lane holds the sum of its own slice over the warp's 32 / G groups,
+// the same bits on each (a butterfly in a fixed order). All lanes call it.
+template <int G>
+__device__ __forceinline__ void warp_groups_sum(float (&x)[kVec]) {
+#pragma unroll
+  for (int off = G; off < 32; off <<= 1) {
+#pragma unroll
+    for (int e = 0; e < kVec; ++e) {
+      x[e] += __shfl_xor_sync(0xffffffffu, x[e], off);
+    }
+  }
+}
+
+// Keys a row group of the CLS-row kernels (K3, K6) takes in one block; a
+// block's run of keys is this times its row groups. `cls_row_geometry`
+// (ops/_kernels.py) states the same, and the entry points refuse any other
+// run.
+constexpr int kClsKeys = 4;
+
+// The CLS-row kernels' merge launches (K3, K6): a block a (batch, head),
+// its threads as slices of G * kVec columns, each slice summing every
+// kMergeThreads / (G * kVec)-th part, then the slices summed in order.
+constexpr int kMergeThreads = 512;
 
 // What a thread needs to read the keys and values of its (batch, head).
 template <typename T>

@@ -24,9 +24,10 @@
 // head; each thread holds 8 consecutive elements of the head dim (16 B of
 // bf16), so G = Dh/8 rounded up to a power of two (G <= 16 for Dh <= 128;
 // lanes past Dh/8 idle). A q.k dot is 8 FMAs a thread plus a log2(G)
-// shuffle reduction inside the group. Keys are taken kChunk at a time with
-// an online softmax (one rescale a chunk). Logits, softmax and P.V are f32;
-// the output is stored in the input dtype.
+// shuffle reduction inside the group. K1/K2 take keys kChunk at a time
+// with an online softmax (one rescale a chunk); K3 splits the CLS row's
+// keys into runs, one block a run (described at its kernels). Logits,
+// softmax and P.V are f32; the output is stored in the input dtype.
 
 #include "attention_common.cuh"
 
@@ -355,47 +356,206 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // K3. Replaces the all-heads CLS-row pass `_cls_row_fwd_allh`
-// (divided.py:359-374), which both axes share.
-// Bound: memory. Row 0 of each (b, h) reads all S keys and values once
-// (S=3137, Dh=64, bf16: 0.8 MB per (b, h)) for S logits.
-// Design: one block per (b, h). Its kThreads/G row groups split the keys
-// round-robin, each with its own online softmax; the partial (max, sum,
-// output) triples are merged in shared memory at the end.
+// (divided.py:359-374), which both axes share: row 0 of the output, the
+// CLS query over all S keys, and its log-sum-exp `lse0` [B, H] (f32, for
+// K6).
+// Bound: memory. Each (b, h) reads S keys and values once for S logits
+// (S=6273, Dh=64, bf16: 1.6 MB; 154 MB at B=8, H=12, 46 us at 3.35 TB/s).
+// The card has to keep a few MB of loads in flight to reach its rate, so
+// the (b, h) pairs alone (96 at B=8) are too few blocks.
+// Design: two launches on the geometry of `cls_row_geometry`
+// (ops/_kernels.py), which the entry point launches as given.
+//   1. cls_row_part_kernel, grid (H, parts, B): a block owns a run of
+//      kClsKeys * kThreads / G keys. Each row group issues the loads of all
+//      its kClsKeys keys' k and v rows first (16 B a lane a row in bf16),
+//      then scores them against q0 in f32, takes the block's max, and sums
+//      exp(s - max) and exp(s - max) v. No rescale within a run. It writes
+//      the f32 partial (m, l, acc[Dh]) to [B, H, parts, Dh + 2]. The heads
+//      are the grid's fastest axis, so blocks that run side by side read
+//      the neighbouring bytes of one sequence row (its K and V of all H
+//      heads) rather than rows 3 H Dh elements apart.
+//   2. cls_row_merge_kernel, grid (H, B): the partials merged into output
+//      row 0 and lse0, the parts split over the block's slices.
+// Sums across lanes, groups, warps, parts and slices run in a fixed order
+// and nothing is added atomically, so a run gives the same bits every time.
 template <typename T, int G>
 __global__ void __launch_bounds__(kThreads)
-    cls_row_fwd_kernel(const T* __restrict__ qkv, T* __restrict__ out, int S,
-                       int H, int Dh, float scale) {
+    cls_row_part_kernel(const T* __restrict__ qkv, float* __restrict__ partials,
+                        int S, int H, int Dh, float scale) {
   constexpr int kGroups = kThreads / G;
-  __shared__ float sm_m[kGroups];
-  __shared__ float sm_l[kGroups];
-  __shared__ float sm_acc[kGroups * G * kVec];
-  const int b = blockIdx.y, h = blockIdx.x;
+  constexpr int kKeys = kClsKeys;
+  constexpr int kWarps = kThreads / 32;
+  __shared__ float sm_m[kWarps];
+  __shared__ float sm_l[kWarps];
+  __shared__ __align__(16) float sm_acc[kWarps][G * kVec];
+  const int h = blockIdx.x, part = blockIdx.y, b = blockIdx.z;
   const int lane = threadIdx.x % G, grp = threadIdx.x / G;
+  const int warp = threadIdx.x / 32;
   const HeadView<T> hv = head_view(qkv, b, h, S, H, Dh, lane);
+  // key c of this group: row first + c * kGroups (neighbouring groups on
+  // neighbouring rows)
+  const int first = part * kKeys * kGroups + grp;
+  Raw<T> kr[kKeys], vr[kKeys];
+#pragma unroll
+  for (int c = 0; c < kKeys; ++c) {
+    const int64_t j = first + c * kGroups;
+    if (hv.on && j < S) {
+      load_raw(hv.k + j * hv.stride, kr[c]);
+      load_raw(hv.v + j * hv.stride, vr[c]);
+    } else {
+      zero_raw(kr[c]);
+      zero_raw(vr[c]);
+    }
+  }
   float q[kVec];
   load_q(qkv, hv, b, h, S, H, Dh, lane, 0, q);
-  RowState st;
-  const int n_valid = grp < S ? (S - grp + kGroups - 1) / kGroups : 0;
-  const int n_loop = (S + kGroups - 1) / kGroups;
-  attend_keys<T, G>(hv, q, false, grp, kGroups, n_valid, n_loop, scale, st);
+  float s[kKeys];
+  float mx = -INFINITY;
 #pragma unroll
-  for (int e = 0; e < kVec; ++e) sm_acc[grp * G * kVec + lane * kVec + e] = st.acc[e];
-  if (lane == 0) {
-    sm_m[grp] = st.m;
-    sm_l[grp] = st.l;
+  for (int c = 0; c < kKeys; ++c) {
+    float k[kVec];
+    to_float(kr[c], k);
+    float dot = 0.f;
+#pragma unroll
+    for (int e = 0; e < kVec; ++e) dot = fmaf(q[e], k[e], dot);
+    dot = group_sum<G>(dot);
+    s[c] = first + c * kGroups < S ? dot * scale : -INFINITY;
+    mx = fmaxf(mx, s[c]);
+  }
+  // the block's max: over the warp, then over the warps (every run holds a
+  // key, so it is finite)
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+  }
+  if (threadIdx.x % 32 == 0) sm_m[warp] = mx;
+  __syncthreads();
+  mx = sm_m[0];
+#pragma unroll
+  for (int w = 1; w < kWarps; ++w) mx = fmaxf(mx, sm_m[w]);
+  float l = 0.f;
+  float acc[kVec] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+  for (int c = 0; c < kKeys; ++c) {
+    const float p = expf(s[c] - mx);  // 0 past S
+    float v[kVec];
+    to_float(vr[c], v);
+    l += p;
+#pragma unroll
+    for (int e = 0; e < kVec; ++e) acc[e] = fmaf(p, v[e], acc[e]);
+  }
+  // l is the same on a group's lanes: count it once a group
+  l = lane == 0 ? l : 0.f;
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    l += __shfl_xor_sync(0xffffffffu, l, off);
+  }
+  warp_groups_sum<G>(acc);
+  if (threadIdx.x % 32 == 0) sm_l[warp] = l;
+  if (threadIdx.x % 32 < G) {
+#pragma unroll
+    for (int e = 0; e < kVec; ++e) sm_acc[warp][lane * kVec + e] = acc[e];
   }
   __syncthreads();
-  const int t = threadIdx.x;  // element t of the head dim
-  if (t < Dh) {
-    float m = -INFINITY;
-    for (int i = 0; i < kGroups; ++i) m = fmaxf(m, sm_m[i]);
-    float l = 0.f, o = 0.f;
-    for (int i = 0; i < kGroups; ++i) {
-      const float w = sm_m[i] == -INFINITY ? 0.f : expf(sm_m[i] - m);
-      l += sm_l[i] * w;
-      o += sm_acc[i * G * kVec + t] * w;
+  float* dst = partials +
+               (((int64_t)b * H + h) * gridDim.y + part) * (Dh + 2);
+  for (int t = threadIdx.x; t < Dh; t += kThreads) {
+    float o = sm_acc[0][t];
+#pragma unroll
+    for (int w = 1; w < kWarps; ++w) o += sm_acc[w][t];
+    dst[2 + t] = o;
+  }
+  if (threadIdx.x == 0) {
+    float total = sm_l[0];
+#pragma unroll
+    for (int w = 1; w < kWarps; ++w) total += sm_l[w];
+    dst[0] = mx;
+    dst[1] = total;
+  }
+}
+
+// K3, second launch: output row 0 and lse0 from the parts' partials. Grid
+// (H, B), kMergeThreads threads: column t of slice r merges parts r,
+// r + kSlices, ... with its own running max (one pass, the loads of
+// several parts in flight); the slices are merged in order.
+template <typename T, int G>
+__global__ void __launch_bounds__(kMergeThreads)
+    cls_row_merge_kernel(const float* __restrict__ partials,
+                         T* __restrict__ out, float* __restrict__ lse, int S,
+                         int H, int Dh, int parts) {
+  constexpr int kCols = G * kVec, kSlices = kMergeThreads / kCols;
+  __shared__ float sm_m[kSlices];
+  __shared__ float sm_l[kSlices];
+  __shared__ float sm_o[kSlices][kCols];
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int64_t bh = (int64_t)b * H + h;
+  const int ld = Dh + 2;
+  const float* p = partials + bh * parts * ld;
+  const int t = threadIdx.x % kCols, r = threadIdx.x / kCols;
+  const int col = 2 + min(t, Dh - 1);  // idle columns repeat the last one
+  float m = -INFINITY, l = 0.f, o = 0.f;
+#pragma unroll 8
+  for (int x = r; x < parts; x += kSlices) {
+    const float mx = p[x * ld], lx = p[x * ld + 1], ox = p[x * ld + col];
+    const float m_new = fmaxf(m, mx);
+    const float keep = expf(m - m_new), w = expf(mx - m_new);  // exp(-inf) = 0
+    l = fmaf(l, keep, lx * w);
+    o = fmaf(o, keep, ox * w);
+    m = m_new;
+  }
+  sm_o[r][t] = o;
+  if (t == 0) {
+    sm_m[r] = m;
+    sm_l[r] = l;
+  }
+  __syncthreads();
+  if (r == 0) {
+    for (int i = 1; i < kSlices; ++i) {
+      const float mi = sm_m[i];
+      if (mi == -INFINITY) break;  // slices past the parts are empty
+      const float m_new = fmaxf(m, mi);
+      const float keep = expf(m - m_new), w = expf(mi - m_new);
+      l = fmaf(l, keep, sm_l[i] * w);
+      o = fmaf(o, keep, sm_o[i][t] * w);
+      m = m_new;
     }
-    store_one(out + (int64_t)b * S * H * Dh + (int64_t)h * Dh + t, o / l);
+    if (t < Dh) {
+      store_one(out + (int64_t)b * S * H * Dh + (int64_t)h * Dh + t, o / l);
+    }
+    if (t == 0) lse[bh] = m + logf(l);
+  }
+}
+
+// `run` and `parts` from `cls_row_geometry`: any run other than the
+// compiled kClsKeys * kThreads / G, or parts that do not cover S with runs,
+// is refused.
+template <typename T, int G>
+int launch_cls_row(const void* qkv, void* out, float* lse, float* partials,
+                   int B, int S, int H, int Dh, int run, int parts,
+                   float scale, cudaStream_t stream) {
+  if (run != kClsKeys * (kThreads / G) || parts != (S + run - 1) / run) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cls_row_part_kernel<T, G><<<dim3(H, parts, B), kThreads, 0, stream>>>(
+      static_cast<const T*>(qkv), partials, S, H, Dh, scale);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cls_row_merge_kernel<T, G><<<dim3(H, B), kMergeThreads, 0, stream>>>(
+      partials, static_cast<T*>(out), lse, S, H, Dh, parts);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int cls_row(const void* qkv, void* out, float* lse, float* partials, int B,
+            int S, int H, int Dh, int run, int parts, float scale,
+            cudaStream_t st) {
+  switch (group_size(Dh)) {
+    case 1: return launch_cls_row<T, 1>(qkv, out, lse, partials, B, S, H, Dh, run, parts, scale, st);
+    case 2: return launch_cls_row<T, 2>(qkv, out, lse, partials, B, S, H, Dh, run, parts, scale, st);
+    case 4: return launch_cls_row<T, 4>(qkv, out, lse, partials, B, S, H, Dh, run, parts, scale, st);
+    case 8: return launch_cls_row<T, 8>(qkv, out, lse, partials, B, S, H, Dh, run, parts, scale, st);
+    case 16: return launch_cls_row<T, 16>(qkv, out, lse, partials, B, S, H, Dh, run, parts, scale, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
@@ -420,16 +580,6 @@ struct Time {
     time_fwd_kernel<T, G><<<grid, kThreads, 0, stream>>>(
         static_cast<const T*>(qkv), static_cast<T*>(out), S, H, Dh,
         (S - 1) / F, F, scale);
-  }
-};
-
-template <typename T, int G>
-struct ClsRow {
-  static void run(const void* qkv, void* out, int B, int S, int H, int Dh,
-                  int /*F*/, float scale, cudaStream_t stream) {
-    const dim3 grid(H, B);
-    cls_row_fwd_kernel<T, G><<<grid, kThreads, 0, stream>>>(
-        static_cast<const T*>(qkv), static_cast<T*>(out), S, H, Dh, scale);
   }
 };
 
@@ -509,9 +659,24 @@ int time_attention_fwd(const void* qkv, void* out, int dtype, int B, int S,
   return dispatch<Time>(qkv, out, dtype, B, S, H, Dh, F, scale, stream);
 }
 
-int cls_row_attention_fwd(const void* qkv, void* out, int dtype, int B, int S,
-                          int H, int Dh, float scale, void* stream) {
-  return dispatch<ClsRow>(qkv, out, dtype, B, S, H, Dh, 1, scale, stream);
+// K3: row 0 of `out` and `lse` [B, H] (f32), two launches over the f32
+// scratch `partials` [B, H, parts, Dh + 2]; `run` and `parts` come from
+// `cls_row_geometry`, and any other is refused (cudaErrorInvalidValue).
+int cls_row_attention_fwd(const void* qkv, void* out, void* lse,
+                          void* partials, int dtype, int B, int S, int H,
+                          int Dh, int run, int parts, float scale,
+                          void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
+  float* p = static_cast<float*>(partials);
+  if (dtype == 0) {
+    return cls_row<float>(qkv, out, l, p, B, S, H, Dh, run, parts, scale, st);
+  }
+  if (dtype == 1) {
+    return cls_row<__nv_bfloat16>(qkv, out, l, p, B, S, H, Dh, run, parts,
+                                  scale, st);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 const char* cuda_error_string(int code) {

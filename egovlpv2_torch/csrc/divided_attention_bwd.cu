@@ -14,8 +14,9 @@
 // p = softmax(s), dp_ij = g_i.v_j, delta_i = sum_j p_ij dp_ij,
 // ds_ij = p_ij (dp_ij - delta_i); dq_i = scale sum_j ds_ij k_j,
 // dk_j = scale sum_i ds_ij q_i, dv_j = sum_i p_ij g_i. The softmax is
-// recomputed from qkv (the forward saves nothing but qkv), in f32; every
-// sum is f32 and only the stores round to the input dtype.
+// recomputed from qkv for the patch rows (K4, K5); the CLS row's comes
+// from the log-sum-exp K3 saved (K6). In f32; every sum is f32 and only
+// the stores round to the input dtype.
 //
 // Three entry points:
 //   K4 space_attention_bwd / K5 time_attention_bwd, two launches each:
@@ -30,13 +31,13 @@
 //        queries of its frame (space) or patch column (time), rebuilding
 //        p and ds from the row statistics; it writes dk and dv.
 //     Neither touches sequence row 0 of dqkv.
-//   K6 cls_row_attention_bwd, after K4 or K5 on the same stream: one block
-//     per (batch, head). The CLS query walks all S keys (split over the
-//     block's row groups, merged in shared memory) for dq_0 and its
-//     statistics; then every key adds the CLS query's share to the dk/dv
-//     rows K4/K5 wrote (read-modify-write, one thread per element, so no
-//     atomics), and row 0 of dk/dv is that share plus the sum of the
-//     blocks' partials.
+//   K6 cls_row_attention_bwd, after K4 or K5 on the same stream, two
+//     launches (described at its kernels): one pass over runs of keys that
+//     adds the CLS query's share to the dk/dv rows K4/K5 wrote
+//     (read-modify-write, one thread per element, so no atomics) and
+//     writes each run's partial of dq_0, then the merge of row 0: dq_0,
+//     and dk/dv of the CLS key as that share plus the sum of K4/K5's
+//     partials.
 // Blocks run in parallel on Hopper, where the TPU grid step saw the whole
 // sequence: the CLS key's gradient therefore goes through the partials, a
 // fixed-order sum, so the result is the same from run to run.
@@ -46,7 +47,8 @@
 // as in the forward kernels. Device memory need see qkv and g once and
 // write dqkv once. K4 in bf16 with Dh a multiple of 16 up to 64 (the
 // slice) runs both passes on the tensor cores (namespace mma below); K5
-// (F + 1 keys a row), K6 (one query) and f32 stay on the CUDA cores.
+// (F + 1 keys a row) and f32 stay on the CUDA cores. K6 (one query) is
+// bound by memory instead, and is described at its kernels.
 
 #include "attention_common.cuh"
 
@@ -141,27 +143,6 @@ __device__ __forceinline__ void load_g(const T* gout, bool on, int b, int h,
     load_vec(gout + ((int64_t)b * S + row) * H * Dh + (int64_t)h * Dh +
                  (int64_t)lane * kVec,
              g);
-  }
-}
-
-// Plain (not read-only-cache) loads, for rows an earlier kernel wrote and
-// this kernel overwrites.
-__device__ __forceinline__ void load_vec_rw(const float* p, float (&o)[kVec]) {
-  const float4 a = reinterpret_cast<const float4*>(p)[0];
-  const float4 b = reinterpret_cast<const float4*>(p)[1];
-  o[0] = a.x; o[1] = a.y; o[2] = a.z; o[3] = a.w;
-  o[4] = b.x; o[5] = b.y; o[6] = b.z; o[7] = b.w;
-}
-
-__device__ __forceinline__ void load_vec_rw(const __nv_bfloat16* p,
-                                            float (&o)[kVec]) {
-  const uint4 u = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-  for (int i = 0; i < kVec / 2; ++i) {
-    const float2 f = __bfloat1622float2(h[i]);
-    o[2 * i] = f.x;
-    o[2 * i + 1] = f.y;
   }
 }
 
@@ -304,116 +285,187 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// K6: the CLS query's row, and the CLS key's row of dk/dv.
+// K6, the CLS query's row and the CLS key's row of dk/dv, after K4 or K5
+// on the same stream. Replaces `_cls_dense_bwd_allh` (divided.py:377).
+// Bound: memory. Each (b, h) reads its S keys and values once, and reads
+// and writes back the dk/dv rows K4/K5 wrote (at B=8, S=6273, H=12,
+// Dh=64, bf16: 154 MB of k and v, 308 MB of dk/dv, 138 us at 3.35 TB/s).
+// Design: no forward recomputed. K3 saved lse0 (f32 [B, H]); the output's
+// row 0 gives delta0 = g0.o0 (in bf16 the rounded output). Two launches on
+// K3's geometry (`cls_row_geometry`):
+//   1. cls_row_bwd_part_kernel, grid (H, parts, B) as K3's: a block owns
+//      K3's run of keys; each row group takes its kClsKeys keys in two
+//      batches (in one batch the registers allow fewer blocks an SM),
+//      issuing the k, v, dk and dv loads of a batch together. For key j:
+//      p = exp(scale q0.kj - lse0), dp = g0.vj, ds = p (dp - delta0); it
+//      adds scale ds q0 and p g0 to the dk/dv row j >= 1 (read-modify-write,
+//      one thread an element, no atomics). It writes to the f32 scratch
+//      [B, H, parts, 3, Dh] its partial of sum ds_j k_j and its share of the
+//      CLS key's dk and dv: the sum of a slice of K4/K5's `cls_part` rows,
+//      plus, in part 0, key 0's own share.
+//   2. cls_row_bwd_merge_kernel, grid (H, B): row 0 of dq (scale times the
+//      sum of the parts' partials), dk and dv (the sums of their shares),
+//      each sum in a fixed order.
 template <typename T, int G>
 __global__ void __launch_bounds__(kThreads)
-    cls_row_bwd_kernel(const T* __restrict__ qkv, const T* __restrict__ gout,
-                       T* __restrict__ dqkv,
-                       const float* __restrict__ cls_part, int parts, int S,
-                       int H, int Dh, float scale) {
+    cls_row_bwd_part_kernel(const T* __restrict__ qkv,
+                            const T* __restrict__ gout,
+                            const T* __restrict__ out,
+                            const float* __restrict__ lse,
+                            T* __restrict__ dqkv,
+                            const float* __restrict__ cls_part,
+                            float* __restrict__ scratch, int cls_parts, int S,
+                            int H, int Dh, float scale) {
   constexpr int kGroups = kThreads / G;
-  __shared__ float sm_m[kGroups];
-  __shared__ float sm_l[kGroups];
-  __shared__ float sm_edp[kGroups];
-  __shared__ float sm_a1[kGroups * G * kVec];
-  __shared__ float sm_a2[kGroups * G * kVec];
-  const int b = blockIdx.y, h = blockIdx.x;
+  constexpr int kKeys = kClsKeys;
+  constexpr int kBatch = kKeys / 2;
+  constexpr int kWarps = kThreads / 32;
+  __shared__ __align__(16) float sm_acc[kWarps][G * kVec];
+  __shared__ __align__(16) float sm_share[2][G * kVec];  // key 0's dk, dv
+  const int h = blockIdx.x, part = blockIdx.y, b = blockIdx.z;
+  const int parts = gridDim.y;
+  const int64_t bh = (int64_t)b * H + h;
+  // This block's slice of K4/K5's partials of the CLS key's dk/dv, rows
+  // [x0, x1) of `cls_part`: thread u < 2 Dh sums column u of [dk | dv].
+  const int per = (cls_parts + parts - 1) / parts;
+  const int x0 = min(part * per, cls_parts), x1 = min(x0 + per, cls_parts);
+  float cls_sum = 0.f;
+  if (threadIdx.x < 2 * Dh) {
+    const float* cp = cls_part + bh * cls_parts * 2 * Dh + threadIdx.x;
+    for (int x = x0; x < x1; ++x) cls_sum += cp[(int64_t)x * 2 * Dh];
+  }
   const int lane = threadIdx.x % G, grp = threadIdx.x / G;
+  const int warp = threadIdx.x / 32;
   const HeadView<T> hv = head_view(qkv, b, h, S, H, Dh, lane);
-  float q[kVec], g[kVec];
+  const int64_t dk_off = (int64_t)H * Dh;  // dk of a row: its k's offset
+  T* dk_base = dqkv + (hv.k - qkv);        // dk of row 0, this lane's slice
+  float q[kVec], g[kVec], o[kVec];
   load_q(qkv, hv, b, h, S, H, Dh, lane, 0, q);
   load_g(gout, hv.on, b, h, S, H, Dh, lane, 0, g);
-  const int n_valid = grp < S ? (S - grp + kGroups - 1) / kGroups : 0;
-  const int n_loop = (S + kGroups - 1) / kGroups;
-  {
-    BwdRowState st;
-    float unused_s = 0.f, unused_dp = 0.f;
-    bwd_query_keys<T, G>(hv, q, g, false, grp, kGroups, n_valid, n_loop, scale,
-                         st, unused_s, unused_dp);
+  load_g(out, hv.on, b, h, S, H, Dh, lane, 0, o);
+  float delta = 0.f;
 #pragma unroll
-    for (int e = 0; e < kVec; ++e) {
-      sm_a1[grp * G * kVec + lane * kVec + e] = st.a1[e];
-      sm_a2[grp * G * kVec + lane * kVec + e] = st.a2[e];
-    }
-    if (lane == 0) {
-      sm_m[grp] = st.m;
-      sm_l[grp] = st.l;
-      sm_edp[grp] = st.edp;
-    }
-  }
-  __syncthreads();
-  // Merge the groups' partial sums; every thread needs lse and delta.
-  float m = -INFINITY;
-  for (int i = 0; i < kGroups; ++i) m = fmaxf(m, sm_m[i]);
-  float l = 0.f, edp = 0.f;
-  for (int i = 0; i < kGroups; ++i) {
-    const float w = sm_m[i] == -INFINITY ? 0.f : expf(sm_m[i] - m);
-    l += sm_l[i] * w;
-    edp += sm_edp[i] * w;
-  }
-  const float inv_l = 1.f / l;
-  const float delta = edp * inv_l;
-  const float lse = m + logf(l);
-  const int t = threadIdx.x;  // element t of the head dim
-  if (t < Dh) {
-    float a1 = 0.f, a2 = 0.f;
-    for (int i = 0; i < kGroups; ++i) {
-      const float w = sm_m[i] == -INFINITY ? 0.f : expf(sm_m[i] - m);
-      a1 += sm_a1[i * G * kVec + t] * w;
-      a2 += sm_a2[i * G * kVec + t] * w;
-    }
-    store_one(dqkv + (int64_t)b * S * hv.stride + (int64_t)h * Dh + t,
-              scale * (a1 - delta * a2) * inv_l);
-  }
-  // The CLS query's share of every key's dk and dv.
-  for (int j0 = 0; j0 < n_loop; ++j0) {
-    const int j = grp + j0 * kGroups;
-    const bool valid = j < S;
-    float k[kVec], v[kVec];
+  for (int e = 0; e < kVec; ++e) delta = fmaf(g[e], o[e], delta);
+  delta = group_sum<G>(delta);
+  const float lse0 = lse[bh];
+  // key c: first + c * kGroups, as K3
+  const int first = part * kKeys * kGroups + grp;
+  float acc[kVec] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+#pragma unroll 1
+  for (int half = 0; half < 2; ++half) {
+    Raw<T> kr[kBatch], vr[kBatch], dkr[kBatch], dvr[kBatch];
 #pragma unroll
-    for (int e = 0; e < kVec; ++e) k[e] = v[e] = 0.f;
-    if (hv.on && valid) {
-      load_vec(hv.k + (int64_t)j * hv.stride, k);
-      load_vec(hv.v + (int64_t)j * hv.stride, v);
+    for (int c = 0; c < kBatch; ++c) {
+      const int64_t j = first + (half * kBatch + c) * kGroups;
+      zero_raw(dkr[c]);
+      zero_raw(dvr[c]);
+      if (hv.on && j < S) {
+        load_raw(hv.k + j * hv.stride, kr[c]);
+        load_raw(hv.v + j * hv.stride, vr[c]);
+        if (j > 0) {
+          load_raw_rw(dk_base + j * hv.stride, dkr[c]);
+          load_raw_rw(dk_base + j * hv.stride + dk_off, dvr[c]);
+        }
+      } else {
+        zero_raw(kr[c]);
+        zero_raw(vr[c]);
+      }
     }
-    float ps = 0.f, pd = 0.f;
 #pragma unroll
-    for (int e = 0; e < kVec; ++e) {
-      ps = fmaf(q[e], k[e], ps);
-      pd = fmaf(g[e], v[e], pd);
-    }
-    ps = group_sum<G>(ps);
-    pd = group_sum<G>(pd);
-    if (!(hv.on && valid)) continue;
-    const float p = expf(ps * scale - lse);
-    const float ds = p * (pd - delta) * scale;
-    T* dkp = dqkv + ((int64_t)b * S + j) * hv.stride + (int64_t)H * Dh +
-             (int64_t)h * Dh + (int64_t)lane * kVec;
-    T* dvp = dkp + (int64_t)H * Dh;
-    float ak[kVec], av[kVec];
-    if (j == 0) {
+    for (int c = 0; c < kBatch; ++c) {
+      const int64_t j = first + (half * kBatch + c) * kGroups;
+      float k[kVec], v[kVec];
+      to_float(kr[c], k);
+      to_float(vr[c], v);
+      float dot = 0.f, dp = 0.f;
 #pragma unroll
-      for (int e = 0; e < kVec; ++e) ak[e] = av[e] = 0.f;
-      const float* part = cls_part + ((int64_t)b * H + h) * parts * 2 * Dh +
-                          lane * kVec;
-      for (int i = 0; i < parts; ++i) {
+      for (int e = 0; e < kVec; ++e) {
+        dot = fmaf(q[e], k[e], dot);
+        dp = fmaf(g[e], v[e], dp);
+      }
+      dot = group_sum<G>(dot);
+      dp = group_sum<G>(dp);
+      const float p = j < S ? expf(dot * scale - lse0) : 0.f;
+      const float ds = p * (dp - delta);
+#pragma unroll
+      for (int e = 0; e < kVec; ++e) acc[e] = fmaf(ds, k[e], acc[e]);
+      if (!(hv.on && j < S)) continue;
+      float dk[kVec], dv[kVec];
+      to_float(dkr[c], dk);  // zero for key 0
+      to_float(dvr[c], dv);
+      const float dsq = ds * scale;
+#pragma unroll
+      for (int e = 0; e < kVec; ++e) {
+        dk[e] = fmaf(dsq, q[e], dk[e]);
+        dv[e] = fmaf(p, g[e], dv[e]);
+      }
+      if (j == 0) {
 #pragma unroll
         for (int e = 0; e < kVec; ++e) {
-          ak[e] += part[(2 * i) * Dh + e];
-          av[e] += part[(2 * i + 1) * Dh + e];
+          sm_share[0][lane * kVec + e] = dk[e];
+          sm_share[1][lane * kVec + e] = dv[e];
         }
+      } else {
+        store_vec(dk_base + j * hv.stride, dk);
+        store_vec(dk_base + j * hv.stride + dk_off, dv);
       }
-    } else {
-      load_vec_rw(dkp, ak);
-      load_vec_rw(dvp, av);
     }
+  }
+  warp_groups_sum<G>(acc);
+  if (threadIdx.x % 32 < G) {
 #pragma unroll
-    for (int e = 0; e < kVec; ++e) {
-      ak[e] = fmaf(ds, q[e], ak[e]);
-      av[e] = fmaf(p, g[e], av[e]);
+    for (int e = 0; e < kVec; ++e) sm_acc[warp][lane * kVec + e] = acc[e];
+  }
+  __syncthreads();
+  // [3, Dh]: this part's dq0 / scale, and its dk, dv of the CLS key
+  float* dst = scratch + (bh * parts + part) * 3 * Dh;
+  for (int t = threadIdx.x; t < Dh; t += kThreads) {
+    float x = sm_acc[0][t];
+#pragma unroll
+    for (int w = 1; w < kWarps; ++w) x += sm_acc[w][t];
+    dst[t] = x;
+  }
+  if (threadIdx.x < 2 * Dh) {
+    const int u = threadIdx.x;
+    if (part == 0) cls_sum += sm_share[u / Dh][u % Dh];
+    dst[Dh + u] = cls_sum;
+  }
+}
+
+// K6, second launch: row 0 of dq, dk and dv from the parts' [3, Dh]. Grid
+// (H, B), kMergeThreads threads: column t of slice r sums parts r,
+// r + kSlices, ...; the slices are summed in order.
+template <typename T, int G>
+__global__ void __launch_bounds__(kMergeThreads)
+    cls_row_bwd_merge_kernel(const float* __restrict__ scratch,
+                             T* __restrict__ dqkv, int S, int H, int Dh,
+                             int parts, float scale) {
+  constexpr int kCols = G * kVec, kSlices = kMergeThreads / kCols;
+  __shared__ float sm[3][kSlices][kCols];
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int64_t bh = (int64_t)b * H + h;
+  const float* sc = scratch + bh * parts * 3 * Dh;
+  const int t = threadIdx.x % kCols, r = threadIdx.x / kCols;
+  float sum[3] = {0.f, 0.f, 0.f};
+  if (t < Dh) {
+#pragma unroll 8
+    for (int x = r; x < parts; x += kSlices) {
+#pragma unroll
+      for (int i = 0; i < 3; ++i) sum[i] += sc[(x * 3 + i) * Dh + t];
     }
-    store_vec(dkp, ak);
-    store_vec(dvp, av);
+  }
+#pragma unroll
+  for (int i = 0; i < 3; ++i) sm[i][r][t] = sum[i];
+  __syncthreads();
+  if (r == 0 && t < Dh) {
+    for (int j = 1; j < kSlices; ++j) {
+#pragma unroll
+      for (int i = 0; i < 3; ++i) sum[i] += sm[i][j][t];
+    }
+    T* row0 = dqkv + (int64_t)b * S * 3 * H * Dh + (int64_t)h * Dh;
+    store_one(row0 + t, sum[0] * scale);
+    store_one(row0 + (int64_t)H * Dh + t, sum[1]);
+    store_one(row0 + 2LL * H * Dh + t, sum[2]);
   }
 }
 
@@ -867,17 +919,6 @@ int launch_grouped(bool time, const void* qkv, const void* gout, void* dqkv,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int G>
-int launch_cls_row(const void* qkv, const void* gout, void* dqkv,
-                   const float* cls_part, int parts, int B, int S, int H,
-                   int Dh, float scale, cudaStream_t stream) {
-  const dim3 grid(H, B);
-  cls_row_bwd_kernel<T, G><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(qkv), static_cast<const T*>(gout),
-      static_cast<T*>(dqkv), cls_part, parts, S, H, Dh, scale);
-  return static_cast<int>(cudaGetLastError());
-}
-
 template <typename T>
 int grouped_bwd(bool time, const void* qkv, const void* gout, void* dqkv,
                 float* stats, float* cls_part, int B, int S, int H, int Dh,
@@ -892,16 +933,38 @@ int grouped_bwd(bool time, const void* qkv, const void* gout, void* dqkv,
   }
 }
 
+// K3's geometry: any run other than the compiled kClsKeys * kThreads / G,
+// or parts that do not cover S with runs, is refused.
+template <typename T, int G>
+int launch_cls_row(const void* qkv, const void* gout, const void* out,
+                   const float* lse, void* dqkv, const float* cls_part,
+                   int cls_parts, float* scratch, int B, int S, int H, int Dh,
+                   int run, int parts, float scale, cudaStream_t stream) {
+  if (run != kClsKeys * (kThreads / G) || parts != (S + run - 1) / run) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cls_row_bwd_part_kernel<T, G><<<dim3(H, parts, B), kThreads, 0, stream>>>(
+      static_cast<const T*>(qkv), static_cast<const T*>(gout),
+      static_cast<const T*>(out), lse, static_cast<T*>(dqkv), cls_part,
+      scratch, cls_parts, S, H, Dh, scale);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cls_row_bwd_merge_kernel<T, G><<<dim3(H, B), kMergeThreads, 0, stream>>>(
+      scratch, static_cast<T*>(dqkv), S, H, Dh, parts, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T>
-int cls_row_bwd(const void* qkv, const void* gout, void* dqkv,
-                const float* cls_part, int parts, int B, int S, int H, int Dh,
-                float scale, cudaStream_t st) {
+int cls_row_bwd(const void* qkv, const void* gout, const void* out,
+                const float* lse, void* dqkv, const float* cls_part,
+                int cls_parts, float* scratch, int B, int S, int H, int Dh,
+                int run, int parts, float scale, cudaStream_t st) {
   switch (group_size(Dh)) {
-    case 1: return launch_cls_row<T, 1>(qkv, gout, dqkv, cls_part, parts, B, S, H, Dh, scale, st);
-    case 2: return launch_cls_row<T, 2>(qkv, gout, dqkv, cls_part, parts, B, S, H, Dh, scale, st);
-    case 4: return launch_cls_row<T, 4>(qkv, gout, dqkv, cls_part, parts, B, S, H, Dh, scale, st);
-    case 8: return launch_cls_row<T, 8>(qkv, gout, dqkv, cls_part, parts, B, S, H, Dh, scale, st);
-    case 16: return launch_cls_row<T, 16>(qkv, gout, dqkv, cls_part, parts, B, S, H, Dh, scale, st);
+    case 1: return launch_cls_row<T, 1>(qkv, gout, out, lse, dqkv, cls_part, cls_parts, scratch, B, S, H, Dh, run, parts, scale, st);
+    case 2: return launch_cls_row<T, 2>(qkv, gout, out, lse, dqkv, cls_part, cls_parts, scratch, B, S, H, Dh, run, parts, scale, st);
+    case 4: return launch_cls_row<T, 4>(qkv, gout, out, lse, dqkv, cls_part, cls_parts, scratch, B, S, H, Dh, run, parts, scale, st);
+    case 8: return launch_cls_row<T, 8>(qkv, gout, out, lse, dqkv, cls_part, cls_parts, scratch, B, S, H, Dh, run, parts, scale, st);
+    case 16: return launch_cls_row<T, 16>(qkv, gout, out, lse, dqkv, cls_part, cls_parts, scratch, B, S, H, Dh, run, parts, scale, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -958,18 +1021,26 @@ int time_attention_bwd(const void* qkv, const void* gout, void* dqkv,
                          H, Dh, F, scale, stream);
 }
 
-int cls_row_attention_bwd(const void* qkv, const void* gout, void* dqkv,
-                          const void* cls_part, int parts, int dtype, int B,
-                          int S, int H, int Dh, float scale, void* stream) {
+// K6: from K3's output row 0 and lse0 [B, H] (f32), row 0 of dq and the
+// CLS query's share added to every dk/dv row K4/K5 wrote, with row 0 of
+// dk/dv, over the f32 `scratch` [B, H, parts, 3, Dh]; `run` and `parts`
+// are K3's (`cls_row_geometry`), and any other is refused.
+int cls_row_attention_bwd(const void* qkv, const void* gout, const void* out,
+                          const void* lse, void* dqkv, const void* cls_part,
+                          int cls_parts, void* scratch, int dtype, int B,
+                          int S, int H, int Dh, int run, int parts,
+                          float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* l = static_cast<const float*>(lse);
   const float* cp = static_cast<const float*>(cls_part);
+  float* sc = static_cast<float*>(scratch);
   if (dtype == 0) {
-    return cls_row_bwd<float>(qkv, gout, dqkv, cp, parts, B, S, H, Dh, scale,
-                              st);
+    return cls_row_bwd<float>(qkv, gout, out, l, dqkv, cp, cls_parts, sc, B,
+                              S, H, Dh, run, parts, scale, st);
   }
   if (dtype == 1) {
-    return cls_row_bwd<__nv_bfloat16>(qkv, gout, dqkv, cp, parts, B, S, H, Dh,
-                                      scale, st);
+    return cls_row_bwd<__nv_bfloat16>(qkv, gout, out, l, dqkv, cp, cls_parts,
+                                      sc, B, S, H, Dh, run, parts, scale, st);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -126,15 +126,14 @@ def load() -> SimpleNamespace:
     for fn in (fns.space_attention_fwd, fns.time_attention_fwd):
         fn.argtypes = [ptr, ptr, i32, i32, i32, i32, i32, i32, f32, ptr]
         fn.restype = i32
-    fns.cls_row_attention_fwd.argtypes = [ptr, ptr, i32, i32, i32, i32, i32,
-                                          f32, ptr]
+    fns.cls_row_attention_fwd.argtypes = [ptr] * 4 + [i32] * 7 + [f32, ptr]
     fns.cls_row_attention_fwd.restype = i32
     for fn in (fns.space_attention_bwd, fns.time_attention_bwd):
         fn.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32,
                        f32, ptr]
         fn.restype = i32
-    fns.cls_row_attention_bwd.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32,
-                                          i32, i32, i32, f32, ptr]
+    fns.cls_row_attention_bwd.argtypes = [ptr] * 6 + [i32, ptr] + [i32] * 7 \
+        + [f32, ptr]
     fns.cls_row_attention_bwd.restype = i32
     fns.attention_bwd_parts.argtypes = [i32, i32, i32, i32, i32]
     fns.attention_bwd_parts.restype = i32
@@ -219,16 +218,64 @@ def time_attention_fwd(qkv: torch.Tensor, out: torch.Tensor, *,
                     num_frames=num_frames, scale=scale)
 
 
-def cls_row_attention_fwd(qkv: torch.Tensor, out: torch.Tensor, *,
-                          num_heads: int, scale: float) -> None:
-    """K3: row 0 (the CLS query over all S keys), written into `out`."""
+# K3/K6's first launch: threads a block, 8 head-dim elements a lane.
+CLS_ROW_THREADS = 256
+CLS_ROW_MAX_DH = 128  # the widest head dim they are built for: 16 lanes a key
+
+
+def cls_row_geometry(dtype: torch.dtype, dh: int, s: int) -> SimpleNamespace:
+    """K3's and K6's launch geometry for qkv of `dtype` at head dim `dh`
+    over S keys (the CLS query's):
+      * `group`: lanes a key, Dh/8 rounded up to a power of two (each lane
+        holds 8 elements of the head dim);
+      * `keys`: keys a row group takes in a block, 4 (`kClsKeys` of
+        `csrc/attention_common.cuh`, compiled in). K3 issues all their k
+        and v loads at once, K6 in two batches;
+      * `run`: keys a block, keys * CLS_ROW_THREADS / group (128 at
+        Dh=64); a block's key c of row group i is key
+        part * run + i + c * (CLS_ROW_THREADS / group);
+      * `parts`: blocks a (batch, head), ceil(S / run); the parts axis of
+        K3's f32 partials [B, H, parts, Dh + 2] and of K6's f32 scratch
+        [B, H, parts, 3, Dh].
+    Pure, and the one place this geometry is decided: the CPU tests check
+    it, and the C entry points launch with it as given, refusing any
+    other (CUDA error 1, invalid argument)."""
+    if dtype not in _DTYPE_CODES:
+        raise TypeError(f"kernel takes float32 or bfloat16, got {dtype}")
+    if dh < 8 or dh % 8 or dh > CLS_ROW_MAX_DH:
+        raise ValueError(f"head dim {dh} must be a multiple of 8 and <= "
+                         f"{CLS_ROW_MAX_DH}")
+    if s < 1:
+        raise ValueError(f"S={s} must be >= 1")
+    group = 1
+    while group * 8 < dh:
+        group *= 2
+    keys = 4
+    run = keys * CLS_ROW_THREADS // group
+    return SimpleNamespace(group=group, keys=keys, run=run,
+                           parts=-(-s // run))
+
+
+def cls_row_attention_fwd(qkv: torch.Tensor, out: torch.Tensor,
+                          lse: torch.Tensor, *, num_heads: int,
+                          scale: float) -> None:
+    """K3: row 0 (the CLS query over all S keys), written into `out`, and
+    its log-sum-exp of the logits scale * q0.k (natural log) into `lse`,
+    f32 [B, H] contiguous, which K6 reads. Two `__global__` launches on
+    `cls_row_geometry`: the partials of each run of keys into f32 scratch
+    allocated here, then their merge in a fixed order."""
     name = "cls_row_attention_fwd"
     b, s, dh = _check(qkv, out, num_heads, 1)
+    _check_scratch("lse", lse, (b, num_heads), qkv.device)
+    geo = cls_row_geometry(qkv.dtype, dh, s)
+    partials = torch.empty((b, num_heads, geo.parts, dh + 2),
+                           dtype=torch.float32, device=qkv.device)
     with torch.cuda.device(qkv.device):
         stream = torch.cuda.current_stream(qkv.device).cuda_stream
         code = load().cls_row_attention_fwd(
-            qkv.data_ptr(), out.data_ptr(), _DTYPE_CODES[qkv.dtype], b, s,
-            num_heads, dh, float(scale), stream)
+            qkv.data_ptr(), out.data_ptr(), lse.data_ptr(),
+            partials.data_ptr(), _DTYPE_CODES[qkv.dtype], b, s, num_heads, dh,
+            geo.run, geo.parts, float(scale), stream)
     _raise_on_error(name, code)
     launch_counts[name] += 1
 
@@ -325,25 +372,35 @@ def time_attention_bwd(qkv: torch.Tensor, g: torch.Tensor,
 
 
 def cls_row_attention_bwd(qkv: torch.Tensor, g: torch.Tensor,
+                          out: torch.Tensor, lse: torch.Tensor,
                           dqkv: torch.Tensor, cls_part: torch.Tensor, *,
                           num_heads: int, scale: float) -> None:
-    """K6: backward of K3, after K4 or K5 on the same stream. Writes row 0
-    of dq, adds the CLS query's share to rows 1..S-1 of dk and dv in place,
-    and writes row 0 of dk and dv: that share plus the sum of `cls_part`
-    over its parts."""
+    """K6: backward of K3, after K4 or K5 on the same stream, from K3's
+    output `out` (row 0 read) and `lse` [B, H]: writes row 0 of dq, adds
+    the CLS query's share to rows 1..S-1 of dk and dv in place, and writes
+    row 0 of dk and dv: its share plus the sum of `cls_part` over its
+    parts. Two `__global__` launches on `cls_row_geometry` (one pass over
+    the keys, then the merge in a fixed order) over f32 scratch allocated
+    here."""
     name = "cls_row_attention_bwd"
     b, s, dh = _check_bwd(qkv, g, dqkv, num_heads, 1)
+    _check(qkv, out, num_heads, 1)
+    _check_scratch("lse", lse, (b, num_heads), qkv.device)
     if cls_part.dim() != 5:
         raise ValueError("cls_part must be [B, H, parts, 2, Dh]")
-    parts = cls_part.shape[2]
-    _check_scratch("cls_part", cls_part, (b, num_heads, parts, 2, dh),
+    cls_parts = cls_part.shape[2]
+    _check_scratch("cls_part", cls_part, (b, num_heads, cls_parts, 2, dh),
                    qkv.device)
+    geo = cls_row_geometry(qkv.dtype, dh, s)
+    scratch = torch.empty((b, num_heads, geo.parts, 3, dh),
+                          dtype=torch.float32, device=qkv.device)
     with torch.cuda.device(qkv.device):
         stream = torch.cuda.current_stream(qkv.device).cuda_stream
         code = load().cls_row_attention_bwd(
-            qkv.data_ptr(), g.data_ptr(), dqkv.data_ptr(),
-            cls_part.data_ptr(), parts, _DTYPE_CODES[qkv.dtype], b, s,
-            num_heads, dh, float(scale), stream)
+            qkv.data_ptr(), g.data_ptr(), out.data_ptr(), lse.data_ptr(),
+            dqkv.data_ptr(), cls_part.data_ptr(), cls_parts,
+            scratch.data_ptr(), _DTYPE_CODES[qkv.dtype], b, s, num_heads, dh,
+            geo.run, geo.parts, float(scale), stream)
     _raise_on_error(name, code)
     launch_counts[name] += 1
 

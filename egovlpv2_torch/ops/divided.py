@@ -14,9 +14,10 @@ own patch column across frames (time axis), plus the CLS key.
     alignment):
       - bf16, contiguous, 16-byte aligned, head dim a multiple of 8 up to
         128: forward K1 space or K2 time for rows 1..S-1 and K3 for the CLS
-        row, backward K4 space or K5 time, then K6 for the CLS row; they
-        read q, k and v by stride from the qkv Linear output and write dqkv
-        in the same layout;
+        row, backward K4 space or K5 time, then K6 for the CLS row (from
+        K3's output and log-sum-exp, no forward recomputed); they read q, k
+        and v by stride from the qkv Linear output and write dqkv in the
+        same layout;
       - any other float32 or bf16 input (f32, another head dim, a strided
         view such as a permute of a [3, B, H, S, Dh] tensor): K10 forward
         and K11 backward (`csrc/divided_attention_general.cu`), which read
@@ -27,9 +28,14 @@ own patch column across frames (time axis), plus the CLS key.
 `divided_attention_backward_reference` is the plain version of the
 backward: autograd through `divided_attention_reference`. The tests and
 `chip_smoke.py` hold K4-K6 and K11 against it; nothing on the card's path
-calls it. Nor does it call the plain versions of what K10 and K11 keep
-between their launches: `row_lse_reference` (K10's log-sum-exp of each
-row, which K11 reads), `cls_row_partials_reference` and
+calls it. Nor does it call the plain versions of what K3 and K6 keep
+between their launches: `cls_run_partials_reference` and
+`merge_cls_run_partials_reference` (K3's partials of the CLS row over
+runs of keys, their merge and the row's log-sum-exp lse0, which K6
+reads), `cls_run_grad_reference` (K6's one pass over the keys: the
+partials of dq0 and the CLS query's share of every dk/dv row); nor those
+of what K10 and K11 keep between theirs: `row_lse_reference` (K10's
+log-sum-exp of each row, which K11 reads), `cls_row_partials_reference` and
 `merge_cls_partials_reference` (K10's split of the CLS row across the
 groups and its merge), `cls_grad_partials_reference` and
 `merge_cls_grad_reference` (K11's per-group partials of row 0's gradient
@@ -84,6 +90,71 @@ def divided_attention_reference(qkv: torch.Tensor, *, scale: float, axis: str,
         cls_row_reference(qkv, scale=scale),
         grouped_reference(qkv, scale=scale, axis=axis, num_frames=num_frames),
     ], dim=1)
+
+
+def cls_run_partials_reference(qkv: torch.Tensor, *,
+                               scale: float) -> torch.Tensor:
+    """The plain version of K3's first launch: for each run of keys of
+    `_kernels.cls_row_geometry` (keys part * run .. part * run + run - 1,
+    the last run cut at S), the CLS query over that run as (m, l, acc):
+    the largest logit scale * q0.k, the sum of exp(logit - m) and the sum
+    of exp(logit - m) * v. qkv [B, S, 3, H, Dh] -> f32 [B, H, parts,
+    Dh + 2]. Nothing on the card's path calls it."""
+    b, s, _, h, dh = qkv.shape
+    geo = _kernels.cls_row_geometry(qkv.dtype, dh, s)
+    x = qkv.float()
+    logits = torch.einsum("bhd,bshd->bhs", x[:, 0, 0], x[:, :, 1]) * scale
+    parts = []
+    for part in range(geo.parts):
+        keys = slice(part * geo.run, (part + 1) * geo.run)
+        m = logits[..., keys].amax(-1)
+        p = torch.exp(logits[..., keys] - m[..., None])
+        acc = torch.einsum("bhr,brhd->bhd", p, x[:, keys, 2])
+        parts.append(torch.cat([m[..., None], p.sum(-1)[..., None], acc], -1))
+    return torch.stack(parts, dim=2)
+
+
+def merge_cls_run_partials_reference(partials: torch.Tensor) -> tuple:
+    """The plain version of K3's second launch: the partials [B, H, parts,
+    Dh + 2] of `cls_run_partials_reference` merged in part order into the
+    CLS row's output [B, H, Dh] and its log-sum-exp lse0 [B, H] (natural
+    log), which K6 reads."""
+    m, l = partials[..., 0], partials[..., 1]
+    top = m.amax(-1)
+    lse0 = top + torch.log((l * torch.exp(m - top[..., None])).sum(-1))
+    return merge_cls_partials_reference(partials), lse0
+
+
+def cls_run_grad_reference(qkv: torch.Tensor, g: torch.Tensor,
+                           out0: torch.Tensor, lse0: torch.Tensor, *,
+                           scale: float) -> tuple:
+    """The plain version of K6's one pass over the keys, from K3's output
+    row out0 [B, H, Dh] and lse0 [B, H]: with p_j = exp(scale q0.k_j -
+    lse0), delta0 = g0.out0 and ds_j = p_j (g0.v_j - delta0), returns in
+    f32
+      * the partials of dq0 / scale, sum_j ds_j k_j over each run of keys
+        of `_kernels.cls_row_geometry`, [B, H, parts, Dh] (dq0 is scale
+        times their sum in part order);
+      * the CLS query's share of every key's dk, scale ds_j q0, and of its
+        dv, p_j g0, [B, S, H, Dh] each (K6 adds them to the rows K4/K5
+        wrote, and key 0's to the sum of K4/K5's `cls_part`).
+    qkv [B, S, 3, H, Dh], g [B, S, H, Dh]. Nothing on the card's path
+    calls it."""
+    b, s, _, h, dh = qkv.shape
+    geo = _kernels.cls_row_geometry(qkv.dtype, dh, s)
+    x, g0 = qkv.float(), g[:, 0].float()
+    q0, k, v = x[:, 0, 0], x[:, :, 1], x[:, :, 2]
+    delta0 = (g0 * out0.float()).sum(-1)  # [B, H]
+    p = torch.exp(torch.einsum("bhd,bshd->bhs", q0, k) * scale
+                  - lse0[..., None])
+    ds = p * (torch.einsum("bhd,bshd->bhs", g0, v) - delta0[..., None])
+    dq_parts = torch.stack([
+        torch.einsum("bhr,brhd->bhd", ds[..., keys], k[:, keys])
+        for keys in (slice(part * geo.run, (part + 1) * geo.run)
+                     for part in range(geo.parts))], dim=2)
+    dkd = scale * torch.einsum("bhs,bhd->bshd", ds, q0)
+    dvd = torch.einsum("bhs,bhd->bshd", p, g0)
+    return dq_parts, dkd, dvd
 
 
 def live_mask(s: int, num_frames: int, axis: str,
@@ -239,27 +310,31 @@ def divided_attention_backward_reference(qkv: torch.Tensor, g: torch.Tensor,
 
 class _DividedAttentionKernels(torch.autograd.Function):
     """The CUDA kernels as one differentiable function of the flat qkv
-    [B, S, 3*H*Dh] -> [B, S, H*Dh]. Only qkv is saved: the backward kernels
-    recompute the softmax from it."""
+    [B, S, 3*H*Dh] -> [B, S, H*Dh]. Saves qkv, the output (which the proj
+    Linear saves anyway, as its input) and K3's log-sum-exp of row 0, lse0
+    [B, H] (f32, B*H floats): K4/K5 recompute the patch rows' softmax from
+    qkv, K6 reads lse0 and the output's row 0 and recomputes no forward."""
 
     @staticmethod
     def forward(ctx, flat, num_heads, num_frames, scale, axis):
         b, s, w3 = flat.shape
         out = torch.empty((b, s, w3 // 3), dtype=flat.dtype,
                           device=flat.device)
+        lse0 = torch.empty((b, num_heads), dtype=torch.float32,
+                           device=flat.device)
         grouped_fwd = (_kernels.space_attention_fwd if axis == "space"
                        else _kernels.time_attention_fwd)
         grouped_fwd(flat, out, num_heads=num_heads, num_frames=num_frames,
                     scale=scale)
-        _kernels.cls_row_attention_fwd(flat, out, num_heads=num_heads,
+        _kernels.cls_row_attention_fwd(flat, out, lse0, num_heads=num_heads,
                                        scale=scale)
-        ctx.save_for_backward(flat)
+        ctx.save_for_backward(flat, out, lse0)
         ctx.attrs = (num_heads, num_frames, scale, axis)
         return out
 
     @staticmethod
     def backward(ctx, g):
-        (flat,) = ctx.saved_tensors
+        flat, out, lse0 = ctx.saved_tensors
         num_heads, num_frames, scale, axis = ctx.attrs
         # Autograd may hand over a view (of the proj Linear's input grad);
         # the kernels read rows by one stride, so it is copied then.
@@ -271,7 +346,7 @@ class _DividedAttentionKernels(torch.autograd.Function):
                        else _kernels.time_attention_bwd)
         grouped_bwd(flat, g, dqkv, stats, cls_part, num_heads=num_heads,
                     num_frames=num_frames, scale=scale)
-        _kernels.cls_row_attention_bwd(flat, g, dqkv, cls_part,
+        _kernels.cls_row_attention_bwd(flat, g, out, lse0, dqkv, cls_part,
                                        num_heads=num_heads, scale=scale)
         return dqkv, None, None, None, None
 

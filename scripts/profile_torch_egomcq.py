@@ -44,7 +44,8 @@ from egovlpv2_torch.weights import random_init_  # noqa: E402
 
 CONFIG = "configs/eval_egomcq.json"
 BATCH = 4
-HAND_KERNELS = ("space_fwd_kernel", "time_fwd_kernel", "cls_row_fwd_kernel")
+HAND_KERNELS = ("space_fwd_kernel", "time_fwd_kernel", "cls_row_part_kernel",
+                "cls_row_merge_kernel")
 LN_KERNELS = ("layernorm_fwd_kernel",)
 FLASH_KERNELS = ("fused_attention_fwd_kernel", "fused_fwd_kernel")
 GEMM_MARKS = ("gemm", "nvjet", "cutlass", "xmma")

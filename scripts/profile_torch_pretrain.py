@@ -45,12 +45,14 @@ from egovlpv2_torch.tasks.pretrain import (build_pretrain,  # noqa: E402
 KINDS = (  # first match wins
     ("memcpy", ("memcpy",)),
     ("hand kernels, forward (K1/K2/K3)", ("space_fwd_kernel", "time_fwd_kernel",
-                                           "cls_row_fwd_kernel")),
+                                           "cls_row_part_kernel",
+                                           "cls_row_merge_kernel")),
     ("hand kernels, general divided attention (K10/K11)", (
         "general_fwd_", "general_bwd_")),  # the tiles, passes and merges
     ("hand kernels, backward (K4/K5/K6)", ("bwd_query_kernel",
                                             "bwd_key_kernel",
-                                            "cls_row_bwd_kernel")),
+                                            "cls_row_bwd_part_kernel",
+                                            "cls_row_bwd_merge_kernel")),
     ("hand kernels, LayerNorm (K7/K8)", ("layernorm_fwd_kernel",
                                           "layernorm_bwd_kernel",
                                           "layernorm_bwd_sum_kernel")),

@@ -21,6 +21,14 @@ held to the JAX package (row 0 of the TPU kernels' output and of their
 backward; the log-sum-exp of the logits under the TPU kernels' group
 bias), and the launch geometry of K10 and of K11 (pure functions) is
 checked at every head dim they take.
+
+K3 and K6, the bf16 kernels of the CLS row, split the CLS query's keys
+into runs of `cls_row_geometry`: K3 writes each run's partial and merges
+them into row 0 and its log-sum-exp lse0; K6 reads lse0 and the output's
+row 0 and makes one pass over the keys. Their plain versions are held to
+the packed TPU kernel's all-heads CLS pass: its forward through
+`_packed_fwd_pallas` in interpret mode (row 0 is `_cls_row_fwd_allh`'s),
+its backward `_cls_dense_bwd_allh` itself.
 """
 
 import numpy as np
@@ -34,10 +42,13 @@ from egovlpv2_tpu.ops import divided as jdiv
 from egovlpv2_torch.ops import _kernels
 from egovlpv2_torch.ops.divided import (cls_grad_partials_reference,
                                         cls_row_partials_reference,
+                                        cls_run_grad_reference,
+                                        cls_run_partials_reference,
                                         divided_attention,
                                         divided_attention_backward_reference,
                                         merge_cls_grad_reference,
                                         merge_cls_partials_reference,
+                                        merge_cls_run_partials_reference,
                                         row_lse_reference)
 
 torch.set_num_threads(2)
@@ -249,3 +260,122 @@ def test_general_bwd_geometry(dtype, axis, s, frames):
         assert tuple(delta.shape) == (2, 3, s)
         assert tuple(cls.shape) == (2, 3, geo.parts, 3, dh)
         assert delta.dtype == cls.dtype == torch.float32
+
+
+# The packed TPU kernel's all-heads CLS pass: (axis, B, F, N, H, Dh, heads a
+# program hp, with hp * Dh a multiple of 128). In f32 a run of
+# `cls_row_geometry` is 128 keys at Dh=64, 256 at Dh=32 and 512 at Dh=16:
+# S under one run, S past a run but not a multiple of it, and a last run of
+# one key.
+ALLH_CASES = {
+    "space_one_run": ("space", 2, 2, 16, 2, 64, 2),
+    "space_three_runs": ("space", 1, 3, 100, 2, 64, 2),
+    "time_last_run_one_key": ("time", 1, 4, 64, 4, 32, 4),
+    "space_dh16": ("space", 1, 2, 200, 8, 16, 8),
+}
+
+
+def _allh_inputs(name, seed):
+    axis, b, f, n, h, dh, hp = ALLH_CASES[name]
+    s = 1 + f * n
+    rs = np.random.RandomState(seed)
+    qkv = rs.randn(b, s, 3, h, dh).astype(np.float32)
+    ct = rs.randn(b, s, h, dh).astype(np.float32)
+    return axis, f, h, dh, hp, s, dh ** -0.5, qkv, ct
+
+
+@pytest.mark.parametrize("name", list(ALLH_CASES))
+def test_cls_run_partials_merge_to_the_packed_kernels_row0(name):
+    """The plain versions of K3's partials (one a run of keys) and of their
+    merge give row 0 of `_packed_fwd_pallas` (interpret mode), which the
+    all-heads pass `_cls_row_fwd_allh` writes on this branch, within 2e-5
+    of max |reference| (f32 sums in another order)."""
+    axis, f, h, dh, hp, s, scale, qkv, _ = _allh_inputs(name, 19)
+    assert (hp * dh) % 128 == 0 and h % hp == 0
+    # the branches of `_packed_fwd_kernel` that run `_cls_row_fwd_allh`
+    assert (jdiv._space_fb(axis, s) and jdiv._SPACE_CLS_ALLH) or (
+        jdiv._time_fp(axis, f) and jdiv._TIME_FP_MXU)
+    b = qkv.shape[0]
+    with pltpu.force_tpu_interpret_mode():
+        ref = np.asarray(jdiv._packed_fwd_pallas(
+            jnp.asarray(qkv.reshape(b, s, -1)), scale, axis, f, h, dh, hp))
+    ref = ref[:, 0].reshape(b, h, dh)
+    partials = cls_run_partials_reference(torch.from_numpy(qkv), scale=scale)
+    geo = _kernels.cls_row_geometry(torch.float32, dh, s)
+    assert partials.shape == (b, h, geo.parts, dh + 2)
+    got, _ = merge_cls_run_partials_reference(partials)
+    np.testing.assert_allclose(got.numpy(), ref, rtol=0,
+                               atol=2e-5 * np.abs(ref).max())
+
+
+@pytest.mark.parametrize("name", list(ALLH_CASES))
+def test_cls_run_lse_matches_row_lse_reference(name):
+    """lse0, merged from K3's partials, is row 0 of `row_lse_reference`
+    (the log-sum-exp of the CLS query's logits over all S keys) within
+    2e-5 of max |reference|."""
+    axis, f, h, dh, hp, s, scale, qkv, _ = _allh_inputs(name, 23)
+    x = torch.from_numpy(qkv)
+    _, lse0 = merge_cls_run_partials_reference(
+        cls_run_partials_reference(x, scale=scale))
+    ref = row_lse_reference(x, scale=scale, axis=axis, num_frames=f)[:, :, 0]
+    assert lse0.shape == ref.shape == (qkv.shape[0], h)
+    np.testing.assert_allclose(lse0.numpy(), ref.numpy(), rtol=0,
+                               atol=2e-5 * ref.abs().max().item())
+
+
+@pytest.mark.parametrize("name", list(ALLH_CASES))
+def test_cls_run_grad_matches_cls_dense_bwd_allh(name):
+    """The plain version of K6's one pass, from the output row and lse0 of
+    K3's plain version (as the autograd Function hands them over), gives
+    `_cls_dense_bwd_allh`'s dq0 (scale times the runs' partials, summed in
+    order), dkd and dvd (the CLS query's share of every key's dk and dv)
+    within 5e-5 of max |reference| of each (f32 sums in another order)."""
+    axis, f, h, dh, hp, s, scale, qkv, ct = _allh_inputs(name, 29)
+    b = qkv.shape[0]
+    x, g = torch.from_numpy(qkv), torch.from_numpy(ct)
+    out0, lse0 = merge_cls_run_partials_reference(
+        cls_run_partials_reference(x, scale=scale))
+    dq_parts, dkd, dvd = cls_run_grad_reference(x, g, out0, lse0, scale=scale)
+    geo = _kernels.cls_row_geometry(torch.float32, dh, s)
+    assert dq_parts.shape == (b, h, geo.parts, dh)
+    dq0 = scale * dq_parts.sum(2)  # [B, H, Dh]
+    w = hp * dh
+    for bi in range(b):
+        for grp in range(h // hp):
+            heads = slice(grp * hp, (grp + 1) * hp)
+            q, k, v = (jnp.asarray(qkv[bi:bi + 1, :, c, heads].reshape(1, s, w))
+                       for c in range(3))
+            ref_dq, ref_dk, ref_dv = (np.asarray(t) for t in jdiv._cls_dense_bwd_allh(
+                q, k, v, jnp.asarray(ct[bi:bi + 1, :, heads].reshape(1, s, w)),
+                scale, hp, dh))
+            for got, ref in ((dq0[bi, heads].reshape(1, w), ref_dq),
+                             (dkd[bi, :, heads].reshape(s, w), ref_dk),
+                             (dvd[bi, :, heads].reshape(s, w), ref_dv)):
+                np.testing.assert_allclose(got.numpy(), ref, rtol=0,
+                                           atol=5e-5 * np.abs(ref).max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s", [65, 785, 981, 3137, 6273])
+def test_cls_row_geometry(dtype, s):
+    """At every head dim K3/K6 take (8 to 128 in steps of 8): lanes a key
+    cover the head dim at 8 elements a lane, as a power of two that divides
+    a warp; a row group takes 4 keys (the kernels' compiled count); a run is
+    those keys times the block's row groups, 128 at the slice's Dh=64; the
+    runs cover S with the last one non-empty; S shorter than one run comes
+    out as one part."""
+    for dh in range(8, _kernels.CLS_ROW_MAX_DH + 1, 8):
+        geo = _kernels.cls_row_geometry(dtype, dh, s)
+        assert geo.group * 8 >= dh > geo.group * 4
+        assert geo.group in (1, 2, 4, 8, 16)
+        assert geo.keys == 4
+        assert geo.run == geo.keys * _kernels.CLS_ROW_THREADS // geo.group
+        assert (geo.parts - 1) * geo.run < s <= geo.parts * geo.run
+        if s < geo.run:
+            assert geo.parts == 1
+    assert _kernels.CLS_ROW_THREADS == 256
+    assert _kernels.cls_row_geometry(dtype, 64, s).run == 128
+    assert _kernels.cls_row_geometry(dtype, 8, 785).parts == 1  # S < a run
+    for bad in (4, 12, 136):
+        with pytest.raises(ValueError, match="head dim"):
+            _kernels.cls_row_geometry(dtype, bad, s)

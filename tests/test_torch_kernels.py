@@ -21,7 +21,8 @@ from egovlpv2_torch.ops import flash
 from egovlpv2_torch.ops import layernorm as ln
 from egovlpv2_torch.ops.attention import (attend, attend_plain,
                                           make_additive_mask)
-from egovlpv2_torch.ops.divided import (divided_attention,
+from egovlpv2_torch.ops.divided import (cls_row_reference,
+                                        divided_attention,
                                         divided_attention_backward_reference,
                                         divided_attention_reference,
                                         grouped_kernels_take,
@@ -143,8 +144,9 @@ def test_backward_kernels_match_plain(cuda, case, axis, dtype):
 @pytest.mark.parametrize("axis", ["space", "time"])
 def test_backward_kernels_one_by_one(cuda, axis, dtype):
     """K4/K5 alone against the gradient of rows 1..S-1 (the CLS key's row
-    from the summed partials), and K6 alone, on a zeroed dqkv and zero
-    partials, against the gradient of row 0."""
+    from the summed partials), and K6 alone, from K3's output and lse0 (as
+    the autograd Function runs it), on a zeroed dqkv and zero partials,
+    against the gradient of row 0."""
     b, f, n, h, dh = 2, 4, 50, 3, 64
     s, scale = 1 + f * n, dh ** -0.5
     qkv = _qkv(2, b, s, h, dh, dtype, cuda)
@@ -167,13 +169,82 @@ def test_backward_kernels_one_by_one(cuda, axis, dtype):
     errs = _rel_errs(got, ref)
     assert max(errs) <= BWD_RTOL[dtype], errs
 
+    out, lse0 = _cls_row_forward(flat, h, scale)
     dqkv.zero_()
-    _kernels.cls_row_attention_bwd(flat, gflat, dqkv, torch.zeros_like(parts),
-                                   num_heads=h, scale=scale)
+    _kernels.cls_row_attention_bwd(flat, gflat, out, lse0, dqkv,
+                                   torch.zeros_like(parts), num_heads=h,
+                                   scale=scale)
     torch.cuda.synchronize()
     ref = divided_attention_backward_reference(qkv, g, rows="cls", **kw)
     errs = _rel_errs(dqkv.view(b, s, 3, h, dh), ref)
     assert max(errs) <= BWD_RTOL[dtype], errs
+
+
+def _cls_row_forward(flat, h, scale):
+    """K3 on flat qkv [B, S, 3*H*Dh]: (the output, rows 1..S-1 NaN, lse0)."""
+    b, s, w3 = flat.shape
+    out = torch.full((b, s, w3 // 3), float("nan"), dtype=flat.dtype,
+                     device=flat.device)
+    lse0 = torch.full((b, h), float("nan"), device=flat.device)
+    _kernels.cls_row_attention_fwd(flat, out, lse0, num_heads=h, scale=scale)
+    return out, lse0
+
+
+def _same_bits(x, y):
+    ints = {torch.bfloat16: torch.int16, torch.float32: torch.int32}
+    return torch.equal(x.view(ints[x.dtype]), y.view(ints[y.dtype]))
+
+
+# (B, S, H, Dh) for K3/K6 alone. A run of `cls_row_geometry` is 128 keys at
+# Dh=64, 64 at Dh=128 and 1024 at Dh=8: S not a multiple of the run, S
+# under one run, a last run of one key, the widest and the narrowest head
+# dim, and the 32-frame fine-tune's S.
+CLS_ROW_CASES = [(2, 785, 3, 64), (3, 33, 2, 64), (1, 257, 2, 64),
+                 (2, 401, 2, 128), (2, 97, 3, 8), (1, 6273, 2, 64)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", CLS_ROW_CASES)
+def test_cls_row_kernels_over_key_runs(cuda, case, dtype):
+    """K3 and K6 alone over runs of keys: K3's row 0 against the plain
+    version (the same values in f32), its lse0 against `row_lse_reference`
+    within 1e-5 of max |reference|, K6 (from K3's output and lse0, on a
+    zeroed dqkv and zero partials) against the gradient of row 0; K3 leaves
+    rows 1..S-1 alone; each run twice on one input gives the same bits
+    (partials summed in a fixed order, no atomics); one launch count a
+    call."""
+    b, s, h, dh = case
+    scale = dh ** -0.5
+    qkv = _qkv(5, b, s, h, dh, dtype, cuda)
+    g = _qkv(6, b, s, h, dh, dtype, cuda)[:, :, 0].contiguous()
+    flat, gflat = qkv.view(b, s, -1), g.view(b, s, -1)
+    before = dict(_kernels.launch_counts)
+    (out, lse0), (out2, lse2) = (_cls_row_forward(flat, h, scale)
+                                 for _ in range(2))
+    cls_part = torch.zeros((b, h, 3, 2, dh), device=cuda)
+    dqkv, dqkv2 = (torch.zeros_like(flat) for _ in range(2))
+    for d in (dqkv, dqkv2):
+        _kernels.cls_row_attention_bwd(flat, gflat, out, lse0, d, cls_part,
+                                       num_heads=h, scale=scale)
+    torch.cuda.synchronize()
+    assert _same_bits(out[:, :1], out2[:, :1]) and _same_bits(lse0, lse2)
+    assert _same_bits(dqkv, dqkv2)
+    assert torch.isnan(out[:, 1:]).all()
+    ref = cls_row_reference(qkv.float(), scale=scale).reshape(b, 1, h * dh)
+    assert (out[:, :1].float() - ref).abs().max().item() <= TOL[dtype]
+    lse_ref = row_lse_reference(qkv, scale=scale, axis="space",
+                                num_frames=1)[:, :, 0]
+    assert ((lse0 - lse_ref).abs().max() / lse_ref.abs().max()).item() <= 1e-5
+    dref = divided_attention_backward_reference(qkv, g, scale=scale,
+                                                axis="space", num_frames=1,
+                                                rows="cls")
+    errs = _rel_errs(dqkv.view(b, s, 3, h, dh), dref)
+    assert max(errs) <= BWD_RTOL[dtype], errs
+    assert _kernels.launch_counts["cls_row_attention_fwd"] \
+        == before["cls_row_attention_fwd"] + 2
+    assert _kernels.launch_counts["cls_row_attention_bwd"] \
+        == before["cls_row_attention_bwd"] + 2
 
 
 @pytest.mark.gpu
@@ -185,7 +256,8 @@ def test_kernel_wrapper_rejects_what_it_cannot_take(cuda):
     with pytest.raises(TypeError):
         _kernels.cls_row_attention_fwd(
             torch.zeros(1, 5, 48, device=cuda, dtype=torch.float16),
-            out.half(), num_heads=2, scale=1.0)
+            out.half(), torch.empty(1, 2, device=cuda), num_heads=2,
+            scale=1.0)
     with pytest.raises(ValueError, match="contiguous"):  # every 2nd column
         _kernels.space_attention_fwd(
             torch.zeros(1, 5, 192, device=cuda)[:, :, ::2],
@@ -677,8 +749,9 @@ def test_kernel_wrappers_refuse_cpu_tensors_before_building():
     for launch in (_kernels.space_attention_fwd, _kernels.time_attention_fwd):
         with pytest.raises(ValueError, match="CUDA"):
             launch(qkv, out, num_heads=2, num_frames=2, scale=1.0)
+    lse0 = torch.zeros(1, 2)
     with pytest.raises(ValueError, match="CUDA"):
-        _kernels.cls_row_attention_fwd(qkv, out, num_heads=2, scale=1.0)
+        _kernels.cls_row_attention_fwd(qkv, out, lse0, num_heads=2, scale=1.0)
     dq = torch.zeros_like(qkv)
     stats, parts = torch.zeros(2, 1, 2, 5), torch.zeros(1, 2, 1, 2, 8)
     for launch in (_kernels.space_attention_bwd, _kernels.time_attention_bwd):
@@ -686,8 +759,8 @@ def test_kernel_wrappers_refuse_cpu_tensors_before_building():
             launch(qkv, out, dq, stats, parts, num_heads=2, num_frames=2,
                    scale=1.0)
     with pytest.raises(ValueError, match="CUDA"):
-        _kernels.cls_row_attention_bwd(qkv, out, dq, parts, num_heads=2,
-                                       scale=1.0)
+        _kernels.cls_row_attention_bwd(qkv, out, out, lse0, dq, parts,
+                                       num_heads=2, scale=1.0)
     with pytest.raises(ValueError, match="CUDA"):
         _kernels.attention_bwd_scratch(qkv, num_heads=2, num_frames=2,
                                        axis="space")
@@ -759,6 +832,7 @@ def test_port_imports_no_jax():
         "import profile_torch_egomcq, profile_torch_pretrain\n"
         "import profile_torch_finetune, profile_torch_extract\n"
         "import profile_torch_flash, profile_torch_taskqa\n"
+        "import profile_torch_cls_row\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'egovlpv2_tpu'))\n"
         "assert not bad, bad\n"
