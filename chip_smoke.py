@@ -42,10 +42,15 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
                 bf16; K6 rounds the dk/dv rows a second time when it adds
                 to them); K6 is fed K3's output and lse0, as the autograd
                 Function runs it, twice on one input gives the same bits,
-                and is timed adding to the rows K4/K5 wrote. K3's and K6's
-                times before their split over runs of keys (K3_BEFORE_MS,
-                K6_BEFORE_MS) are printed beside the new ones on the text
-                line only.
+                and is timed adding to the rows K4/K5 wrote. K5 twice on one
+                input gives the same bits in dqkv and in its CLS-key
+                partials (a fixed-order sum in a block), and its profiled
+                kernels are those of the form `time_bwd_geometry` names
+                (the tensor cores in bf16 at these shapes: one
+                `time_bwd_kernel`; f32 the grouped query and key passes).
+                K3's, K5's and K6's times before their redesigns
+                (K3_BEFORE_MS, K5_BEFORE_MS, K6_BEFORE_MS) are printed
+                beside the new ones on the text line only.
                 LayerNorm K7 forward and K8 backward at R x D = 12,560 x
                 768 (the pretrain step's), 50,184 x 768 (the fine-tune's),
                 200,768 x 768 (an MQ or NLQ inner batch), 15,696 x 768 (a
@@ -214,10 +219,12 @@ KERNELS = {  # name -> (source, the TPU kernel body it replaces)
     "divided_attention_general_bwd": (GENERAL_SOURCE,
                                       "egovlpv2_tpu/ops/divided.py:565"),
 }
-# K10/K11 replace row 1d too: the dense masked branch of the packed kernels.
+# K10/K11 replace row 1d too: the dense masked branch of the packed kernels;
+# K5 the patch-major window branch of the packed backward at F > 8.
 ALSO_REPLACES = {
     "divided_attention_general_fwd": ["egovlpv2_tpu/ops/divided.py:855"],
     "divided_attention_general_bwd": ["egovlpv2_tpu/ops/divided.py:915"],
+    "time_attention_bwd": ["egovlpv2_tpu/ops/divided.py:874"],
 }
 GROUPED_KERNELS = tuple(KERNELS)[:6]  # K1-K6: bf16, contiguous, Dh % 8 == 0
 GENERAL_KERNELS = ("divided_attention_general_fwd",
@@ -329,8 +336,22 @@ K6_BEFORE_MS = {
     (torch.float32, 8, 4): 0.0879, (torch.float32, 8, 32): 0.6437,
     (torch.float32, 16, 4): 0.1270, (torch.float32, 16, 16): 0.4806,
 }
-CLS_ROW_BEFORE_MS = {"cls_row_attention_fwd": K3_BEFORE_MS,
-                     "cls_row_attention_bwd": K6_BEFORE_MS}
+# K5's the same way before its tensor-core form (the grouped CUDA-core
+# passes at every shape): the parent commit's phase 3 (H100 80GB HBM3, 700 W).
+K5_BEFORE_MS = {
+    (torch.bfloat16, 8, 4): 0.1353, (torch.bfloat16, 8, 32): 3.9671,
+    (torch.bfloat16, 16, 4): 0.2205, (torch.bfloat16, 16, 16): 2.1420,
+    (torch.float32, 8, 4): 0.1264, (torch.float32, 8, 32): 3.8167,
+    (torch.float32, 16, 4): 0.2400, (torch.float32, 16, 16): 2.0750,
+}
+# name -> (what changed, its time before, by (dtype, B, frames))
+BEFORE_MS = {"cls_row_attention_fwd": ("the key runs", K3_BEFORE_MS),
+             "cls_row_attention_bwd": ("the key runs", K6_BEFORE_MS),
+             "time_attention_bwd": ("the tensor cores", K5_BEFORE_MS)}
+# K5's kernels by form, as the profiler names them
+TIME_BWD_KERNELS = {"tensor_cores": ("time_bwd_kernel",),
+                    "grouped": ("grouped_bwd_query_kernel",
+                                "grouped_bwd_key_kernel")}
 # of max |reference|, each against the plain version on the same values in
 # f32 (the kernels keep P, dP and dS in f32 and round only the stores)
 GENERAL_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
@@ -599,9 +620,10 @@ def phase_kernels() -> dict:
         s = 1 + frames * N
         least, by = bound_ms(name, dtype, b, s, frames)
         tag = f"{str(dtype).split('.')[-1]} B={b} S={s}"
-        before = CLS_ROW_BEFORE_MS.get(name, {}).get((dtype, b, frames))
+        what, times = BEFORE_MS.get(name, ("", {}))
+        before = times.get((dtype, b, frames))
         was = "" if before is None else (
-            f" (before the key runs: {before:.4f} ms; bitwise equal twice)")
+            f" (before {what}: {before:.4f} ms; bitwise equal twice)")
         print(f"[3 kernels] {name:22s} {tag:20s} err={err:.3e} ({check}, tol "
               f"{TOL[dtype]:.0e})  kernel {ms:.4f} ms{was}  plain "
               f"{plain_ms:.4f} ms  library {lib_ms:.4f} ms  bound "
@@ -692,9 +714,13 @@ def phase_kernels() -> dict:
                         raise AssertionError(
                             f"{name} {dtype} B={b} S={s}: relative error CLS "
                             f"row {rel_cls}, patch rows {rel} > {TOL[dtype]}")
-                    record(name, dtype, b, frames, err,
-                           f"rel cls row {rel_cls:.2e} patch rows {rel:.2e}",
-                           _time_ms(kernel), _time_ms(plain),
+                    check = f"rel cls row {rel_cls:.2e} patch rows {rel:.2e}"
+                    events = _device_events(kernel)
+                    if axis == "time":
+                        check += _check_time_bwd(flat, gflat, dqkv, parts, kw,
+                                                 events)
+                    record(name, dtype, b, frames, err, check,
+                           sum(events.values()), _time_ms(plain),
                            _time_ms(library[name]))
                 name = "cls_row_attention_bwd"
                 # fed K3's output and lse0, as the autograd Function runs it
@@ -734,6 +760,32 @@ def phase_kernels() -> dict:
     phase_flash(results)
     phase_general(results)
     return results
+
+
+def _check_time_bwd(flat, gflat, dqkv, parts, kw, events) -> str:
+    """K5 (from the call just made into `dqkv` and `parts`) a second time on
+    the same input: the same bits in dqkv and in the CLS-key partials (each
+    block sums its columns in order, no atomics); and `events`, the
+    profiled kernels of a call, are those of the form `time_bwd_geometry`
+    names. Returns the check's text."""
+    b, s = flat.shape[:2]
+    dqkv_again = torch.full_like(dqkv, float("nan"))
+    parts_again = torch.full_like(parts, float("nan"))
+    stats = torch.empty((2, b, H, s), device="cuda")
+    _kernels.time_attention_bwd(flat, gflat, dqkv_again, stats, parts_again,
+                                **kw)
+    torch.cuda.synchronize()
+    if not (_same_bits(dqkv, dqkv_again) and _same_bits(parts, parts_again)):
+        raise AssertionError(f"time_attention_bwd B={b} S={s}: two runs on "
+                             f"one input differ")
+    form = _kernels.time_bwd_geometry(flat.dtype, DH, s,
+                                      kw["num_frames"]).form
+    ran = {k for k in TIME_BWD_KERNELS[form] if any(k in e for e in events)}
+    if ran != set(TIME_BWD_KERNELS[form]) or len(events) != len(ran):
+        raise AssertionError(f"time_attention_bwd B={b} S={s}: the {form} "
+                             f"form should run {TIME_BWD_KERNELS[form]}, the "
+                             f"profiler saw {sorted(events)}")
+    return f"; {form} form, bitwise equal twice"
 
 
 def _check_cls_row_fwd(qkv, flat, out, lse0) -> str:
@@ -1659,10 +1711,10 @@ def main() -> None:
     # `launches` is the count of the kernel's main path's own run: the
     # pretrain run for K1-K9 (the bf16 paths), the EgoTaskQA run (steps and
     # evaluation) for K10/K11; each path's count stands beside it, never
-    # summed. One launch of a divided attention backward wrapper is two
-    # __global__ launches (a query pass, then a key pass), one of the
-    # LayerNorm backward two as well (the rows, then the sum of the blocks'
-    # partials).
+    # summed. A wrapper call is one count: K5 in its tensor-core form is one
+    # __global__ launch; K4 (and K5's grouped form) two (a query pass, then
+    # a key pass); K3, K6 and the LayerNorm backward two (a pass, then the
+    # merge or sum of the blocks' partials); K10 two and K11 three.
     steps = {"pretrain": PRETRAIN_STEPS, "taskqa": TASKQA_STEPS}
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": KERNELS[k][0],

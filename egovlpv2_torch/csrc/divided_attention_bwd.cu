@@ -7,19 +7,21 @@
 //
 // Replaces `_packed_bwd_kernel` (egovlpv2_tpu/ops/divided.py:871) with its
 // space frame-block branch `_space_fb_bwd` (:623), its time frame-pair
-// branch `_packed_bwd_time_fp_mxu` (:957) and the CLS query's dense pass
-// `_cls_dense_bwd_allh` (:377). Nothing of the TPU tiling is carried over.
+// branch `_packed_bwd_time_fp_mxu` (:957), its patch-major time window
+// branch (:874-903) and the CLS query's dense pass `_cls_dense_bwd_allh`
+// (:377). Nothing of the TPU tiling is carried over.
 //
 // Math, for a query row i over its key set: s_ij = scale q_i.k_j,
 // p = softmax(s), dp_ij = g_i.v_j, delta_i = sum_j p_ij dp_ij,
 // ds_ij = p_ij (dp_ij - delta_i); dq_i = scale sum_j ds_ij k_j,
 // dk_j = scale sum_i ds_ij q_i, dv_j = sum_i p_ij g_i. The softmax is
 // recomputed from qkv for the patch rows (K4, K5); the CLS row's comes
-// from the log-sum-exp K3 saved (K6). In f32; every sum is f32 and only
-// the stores round to the input dtype.
+// from the log-sum-exp K3 saved (K6). Every sum is f32; the tensor-core
+// forms round dS (K4) or P and dS (K5) to bf16 before their products, as
+// the reference does, and the stores round to the input dtype.
 //
 // Three entry points:
-//   K4 space_attention_bwd / K5 time_attention_bwd, two launches each:
+//   K4 space_attention_bwd, two launches:
 //     1. query pass: a thread group owns one patch query row and walks its
 //        keys once with an online softmax, keeping sum e, sum e dp,
 //        sum e dp k and sum e k relative to the running max, so dq, delta
@@ -28,9 +30,14 @@
 //        block's share of the CLS key's dk/dv, summed over its rows in
 //        shared memory, to an f32 scratch [B, H, blocks, 2, Dh].
 //     2. key pass: a thread group owns one patch key row and walks the
-//        queries of its frame (space) or patch column (time), rebuilding
-//        p and ds from the row statistics; it writes dk and dv.
-//     Neither touches sequence row 0 of dqkv.
+//        queries of its frame, rebuilding p and ds from the row statistics;
+//        it writes dk and dv.
+//   K5 time_attention_bwd: in bf16 (Dh a multiple of 16 up to 64, F <= 63)
+//     one launch, a warp a run of patch columns, both passes of a column
+//     on the tensor cores from shared memory (namespace mma, at
+//     time_bwd_kernel); otherwise the two grouped launches above with the
+//     keys of a patch column in place of a frame.
+//   Neither touches sequence row 0 of dqkv.
 //   K6 cls_row_attention_bwd, after K4 or K5 on the same stream, two
 //     launches (described at its kernels): one pass over runs of keys that
 //     adds the CLS query's share to the dk/dv rows K4/K5 wrote
@@ -42,13 +49,13 @@
 // sequence: the CLS key's gradient therefore goes through the partials, a
 // fixed-order sum, so the result is the same from run to run.
 //
-// Bound: operations. On the CUDA cores each (query, key) pair costs two
-// dots and two axpys of Dh in each pass; K and V rows are read through L1
-// as in the forward kernels. Device memory need see qkv and g once and
-// write dqkv once. K4 in bf16 with Dh a multiple of 16 up to 64 (the
-// slice) runs both passes on the tensor cores (namespace mma below); K5
-// (F + 1 keys a row) and f32 stay on the CUDA cores. K6 (one query) is
-// bound by memory instead, and is described at its kernels.
+// Bound: bytes for the function (qkv and g read once, dqkv written once).
+// On the CUDA cores each (query, key) pair costs two dots and two axpys of
+// Dh in each pass; K and V rows are read through L1 as in the forward
+// kernels. In bf16 with Dh a multiple of 16 up to 64 (the slice) K4 runs
+// both passes on the tensor cores, and so does K5 where F + 1 keys fit one
+// 64-row tile (namespace mma below); f32 stays on the CUDA cores. K6 (one
+// query) is bound by memory, and is described at its kernels.
 
 #include "attention_common.cuh"
 
@@ -853,6 +860,371 @@ inline int parts(int S, int F) {
   return F * ((N + kRows - 1) / kRows);
 }
 
+// K5 on the tensor cores: the bf16 time axis for Dh a multiple of 16 up to
+// 64 and F <= 63, so that a column's F + 1 keys fit one tile of 64.
+// Replaces `_packed_bwd_time_fp_mxu` (egovlpv2_tpu/ops/divided.py:957) at
+// F <= 8 and, at F > 8, the patch-major window branch of
+// `_packed_bwd_kernel` (:874-903: `_space_fb_bwd` :623 on rows that
+// `_to_patch_major` :237 made contiguous, in windows of `_pm_window` :206).
+// Here a warp gathers a column's rows by stride instead of a permute.
+// Bound: bytes. qkv and g are read once and dqkv written once, 540 MB at
+// B=8, S=6273 (0.161 ms on an H100). The grouped CUDA-core passes walked a
+// column's keys one at a time, twice (a query and a key pass), each step
+// waiting on its loads and on two shuffle sums.
+// Design: a block is one warp and owns `cols` patch columns of one (b, h),
+// one after another. For a column it stages with 16-byte cp.async the CLS
+// key and the F frames' k and v rows (KP rows, keys past F zero-filled) and
+// the F q and g rows (QP rows), then, on the tensor cores, 16 query rows at
+// a time:
+//   S = Q K^T and dP = G V^T; the exact row softmax P in f32 (all F + 1
+//   keys are in the tile, so no running max); delta = sum P dP in f32;
+//   dS = P (dP - delta); dQ = scale dS K, dS rounded to bf16 in registers;
+//   P and dS, rounded to bf16, go to shared memory;
+// and 16 keys at a time dK = scale dS^T Q and dV = P^T G, the transposed
+// operands read with ldmatrix.trans. The reference rounds P and dS the same
+// way (`p_c`, `ds_c`, divided.py:696,710). Rows 1..S-1 of dq, dk and dv are
+// stored; the CLS key's row of dK and dV is added, column after column, to
+// the block's f32 sum in shared memory, which goes to `cls_part` [B, H,
+// parts, 2, Dh] at the end: the same order, so the same bits, every run.
+// Nothing else leaves the block, and no score is computed twice.
+constexpr int kTimeThreads = 32;
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, or 16 zero bytes where `live` is false.
+__device__ __forceinline__ void cp_async16(__nv_bfloat16* dst,
+                                           const __nv_bfloat16* src,
+                                           bool live) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(live ? 16 : 0)
+               : "memory");
+}
+
+// Four 8 x 8 bf16 matrices from shared memory, each transposed if kTrans.
+template <bool kTrans>
+__device__ __forceinline__ void ldsm4(uint32_t (&r)[4],
+                                      const __nv_bfloat16* p) {
+  if (kTrans) {
+    asm volatile(
+        "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+        "[%4];\n"
+        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+        : "r"(smem_addr(p))
+        : "memory");
+  } else {
+    asm volatile(
+        "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+        : "r"(smem_addr(p))
+        : "memory");
+  }
+}
+
+// A lane's row address for ldsm4 of the 16 x 16 block at (r0, c0) of a
+// row-major tile with row pitch `ld`, in two matrix orders:
+//   `rows16`: lanes 0-15 rows r0.., cols c0; 16-31 cols c0 + 8. Plain: the
+//     A fragment of an [M][K] tile. Transposed: the B fragments of n-tiles
+//     c0 and c0 + 8 of a [K][N] tile.
+//   `cols16`: lanes 0-7 rows r0.., 8-15 the same rows at c0 + 8, 16-31 rows
+//     r0 + 8... Plain: the B fragments of n-tiles r0 and r0 + 8 of an [N][K]
+//     tile. Transposed: the A fragment of a [K][M] tile.
+__device__ __forceinline__ int rows16(int ld, int r0, int c0, int lane) {
+  return (r0 + (lane & 15)) * ld + c0 + (lane >> 4) * 8;
+}
+__device__ __forceinline__ int cols16(int ld, int r0, int c0, int lane) {
+  return (r0 + ((lane >> 4) << 3) + (lane & 7)) * ld + c0 +
+         ((lane >> 3) & 1) * 8;
+}
+
+// The 16-row tiles of a column: KP = 16 * kt keys (the CLS key, then the F
+// frames), QP = 16 * qt queries.
+__host__ __device__ __forceinline__ int time_key_tiles(int F) {
+  return (F + 16) / 16;
+}
+__host__ __device__ __forceinline__ int time_query_tiles(int F) {
+  return (F + 15) / 16;
+}
+
+// Shared memory of a block: K, V (KP rows) and Q, G (QP rows) at a pitch of
+// Dh + 8 bf16, P and dS (QP rows) at KP + 8, all bf16; the f32 [2, Dh]
+// sum of the CLS key's dk and dv.
+inline int time_shared_bytes(int Dh, int F) {
+  const int kp = 16 * time_key_tiles(F), qp = 16 * time_query_tiles(F);
+  return 2 * ((2 * kp + 2 * qp) * (Dh + kPad) + 2 * qp * (kp + kPad)) +
+         2 * Dh * 4;
+}
+
+template <int DH, int KT>
+__global__ void __launch_bounds__(kTimeThreads)
+    time_bwd_kernel(const __nv_bfloat16* __restrict__ qkv,
+                    const __nv_bfloat16* __restrict__ gout,
+                    __nv_bfloat16* __restrict__ dqkv,
+                    float* __restrict__ cls_part, int S, int H, int N, int F,
+                    int cols, float scale) {
+  constexpr int KP = 16 * KT, LD = DH + kPad, LDP = KP + kPad;
+  constexpr int kChunks = DH / 8;  // 16-byte chunks of a row
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int qt = time_query_tiles(F), QP = 16 * qt;
+  __nv_bfloat16* sK = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* sV = sK + KP * LD;
+  __nv_bfloat16* sQ = sV + KP * LD;
+  __nv_bfloat16* sG = sQ + QP * LD;
+  __nv_bfloat16* sP = sG + QP * LD;
+  __nv_bfloat16* sD = sP + QP * LDP;
+  float* sCls = reinterpret_cast<float*>(sD + QP * LDP);  // [2][DH]
+  const int h = blockIdx.x, part = blockIdx.y, b = blockIdx.z;
+  const int lane = threadIdx.x, g = lane >> 2, t = lane & 3;
+  const int64_t stride = 3LL * H * DH, width = (int64_t)H * DH;
+  const __nv_bfloat16* qbase = qkv + (int64_t)b * S * stride + (int64_t)h * DH;
+  const __nv_bfloat16* gbase = gout + (int64_t)b * S * width + (int64_t)h * DH;
+  __nv_bfloat16* dbase = dqkv + (int64_t)b * S * stride + (int64_t)h * DH;
+  const float sl2 = scale * kLog2e;
+  for (int i = lane; i < 2 * DH; i += kTimeThreads) sCls[i] = 0.f;
+  const int n_end = min(N, (part + 1) * cols);
+  for (int n = part * cols; n < n_end; ++n) {
+    // Stage the column: tile rows 0..KP-1 keys (k), KP..2KP-1 keys (v),
+    // then QP queries (q) and QP (g); sV, sQ and sG follow sK.
+    const int total = (2 * KP + 2 * QP) * kChunks;
+    for (int i = lane; i < total; i += kTimeThreads) {
+      const int r = i / kChunks, c = (i % kChunks) * 8;
+      const __nv_bfloat16* src;
+      bool live;
+      if (r < 2 * KP) {
+        const int j = r % KP;  // key j: the CLS key, then frame j - 1
+        live = j <= F;
+        const int64_t row = live && j > 0 ? 1 + (int64_t)(j - 1) * N + n : 0;
+        src = qbase + row * stride + (r < KP ? width : 2 * width) + c;
+      } else {
+        const int rq = r - 2 * KP, i_q = rq % QP;  // query i_q: frame i_q
+        live = i_q < F;
+        const int64_t row = 1 + (int64_t)(live ? i_q : 0) * N + n;
+        src = rq < QP ? qbase + row * stride + c : gbase + row * width + c;
+      }
+      cp_async16(sK + r * LD + c, src, live);
+    }
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    __syncwarp();
+
+    // 16 queries at a time: rows lo = m0 + g and hi = lo + 8 of the tile.
+    for (int m0 = 0; m0 < QP; m0 += 16) {
+      float s[2 * KT][4], dp[2 * KT][4];
+#pragma unroll
+      for (int nt = 0; nt < 2 * KT; ++nt) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[nt][e] = dp[nt][e] = 0.f;
+      }
+#pragma unroll
+      for (int k0 = 0; k0 < DH; k0 += 16) {
+        uint32_t qa[4], ga[4];
+        ldsm4<false>(qa, sQ + rows16(LD, m0, k0, lane));
+        ldsm4<false>(ga, sG + rows16(LD, m0, k0, lane));
+#pragma unroll
+        for (int np = 0; np < KT; ++np) {
+          uint32_t kb[4], vb[4];
+          ldsm4<false>(kb, sK + cols16(LD, np * 16, k0, lane));
+          ldsm4<false>(vb, sV + cols16(LD, np * 16, k0, lane));
+          mma_bf16(s[2 * np], qa, kb[0], kb[1]);
+          mma_bf16(s[2 * np + 1], qa, kb[2], kb[3]);
+          mma_bf16(dp[2 * np], ga, vb[0], vb[1]);
+          mma_bf16(dp[2 * np + 1], ga, vb[2], vb[3]);
+        }
+      }
+      // The exact softmax of each row over keys 0..F, in the base-2 domain.
+      float m_lo = -INFINITY, m_hi = -INFINITY;
+#pragma unroll
+      for (int nt = 0; nt < 2 * KT; ++nt) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const bool valid = nt * 8 + 2 * t + (e & 1) <= F;
+          s[nt][e] = valid ? s[nt][e] * sl2 : -INFINITY;
+        }
+        m_lo = fmaxf(m_lo, fmaxf(s[nt][0], s[nt][1]));
+        m_hi = fmaxf(m_hi, fmaxf(s[nt][2], s[nt][3]));
+      }
+#pragma unroll
+      for (int off = 1; off < 4; off <<= 1) {
+        m_lo = fmaxf(m_lo, __shfl_xor_sync(0xffffffffu, m_lo, off));
+        m_hi = fmaxf(m_hi, __shfl_xor_sync(0xffffffffu, m_hi, off));
+      }
+      float l_lo = 0.f, l_hi = 0.f;
+#pragma unroll
+      for (int nt = 0; nt < 2 * KT; ++nt) {
+        s[nt][0] = exp2f(s[nt][0] - m_lo);
+        s[nt][1] = exp2f(s[nt][1] - m_lo);
+        s[nt][2] = exp2f(s[nt][2] - m_hi);
+        s[nt][3] = exp2f(s[nt][3] - m_hi);
+        l_lo += s[nt][0] + s[nt][1];
+        l_hi += s[nt][2] + s[nt][3];
+      }
+#pragma unroll
+      for (int off = 1; off < 4; off <<= 1) {
+        l_lo += __shfl_xor_sync(0xffffffffu, l_lo, off);
+        l_hi += __shfl_xor_sync(0xffffffffu, l_hi, off);
+      }
+      // Rows past F (zero q and g) get P = dS = 0.
+      const bool ok_lo = m0 + g < F, ok_hi = m0 + g + 8 < F;
+      const float inv_lo = ok_lo ? 1.f / l_lo : 0.f;
+      const float inv_hi = ok_hi ? 1.f / l_hi : 0.f;
+      float d_lo = 0.f, d_hi = 0.f;  // delta = sum P dP
+#pragma unroll
+      for (int nt = 0; nt < 2 * KT; ++nt) {
+        s[nt][0] *= inv_lo;
+        s[nt][1] *= inv_lo;
+        s[nt][2] *= inv_hi;
+        s[nt][3] *= inv_hi;
+        d_lo += s[nt][0] * dp[nt][0] + s[nt][1] * dp[nt][1];
+        d_hi += s[nt][2] * dp[nt][2] + s[nt][3] * dp[nt][3];
+      }
+#pragma unroll
+      for (int off = 1; off < 4; off <<= 1) {
+        d_lo += __shfl_xor_sync(0xffffffffu, d_lo, off);
+        d_hi += __shfl_xor_sync(0xffffffffu, d_hi, off);
+      }
+      // dS into dp; P and dS, rounded, to shared memory for the key tiles
+#pragma unroll
+      for (int nt = 0; nt < 2 * KT; ++nt) {
+        dp[nt][0] = s[nt][0] * (dp[nt][0] - d_lo);
+        dp[nt][1] = s[nt][1] * (dp[nt][1] - d_lo);
+        dp[nt][2] = s[nt][2] * (dp[nt][2] - d_hi);
+        dp[nt][3] = s[nt][3] * (dp[nt][3] - d_hi);
+        const int at = (m0 + g) * LDP + nt * 8 + 2 * t;
+        *reinterpret_cast<uint32_t*>(sP + at) = pack_bf16(s[nt][0], s[nt][1]);
+        *reinterpret_cast<uint32_t*>(sP + at + 8 * LDP) =
+            pack_bf16(s[nt][2], s[nt][3]);
+        *reinterpret_cast<uint32_t*>(sD + at) =
+            pack_bf16(dp[nt][0], dp[nt][1]);
+        *reinterpret_cast<uint32_t*>(sD + at + 8 * LDP) =
+            pack_bf16(dp[nt][2], dp[nt][3]);
+      }
+      // dQ = scale dS K: dS's C fragments are the A fragments of the keys'
+      // 16-wide steps; K read transposed.
+      float dq[DH / 8][4];
+#pragma unroll
+      for (int nd = 0; nd < DH / 8; ++nd) {
+        dq[nd][0] = dq[nd][1] = dq[nd][2] = dq[nd][3] = 0.f;
+      }
+#pragma unroll
+      for (int kc = 0; kc < KT; ++kc) {
+        const uint32_t a[4] = {pack_bf16(dp[2 * kc][0], dp[2 * kc][1]),
+                               pack_bf16(dp[2 * kc][2], dp[2 * kc][3]),
+                               pack_bf16(dp[2 * kc + 1][0], dp[2 * kc + 1][1]),
+                               pack_bf16(dp[2 * kc + 1][2], dp[2 * kc + 1][3])};
+#pragma unroll
+        for (int d0 = 0; d0 < DH; d0 += 16) {
+          uint32_t kb[4];
+          ldsm4<true>(kb, sK + rows16(LD, kc * 16, d0, lane));
+          mma_bf16(dq[d0 / 8], a, kb[0], kb[1]);
+          mma_bf16(dq[d0 / 8 + 1], a, kb[2], kb[3]);
+        }
+      }
+      __nv_bfloat16* q_lo = dbase + (1 + (int64_t)(m0 + g) * N + n) * stride;
+      __nv_bfloat16* q_hi = q_lo + 8LL * N * stride;
+#pragma unroll
+      for (int nd = 0; nd < DH / 8; ++nd) {
+        const int c = nd * 8 + 2 * t;
+        if (ok_lo) {
+          *reinterpret_cast<uint32_t*>(q_lo + c) =
+              pack_bf16(dq[nd][0] * scale, dq[nd][1] * scale);
+        }
+        if (ok_hi) {
+          *reinterpret_cast<uint32_t*>(q_hi + c) =
+              pack_bf16(dq[nd][2] * scale, dq[nd][3] * scale);
+        }
+      }
+    }
+    __syncwarp();
+
+    // 16 keys at a time: dK = scale dS^T Q and dV = P^T G over the queries.
+#pragma unroll
+    for (int kt = 0; kt < KT; ++kt) {
+      float dk[DH / 8][4], dv[DH / 8][4];
+#pragma unroll
+      for (int nd = 0; nd < DH / 8; ++nd) {
+        dk[nd][0] = dk[nd][1] = dk[nd][2] = dk[nd][3] = 0.f;
+        dv[nd][0] = dv[nd][1] = dv[nd][2] = dv[nd][3] = 0.f;
+      }
+      for (int q0 = 0; q0 < QP; q0 += 16) {
+        uint32_t da[4], pa[4];
+        ldsm4<true>(da, sD + cols16(LDP, q0, kt * 16, lane));
+        ldsm4<true>(pa, sP + cols16(LDP, q0, kt * 16, lane));
+#pragma unroll
+        for (int d0 = 0; d0 < DH; d0 += 16) {
+          uint32_t qb[4], gb[4];
+          ldsm4<true>(qb, sQ + rows16(LD, q0, d0, lane));
+          ldsm4<true>(gb, sG + rows16(LD, q0, d0, lane));
+          mma_bf16(dk[d0 / 8], da, qb[0], qb[1]);
+          mma_bf16(dk[d0 / 8 + 1], da, qb[2], qb[3]);
+          mma_bf16(dv[d0 / 8], pa, gb[0], gb[1]);
+          mma_bf16(dv[d0 / 8 + 1], pa, gb[2], gb[3]);
+        }
+      }
+      // key j_lo = kt * 16 + g and j_hi = j_lo + 8; key 0 is the CLS key
+      const int j_lo = kt * 16 + g, j_hi = j_lo + 8;
+      __nv_bfloat16* k_lo =
+          dbase + (1 + (int64_t)(j_lo - 1) * N + n) * stride + width;
+      __nv_bfloat16* k_hi = k_lo + 8LL * N * stride;
+#pragma unroll
+      for (int nd = 0; nd < DH / 8; ++nd) {
+        const int c = nd * 8 + 2 * t;
+        if (j_lo == 0) {
+          sCls[c] += dk[nd][0] * scale;
+          sCls[c + 1] += dk[nd][1] * scale;
+          sCls[DH + c] += dv[nd][0];
+          sCls[DH + c + 1] += dv[nd][1];
+        } else if (j_lo <= F) {
+          *reinterpret_cast<uint32_t*>(k_lo + c) =
+              pack_bf16(dk[nd][0] * scale, dk[nd][1] * scale);
+          *reinterpret_cast<uint32_t*>(k_lo + width + c) =
+              pack_bf16(dv[nd][0], dv[nd][1]);
+        }
+        if (j_hi <= F) {
+          *reinterpret_cast<uint32_t*>(k_hi + c) =
+              pack_bf16(dk[nd][2] * scale, dk[nd][3] * scale);
+          *reinterpret_cast<uint32_t*>(k_hi + width + c) =
+              pack_bf16(dv[nd][2], dv[nd][3]);
+        }
+      }
+    }
+    __syncwarp();  // before the next column is staged over these tiles
+  }
+  float* dst = cls_part + (((int64_t)b * H + h) * gridDim.y + part) * 2 * DH;
+  for (int i = lane; i < 2 * DH; i += kTimeThreads) dst[i] = sCls[i];
+}
+
+template <int DH, int KT>
+int launch_time_tiles(const void* qkv, const void* gout, void* dqkv,
+                      float* cls_part, int B, int S, int H, int F, int cols,
+                      int parts, int shared_bytes, float scale,
+                      cudaStream_t stream) {
+  auto kernel = time_bwd_kernel<DH, KT>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, shared_bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<dim3(H, parts, B), kTimeThreads, shared_bytes, stream>>>(
+      static_cast<const __nv_bfloat16*>(qkv),
+      static_cast<const __nv_bfloat16*>(gout),
+      static_cast<__nv_bfloat16*>(dqkv), cls_part, S, H, (S - 1) / F, F, cols,
+      scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int DH>
+int launch_time(const void* qkv, const void* gout, void* dqkv,
+                float* cls_part, int B, int S, int H, int F, int cols,
+                int parts, int shared_bytes, float scale, cudaStream_t st) {
+  switch (time_key_tiles(F)) {
+    case 1: return launch_time_tiles<DH, 1>(qkv, gout, dqkv, cls_part, B, S, H, F, cols, parts, shared_bytes, scale, st);
+    case 2: return launch_time_tiles<DH, 2>(qkv, gout, dqkv, cls_part, B, S, H, F, cols, parts, shared_bytes, scale, st);
+    case 3: return launch_time_tiles<DH, 3>(qkv, gout, dqkv, cls_part, B, S, H, F, cols, parts, shared_bytes, scale, st);
+    case 4: return launch_time_tiles<DH, 4>(qkv, gout, dqkv, cls_part, B, S, H, F, cols, parts, shared_bytes, scale, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 template <int DH>
 int launch(const void* qkv, const void* gout, void* dqkv, float* stats,
            float* cls_part, int B, int S, int H, int F, float scale,
@@ -873,9 +1245,25 @@ int launch(const void* qkv, const void* gout, void* dqkv, float* stats,
 
 }  // namespace mma
 
-// bf16 with Dh in {16, 32, 48, 64} on the space axis takes the tensor cores.
+// bf16 with Dh in {16, 32, 48, 64} on the space axis takes the tensor cores;
+// on the time axis too where F + 1 keys fit 64 and the caller asks for them.
 inline bool space_on_tensor_cores(int dtype, int Dh) {
   return dtype == 1 && Dh % 16 == 0 && Dh <= 64;
+}
+inline bool time_on_tensor_cores(int dtype, int Dh, int F) {
+  return space_on_tensor_cores(dtype, Dh) && F >= 1 && F <= 63;
+}
+
+int time_mma(const void* qkv, const void* gout, void* dqkv, float* cls_part,
+             int B, int S, int H, int Dh, int F, int cols, int parts,
+             int shared_bytes, float scale, cudaStream_t st) {
+  switch (Dh) {
+    case 16: return mma::launch_time<16>(qkv, gout, dqkv, cls_part, B, S, H, F, cols, parts, shared_bytes, scale, st);
+    case 32: return mma::launch_time<32>(qkv, gout, dqkv, cls_part, B, S, H, F, cols, parts, shared_bytes, scale, st);
+    case 48: return mma::launch_time<48>(qkv, gout, dqkv, cls_part, B, S, H, F, cols, parts, shared_bytes, scale, st);
+    case 64: return mma::launch_time<64>(qkv, gout, dqkv, cls_part, B, S, H, F, cols, parts, shared_bytes, scale, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 int space_mma(const void* qkv, const void* gout, void* dqkv, float* stats,
@@ -969,6 +1357,12 @@ int cls_row_bwd(const void* qkv, const void* gout, const void* out,
   }
 }
 
+// The blocks of a grouped query pass: kThreads / G patch rows a block.
+inline int grouped_parts(int S, int Dh) {
+  const int rows = kThreads / group_size(Dh);
+  return (S - 1 + rows - 1) / rows;
+}
+
 // dtype: 0 = float32, 1 = bfloat16. The Python wrapper has checked the
 // shapes, dtypes, contiguity, alignment and Dh, and sized the scratch.
 int grouped_bwd_any(bool time, const void* qkv, const void* gout, void* dqkv,
@@ -992,14 +1386,12 @@ int grouped_bwd_any(bool time, const void* qkv, const void* gout, void* dqkv,
 
 extern "C" {
 
-// How many CLS-key partials a grouped backward (time != 0: K5, else K4)
-// writes for each (batch, head): the blocks of its query pass. The wrapper
-// sizes `cls_part` [B, H, parts, 2, Dh] (f32) with it; `stats` is
-// [2, B, H, S] (f32).
-int attention_bwd_parts(int time, int dtype, int S, int Dh, int F) {
-  if (!time && space_on_tensor_cores(dtype, Dh)) return mma::parts(S, F);
-  const int rows = kThreads / group_size(Dh);
-  return (S - 1 + rows - 1) / rows;
+// How many CLS-key partials K4 writes for each (batch, head): the blocks of
+// its query pass. The wrapper sizes `cls_part` [B, H, parts, 2, Dh] (f32)
+// with it; `stats` is [2, B, H, S] (f32). K5's come with its geometry.
+int attention_bwd_parts(int dtype, int S, int Dh, int F) {
+  if (space_on_tensor_cores(dtype, Dh)) return mma::parts(S, F);
+  return grouped_parts(S, Dh);
 }
 
 int space_attention_bwd(const void* qkv, const void* gout, void* dqkv,
@@ -1014,9 +1406,30 @@ int space_attention_bwd(const void* qkv, const void* gout, void* dqkv,
                          H, Dh, F, scale, stream);
 }
 
+// K5 on `time_bwd_geometry` (ops/_kernels.py): `tensor_cores` picks the
+// tensor-core form (one warp a block, `cols` columns a block, `parts`
+// blocks a (b, h), `shared_bytes` of dynamic shared memory) or the grouped
+// form (`parts` its query pass's blocks); any geometry other than the one
+// this file computes for that form is refused. The tensor-core form writes
+// no `stats`.
 int time_attention_bwd(const void* qkv, const void* gout, void* dqkv,
                        void* stats, void* cls_part, int dtype, int B, int S,
-                       int H, int Dh, int F, float scale, void* stream) {
+                       int H, int Dh, int F, float scale, int tensor_cores,
+                       int cols, int parts, int shared_bytes, void* stream) {
+  const int N = (S - 1) / F;
+  if (tensor_cores) {
+    if (!time_on_tensor_cores(dtype, Dh, F) || cols < 1 ||
+        parts != (N + cols - 1) / cols ||
+        shared_bytes != mma::time_shared_bytes(Dh, F)) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    return time_mma(qkv, gout, dqkv, static_cast<float*>(cls_part), B, S, H,
+                    Dh, F, cols, parts, shared_bytes, scale,
+                    static_cast<cudaStream_t>(stream));
+  }
+  if (parts != grouped_parts(S, Dh)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   return grouped_bwd_any(true, qkv, gout, dqkv, stats, cls_part, dtype, B, S,
                          H, Dh, F, scale, stream);
 }

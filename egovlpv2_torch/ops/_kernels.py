@@ -128,14 +128,15 @@ def load() -> SimpleNamespace:
         fn.restype = i32
     fns.cls_row_attention_fwd.argtypes = [ptr] * 4 + [i32] * 7 + [f32, ptr]
     fns.cls_row_attention_fwd.restype = i32
-    for fn in (fns.space_attention_bwd, fns.time_attention_bwd):
-        fn.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32,
-                       f32, ptr]
-        fn.restype = i32
+    fns.space_attention_bwd.argtypes = [ptr] * 5 + [i32] * 6 + [f32, ptr]
+    fns.space_attention_bwd.restype = i32
+    fns.time_attention_bwd.argtypes = [ptr] * 5 + [i32] * 6 + [f32] \
+        + [i32] * 4 + [ptr]
+    fns.time_attention_bwd.restype = i32
     fns.cls_row_attention_bwd.argtypes = [ptr] * 6 + [i32, ptr] + [i32] * 7 \
         + [f32, ptr]
     fns.cls_row_attention_bwd.restype = i32
-    fns.attention_bwd_parts.argtypes = [i32, i32, i32, i32, i32]
+    fns.attention_bwd_parts.argtypes = [i32, i32, i32, i32]
     fns.attention_bwd_parts.restype = i32
     fns.layernorm_fwd.argtypes = [ptr, ptr, ptr, ptr, i32, i32, f32, i32, ptr]
     fns.layernorm_fwd.restype = i32
@@ -304,25 +305,83 @@ def _check_scratch(name: str, t: torch.Tensor, shape: tuple,
                          f"{device}, got {tuple(t.shape)} {t.dtype} {t.device}")
 
 
-def _bwd_parts(name: str, dtype: torch.dtype, s: int, dh: int,
-               num_frames: int) -> int:
-    return load().attention_bwd_parts(int(name == "time_attention_bwd"),
-                                      _DTYPE_CODES[dtype], s, dh, num_frames)
+# K5's tensor-core form (`csrc/divided_attention_bwd.cu`, time_bwd_kernel):
+# one warp a block, each block TIME_BWD_COLS patch columns of one (b, h).
+TIME_BWD_COLS = 4
+TIME_BWD_MAX_F = 63  # F + 1 keys in at most four 16-row tiles
+_TIME_BWD_PAD = 8  # bf16 of padding a staged row
+
+
+def time_bwd_geometry(dtype: torch.dtype, dh: int, s: int,
+                      num_frames: int) -> SimpleNamespace:
+    """K5's launch geometry for qkv of `dtype` at head dim `dh` and
+    S = 1 + num_frames * N:
+      * `form`: "tensor_cores" for bf16 with `dh` a multiple of 16 up to 64
+        and F <= TIME_BWD_MAX_F (a warp a block; faster than the grouped
+        form at every frame count the paths have, 4 included: PERF.md
+        section 6); else "grouped" (the CUDA-core query and key passes,
+        `kThreads` / G patch rows a block);
+      * `rows`: patch rows a block, in column-major order (row f * N + n of
+        the patch rows is entry n * F + f): whole columns, `cols` of them,
+        in the tensor-core form;
+      * `cols`: patch columns a block in the tensor-core form, else None;
+      * `parts`: blocks a (batch, head), ceil((S - 1) / rows); the parts
+        axis of the f32 `cls_part` [B, H, parts, 2, Dh];
+      * `shared_bytes`: a tensor-core block's dynamic shared memory: K and
+        V (16 * key_tiles rows) and Q and G (16 * query_tiles rows) at a
+        pitch of dh + 8 bf16, P and dS (16 * query_tiles rows) at
+        16 * key_tiles + 8, and the f32 [2, dh] sum of the CLS key's dk and
+        dv; the grouped form's static 16 KB;
+      * `key_tiles`, `query_tiles`: the 16-row MMA tiles of a column's F + 1
+        keys and F queries (tensor-core form).
+    Pure, and the one place this geometry is decided: the CPU tests check
+    it, and the C entry point launches with it as given, refusing any other
+    (CUDA error 1, invalid argument)."""
+    if dtype not in _DTYPE_CODES:
+        raise TypeError(f"kernel takes float32 or bfloat16, got {dtype}")
+    if dh < 8 or dh % 8 or dh > 128:
+        raise ValueError(f"head dim {dh} must be a multiple of 8 and <= 128")
+    if num_frames < 1 or s < 2 or (s - 1) % num_frames:
+        raise ValueError(f"S={s} is not 1 + {num_frames} frames * N patches")
+    f, n = num_frames, (s - 1) // num_frames
+    if dtype == torch.bfloat16 and dh % 16 == 0 and dh <= 64 \
+            and f <= TIME_BWD_MAX_F:
+        kt, qt = (f + 16) // 16, (f + 15) // 16
+        kp, qp, ld = 16 * kt, 16 * qt, dh + _TIME_BWD_PAD
+        shared = 2 * ((2 * kp + 2 * qp) * ld + 2 * qp * (kp + _TIME_BWD_PAD)) \
+            + 2 * dh * 4
+        cols = TIME_BWD_COLS
+        return SimpleNamespace(form="tensor_cores", rows=cols * f, cols=cols,
+                               parts=-(-n // cols), shared_bytes=shared,
+                               key_tiles=kt, query_tiles=qt)
+    # kThreads (256) of csrc/attention_common.cuh, G lanes (8 elements each)
+    # a row; sm_part [2][kThreads / G][8 G] f32
+    rows = 256 // cls_row_geometry(dtype, dh, s).group
+    return SimpleNamespace(form="grouped", rows=rows, cols=None,
+                           parts=-(-(s - 1) // rows),
+                           shared_bytes=2 * 256 * 8 * 4, key_tiles=None,
+                           query_tiles=None)
 
 
 def attention_bwd_scratch(qkv: torch.Tensor, *, num_heads: int,
                           num_frames: int, axis: str) -> tuple:
     """The f32 scratch of one backward on `axis` ("space" or "time"):
-    `stats` [2, B, H, S] (each patch row's log-sum-exp and delta) and
-    `cls_part` [B, H, parts, 2, Dh] (the blocks' shares of the CLS key's dk
-    and dv). Uninitialised: the grouped backward fills both."""
-    if qkv.device.type != "cuda":
+    `stats` [2, B, H, S] (each patch row's log-sum-exp and delta, which K4
+    and K5's grouped form pass between their launches) and `cls_part`
+    [B, H, parts, 2, Dh] (the blocks' shares of the CLS key's dk and dv).
+    Uninitialised: the backward fills what it uses. On the time axis a
+    meta qkv gives the shapes without building the kernels."""
+    if qkv.device.type not in ("cuda", "meta"):
         raise ValueError(f"kernel scratch needs a CUDA qkv, got {qkv.device}")
     if qkv.dtype not in _DTYPE_CODES:
         raise TypeError(f"kernel takes float32 or bfloat16, got {qkv.dtype}")
     b, s, w3 = qkv.shape
     dh = w3 // (3 * num_heads)
-    parts = _bwd_parts(f"{axis}_attention_bwd", qkv.dtype, s, dh, num_frames)
+    if axis == "time":
+        parts = time_bwd_geometry(qkv.dtype, dh, s, num_frames).parts
+    else:
+        parts = load().attention_bwd_parts(_DTYPE_CODES[qkv.dtype], s, dh,
+                                           num_frames)
     stats = torch.empty((2, b, num_heads, s), dtype=torch.float32,
                         device=qkv.device)
     cls_part = torch.empty((b, num_heads, parts, 2, dh), dtype=torch.float32,
@@ -330,20 +389,18 @@ def attention_bwd_scratch(qkv: torch.Tensor, *, num_heads: int,
     return stats, cls_part
 
 
-def _launch_grouped_bwd(name: str, qkv, g, dqkv, stats, cls_part, *,
-                        num_heads, num_frames, scale):
-    b, s, dh = _check_bwd(qkv, g, dqkv, num_heads, num_frames)
-    fns = load()
-    parts = _bwd_parts(name, qkv.dtype, s, dh, num_frames)
+def _launch_bwd(name: str, qkv, g, dqkv, stats, cls_part, shape: tuple,
+                parts: int, *geometry, num_heads, num_frames, scale):
+    b, s, dh = shape
     _check_scratch("stats", stats, (2, b, num_heads, s), qkv.device)
     _check_scratch("cls_part", cls_part, (b, num_heads, parts, 2, dh),
                    qkv.device)
     with torch.cuda.device(qkv.device):
         stream = torch.cuda.current_stream(qkv.device).cuda_stream
-        code = getattr(fns, name)(
+        code = getattr(load(), name)(
             qkv.data_ptr(), g.data_ptr(), dqkv.data_ptr(), stats.data_ptr(),
             cls_part.data_ptr(), _DTYPE_CODES[qkv.dtype], b, s, num_heads, dh,
-            num_frames, float(scale), stream)
+            num_frames, float(scale), *geometry, stream)
     _raise_on_error(name, code)
     launch_counts[name] += 1
 
@@ -356,19 +413,28 @@ def space_attention_bwd(qkv: torch.Tensor, g: torch.Tensor,
     g [B, S, H*Dh] of the output, writes rows 1..S-1 of dq, dk and dv into
     dqkv (the layout of qkv), and the scratch of `attention_bwd_scratch`.
     Row 0 of dqkv is left to `cls_row_attention_bwd`."""
-    _launch_grouped_bwd("space_attention_bwd", qkv, g, dqkv, stats, cls_part,
-                        num_heads=num_heads, num_frames=num_frames,
-                        scale=scale)
+    b, s, dh = _check_bwd(qkv, g, dqkv, num_heads, num_frames)
+    parts = load().attention_bwd_parts(_DTYPE_CODES[qkv.dtype], s, dh,
+                                       num_frames)
+    _launch_bwd("space_attention_bwd", qkv, g, dqkv, stats, cls_part,
+                (b, s, dh), parts, num_heads=num_heads,
+                num_frames=num_frames, scale=scale)
 
 
 def time_attention_bwd(qkv: torch.Tensor, g: torch.Tensor,
                        dqkv: torch.Tensor, stats: torch.Tensor,
                        cls_part: torch.Tensor, *, num_heads: int,
                        num_frames: int, scale: float) -> None:
-    """K5: backward of K2; arguments as `space_attention_bwd`."""
-    _launch_grouped_bwd("time_attention_bwd", qkv, g, dqkv, stats, cls_part,
-                        num_heads=num_heads, num_frames=num_frames,
-                        scale=scale)
+    """K5: backward of K2; arguments as `space_attention_bwd`. Runs the form
+    `time_bwd_geometry` names: the tensor-core form (one `__global__`
+    launch, which leaves `stats` unwritten) or the two grouped passes."""
+    b, s, dh = _check_bwd(qkv, g, dqkv, num_heads, num_frames)
+    geo = time_bwd_geometry(qkv.dtype, dh, s, num_frames)
+    tensor_cores = geo.form == "tensor_cores"
+    _launch_bwd("time_attention_bwd", qkv, g, dqkv, stats, cls_part,
+                (b, s, dh), geo.parts, int(tensor_cores), geo.cols or 0,
+                geo.parts, geo.shared_bytes if tensor_cores else 0,
+                num_heads=num_heads, num_frames=num_frames, scale=scale)
 
 
 def cls_row_attention_bwd(qkv: torch.Tensor, g: torch.Tensor,

@@ -33,7 +33,9 @@ between their launches: `cls_run_partials_reference` and
 `merge_cls_run_partials_reference` (K3's partials of the CLS row over
 runs of keys, their merge and the row's log-sum-exp lse0, which K6
 reads), `cls_run_grad_reference` (K6's one pass over the keys: the
-partials of dq0 and the CLS query's share of every dk/dv row); nor those
+partials of dq0 and the CLS query's share of every dk/dv row),
+`time_column_grad_reference` (K5's tensor-core block: both passes of a
+patch column, and the blocks' partials of the CLS key's dk/dv); nor those
 of what K10 and K11 keep between theirs: `row_lse_reference` (K10's
 log-sum-exp of each row, which K11 reads), `cls_row_partials_reference` and
 `merge_cls_partials_reference` (K10's split of the CLS row across the
@@ -155,6 +157,56 @@ def cls_run_grad_reference(qkv: torch.Tensor, g: torch.Tensor,
     dkd = scale * torch.einsum("bhs,bhd->bshd", ds, q0)
     dvd = torch.einsum("bhs,bhd->bshd", p, g0)
     return dq_parts, dkd, dvd
+
+
+def time_column_grad_reference(qkv: torch.Tensor, g: torch.Tensor, *,
+                               scale: float, num_frames: int,
+                               cols: int = _kernels.TIME_BWD_COLS) -> tuple:
+    """The plain version of K5's tensor-core block: for each patch column
+    of each (batch, head), its F queries over the CLS key and its F frames'
+    keys, with P = softmax(scale Q K^T), dP = G V^T, delta = sum P dP and
+    dS = P (dP - delta) in f32, and P and dS rounded to qkv's dtype before
+    dQ = scale dS K, dK = scale dS^T Q and dV = P^T G, as the kernel rounds
+    them. Returns in f32
+      * dqkv [B, S, 3, H, Dh]: dq, dk and dv of rows 1..S-1 (the patch rows'
+        time attention alone; K6 adds the CLS query's share), row 0 zero;
+      * the blocks' partials of the CLS key's dk and dv, [B, H, parts, 2,
+        Dh]: block p sums its `cols` columns p * cols.. in order (parts =
+        ceil(N / cols), the `cls_part` of `_kernels.time_bwd_geometry`).
+    qkv [B, S, 3, H, Dh], g [B, S, H, Dh]. Nothing on the card's path calls
+    it."""
+    b, s, _, h, dh = qkv.shape
+    f = num_frames
+    n = (s - 1) // f
+    x, gf = qkv.float(), g.float()
+
+    def columns(t):  # [B, S, H, Dh] -> the patch columns [B, H, N, F, Dh]
+        return t[:, 1:].reshape(b, f, n, h, dh).permute(0, 3, 2, 1, 4)
+
+    def with_cls(t):  # the CLS key's row in front of each column's
+        return torch.cat([t[:, 0][:, :, None, None].expand(b, h, n, 1, dh),
+                          columns(t)], dim=3)
+
+    q, k, v, go = columns(x[:, :, 0]), with_cls(x[:, :, 1]), \
+        with_cls(x[:, :, 2]), columns(gf)
+    p = torch.softmax(torch.einsum("bhnid,bhnjd->bhnij", q, k) * scale, -1)
+    dp = torch.einsum("bhnid,bhnjd->bhnij", go, v)
+    ds = p * (dp - (p * dp).sum(-1, keepdim=True))
+    p, ds = p.to(qkv.dtype).float(), ds.to(qkv.dtype).float()
+    dq = scale * torch.einsum("bhnij,bhnjd->bhnid", ds, k)
+    dk = scale * torch.einsum("bhnij,bhnid->bhnjd", ds, q)
+    dv = torch.einsum("bhnij,bhnid->bhnjd", p, go)
+    dqkv = x.new_zeros(x.shape)
+    for c, t in enumerate((dq, dk[:, :, :, 1:], dv[:, :, :, 1:])):
+        dqkv[:, 1:, c] = t.permute(0, 3, 2, 1, 4).reshape(b, f * n, h, dh)
+    cls = torch.stack([dk[:, :, :, 0], dv[:, :, :, 0]], dim=3)  # [B,H,N,2,Dh]
+    parts = []
+    for c0 in range(0, n, cols):
+        total = cls[:, :, c0]
+        for c in range(c0 + 1, min(n, c0 + cols)):
+            total = total + cls[:, :, c]
+        parts.append(total)
+    return dqkv, torch.stack(parts, dim=2)
 
 
 def live_mask(s: int, num_frames: int, axis: str,

@@ -51,6 +51,7 @@ KINDS = (  # first match wins
         "general_fwd_", "general_bwd_")),  # the tiles, passes and merges
     ("hand kernels, backward (K4/K5/K6)", ("bwd_query_kernel",
                                             "bwd_key_kernel",
+                                            "time_bwd_kernel",
                                             "cls_row_bwd_part_kernel",
                                             "cls_row_bwd_merge_kernel")),
     ("hand kernels, LayerNorm (K7/K8)", ("layernorm_fwd_kernel",

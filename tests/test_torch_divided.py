@@ -22,6 +22,14 @@ backward; the log-sum-exp of the logits under the TPU kernels' group
 bias), and the launch geometry of K10 and of K11 (pure functions) is
 checked at every head dim they take.
 
+K5, the bf16 time-axis backward of the patch rows, takes in its
+tensor-core form whole patch columns, a block `cols` of them: the plain
+version of that block (`time_column_grad_reference`, P and dS rounded as
+the kernel rounds them) and K6's plain version after it are held to the
+TPU kernels K5 replaces on the time axis, the frame-pair branch at F <= 8
+and the patch-major window branch at F > 8; its launch geometry (a pure
+function) is checked at every head dim K5 takes.
+
 K3 and K6, the bf16 kernels of the CLS row, split the CLS query's keys
 into runs of `cls_row_geometry`: K3 writes each run's partial and merges
 them into row 0 and its log-sum-exp lse0; K6 reads lse0 and the output's
@@ -49,7 +57,8 @@ from egovlpv2_torch.ops.divided import (cls_grad_partials_reference,
                                         merge_cls_grad_reference,
                                         merge_cls_partials_reference,
                                         merge_cls_run_partials_reference,
-                                        row_lse_reference)
+                                        row_lse_reference,
+                                        time_column_grad_reference)
 
 torch.set_num_threads(2)
 
@@ -379,3 +388,110 @@ def test_cls_row_geometry(dtype, s):
     for bad in (4, 12, 136):
         with pytest.raises(ValueError, match="head dim"):
             _kernels.cls_row_geometry(dtype, bad, s)
+
+
+# The TPU kernels K5 replaces on the time axis, f32, lane-packed heads:
+# (B, F, N, H, Dh, _PACKED_MAX_S or None). At F <= 8 the frame-pair branch
+# `_packed_bwd_time_fp_mxu`; at F > 8 the patch-major window branch of
+# `_packed_bwd_kernel` (`_space_fb_bwd` over `_pm_window`), which the JAX
+# package reaches above `_PACKED_MAX_S` (lowered here by monkeypatch).
+TIME_CASES = {
+    "frame_pair_f4": (2, 4, 16, 2, 64, None),
+    "frame_pair_f5_dh32": (1, 5, 9, 4, 32, None),
+    "patch_major_f9": (1, 9, 8, 2, 64, 64),
+    "patch_major_f16_dh32": (1, 16, 6, 4, 32, 64),
+}
+
+
+@pytest.mark.parametrize("name", list(TIME_CASES))
+def test_time_column_grad_matches_the_tpu_kernels(name, monkeypatch):
+    """The plain version of K5's tensor-core block (dq, dk, dv of the patch
+    rows and the blocks' partials of the CLS key's dk/dv), then K6's plain
+    version from K3's (the CLS query's share of every dk/dv row and its dq),
+    give the TPU kernels' backward (`jax.vjp` of `divided_attention`,
+    interpret mode) within 2e-5 of max |reference| (f32 sums in another
+    order): the patch rows, and row 0 as the summed partials plus the CLS
+    query's share."""
+    b, f, n, h, dh, packed_max = TIME_CASES[name]
+    if packed_max is not None:
+        monkeypatch.setattr(jdiv, "_PACKED_MAX_S", packed_max)
+    s = 1 + f * n
+    scale = dh ** -0.5
+    if packed_max is None:  # the frame-pair branch
+        assert jdiv._time_fp("time", f) and s <= jdiv._PACKED_MAX_S
+        budget = jdiv._BWD_BUDGET
+    else:  # the patch-major window branch
+        assert jdiv._time_pm("time", s, f)
+        budget = jdiv._LONG_BUDGET
+    assert jdiv._packed_heads(h, dh, s, 4, budget=budget) is not None
+    rs = np.random.RandomState(31)
+    qkv = rs.randn(b, s, 3, h, dh).astype(np.float32)
+    ct = rs.randn(b, s, h, dh).astype(np.float32)
+    with pltpu.force_tpu_interpret_mode():
+        _, vjp = jax.vjp(lambda x: jdiv.divided_attention(
+            x, scale=scale, axis="time", num_frames=f, impl="pallas"),
+            jnp.asarray(qkv))
+        (ref,) = vjp(jnp.asarray(ct))
+    ref = np.asarray(ref)
+    x, g = torch.from_numpy(qkv), torch.from_numpy(ct)
+    dqkv, cls_part = time_column_grad_reference(x, g, scale=scale,
+                                                num_frames=f)
+    geo = _kernels.time_bwd_geometry(torch.bfloat16, dh, s, f)
+    assert geo.form == "tensor_cores"
+    assert cls_part.shape == (b, h, geo.parts, 2, dh)
+    assert not dqkv[:, 0].any()  # K5 leaves row 0 to K6
+    out0, lse0 = merge_cls_run_partials_reference(
+        cls_run_partials_reference(x, scale=scale))
+    dq_parts, dkd, dvd = cls_run_grad_reference(x, g, out0, lse0, scale=scale)
+    got = dqkv.clone()
+    got[:, :, 1] += dkd
+    got[:, :, 2] += dvd
+    got[:, 0, 0] = scale * dq_parts.sum(2)
+    got[:, 0, 1:] += cls_part.sum(2).permute(0, 2, 1, 3)
+    np.testing.assert_allclose(got.numpy(), ref, rtol=0,
+                               atol=2e-5 * np.abs(ref).max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s, frames", [(785, 4), (3137, 16), (6273, 32),
+                                       (981, 5)])
+def test_time_bwd_geometry(dtype, s, frames):
+    """At every head dim K5 takes (8 to 128 in steps of 8): the form (the
+    tensor cores for bf16 at Dh 16, 32, 48, 64, else the grouped passes); the blocks' runs of patch rows in
+    column-major order cover every patch row once, whole columns in the
+    tensor-core form; a tensor-core block's shared memory, by the kernel's
+    own layout (K, V, Q, G at a pitch of Dh + 8 bf16, P and dS at KP + 8,
+    the f32 [2, Dh] CLS sums), fits Hopper's 232,448 bytes, its tiles hold
+    the F + 1 keys and F queries; `parts` is the parts axis of the
+    `cls_part` that `attention_bwd_scratch` allocates. The edges: F=63 is
+    the last frame count on the tensor cores, F=64 the first off."""
+    n = (s - 1) // frames
+    for dh in range(8, 129, 8):
+        geo = _kernels.time_bwd_geometry(dtype, dh, s, frames)
+        on = dtype == torch.bfloat16 and dh % 16 == 0 and dh <= 64
+        assert geo.form == ("tensor_cores" if on else "grouped")
+        covered = np.zeros(s - 1, dtype=int)
+        for part in range(geo.parts):
+            idx = np.arange(part * geo.rows, min((part + 1) * geo.rows, s - 1))
+            covered[(idx % frames) * n + idx // frames] += 1
+        assert (covered == 1).all()
+        assert (geo.parts - 1) * geo.rows < s - 1 <= geo.parts * geo.rows
+        if on:
+            kp, qp = 16 * geo.key_tiles, 16 * geo.query_tiles
+            assert kp - 16 < frames + 1 <= kp and qp - 16 < frames <= qp
+            assert geo.rows == geo.cols * frames
+            layout = 2 * ((2 * kp + 2 * qp) * (dh + 8) + 2 * qp * (kp + 8)) \
+                + 2 * dh * 4
+            assert geo.shared_bytes == layout <= _kernels.SHARED_BYTES_MAX
+        else:
+            assert (geo.cols, geo.shared_bytes) == (None, 16384)
+        qkv = torch.empty((2, s, 3 * 3 * dh), dtype=dtype, device="meta")
+        stats, cls_part = _kernels.attention_bwd_scratch(
+            qkv, num_heads=3, num_frames=frames, axis="time")
+        assert tuple(stats.shape) == (2, 2, 3, s)
+        assert tuple(cls_part.shape) == (2, 3, geo.parts, 2, dh)
+    assert _kernels.SHARED_BYTES_MAX == 232448
+    edge = {f: _kernels.time_bwd_geometry(torch.bfloat16, 64, 1 + 2 * f, f)
+            for f in (63, 64)}
+    assert (edge[63].form, edge[64].form) == ("tensor_cores", "grouped")
+    assert edge[63].shared_bytes > 48 * 1024  # past the static limit

@@ -57,6 +57,15 @@ CASES = [
     (3, 6, 1, 1, 32),
     (1, 2, 70, 2, 48),
     (1, 3, 130, 1, 80),
+    # K5's tensor-core form (bf16 time, Dh a multiple of 16 up to 64,
+    # F <= 63): the fine-tune's F=32, F=63 (the last on it: four 16-row
+    # tiles of queries and of keys) and F=64 (the first off it), Dh=16 and
+    # Dh=48 with two and three query tiles.
+    (1, 32, 196, 2, 64),
+    (1, 63, 3, 2, 64),
+    (1, 64, 2, 2, 64),
+    (1, 20, 6, 2, 16),
+    (1, 40, 5, 2, 48),
 ]
 
 
@@ -178,6 +187,47 @@ def test_backward_kernels_one_by_one(cuda, axis, dtype):
     ref = divided_attention_backward_reference(qkv, g, rows="cls", **kw)
     errs = _rel_errs(dqkv.view(b, s, 3, h, dh), ref)
     assert max(errs) <= BWD_RTOL[dtype], errs
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("frames", [4, 16, 32])
+def test_time_bwd_kernel_alone(cuda, frames):
+    """K5 alone at the paths' frame counts (bf16, Dh=64): against the
+    gradient of rows 1..S-1 (the CLS key's row from the summed partials),
+    sequence row 0 left alone, two runs on one input the same bits (dqkv
+    and `cls_part`), and in the profiler's kernel names the one launch of
+    the tensor-core form that `time_bwd_geometry` names."""
+    b, n, h, dh = 2, 30, 3, 64
+    s, scale = 1 + frames * n, dh ** -0.5
+    qkv = _qkv(7, b, s, h, dh, torch.bfloat16, cuda)
+    g = _qkv(8, b, s, h, dh, torch.bfloat16, cuda)[:, :, 0].contiguous()
+    flat, gflat = qkv.view(b, s, -1), g.view(b, s, -1)
+    assert _kernels.time_bwd_geometry(torch.bfloat16, dh, s,
+                                      frames).form == "tensor_cores"
+    runs = []
+    for _ in range(2):
+        stats, parts = _kernels.attention_bwd_scratch(
+            flat, num_heads=h, num_frames=frames, axis="time")
+        dqkv = torch.full_like(flat, float("nan"))
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            _kernels.time_attention_bwd(flat, gflat, dqkv, stats, parts,
+                                        num_heads=h, num_frames=frames,
+                                        scale=scale)
+            torch.cuda.synchronize()
+        runs.append((dqkv, parts))
+    names = [e.key for e in prof.key_averages() if e.self_device_time_total]
+    assert len(names) == 1 and "time_bwd_kernel" in names[0], names
+    (dqkv, parts), (dqkv2, parts2) = runs
+    assert _same_bits(dqkv, dqkv2) and _same_bits(parts, parts2)
+    got = dqkv.view(b, s, 3, h, dh).clone()
+    assert torch.isnan(got[:, 0]).all()  # row 0 is K6's
+    got[:, 0, 0] = 0
+    got[:, 0, 1:] = parts.sum(2).permute(0, 2, 1, 3).to(torch.bfloat16)
+    ref = divided_attention_backward_reference(
+        qkv, g, scale=scale, axis="time", num_frames=frames, rows="grouped")
+    errs = _rel_errs(got, ref)
+    assert max(errs) <= BWD_RTOL[torch.bfloat16], errs
 
 
 def _cls_row_forward(flat, h, scale):
