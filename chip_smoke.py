@@ -73,9 +73,18 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
                 at B=64, S=3137 (NLQ) and at B=16, S=981 (QFVS), L=15,
                 and i2t at B=8, S=785 (the f32 EgoTaskQA step's);
                 B=16 at Sq=Sk=197 and Sq=Sk=64; with a padding mask where the
-                models have one, one batch row fully masked; and two odd
+                models have one, one batch row fully masked; two odd
                 cases (Dh=40 and Dh=12, Sq=37, Sk=33, on the CUDA cores in
-                bf16 too; Dh=12 element by element); max abs
+                bf16 too; Dh=12 element by element); and t2i at B=4,
+                S=3137 with a padding mask, batch row 0 fully masked and
+                batch row 1's second run of keys too (a split that must
+                weigh 0 in the merge), then t2i at B=5, S=3137 (EgoMCQ, one
+                question: three splits and a merge); in bf16 the few-query calls (t2i,
+                text self-attention) print the geometry of
+                `flash_fwd_geometry` (run, splits), the profiled kernels of
+                a call must be the ones it names (the split kernel, and the
+                merge where there is more than one split), and two calls
+                on one input must give the same bits; max abs
                 error of max |reference| <= 4e-3 in bf16 against the
                 reference on the same values in f32, not rounded (the
                 kernel keeps P in f32 as the reference does, so what is left
@@ -124,8 +133,10 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
   5. slices   — at full width (TimeSformer-B + RoBERTa-base, 6 fused blocks
                 each, ITM and MLM heads, projection 4096), bf16:
                 `egovlpv2_torch.cli egomcq` from configs/eval_egomcq.json
-                at 16 frames, batch 4 x 5 candidates, then 4 frames: every
-                score finite, the five forward kernels launched;
+                at 16 frames, batch 4 x 5 candidates, then 4 frames, then
+                16 frames one question at a time (batch 1 x 5: K9's t2i
+                splits its keys and merges): every score finite, the five
+                forward kernels launched;
                 `egovlpv2_torch.cli pretrain --synthetic`: batch 16, 4
                 frames, no remat: every loss part finite at every step,
                 parameters changed, all nine kernels launched every step;
@@ -250,7 +261,9 @@ LN_SUM_TOL = 1e-3
 LN_EPS = (1e-5, 1e-12)
 # Fused attention: (label, B, H, Sq, Sk, Dh, layout, masked). Layout "packed":
 # k and v are slices of one [B, Sk, 2, H, Dh] projection (i2t); "heads": each
-# of q, k, v is a transposed view of its own [B, S, H*Dh] projection.
+# of q, k, v is a transposed view of its own [B, S, H*Dh] projection. Masked
+# "split": batch row 1's second run of keys of `flash_fwd_geometry` masked
+# too.
 FLASH_CASES = (
     ("text self", 64, H, 15, 15, DH, "heads", True),
     ("text self", 8, H, 30, 30, DH, "heads", True),
@@ -270,11 +283,19 @@ FLASH_CASES = (
     ("odd", 3, 2, 37, 33, 12, "heads", True),
     # last, so the cases above keep their seeded inputs
     ("i2t", 8, H, 785, 15, DH, "packed", True),  # EgoTaskQA's, in f32
+    # several splits, one of them all masked in batch row 1
+    ("t2i masked", 4, H, 15, 3137, DH, "heads", "split"),
+    # EgoMCQ 16f, one question (`--batch_size 1`): 60 (b, h), 3 splits
+    ("t2i", 5, H, 15, 3137, DH, "heads", False),
 )
 FLASH_MAIN_CASE = (torch.bfloat16, "i2t", 16, 785)  # the pretrain step's
 # K9 in bf16 is held to the reference on the same values in f32, unrounded:
 # P stays f32 in both, so only the output's one rounding is left (2^-8).
 FLASH_TOL = {torch.bfloat16: 4e-3, torch.float32: 1e-4}
+# K9's kernels by form, as the profiler names them
+FLASH_KERNELS = {"few_queries": ("fused_split_kernel", "fused_merge_kernel"),
+                 "many_queries": ("fused_fwd_kernel",),
+                 "cuda_cores": ("fused_attention_fwd_kernel",)}
 # General divided attention, K10 and K11: (label, layout, dtype, axis, B, F,
 # N, H, Dh). Layout "packed": the [B, S, 3, H, Dh] view of the qkv Linear
 # output (row 1d's); "permuted": a permute of a [3, B, H, S, Dh] tensor (rows
@@ -953,8 +974,40 @@ def _flash_inputs(gen, dtype, b, h, sq, sk, dh, layout, masked):
         mask = torch.rand((b, sk), generator=gen, device="cuda") > 0.3
         mask[:, 0] = True
         mask[0] = False
+        if masked == "split":
+            run = _kernels.flash_fwd_geometry(torch.bfloat16, dh, sq, sk, b,
+                                              h).run
+            mask[1, run:2 * run] = False
         bias = make_additive_mask(mask.long())
     return q, k, v, bias
+
+
+def _check_flash_launches(q, k, got, events, kernel) -> str:
+    """`events`, the profiled kernels of a K9 call, are those of the form
+    `flash_fwd_geometry` names, the merge only where there is more than one
+    split; in the few-query form a second call on the same input gives the
+    same bits (the splits are merged in a fixed order, no atomics). Returns
+    the check's text."""
+    b, h, sq, dh = q.shape
+    sk = k.shape[2]
+    geo = _kernels.flash_fwd_geometry(q.dtype, dh, sq, sk, b, h)
+    names = FLASH_KERNELS[geo.form]
+    if geo.form == "few_queries" and geo.splits == 1:
+        names = names[:1]
+    ran = {n for n in names if any(n in e for e in events)}
+    if ran != set(names) or len(events) != len(names):
+        raise AssertionError(f"fused_attention_fwd B={b} Sq={sq} Sk={sk}: the "
+                             f"{geo.form} form (splits {geo.splits}) should "
+                             f"run {names}, the profiler saw {sorted(events)}")
+    if geo.form != "few_queries":
+        return f"; {geo.form}"
+    again = kernel()
+    torch.cuda.synchronize()
+    if not _same_bits(got, again):
+        raise AssertionError(f"fused_attention_fwd B={b} Sq={sq} Sk={sk}: two "
+                             f"runs on one input differ")
+    return (f"; run {geo.run}, {geo.splits} splits, {geo.stages} stages, "
+            f"bitwise equal twice")
 
 
 def phase_flash(results: dict) -> None:
@@ -996,18 +1049,19 @@ def phase_flash(results: dict) -> None:
             events = _device_events(kernel)
             ms = sum(events.values())
             own_ms = sum(t for key, t in events.items() if "fused" in key)
+            check = _check_flash_launches(q, k, got, events, kernel)
             window_ms, host_ms = _window_ms(kernel)
             plain_ms = _time_ms(lambda: attend_plain(q, k, v, scale=scale, bias=bias))
             lib_ms = _time_ms(lambda: F.scaled_dot_product_attention(
                 qc, kc, vc, attn_mask=lib_mask, scale=scale))
-            least, by = flash_bound_ms(dtype, b, h, sq, sk, dh, masked)
+            least, by = flash_bound_ms(dtype, b, h, sq, sk, dh, bool(masked))
             tag = f"{str(dtype).split('.')[-1]} {label} B={b} Sq={sq} Sk={sk} Dh={dh}"
             print(f"[3 kernels] {name:22s} {tag:42s} err={err:.3e} (rel "
                   f"{rel:.2e}, tol {FLASH_TOL[dtype]:.0e})  kernel {ms:.4f} ms  plain "
                   f"{plain_ms:.4f} ms  library {lib_ms:.4f} ms  bound "
                   f"{least:.4f} ms ({by})  [device events {len(events)}, K9's own "
                   f"{own_ms:.4f} ms; an event window {window_ms:.4f} ms and the "
-                  f"host {host_ms:.4f} ms a call]", flush=True)
+                  f"host {host_ms:.4f} ms a call{check}]", flush=True)
             r = results[name]
             r["max_abs_err"] = max(r["max_abs_err"], err)
             if (dtype, label, b, sq) == FLASH_MAIN_CASE:
@@ -1383,8 +1437,11 @@ def phase_egomcq() -> dict:
     base = ["egomcq", "--config", "configs/eval_egomcq.json", "--device",
             "cuda", "--val_batches", "2"]
     by_path = {}
-    for label, extra in (("16f", []), ("4f", ["--set",
-                                              "model.video.num_frames=4"])):
+    # one question at a time (5 candidates): B * H = 60 under FLASH_BLOCKS,
+    # so K9's t2i calls split the keys and merge (3 runs of 1152 keys)
+    for label, extra in (("16f", []),
+                         ("4f", ["--set", "model.video.num_frames=4"]),
+                         ("16f_1q", ["--batch_size", "1"])):
         _reset_counts()
         res = cli.main(base + extra)
         counts = dict(_kernels.launch_counts)
@@ -1407,6 +1464,9 @@ def phase_egomcq() -> dict:
                 or any(counts[k] for k in GENERAL_KERNELS):
             raise AssertionError(f"egomcq {label}: a kernel was not launched, "
                                  f"or K10/K11 was: {counts}")
+        if label == "16f_1q" and _kernels.flash_fwd_geometry(
+                torch.bfloat16, DH, 15, 3137, 5, H).splits < 2:
+            raise AssertionError("egomcq 16f_1q: K9's t2i does not split")
         by_path[f"egomcq_{label}"] = counts
         del res
         _free()
@@ -1700,7 +1760,7 @@ def main() -> None:
     by_path.update(phase_finetune())
     by_path.update(phase_extract())
     by_path["taskqa"] = phase_taskqa()
-    for path in ("egomcq_16f", "egomcq_4f", "pretrain"):
+    for path in ("egomcq_16f", "egomcq_4f", "egomcq_16f_1q", "pretrain"):
         if not by_path[path]["fused_attention_fwd"]:
             raise AssertionError(f"{path}: K9 was not launched")
     bad = sorted(m for m in sys.modules

@@ -889,56 +889,6 @@ inline int parts(int S, int F) {
 // Nothing else leaves the block, and no score is computed twice.
 constexpr int kTimeThreads = 32;
 
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared, or 16 zero bytes where `live` is false.
-__device__ __forceinline__ void cp_async16(__nv_bfloat16* dst,
-                                           const __nv_bfloat16* src,
-                                           bool live) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(live ? 16 : 0)
-               : "memory");
-}
-
-// Four 8 x 8 bf16 matrices from shared memory, each transposed if kTrans.
-template <bool kTrans>
-__device__ __forceinline__ void ldsm4(uint32_t (&r)[4],
-                                      const __nv_bfloat16* p) {
-  if (kTrans) {
-    asm volatile(
-        "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-        "[%4];\n"
-        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-        : "r"(smem_addr(p))
-        : "memory");
-  } else {
-    asm volatile(
-        "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-        : "r"(smem_addr(p))
-        : "memory");
-  }
-}
-
-// A lane's row address for ldsm4 of the 16 x 16 block at (r0, c0) of a
-// row-major tile with row pitch `ld`, in two matrix orders:
-//   `rows16`: lanes 0-15 rows r0.., cols c0; 16-31 cols c0 + 8. Plain: the
-//     A fragment of an [M][K] tile. Transposed: the B fragments of n-tiles
-//     c0 and c0 + 8 of a [K][N] tile.
-//   `cols16`: lanes 0-7 rows r0.., 8-15 the same rows at c0 + 8, 16-31 rows
-//     r0 + 8... Plain: the B fragments of n-tiles r0 and r0 + 8 of an [N][K]
-//     tile. Transposed: the A fragment of a [K][M] tile.
-__device__ __forceinline__ int rows16(int ld, int r0, int c0, int lane) {
-  return (r0 + (lane & 15)) * ld + c0 + (lane >> 4) * 8;
-}
-__device__ __forceinline__ int cols16(int ld, int r0, int c0, int lane) {
-  return (r0 + ((lane >> 4) << 3) + (lane & 7)) * ld + c0 +
-         ((lane >> 3) & 1) * 8;
-}
-
 // The 16-row tiles of a column: KP = 16 * kt keys (the CLS key, then the F
 // frames), QP = 16 * qt queries.
 __host__ __device__ __forceinline__ int time_key_tiles(int F) {

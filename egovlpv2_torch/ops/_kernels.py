@@ -145,8 +145,8 @@ def load() -> SimpleNamespace:
     fns.layernorm_bwd.restype = i32
     fns.layernorm_bwd_parts.argtypes = [i32, i32]
     fns.layernorm_bwd_parts.restype = i32
-    fns.fused_attention_fwd.argtypes = [ptr] * 5 + [i32] * 6 + [i64] * 14 \
-        + [f32, ptr]
+    fns.fused_attention_fwd.argtypes = [ptr] * 6 + [i32] * 6 + [i64] * 14 \
+        + [f32] + [i32] * 6 + [ptr]
     fns.fused_attention_fwd.restype = i32
     fns.general_attention_fwd.argtypes = [ptr] * 4 + [i32] * 7 + [f32] \
         + [ptr] * 2 + [i32] * 8 + [ptr]
@@ -592,6 +592,86 @@ def _check_strided(name: str, t: torch.Tensor, like: torch.Tensor,
     return strides
 
 
+# K9's forms (`csrc/fused_attention.cu`) by the code its entry point takes.
+_FLASH_FORMS = {"cuda_cores": 0, "many_queries": 1, "few_queries": 2}
+FLASH_FEW_ROWS = 32  # the most query rows of the few-query form
+FLASH_CHUNK = 128  # keys a staged chunk; a run is a multiple of it
+# The few-query form splits the keys of a (batch, head) into runs over
+# blocks only where B * H is under FLASH_BLOCKS (one block an SM of the
+# 132): on an H100 one run was fastest at every path shape at or above it,
+# where the merge launch costs 3-5 us, and three runs beat one below it
+# (EgoMCQ one question at a time, B=5: 24 against 33 us; PERF.md). A run
+# holds at least FLASH_MIN_RUN keys where Sk has them, so that the f32
+# partials stay a few percent of the K/V bytes.
+FLASH_BLOCKS = 132
+FLASH_MIN_RUN = 256
+FLASH_STAGES = 2  # chunks in a block's ring, kStages of the source
+
+
+def flash_fwd_geometry(dtype: torch.dtype, dh: int, sq: int, sk: int, b: int,
+                       h: int) -> SimpleNamespace:
+    """K9's launch geometry for q [B, H, Sq, Dh] over Sk keys in `dtype`:
+      * `form`: "few_queries" for bf16 at a head dim of 32, 64 or 128 and
+        Sq <= FLASH_FEW_ROWS (t2i and text self-attention: a block every
+        query row of a (batch, head) and a run of its keys), "many_queries"
+        there at larger Sq (i2t: 64 query rows a block), else "cuda_cores";
+      * `run`: keys a block of the few-query form: Sk over
+        ceil(FLASH_BLOCKS / (B * H)) rounded up to a multiple of
+        FLASH_CHUNK, so all of Sk where B * H >= FLASH_BLOCKS; at least
+        FLASH_MIN_RUN (less only where Sk is);
+      * `splits`: ceil(Sk / run), the blocks a (batch, head): the splits
+        axis of the f32 partials [B, H, splits, Sq, Dh + 2] that a second
+        launch merges in order where there is more than one;
+      * `row_tiles`: 16-row tiles of the queries, 1 for Sq <= 16, else 2;
+      * `stages`: the block's ring of staged chunks, FLASH_STAGES: one
+        chunk in flight while one is multiplied, three blocks an SM at
+        Dh=64 (the 768 blocks of B=64 take two even waves);
+      * `shared_bytes`: a block's dynamic shared memory: each stage holds
+        the K and V rows of a chunk at a pitch of Dh + 8 bf16 and their f32
+        bias, FLASH_CHUNK rows, or Sk rounded up to 16 where it is shorter;
+        after the last chunk the warps' f32 partials, 256 * (dh + 2)
+        bytes, where they need more.
+    The other forms have `splits` 1 and no run, row tiles, stages or
+    dynamic shared memory (None). Pure, and the one place this geometry is
+    decided: the CPU tests check it, and the C entry point launches with it
+    as given, refusing any other (CUDA error 1, invalid argument)."""
+    if dtype not in _DTYPE_CODES:
+        raise TypeError(f"kernel takes float32 or bfloat16, got {dtype}")
+    if not 1 <= dh <= 128 or min(sq, sk, b, h) < 1:
+        raise ValueError(f"attention kernel takes a head dim up to 128 and "
+                         f"Sq, Sk, B, H >= 1, got Dh={dh}, Sq={sq}, Sk={sk}, "
+                         f"B={b}, H={h}")
+    none = dict(run=None, splits=1, row_tiles=None, stages=None,
+                shared_bytes=None)
+    if dtype != torch.bfloat16 or dh not in (32, 64, 128):
+        return SimpleNamespace(form="cuda_cores", **none)
+    if sq > FLASH_FEW_ROWS:
+        return SimpleNamespace(form="many_queries", **none)
+    chunk = FLASH_CHUNK
+    whole = -(-sk // chunk) * chunk  # Sk rounded up to whole chunks
+    want = -(-FLASH_BLOCKS // (b * h))  # splits a (batch, head)
+    run = -(-sk // (want * chunk)) * chunk
+    run = min(max(run, FLASH_MIN_RUN), whole)
+    rows = min(chunk, -(-sk // 16) * 16)  # keys staged a chunk
+    stages = FLASH_STAGES
+    return SimpleNamespace(form="few_queries", run=run, splits=-(-sk // run),
+                           row_tiles=1 if sq <= 16 else 2, stages=stages,
+                           shared_bytes=max(stages * rows * (4 * dh + 36),
+                                            256 * (dh + 2)))
+
+
+def flash_fwd_scratch(q: torch.Tensor, geometry: SimpleNamespace):
+    """The f32 partials of one few-query K9 call on q [B, H, Sq, Dh] with
+    more than one split, [B, H, splits, Sq, Dh + 2] (each row's unnormalised
+    output, running max and sum in the log2 domain, of each split), else
+    None. Uninitialised: the first launch fills it, the merge reads it."""
+    if geometry.splits == 1:
+        return None
+    b, h, sq, dh = q.shape
+    return torch.empty((b, h, geometry.splits, sq, dh + 2),
+                       dtype=torch.float32, device=q.device)
+
+
 def fused_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         bias, out: torch.Tensor, *, scale: float) -> None:
     """K9: out = softmax((q * scale) @ k^T + bias) @ v, written into `out`.
@@ -600,7 +680,9 @@ def fused_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     any head dim up to 128, each read or written by its own strides (Dh
     contiguous; rows 16-byte aligned where Dh is a multiple of 8); `bias`
     is None or a float32 additive row [B or 1, H or 1, 1, Sk], Sk
-    contiguous, broadcast over the axes of size 1."""
+    contiguous, broadcast over the axes of size 1. Runs the form that
+    `flash_fwd_geometry` names: one `__global__` launch, two for the few-query form at more than one split (the split
+    kernel, then the merge of its f32 partials, allocated here)."""
     name = "fused_attention_fwd"
     if q.device.type != "cuda":
         raise ValueError(f"kernel needs q on a CUDA device, got {q.device}")
@@ -633,13 +715,18 @@ def fused_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         bias_ptr = bias.data_ptr()
         bias_b = bias.stride(0) if bias.shape[0] > 1 else 0
         bias_h = bias.stride(1) if bias.shape[1] > 1 else 0
+    geo = flash_fwd_geometry(q.dtype, dh, sq, sk, b, h)
+    partials = flash_fwd_scratch(q, geo)
 
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         code = load().fused_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), bias_ptr,
-            out.data_ptr(), _DTYPE_CODES[q.dtype], b, h, sq, sk, dh,
-            *strides, bias_b, bias_h, float(scale), stream)
+            out.data_ptr(), None if partials is None else partials.data_ptr(),
+            _DTYPE_CODES[q.dtype], b, h, sq, sk, dh, *strides, bias_b, bias_h,
+            float(scale), _FLASH_FORMS[geo.form], geo.run or 0, geo.splits,
+            geo.row_tiles or 0, geo.stages or 0, geo.shared_bytes or 0,
+            stream)
     _raise_on_error(name, code)
     launch_counts[name] += 1
 

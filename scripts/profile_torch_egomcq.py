@@ -41,13 +41,13 @@ from egovlpv2_torch.core.config import load_train_config  # noqa: E402
 from egovlpv2_torch.models.egovlp import EgoVLPv2  # noqa: E402
 from egovlpv2_torch.tasks.egomcq import make_egomcq_eval_step  # noqa: E402
 from egovlpv2_torch.weights import random_init_  # noqa: E402
+from profile_torch_pretrain import K9_KERNELS, k9_launches  # noqa: E402
 
 CONFIG = "configs/eval_egomcq.json"
 BATCH = 4
 HAND_KERNELS = ("space_fwd_kernel", "time_fwd_kernel", "cls_row_part_kernel",
                 "cls_row_merge_kernel")
 LN_KERNELS = ("layernorm_fwd_kernel",)
-FLASH_KERNELS = ("fused_attention_fwd_kernel", "fused_fwd_kernel")
 GEMM_MARKS = ("gemm", "nvjet", "cutlass", "xmma")
 
 
@@ -59,7 +59,7 @@ def _kind(kernel_name: str) -> str:
         return "hand kernels (K1/K2/K3)"
     if any(k in kernel_name for k in LN_KERNELS):
         return "hand kernels, LayerNorm (K7)"
-    if any(k in kernel_name for k in FLASH_KERNELS):
+    if any(k in kernel_name for k in K9_KERNELS):
         return "hand kernel, fused attention (K9)"
     if any(m in name for m in GEMM_MARKS):
         return "GEMM (cuBLAS)"
@@ -134,6 +134,7 @@ def profile_step(frames: int, warm_ms: float, out_dir: str) -> None:
     path = os.path.join(out_dir, f"prof_{frames}f.txt")
     with open(path, "w") as f:
         f.write(table.table(sort_by="self_device_time_total", row_limit=60))
+    print(f"[profile {frames}f] K9: {k9_launches(table)}", flush=True)
     print(f"[profile {frames}f] op table: {path}", flush=True)
 
 

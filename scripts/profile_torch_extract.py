@@ -58,7 +58,7 @@ from egovlpv2_torch.tasks.extract import FeatureExtractor  # noqa: E402
 from egovlpv2_torch.tasks.qfvs_extract import (FRAMES_PER_CLIP,  # noqa: E402
                                                QFVSExtractor)
 from egovlpv2_torch.weights import random_init_  # noqa: E402
-from profile_torch_pretrain import _kind  # noqa: E402
+from profile_torch_pretrain import _kind, k9_launches  # noqa: E402
 
 CONFIG = "configs/extract_mq.json"
 INNER_BATCH = 64
@@ -109,6 +109,7 @@ def _profile(path: str, fn, warm_ms: float, out_dir: str) -> None:
     name = os.path.join(out_dir, f"prof_extract_{path}.txt")
     with open(name, "w") as f:
         f.write(table.table(sort_by="self_device_time_total", row_limit=60))
+    print(f"[profile {path}] K9: {k9_launches(table)}", flush=True)
     print(f"[profile {path}] op table: {name}", flush=True)
 
 

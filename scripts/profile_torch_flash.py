@@ -1,14 +1,27 @@
 """Device time of the fused attention kernel (K9) a call, on one CUDA card.
 
-    python3 scripts/profile_torch_flash.py [--calls 30]
+    python3 scripts/profile_torch_flash.py [--calls 30] [--runs 1152 3200]
+        [--only t2i]
 
 `chip_smoke.py` times a wrapper call with CUDA events, and below about 0.2 ms
 that reads the host's time to issue the call, not the kernel's. This script
 reads the kernel's own time from torch.profiler: for each shape the models
 give `flash_attention` (H=12, Dh=64; q, k and v transposed views of
 [B, S, H*Dh] projections; a padding mask where the models have one), bf16 and
-f32, the mean device time of the kernel over `--calls` calls after 3 warm
-ones, and the kernel's name (which of the two forms ran).
+f32, the mean device time a call over `--calls` calls after 3 warm ones,
+summed over the call's kernels (the few-query form's split kernel and its
+merge), each kernel's own time and name, the geometry of
+`flash_fwd_geometry` (form, run, splits) where the tree has one, and the
+device time of one `scaled_dot_product_attention` call on contiguous copies
+of the same inputs (the library call of `chip_smoke.py`) and on the views
+themselves.
+
+`--runs` also times the bf16 few-query shapes at each run of keys given (a
+multiple of 128; Sk rounded up to one is a single split), the geometry's
+other fields as `flash_fwd_geometry` gives them: the sweep the geometry's
+choice of run comes from. It calls the C entry point itself, since the
+wrapper launches only the geometry's own choice. `--only` keeps the cases
+of one label.
 
 The package is imported from the current directory when it holds one, so that
 two trees can be compared inside one call: run the script of this tree from
@@ -26,9 +39,12 @@ sys.path.insert(0, os.getcwd() if os.path.isdir("egovlpv2_torch") else here)
 
 import torch  # noqa: E402
 from torch.autograd import DeviceType  # noqa: E402
+from torch.nn import functional as F  # noqa: E402
 
-from egovlpv2_torch.ops import flash  # noqa: E402
+from egovlpv2_torch.ops import _kernels, flash  # noqa: E402
 from egovlpv2_torch.ops.attention import make_additive_mask  # noqa: E402
+# after the package: it then uses the tree just imported, not its own
+from profile_torch_pretrain import K9_KERNELS  # noqa: E402
 
 H, DH = 12, 64
 # (label, B, Sq, Sk, masked)
@@ -37,14 +53,58 @@ CASES = (
     ("i2t", 16, 981, 15, True), ("i2t", 16, 785, 15, True),
     ("t2i", 64, 15, 3137, False), ("t2i", 20, 15, 3137, False),
     ("t2i", 16, 15, 981, False), ("t2i", 16, 15, 785, False),
+    ("t2i", 5, 15, 3137, False),  # EgoMCQ 16f, one question: 3 splits
     ("text self", 64, 15, 15, True), ("text self", 8, 30, 30, True),
     ("above 32", 16, 197, 197, False), ("above 32", 16, 64, 64, True),
 )
 
 
+def _launch(q, k, v, bias, out, geo, scale) -> None:
+    """One K9 launch at `geo`, through the C entry point, as the wrapper
+    makes it (bias: float32 [B or 1, 1, 1, Sk])."""
+    b, h, sq, dh = q.shape
+    partials = _kernels.flash_fwd_scratch(q, geo)
+    strides = [x for t in (q, k, v, out) for x in _kernels.attention_strides(t)]
+    code = _kernels.load().fused_attention_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        None if bias is None else bias.data_ptr(), out.data_ptr(),
+        None if partials is None else partials.data_ptr(),
+        _kernels._DTYPE_CODES[q.dtype], b, h, sq, k.shape[2], dh, *strides,
+        0 if bias is None or bias.shape[0] == 1 else bias.stride(0), 0,
+        float(scale), _kernels._FLASH_FORMS[geo.form], geo.run, geo.splits,
+        geo.row_tiles, geo.stages, geo.shared_bytes,
+        torch.cuda.current_stream().cuda_stream)
+    if code:
+        raise RuntimeError(f"fused_attention_fwd: CUDA error {code}")
+
+
+def _per_call(fn, calls: int) -> dict:
+    """kernel name -> its device time a call, us, over `calls` calls."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key: e.self_device_time_total / calls
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total}
+
+
+def _line(tree, dtype, label, b, sq, sk, events, what) -> str:
+    total = sum(events.values())
+    own = ", ".join(f"{key[:48]} {t:.1f}" for key, t in sorted(events.items()))
+    return (f"[k9 {tree}] {str(dtype).split('.')[-1]:8s} {label:9s} B={b} "
+            f"Sq={sq} Sk={sk}: {total:.1f} us a call{what}  [{own}]")
+
+
 def main(argv=None) -> None:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--calls", type=int, default=30)
+    p.add_argument("--runs", type=int, nargs="*", default=[])
+    p.add_argument("--only", default=None)
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch_flash: CUDA is not available")
@@ -55,6 +115,7 @@ def main(argv=None) -> None:
     for _ in range(3):  # <root>/egovlpv2_torch/ops/flash.py
         root = os.path.dirname(root)
     tree = os.path.basename(root)
+    geometry = getattr(_kernels, "flash_fwd_geometry", None)  # not in older trees
     gen = torch.Generator(device="cuda").manual_seed(0)
 
     def heads(b, s, dtype):
@@ -63,27 +124,43 @@ def main(argv=None) -> None:
 
     for dtype in (torch.bfloat16, torch.float32):
         for label, b, sq, sk, masked in CASES:
+            if args.only not in (None, label):
+                continue
             q, k, v = heads(b, sq, dtype), heads(b, sk, dtype), heads(b, sk, dtype)
             bias = None
             if masked:
                 mask = torch.rand((b, sk), generator=gen, device="cuda") > 0.3
                 mask[:, 0] = True
                 bias = make_additive_mask(mask.long())
-            for _ in range(3):
-                flash.flash_attention(q, k, v, scale=DH ** -0.5, bias=bias)
-            torch.cuda.synchronize()
-            with torch.profiler.profile(
-                    activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-                for _ in range(args.calls):
-                    flash.flash_attention(q, k, v, scale=DH ** -0.5, bias=bias)
-                torch.cuda.synchronize()
-            for e in prof.key_averages():
-                if e.device_type == DeviceType.CUDA and "fused" in e.key:
-                    print(f"[k9 {tree}] {str(dtype).split('.')[-1]:8s} "
-                          f"{label:9s} B={b} Sq={sq} Sk={sk}: "
-                          f"{e.self_device_time_total / e.count:.1f} us a call "
-                          f"(x{e.count})  {e.key[:70]}", flush=True)
-
+            events = _per_call(lambda: flash.flash_attention(
+                q, k, v, scale=DH ** -0.5, bias=bias), args.calls)
+            events = {key: t for key, t in events.items()
+                      if any(n in key for n in K9_KERNELS)}
+            qc, kc, vc = q.contiguous(), k.contiguous(), v.contiguous()
+            lib_mask = None if bias is None else bias.to(dtype)
+            lib = sum(_per_call(lambda: F.scaled_dot_product_attention(
+                qc, kc, vc, attn_mask=lib_mask, scale=DH ** -0.5),
+                args.calls).values())
+            lib_views = sum(_per_call(lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=lib_mask, scale=DH ** -0.5),
+                args.calls).values())
+            what = f" (library {lib:.1f} us, on the views {lib_views:.1f})"
+            if geometry is not None:
+                geo = geometry(dtype, DH, sq, sk, b, H)
+                what += f" ({geo.form}, run {geo.run}, {geo.splits} splits)"
+            print(_line(tree, dtype, label, b, sq, sk, events, what), flush=True)
+            if geometry is None or geometry(dtype, DH, sq, sk, b, H).form \
+                    != "few_queries":
+                continue
+            for run in args.runs:
+                geo = geometry(dtype, DH, sq, sk, b, H)
+                geo.run, geo.splits = run, -(-sk // run)
+                out = torch.empty_like(q)
+                swept = _per_call(lambda: _launch(q, k, v, bias, out, geo,
+                                                  DH ** -0.5), args.calls)
+                print(_line(tree, dtype, label, b, sq, sk, swept,
+                            f" (sweep: run {run}, {geo.splits} splits)"),
+                      flush=True)
 
 if __name__ == "__main__":
     main()

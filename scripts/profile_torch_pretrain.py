@@ -26,6 +26,7 @@ The card's name and power limit (nvidia-smi) head the output.
 
 import argparse
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -42,6 +43,10 @@ from egovlpv2_torch.core.config import load_train_config  # noqa: E402
 from egovlpv2_torch.tasks.pretrain import (build_pretrain,  # noqa: E402
                                            synthetic_batch)
 
+# K9's kernels: the CUDA-core form, the many-query form (i2t), the
+# few-query form's split kernel and merge (t2i, text self-attention)
+K9_KERNELS = ("fused_attention_fwd_kernel", "fused_fwd_kernel",
+              "fused_split_kernel", "fused_merge_kernel")
 KINDS = (  # first match wins
     ("memcpy", ("memcpy",)),
     ("hand kernels, forward (K1/K2/K3)", ("space_fwd_kernel", "time_fwd_kernel",
@@ -57,8 +62,7 @@ KINDS = (  # first match wins
     ("hand kernels, LayerNorm (K7/K8)", ("layernorm_fwd_kernel",
                                           "layernorm_bwd_kernel",
                                           "layernorm_bwd_sum_kernel")),
-    ("hand kernel, fused attention (K9)", ("fused_attention_fwd_kernel",
-                                           "fused_fwd_kernel")),
+    ("hand kernel, fused attention (K9)", K9_KERNELS),
     ("GEMM (cuBLAS)", ("gemm", "nvjet", "cutlass", "xmma", "gemv")),
     ("optimizer (AdamW, foreach)", ("multi_tensor", "adam")),
     ("reductions", ("reduce_kernel",)),
@@ -77,6 +81,22 @@ def _kind(kernel_name: str) -> str:
         if any(m in name for m in marks):
             return kind
     return "elementwise and copies"
+
+
+def k9_launches(table) -> str:
+    """K9's kernels in a profile's `key_averages()`, by template instance:
+    launches and device ms. `fused_fwd_kernel` is the many-query form
+    (i2t); `fused_split_kernel` the few-query form (text self-attention and
+    t2i together), `fused_merge_kernel` its merge where a call splits the
+    keys."""
+    parts = []
+    for e in table:
+        found = re.search(r"fused_\w+_kernel(<[^>]*>)?", e.key)
+        if e.device_type == DeviceType.CUDA and found \
+                and any(k in e.key for k in K9_KERNELS):
+            parts.append(f"{found.group(0)} x{e.count} "
+                         f"{e.self_device_time_total / 1e3:.3f} ms")
+    return "; ".join(sorted(parts)) or "none"
 
 
 def time_steps(batch: int, steps: int) -> float:
@@ -133,6 +153,7 @@ def profile_train_step(step, data, path: str, warm_ms: float) -> None:
     os.makedirs(os.path.dirname(path), exist_ok=True)
     with open(path, "w") as f:
         f.write(table.table(sort_by="self_device_time_total", row_limit=80))
+    print(f"[profile] K9: {k9_launches(table)}", flush=True)
     print(f"[profile] op table: {path}", flush=True)
 
 

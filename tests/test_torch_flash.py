@@ -205,3 +205,159 @@ def test_flash_attention_rejects_what_it_cannot_take():
                               scale=1.0)
 
 
+# ---- K9's few-query form: its geometry and its split-and-merge arithmetic
+
+LOG2E = 1.4426950408889634
+
+
+@pytest.mark.parametrize("sq, sk, b, h", [
+    (15, 3137, 20, 12),  # t2i, EgoMCQ 16 frames
+    (15, 3137, 5, 12),   # t2i, EgoMCQ 16 frames, one question: 3 splits
+    (15, 3137, 64, 12),  # t2i, an NLQ inner batch
+    (15, 981, 16, 12),   # t2i, QFVS
+    (15, 785, 16, 12),   # t2i, EgoMCQ 4 frames
+    (15, 15, 64, 12),    # text self-attention
+    (30, 30, 8, 12),
+    (32, 6273, 1, 2),
+    (1, 1, 1, 1),
+    (17, 64, 3, 5),
+])
+@pytest.mark.parametrize("dh", [32, 64, 128])
+def test_flash_fwd_geometry(sq, sk, b, h, dh):
+    """The runs of keys cover Sk exactly, in multiples of the staged chunk;
+    one split where Sk fits one run, and wherever B * H alone reaches
+    FLASH_BLOCKS; otherwise the shortest run that gives at most
+    ceil(FLASH_BLOCKS / (B * H)) splits, unless FLASH_MIN_RUN stops it; the
+    shared memory holds the ring and the warps' partials and fits a
+    block."""
+    geo = _kernels.flash_fwd_geometry(torch.bfloat16, dh, sq, sk, b, h)
+    assert geo.form == "few_queries"
+    chunk = _kernels.FLASH_CHUNK
+    assert geo.run % chunk == 0 and geo.run >= chunk
+    assert (geo.splits - 1) * geo.run < sk <= geo.splits * geo.run
+    assert (geo.splits == 1) == (sk <= geo.run)
+    assert geo.run <= -(-sk // chunk) * chunk
+    assert geo.row_tiles == (1 if sq <= 16 else 2)
+    want = -(-_kernels.FLASH_BLOCKS // (b * h))
+    assert geo.splits <= want
+    if b * h >= _kernels.FLASH_BLOCKS:
+        assert geo.splits == 1
+    if _kernels.FLASH_MIN_RUN < geo.run < -(-sk // chunk) * chunk:
+        assert -(-sk // (geo.run - chunk)) > want
+    assert geo.stages == _kernels.FLASH_STAGES
+    rows = min(chunk, -(-sk // 16) * 16)
+    ring = geo.stages * rows * 2 * (2 * (dh + 8) + 2)  # K, V, bias
+    assert geo.shared_bytes == max(ring, 4 * (4 * 16 * dh + 2 * 4 * 16))
+    assert geo.shared_bytes <= _kernels.SHARED_BYTES_MAX
+
+
+@pytest.mark.parametrize("dtype, dh, sq, form", [
+    (torch.bfloat16, 64, 33, "many_queries"),
+    (torch.bfloat16, 64, 785, "many_queries"),
+    (torch.bfloat16, 40, 15, "cuda_cores"),
+    (torch.bfloat16, 16, 15, "cuda_cores"),
+    (torch.float32, 64, 15, "cuda_cores"),
+    (torch.float32, 64, 785, "cuda_cores"),
+])
+def test_flash_fwd_geometry_other_forms(dtype, dh, sq, form):
+    geo = _kernels.flash_fwd_geometry(dtype, dh, sq, 3137, 20, 12)
+    assert geo.form == form and geo.splits == 1
+    assert geo.run is geo.row_tiles is geo.stages is geo.shared_bytes is None
+
+
+def test_flash_fwd_geometry_refuses_bad_input():
+    geo = _kernels.flash_fwd_geometry
+    with pytest.raises(TypeError, match="float16"):
+        geo(torch.float16, 64, 15, 785, 2, 12)
+    for bad in ((0, 15, 785, 2, 12), (129, 15, 785, 2, 12),
+                (64, 0, 785, 2, 12), (64, 15, 0, 2, 12), (64, 15, 785, 0, 12),
+                (64, 15, 785, 2, 0)):
+        with pytest.raises(ValueError):
+            geo(torch.bfloat16, *bad)
+
+
+def _split_merge(q, k, v, bias, scale, run):
+    """K9's few-query arithmetic in plain f32 torch: each run of keys gives
+    its partial (the unnormalised output, the running max and sum, logits in
+    the log2 domain), and the partials are merged in split order, o = sum
+    o_s 2^(m_s - M) / sum l_s 2^(m_s - M). Returns the output and each
+    split's weight 2^(m_s - M), [splits, ..., Sq, 1]."""
+    parts = []
+    for s0 in range(0, k.shape[-2], run):
+        logits = q @ k[..., s0:s0 + run, :].transpose(-1, -2) * (scale * LOG2E)
+        if bias is not None:
+            logits = logits + bias[..., s0:s0 + run] * LOG2E
+        m = logits.amax(dim=-1, keepdim=True)
+        p = torch.exp2(logits - m)
+        parts.append((p @ v[..., s0:s0 + run, :], m, p.sum(dim=-1,
+                                                           keepdim=True)))
+    top = torch.stack([m for _, m, _ in parts]).amax(dim=0)
+    weights = torch.stack([torch.exp2(m - top) for _, m, _ in parts])
+    num = sum(o * w for (o, _, _), w in zip(parts, weights))
+    den = sum(l * w for (_, _, l), w in zip(parts, weights))
+    return num / den, weights
+
+
+@pytest.mark.parametrize("sk, masking", [
+    (785, None),            # t2i at 4 frames, several splits
+    ("run", None),          # Sk = run: one split
+    ("run+1", None),        # a last split of one key
+    (785, "split"),         # one split's keys all masked, in rows with live keys
+    (785, "row"),           # every key of batch row 0 masked
+])
+def test_split_merge_model_matches_reference_and_jax(sk, masking):
+    """The split-and-merge arithmetic on the geometry's runs, held against
+    `flash_attention_reference` and the JAX package (Sq=15 < 32: the JAX
+    function hands the call to XLA) in f32: a split whose keys are all
+    masked weighs exactly 0, a fully masked row comes out uniform."""
+    b, h, sq, dh = 2, 3, 15, 64
+    run = _kernels.flash_fwd_geometry(torch.bfloat16, dh, sq, 785, b, h).run
+    sk = {"run": run, "run+1": run + 1}.get(sk, sk)
+    geo = _kernels.flash_fwd_geometry(torch.bfloat16, dh, sq, sk, b, h)
+    assert geo.run == run and geo.splits == -(-sk // run) \
+        and (geo.splits > 1) == (sk > run)
+    q, k, v = _qkv(11, (b, h, sq, dh), sk)
+    mask = _mask(12, b, sk)
+    if masking == "split":
+        mask[1, run:2 * run] = 0
+    elif masking == "row":
+        mask[0] = 0
+    tq, tk, tv = (torch.from_numpy(x) for x in (q, k, v))
+    tbias = tattn.make_additive_mask(torch.from_numpy(mask))
+    got, weights = _split_merge(tq, tk, tv, tbias, dh ** -0.5, geo.run)
+    ref = flash.flash_attention_reference(tq, tk, tv, scale=dh ** -0.5,
+                                          bias=tbias)
+    np.testing.assert_allclose(got.numpy(), ref.numpy(), **FWD_TOL)
+    jref = jattn.attend(*(jnp.asarray(x) for x in (q, k, v)),
+                        scale=dh ** -0.5,
+                        bias=jattn.make_additive_mask(jnp.asarray(mask)),
+                        impl="xla")
+    np.testing.assert_allclose(got.numpy(), np.asarray(jref), **FWD_TOL)
+    assert weights.shape == (geo.splits, b, h, sq, 1)
+    if masking == "split":
+        assert torch.all(weights[1, 1] == 0.0)  # exactly, not nearly
+        assert torch.all(weights[:, 0].amax(dim=0) == 1.0)
+    if masking == "row":
+        uniform = v[0].mean(axis=-2, keepdims=True)
+        np.testing.assert_allclose(
+            got[0].numpy(), np.broadcast_to(uniform, (h, sq, dh)), **FWD_TOL)
+
+
+def test_split_merge_model_matches_jax_pallas_at_32_rows():
+    """At Sq = 32, the most rows of the few-query form (two row tiles), the
+    JAX function reaches its Pallas kernel (interpret mode): Sk = run + 1
+    with a padding mask."""
+    b, h, sq, dh = 1, 2, 32, 32
+    run = _kernels.flash_fwd_geometry(torch.bfloat16, dh, sq, 785, b, h).run
+    sk = run + 1
+    geo = _kernels.flash_fwd_geometry(torch.bfloat16, dh, sq, sk, b, h)
+    assert (geo.splits, geo.row_tiles) == (2, 2)
+    q, k, v = _qkv(13, (b, h, sq, dh), sk)
+    mask = _mask(14, b, sk)
+    jbias = jnp.broadcast_to(jattn.make_additive_mask(jnp.asarray(mask)),
+                             (b, h, 1, sk))
+    ref = _jax_pallas(q, k, v, bias=jbias)
+    got, _ = _split_merge(*(torch.from_numpy(x) for x in (q, k, v)),
+                          tattn.make_additive_mask(torch.from_numpy(mask)),
+                          dh ** -0.5, geo.run)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), **FWD_TOL)

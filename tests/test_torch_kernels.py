@@ -11,6 +11,7 @@ jax it runs as:
 import subprocess
 import sys
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -609,7 +610,8 @@ FLASH_TOL = {torch.float32: 1e-4, torch.bfloat16: 4e-3}
 FLASH_CASES = [
     # (B, H, Sq, Sk, Dh, layout, bias): text self-attention at 15 and 30
     # tokens; i2t (many queries, few keys, k and v slices of one packed
-    # projection); t2i (few queries, keys split over a block's warps);
+    # projection); t2i (few queries, the keys split over blocks by
+    # `flash_fwd_geometry`, the splits merged by a second launch);
     # lengths above the JAX package's threshold; an odd case; one query row;
     # one key; the narrowest and the widest head dim; head dims that are not
     # a multiple of 8 (element by element, rows off 16-byte alignment).
@@ -628,6 +630,14 @@ FLASH_CASES = [
     (2, 2, 16, 20, 64, "heads", "masked_row"),
     (2, 2, 37, 33, 12, "heads", "mask"),
     (1, 3, 40, 20, 100, "packed", None),
+    # the few-query form at several splits: EgoMCQ's t2i at B=2; a split
+    # whose keys are all masked in batch row 0 (it must weigh exactly 0),
+    # Dh=32; two row tiles at Dh=128; Sk = run + 1 (a last split of one key)
+    (2, 12, 15, 3137, 64, "heads", None),
+    (2, 2, 15, 1100, 32, "heads", "masked_split"),
+    (1, 2, 30, 1500, 128, "heads", "mask"),
+    (1, 2, 15, 257, 64, "heads", None),
+    (5, 12, 15, 3137, 64, "heads", "mask"),  # EgoMCQ 16f, one question
 ]
 
 
@@ -656,6 +666,11 @@ def _flash_inputs(case, dtype, device):
         mask[:, 0] = 1
         if bias_kind == "masked_row":
             mask[0] = 0  # every key of batch 0 masked: uniform over them
+        if bias_kind == "masked_split":  # the second run of keys, batch 0
+            run = _kernels.flash_fwd_geometry(torch.bfloat16, dh, sq, sk, b,
+                                              h).run
+            assert sk > 2 * run
+            mask[0, run:2 * run] = 0
         bias = make_additive_mask(torch.from_numpy(mask)).to(device)
     return q, k, v, bias
 
@@ -734,6 +749,42 @@ def test_fused_attention_takes_leading_axes_and_counts_copies(cuda):
     assert _flash_rel(got, flash.flash_attention_reference(
         q, k, v, scale=0.2)) <= TOL[torch.float32]
     assert flash.contiguous_copies == {"q": 0, "k": 1, "v": 0, "bias": 1}
+
+
+@pytest.mark.gpu
+def test_fused_attention_refuses_a_geometry_that_does_not_hold(cuda):
+    """The C entry point launches `flash_fwd_geometry`'s geometry as given
+    and refuses any other: another form, a run that is not a multiple of
+    128 (FLASH_CHUNK; 100 and 192, a multiple of 64 only), splits that do
+    not cover Sk, the wrong row tiles, stages or shared memory."""
+    q, k, v, _ = _flash_inputs((2, 2, 15, 300, 64, "heads", None),
+                               torch.bfloat16, cuda)
+    out = torch.empty_like(q)
+    geo = _kernels.flash_fwd_geometry(torch.bfloat16, 64, 15, 300, 2, 2)
+    partials = _kernels.flash_fwd_scratch(q, geo)
+    assert geo.splits == 2 and partials is not None
+
+    def launch(g):
+        b, h, sq, dh = q.shape
+        strides = [x for t in (q, k, v, out)
+                   for x in _kernels.attention_strides(t)]
+        return _kernels.load().fused_attention_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), None, out.data_ptr(),
+            partials.data_ptr(), 1, b, h, sq, k.shape[2], dh, *strides, 0, 0,
+            0.125, _kernels._FLASH_FORMS[g.form], g.run, g.splits, g.row_tiles, g.stages,
+            g.shared_bytes, torch.cuda.current_stream(cuda).cuda_stream)
+
+    assert launch(geo) == 0
+    torch.cuda.synchronize()
+    ref = flash.flash_attention_reference(q.float(), k.float(), v.float(),
+                                          scale=0.125)
+    assert _flash_rel(out, ref) <= FLASH_TOL[torch.bfloat16]
+    bad = [dict(form="many_queries"), dict(form="cuda_cores"),
+           dict(run=100), dict(run=192), dict(splits=geo.splits + 1),
+           dict(row_tiles=2), dict(stages=3),
+           dict(shared_bytes=geo.shared_bytes - 256)]
+    for change in bad:
+        assert launch(SimpleNamespace(**{**vars(geo), **change})) == 1, change
 
 
 @pytest.mark.gpu
