@@ -74,23 +74,28 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
                 and i2t at B=8, S=785 (the f32 EgoTaskQA step's);
                 B=16 at Sq=Sk=197 and Sq=Sk=64; with a padding mask where the
                 models have one, one batch row fully masked; two odd
-                cases (Dh=40 and Dh=12, Sq=37, Sk=33, on the CUDA cores in
-                bf16 too; Dh=12 element by element); and t2i at B=4,
+                cases (Dh=40 and Dh=12, Sq=37, Sk=33: the 3xTF32 forms in
+                bf16 too, Dh=12 element by element); t2i at B=4,
                 S=3137 with a padding mask, batch row 0 fully masked and
                 batch row 1's second run of keys too (a split that must
-                weigh 0 in the merge), then t2i at B=5, S=3137 (EgoMCQ, one
-                question: three splits and a merge); in bf16 the few-query calls (t2i,
-                text self-attention) print the geometry of
-                `flash_fwd_geometry` (run, splits), the profiled kernels of
-                a call must be the ones it names (the split kernel, and the
-                merge where there is more than one split), and two calls
-                on one input must give the same bits; max abs
+                weigh 0 in the merge), t2i at B=5, S=3137 (EgoMCQ, one
+                question: three splits and a merge), and last the f32
+                EgoTaskQA evaluation's t2i at B=8, S=785 and text
+                self-attention at B=8, L=15 (f32 splits the t2i keys into
+                four runs there); every call prints the form
+                `flash_fwd_geometry` names (the few-query calls with their
+                run and splits), the profiled kernels of a call must be
+                the ones it names (the split kernel, and the merge where
+                there is more than one split), and two calls on one input
+                must give the same bits; max abs
                 error of max |reference| <= 4e-3 in bf16 against the
                 reference on the same values in f32, not rounded (the
                 kernel keeps P in f32 as the reference does, so what is left
                 is the one rounding of the output, at most 2^-8 of the
-                largest value) / 1e-4 (f32: another summation order); no
-                input copied. Plain: today's
+                largest value) / 1e-4 (f32: 3xTF32 products, about f32's
+                error, summed in another order); no input copied. The f32
+                EgoTaskQA shapes' times also go into the JSON line
+                ("f32_taskqa"). Plain: today's
                 `attend_plain`. Library: one
                 `F.scaled_dot_product_attention` call. Beside K9's device
                 time: K9's own kernel time, the device events of a call,
@@ -164,8 +169,11 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
                 100 synthetic answers, then the evaluation over 2 batches:
                 every loss finite, K11 24 launches a step and K10 48 (each
                 block's forward again in the backward: `model.remat` is on
-                in the defaults), K1-K6 none; step ms, clips/s, peak
-                memory.
+                in the defaults), K1-K6 none; K9 by form: a step 12
+                `many_queries_tf32` (the fused i2t, again under remat) and
+                nothing else, the evaluation 6 `many_queries_tf32` and 18
+                `few_queries_tf32` (12 text self-attentions, 6 t2i) a
+                batch; step ms, clips/s, peak memory.
 Then one JSON line of the kernels and, last, the result line.
 """
 
@@ -287,15 +295,25 @@ FLASH_CASES = (
     ("t2i masked", 4, H, 15, 3137, DH, "heads", "split"),
     # EgoMCQ 16f, one question (`--batch_size 1`): 60 (b, h), 3 splits
     ("t2i", 5, H, 15, 3137, DH, "heads", False),
+    # the f32 EgoTaskQA evaluation's t2i and text self-attention
+    ("t2i", 8, H, 15, 785, DH, "heads", False),
+    ("text self", 8, H, 15, 15, DH, "heads", True),
 )
 FLASH_MAIN_CASE = (torch.bfloat16, "i2t", 16, 785)  # the pretrain step's
+# the f32 EgoTaskQA step's i2t and its evaluation's t2i and text: their
+# times go into the JSON line too, under "f32_taskqa"
+FLASH_TASKQA_CASES = ((torch.float32, "i2t", 8, 785, 15),
+                      (torch.float32, "t2i", 8, 15, 785),
+                      (torch.float32, "text self", 8, 15, 15))
 # K9 in bf16 is held to the reference on the same values in f32, unrounded:
 # P stays f32 in both, so only the output's one rounding is left (2^-8).
 FLASH_TOL = {torch.bfloat16: 4e-3, torch.float32: 1e-4}
 # K9's kernels by form, as the profiler names them
 FLASH_KERNELS = {"few_queries": ("fused_split_kernel", "fused_merge_kernel"),
                  "many_queries": ("fused_fwd_kernel",),
-                 "cuda_cores": ("fused_attention_fwd_kernel",)}
+                 "few_queries_tf32": ("fused_tf32_split_kernel",
+                                      "fused_merge_kernel"),
+                 "many_queries_tf32": ("fused_tf32_fwd_kernel",)}
 # General divided attention, K10 and K11: (label, layout, dtype, axis, B, F,
 # N, H, Dh). Layout "packed": the [B, S, 3, H, Dh] view of the qkv Linear
 # output (row 1d's); "permuted": a permute of a [3, B, H, S, Dh] tensor (rows
@@ -985,29 +1003,27 @@ def _flash_inputs(gen, dtype, b, h, sq, sk, dh, layout, masked):
 def _check_flash_launches(q, k, got, events, kernel) -> str:
     """`events`, the profiled kernels of a K9 call, are those of the form
     `flash_fwd_geometry` names, the merge only where there is more than one
-    split; in the few-query form a second call on the same input gives the
-    same bits (the splits are merged in a fixed order, no atomics). Returns
-    the check's text."""
+    split; a second call on the same input gives the same bits (no
+    atomics; the splits are merged in a fixed order). Returns the check's
+    text."""
     b, h, sq, dh = q.shape
     sk = k.shape[2]
     geo = _kernels.flash_fwd_geometry(q.dtype, dh, sq, sk, b, h)
-    names = FLASH_KERNELS[geo.form]
-    if geo.form == "few_queries" and geo.splits == 1:
-        names = names[:1]
+    names = FLASH_KERNELS[geo.form][:1 if geo.splits == 1 else None]
     ran = {n for n in names if any(n in e for e in events)}
     if ran != set(names) or len(events) != len(names):
         raise AssertionError(f"fused_attention_fwd B={b} Sq={sq} Sk={sk}: the "
                              f"{geo.form} form (splits {geo.splits}) should "
                              f"run {names}, the profiler saw {sorted(events)}")
-    if geo.form != "few_queries":
-        return f"; {geo.form}"
     again = kernel()
     torch.cuda.synchronize()
     if not _same_bits(got, again):
         raise AssertionError(f"fused_attention_fwd B={b} Sq={sq} Sk={sk}: two "
                              f"runs on one input differ")
-    return (f"; run {geo.run}, {geo.splits} splits, {geo.stages} stages, "
-            f"bitwise equal twice")
+    if not geo.form.startswith("few_queries"):
+        return f"; {geo.form}, bitwise equal twice"
+    return (f"; {geo.form}, run {geo.run}, {geo.splits} splits, {geo.stages} "
+            f"stages, bitwise equal twice")
 
 
 def phase_flash(results: dict) -> None:
@@ -1067,6 +1083,10 @@ def phase_flash(results: dict) -> None:
             if (dtype, label, b, sq) == FLASH_MAIN_CASE:
                 r.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                          bound_ms=least, bound_by=by, shape=tag)
+            if (dtype, label, b, sq, sk) in FLASH_TASKQA_CASES:
+                r.setdefault("f32_taskqa", {})[f"{label} Sq={sq} Sk={sk}"] = dict(
+                    ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                    bound_ms=least, bound_by=by)
             del q, k, v, qc, kc, vc, got, ref
             torch.cuda.empty_cache()
 
@@ -1703,12 +1723,13 @@ def phase_taskqa() -> dict:
         TASKQA_ANSWERS, cfg.max_text_len, np.random.default_rng(cfg.seed),
         QA_TYPES)
     cut = TASKQA_STEPS * TASKQA_BATCH
-    rows, seconds, at_step = [], [], []
+    rows, seconds, at_step, forms_at_step = [], [], [], []
 
     def on_step(step, metrics, sec):
         rows.append(metrics)
         seconds.append(sec)
         at_step.append(dict(_kernels.launch_counts))
+        forms_at_step.append(dict(_kernels.flash_form_counts))
 
     torch.cuda.reset_peak_memory_stats()
     _reset_counts()
@@ -1717,9 +1738,14 @@ def phase_taskqa() -> dict:
                             epochs=1, batch_size=TASKQA_BATCH, device="cuda",
                             on_step=on_step)
     counts = dict(_kernels.launch_counts)
+    forms = dict(_kernels.flash_form_counts)
     peak = torch.cuda.max_memory_allocated()
     per_step = [{k: c[k] - (at_step[i - 1][k] if i else 0) for k in c}
                 for i, c in enumerate(at_step)]
+    # K9 by form, in a step and in the evaluation (after the last step)
+    step_forms = [{k: c[k] - (forms_at_step[i - 1][k] if i else 0) for k in c}
+                  for i, c in enumerate(forms_at_step)]
+    eval_forms = {k: forms[k] - forms_at_step[-1][k] for k in forms}
     steps_ms = [x * 1e3 for x in seconds]
     warm = float(np.median(steps_ms[2:]))  # the first two carry warm-up
     v = cfg.model.video
@@ -1730,8 +1756,11 @@ def phase_taskqa() -> dict:
           f"{len(steps_ms) - 2} {warm:.1f} ms = {TASKQA_BATCH / warm * 1e3:.2f}"
           f" clips/s | launches a step { {k: n for k, n in per_step[-1].items() if n} }"
           f" | launches in all (steps and evaluation) "
-          f"{ {k: n for k, n in counts.items() if n} } | evaluation {metrics}"
-          f" | peak memory {peak / 2**30:.2f} GiB", flush=True)
+          f"{ {k: n for k, n in counts.items() if n} } | K9 by form a step "
+          f"{ {k: n for k, n in step_forms[-1].items() if n} }, in the "
+          f"evaluation { {k: n for k, n in eval_forms.items() if n} } | "
+          f"evaluation {metrics} | peak memory {peak / 2**30:.2f} GiB",
+          flush=True)
     if len(rows) != TASKQA_STEPS \
             or not all(np.isfinite(r["loss_total"]) for r in rows):
         raise AssertionError(f"taskqa: steps {rows}")
@@ -1744,6 +1773,19 @@ def phase_taskqa() -> dict:
                                  f"{want}, K1-K6 none")
     if not ("acc" in metrics and all(np.isfinite(x) for x in metrics.values())):
         raise AssertionError(f"taskqa: evaluation {metrics}")
+    # K9 in f32 takes its 3xTF32 forms: in a training step the i2t of the
+    # fused video blocks (again under remat; the text attention drops
+    # probabilities), in the evaluation also every text self-attention
+    # and the t2i of the fused text layers
+    fuse, layers = cfg.model.fusion.num_fuse_block, cfg.model.text.num_layers
+    none = dict.fromkeys(forms, 0)
+    want_step = {**none, "many_queries_tf32": fuse * (1 + cfg.model.remat)}
+    want_eval = {**none, "many_queries_tf32": fuse * TASKQA_VAL_BATCHES,
+                 "few_queries_tf32": (layers + fuse) * TASKQA_VAL_BATCHES}
+    if any(n != want_step for n in step_forms) or eval_forms != want_eval:
+        raise AssertionError(f"taskqa: K9 by form a step {step_forms}, in "
+                             f"the evaluation {eval_forms}: want "
+                             f"{want_step} and {want_eval}")
     _free()
     return counts
 

@@ -9,8 +9,9 @@
 //
 // Arithmetic, as the TPU kernel's: the logits q.k * scale + bias, the
 // softmax (exp(logit - max) over the row sum) and the sums of P.V are
-// float32, and the output is rounded once to the input dtype. The CUDA-core
-// form raises q, k and v to float32; the tensor-core forms multiply bf16 q
+// float32, and the output is rounded once to the input dtype. The 3xTF32
+// forms raise q, k and v to float32 and multiply them to about f32
+// precision; the bf16 forms multiply bf16 q
 // and k (exact products, float32 sums), scale the float32 product, and
 // feed P to P.V as the sum of two bf16 terms (16 bits of mantissa), so P is
 // not rounded to bf16 as the plain `attend` rounds it. A masked key
@@ -35,64 +36,36 @@
 //     bound it): 193 MB at B=20 (0.058 ms), 617 MB at B=64 (0.185 ms);
 //   * text self-attention, Sq = Sk = 15..30: a few microseconds of work,
 //     bound by the launch.
-// Three forms, the one that `flash_fwd_geometry` (ops/_kernels.py) names;
+// In float32 the bytes double and the operations stay: at the EgoTaskQA
+// shapes (B=8, Sq or Sk 785 over 15) 38.6 MB, 11.7 us, for 145 M FMAs.
+// Four forms, the one that `flash_fwd_geometry` (ops/_kernels.py) names;
 // the entry point refuses any other:
 //   * few queries (bf16, Dh 32, 64 or 128, Sq <= 32: t2i and text
 //     self-attention): mma::fused_split_kernel, the keys of a (batch, head)
 //     split over blocks and staged with cp.async, then
-//     mma::fused_merge_kernel where there is more than one split; described
+//     fused_merge_kernel where there is more than one split; described
 //     there;
 //   * many queries (bf16, Dh 32, 64 or 128, Sq > 32: i2t):
 //     mma::fused_fwd_kernel, described there;
-//   * CUDA cores (f32, other head dims), in the simplest form that is
-//     right: a group of G threads owns one query row of one head, each
-//     thread 8 consecutive elements of the head dim (16 B of bf16, one
-//     vector load; element by element where the head dim is not a multiple
-//     of 8, the last thread's slice cut short), as in divided_attention.cu;
-//     a block of 256 threads takes 256/G query rows of one (batch, head),
-//     and each group streams all the keys kChunk at a time with an online
-//     softmax (the running max starts at -inf). The groups of a warp hold
-//     neighbouring query rows, so a key is one broadcast load a warp. It is
-//     not tuned (few query rows over many keys leave most of the card
-//     idle); it goes once float32 has a tensor-core form.
+//   * float32 at any head dim up to 128, and bf16 at any other (a bf16 row
+//     is widened to f32 as it is staged), the same two structures in
+//     3xTF32 on the tensor cores: few queries
+//     tf32::fused_tf32_split_kernel (then fused_merge_kernel where there
+//     is more than one split), many queries tf32::fused_tf32_fwd_kernel;
+//     described there.
 // No atomics in any form: two runs give the same bits.
+
+#include <type_traits>
 
 #include "attention_common.cuh"
 
 namespace {
 
-constexpr int kChunk = 8;  // keys scored between softmax rescales
+constexpr float kLog2e = 1.4426950408889634f;
 
 __device__ __forceinline__ float widen(float x) { return x; }
 __device__ __forceinline__ float widen(__nv_bfloat16 x) {
   return __bfloat162float(x);
-}
-
-// A thread's slice of a row: n of its kVec elements lie inside the head dim.
-// kWhole: the head dim is a multiple of kVec and rows are 16-byte aligned
-// (the Python wrapper checks it), so the slice is one vector load.
-template <bool kWhole, typename T>
-__device__ __forceinline__ void load_slice(const T* p, int n,
-                                           float (&o)[kVec]) {
-  if constexpr (kWhole) {
-    load_vec(p, o);
-  } else {
-#pragma unroll
-    for (int e = 0; e < kVec; ++e) o[e] = e < n ? widen(p[e]) : 0.f;
-  }
-}
-
-template <bool kWhole, typename T>
-__device__ __forceinline__ void store_slice(T* p, int n,
-                                            const float (&v)[kVec]) {
-  if constexpr (kWhole) {
-    store_vec(p, v);
-  } else {
-#pragma unroll
-    for (int e = 0; e < kVec; ++e) {
-      if (e < n) store_one(p + e, v[e]);
-    }
-  }
 }
 
 // Elements between the batches, heads and sequence rows of one tensor.
@@ -100,94 +73,31 @@ struct Strides {
   int64_t b, h, s;
 };
 
-template <typename T, int G, bool kWhole>
-__global__ void __launch_bounds__(kThreads)
-    fused_attention_fwd_kernel(const T* __restrict__ q,
-                               const T* __restrict__ k,
-                               const T* __restrict__ v,
-                               const float* __restrict__ bias,
-                               T* __restrict__ out, int H, int Sq, int Sk,
-                               int Dh, Strides qs, Strides ks, Strides vs,
-                               Strides os, int64_t bias_b, int64_t bias_h,
-                               int tiles, float scale) {
-  constexpr int kRows = kThreads / G;  // query rows a block
-  const int tile = blockIdx.x % tiles;
-  const int h = (blockIdx.x / tiles) % H;
-  const int b = blockIdx.x / tiles / H;
-  const int lane = threadIdx.x % G, grp = threadIdx.x / G;
-  const int row = tile * kRows + grp;
-  const bool row_ok = row < Sq;
-  const int r = row_ok ? row : Sq - 1;  // idle groups still join shuffles
-  const bool on = lane * kVec < Dh;     // false on padding lanes
+// 16 bytes global -> shared, or 16 zero bytes where `live` is false.
+__device__ __forceinline__ void cp_async16f(float* dst, const float* src,
+                                            bool live) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(live ? 16 : 0)
+               : "memory");
+}
 
-  const int64_t col = (int64_t)lane * kVec;
-  const int n = Dh - lane * kVec;       // elements of the slice in the head
-  const T* kp = k + b * ks.b + h * ks.h + col;
-  const T* vp = v + b * vs.b + h * vs.h + col;
-  const float* bp = bias ? bias + b * bias_b + h * bias_h : nullptr;
+// 4 bytes global -> shared, or 4 zero bytes where `live` is false.
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool live) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(live ? 4 : 0)
+               : "memory");
+}
 
-  float qv[kVec];
-#pragma unroll
-  for (int e = 0; e < kVec; ++e) qv[e] = 0.f;
-  if (on) {
-    load_slice<kWhole>(q + b * qs.b + h * qs.h + r * qs.s + col, n, qv);
-  }
-#pragma unroll
-  for (int e = 0; e < kVec; ++e) qv[e] *= scale;
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
 
-  float m = -INFINITY, l = 0.f;
-  float acc[kVec];
-#pragma unroll
-  for (int e = 0; e < kVec; ++e) acc[e] = 0.f;
-
-  for (int i0 = 0; i0 < Sk; i0 += kChunk) {
-    float s[kChunk];
-    float cmax = -INFINITY;
-#pragma unroll
-    for (int c = 0; c < kChunk; ++c) {
-      const int64_t key = i0 + c;
-      const bool valid = key < Sk;
-      float part = 0.f;
-      if (on && valid) {
-        float kv[kVec];
-        load_slice<kWhole>(kp + key * ks.s, n, kv);
-#pragma unroll
-        for (int e = 0; e < kVec; ++e) part = fmaf(qv[e], kv[e], part);
-      }
-      part = group_sum<G>(part);
-      s[c] = valid ? (bp ? part + __ldg(bp + key) : part) : -INFINITY;
-      cmax = fmaxf(cmax, s[c]);
-    }
-    // Key i0 is a real key (a masked one carries -1e9, not -inf), so m_new
-    // is finite and exp(-inf - m_new) = 0 handles the first chunk.
-    const float m_new = fmaxf(m, cmax);
-    const float corr = expf(m - m_new);
-    l *= corr;
-#pragma unroll
-    for (int e = 0; e < kVec; ++e) acc[e] *= corr;
-#pragma unroll
-    for (int c = 0; c < kChunk; ++c) {
-      const int64_t key = i0 + c;
-      const float p = expf(s[c] - m_new);
-      l += p;
-      if (on && key < Sk) {
-        float vv[kVec];
-        load_slice<kWhole>(vp + key * vs.s, n, vv);
-#pragma unroll
-        for (int e = 0; e < kVec; ++e) acc[e] = fmaf(p, vv[e], acc[e]);
-      }
-    }
-    m = m_new;
-  }
-
-  if (row_ok && on) {
-    float o[kVec];
-    const float inv = 1.f / l;
-#pragma unroll
-    for (int e = 0; e < kVec; ++e) o[e] = acc[e] * inv;
-    store_slice<kWhole>(out + b * os.b + h * os.h + r * os.s + col, n,
-                        o);
-  }
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 
 // The tensor-core forms: bf16 with Dh = 32, 64 or 128. QK^T and PV are
@@ -203,7 +113,6 @@ constexpr int kSplitKeys = 128;  // keys a chunk (few queries)
 constexpr int kStages = 2;       // chunks in the ring (few queries)
 constexpr int kPad = 8;       // bf16 of padding a shared-memory row
 constexpr int kFewRows = 32;  // the most query rows of the few-query form
-constexpr float kLog2e = 1.4426950408889634f;
 
 __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
                                          uint32_t b0, uint32_t b1) {
@@ -232,9 +141,8 @@ __device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
 
-// Many queries (i2t). Bound: the CUDA-core form spends about 60 issue slots
-// of a warp on each (row, key) pair of a group of 8 threads; here the loads
-// bound it. Design, after the tensor-core K1 of divided_attention.cu: a
+// Many queries (i2t). Bound: bytes; on the tensor cores a (row, key) pair
+// costs a few issue slots, so the loads bound it. Design, after the tensor-core K1 of divided_attention.cu: a
 // block of 4 warps owns 64 query rows, 16 a warp, Q held in registers as
 // mma A fragments, and walks the Sk keys of its (batch, head) in chunks of
 // 64 staged in shared memory (K row-major, V transposed, rows padded by 8
@@ -489,24 +397,6 @@ __device__ __forceinline__ void p_fragments(const float (&s)[NT][4], int kc,
   split_bf16(s[2 * kc + 1][2], s[2 * kc + 1][3], hi[3], lo[3]);
 }
 
-// 4 bytes global -> shared, or 4 zero bytes where `live` is false.
-__device__ __forceinline__ void cp_async4(float* dst, const float* src,
-                                          bool live) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(live ? 4 : 0)
-               : "memory");
-}
-
-template <int kPending>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
 // Keys staged a chunk: kSplitKeys, fewer (whole 16-row tiles) where Sk
 // is shorter.
 inline int few_rows(int Sk) {
@@ -750,62 +640,527 @@ __global__ void __launch_bounds__(kWarps * 32)
   }
 }
 
-// The merge of the splits' partials: a block a (batch, head), a thread a
-// (row, 8 columns), the splits summed in order.
-template <int DH>
-__global__ void __launch_bounds__(kWarps * 32)
+}  // namespace mma
+
+// The merge of the splits' partials of a few-query form: a block a (batch,
+// head), a thread a (row, 8 columns), the splits summed in order; stored
+// as T, by vectors where `vec` (rows of whole, aligned 16-byte words) and
+// the 8 columns lie in the head dim.
+template <typename T>
+__global__ void __launch_bounds__(128)
     fused_merge_kernel(const float* __restrict__ partials,
-                       __nv_bfloat16* __restrict__ out, int H, int Sq,
-                       int splits, Strides os) {
+                       T* __restrict__ out, int H, int Sq, int Dh, int splits,
+                       Strides os, bool vec) {
   const int h = blockIdx.x % H, b = blockIdx.x / H;
-  const float* base = partials + ((int64_t)b * H + h) * splits * Sq * (DH + 2);
-  for (int idx = threadIdx.x; idx < Sq * (DH / 8); idx += kWarps * 32) {
-    const int r = idx / (DH / 8), c = (idx % (DH / 8)) * 8;
+  const int pitch = Dh + 2, groups = (Dh + kVec - 1) / kVec;
+  const float* base = partials + ((int64_t)b * H + h) * splits * Sq * pitch;
+  for (int idx = threadIdx.x; idx < Sq * groups; idx += 128) {
+    const int r = idx / groups, c = (idx % groups) * kVec;
+    const int n = min(kVec, Dh - c);
     float mx = -INFINITY;
 #pragma unroll 4
     for (int s = 0; s < splits; ++s) {
-      mx = fmaxf(mx, base[((int64_t)s * Sq + r) * (DH + 2) + DH]);
+      mx = fmaxf(mx, base[((int64_t)s * Sq + r) * pitch + Dh]);
     }
     float l = 0.f, acc[kVec];
 #pragma unroll
     for (int e = 0; e < kVec; ++e) acc[e] = 0.f;
 #pragma unroll 4
     for (int s = 0; s < splits; ++s) {
-      const float* p = base + ((int64_t)s * Sq + r) * (DH + 2);
-      const float2 ms = *reinterpret_cast<const float2*>(p + DH);
-      const float wgt = ms.x == -INFINITY ? 0.f : exp2f(ms.x - mx);
-      l += ms.y * wgt;
+      const float* p = base + ((int64_t)s * Sq + r) * pitch;
+      const float ms = p[Dh];
+      const float wgt = ms == -INFINITY ? 0.f : exp2f(ms - mx);
+      l += p[Dh + 1] * wgt;
+      if (pitch % 2 == 0 && n == kVec) {  // 8-byte aligned pairs
 #pragma unroll
-      for (int e = 0; e < kVec; e += 2) {
-        const float2 a = *reinterpret_cast<const float2*>(p + c + e);
-        acc[e] += a.x * wgt;
-        acc[e + 1] += a.y * wgt;
+        for (int e = 0; e < kVec; e += 2) {
+          const float2 a = *reinterpret_cast<const float2*>(p + c + e);
+          acc[e] += a.x * wgt;
+          acc[e + 1] += a.y * wgt;
+        }
+      } else {
+#pragma unroll
+        for (int e = 0; e < kVec; ++e) {
+          if (e < n) acc[e] += p[c + e] * wgt;
+        }
       }
     }
 #pragma unroll
     for (int e = 0; e < kVec; ++e) acc[e] /= l;
-    store_vec(out + b * os.b + h * os.h + r * os.s + c, acc);
+    T* o = out + b * os.b + h * os.h + r * os.s + c;
+    if (vec && n == kVec) {
+      store_vec(o, acc);
+    } else {
+#pragma unroll
+      for (int e = 0; e < kVec; ++e) {
+        if (e < n) store_one(o + e, acc[e]);
+      }
+    }
   }
 }
 
-}  // namespace mma
+// The float32 forms, and bf16 at a head dim other than 32, 64 or 128
+// (widened to f32 as it is staged): both products on the tensor cores as
+// 3xTF32 mma.sync m16n8k8. Every f32 operand x is split into x_hi =
+// tf32(x) and x_lo = tf32(x - x_hi), and a product is a_lo b_hi + a_hi b_lo
+// + a_hi b_hi (the small terms first) with f32 sums: about the error of an
+// f32 product (a_lo b_lo, 2^-22 of it, is dropped). On the CUDA cores a
+// broadcast float4 of K or V feeds 4 FMAs, and the SM's shared memory
+// hands its registers 128 bytes a clock against 128 FMAs, so such a loop
+// runs at a quarter of the FMA rate at best (PERF.md); an mma reads each
+// staged element once a warp for 8-16 products.
+//
+// The tiles are f32 in shared memory, the head dim padded with zeros to DHP
+// (16, 32, 64 or 128): Q and K rows at a pitch of DHP + 8 floats, so that
+// the float2 fragment loads of 8 rows by 4 lanes lie in distinct banks; V
+// rows at DHP + 4, so that the scalar loads of rows 2t and 2t + 1 by 4
+// lanes t do. The reduction dims are permuted inside each 8-step so that
+// fragment column t is element 2t and column t + 4 element 2t + 1: a lane's
+// two A (or B) values of a row are one float2, and the C fragment of S is
+// the A fragment of P as it stands (no shuffle).
+namespace tf32 {
 
-template <typename T, int G, bool kWhole>
-int launch(const void* q, const void* k, const void* v, const float* bias,
-           void* out, int B, int H, int Sq, int Sk, int Dh, Strides qs,
-           Strides ks, Strides vs, Strides os, int64_t bias_b, int64_t bias_h,
-           float scale, cudaStream_t stream) {
-  const int rows = kThreads / G;
-  const int tiles = (Sq + rows - 1) / rows;
-  const int64_t blocks = (int64_t)B * H * tiles;
-  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  fused_attention_fwd_kernel<T, G, kWhole>
-      <<<(unsigned)blocks, kThreads, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), bias, static_cast<T*>(out), H, Sq, Sk, Dh, qs,
-      ks, vs, os, bias_b, bias_h, tiles, scale);
-  return static_cast<int>(cudaGetLastError());
+constexpr int kWarps = 4;
+constexpr int kBlock = 32 * kWarps;
+constexpr int kChunk = 32;  // keys a staged chunk (few queries)
+constexpr int kStages = 2;  // chunks in the ring (few queries)
+constexpr int kFwdChunk = 16;  // keys a staged chunk (many queries)
+
+inline __host__ __device__ int padded_dh(int dh) {
+  return dh <= 16 ? 16 : dh <= 32 ? 32 : dh <= 64 ? 64 : 128;
 }
+
+// Keys staged a chunk: kChunk, or Sk rounded up to `unit` where shorter.
+inline __host__ __device__ int staged_keys(int Sk, int unit) {
+  const int rows = (Sk + unit - 1) / unit * unit;
+  return rows < kChunk ? rows : kChunk;
+}
+
+// Many queries: the 64-row Q tile (then the output), K, V and the bias of a
+// chunk of kFwdChunk keys.
+inline int fwd_shared_bytes(int dh) {
+  const int dhp = padded_dh(dh);
+  return 4 * (16 * kWarps * (dhp + 8) + kFwdChunk * (2 * dhp + 12) +
+              kFwdChunk);
+}
+
+// Few queries: the ring (K, V and the bias of `keys` keys a stage) and Q;
+// after the last chunk the warps' partials, where they need more.
+inline int split_shared_bytes(int dh, int Sk, int row_tiles) {
+  const int dhp = padded_dh(dh);
+  const int keys = staged_keys(Sk, kChunk * row_tiles / kWarps);
+  const int main = kStages * (keys * (2 * dhp + 12) + keys) +
+                   16 * row_tiles * (dhp + 8);
+  const int merge = kWarps * 16 * dhp + 2 * kWarps * 16;
+  return 4 * (main > merge ? main : merge);
+}
+
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(hi) : "f"(x));
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(lo) : "f"(x - __uint_as_float(hi)));
+}
+
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a b in 3xTF32, a and b split already.
+__device__ __forceinline__ void mma3(float (&d)[4], const uint32_t (&ah)[4],
+                                     const uint32_t (&al)[4], uint32_t bh0,
+                                     uint32_t bh1, uint32_t bl0,
+                                     uint32_t bl1) {
+  mma_tf32(d, al, bh0, bh1);
+  mma_tf32(d, ah, bl0, bl1);
+  mma_tf32(d, ah, bh0, bh1);
+}
+
+// The A fragment, split, of the 16 rows from `r` (pitch ld: rows g and
+// g + 8) at the 8-step from column k0.
+__device__ __forceinline__ void a_fragment(const float* r, int ld, int k0,
+                                           int g, int t, uint32_t (&hi)[4],
+                                           uint32_t (&lo)[4]) {
+  const float2 x0 = *reinterpret_cast<const float2*>(r + g * ld + k0 + 2 * t);
+  const float2 x1 =
+      *reinterpret_cast<const float2*>(r + (g + 8) * ld + k0 + 2 * t);
+  split_tf32(x0.x, hi[0], lo[0]);
+  split_tf32(x1.x, hi[1], lo[1]);
+  split_tf32(x0.y, hi[2], lo[2]);
+  split_tf32(x1.y, hi[3], lo[3]);
+}
+
+// S += Q K^T over the padded head dim for NT tiles of 8 keys from `sk`
+// (pitch DHP + 8), only those before `n_sub`; Q's 16 rows from `qw`.
+template <int DHP, int NT>
+__device__ __forceinline__ void scores(float (&s)[NT][4], const float* qw,
+                                       const float* sk, int n_sub, int g,
+                                       int t) {
+  constexpr int LQ = DHP + 8;
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
+#pragma unroll
+  for (int k0 = 0; k0 < DHP; k0 += 8) {
+    uint32_t ah[4], al[4];
+    a_fragment(qw, LQ, k0, g, t, ah, al);
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      if (nt * 8 < n_sub) {  // warp-uniform
+        const float2 kv = *reinterpret_cast<const float2*>(
+            sk + (nt * 8 + g) * LQ + k0 + 2 * t);
+        uint32_t bh0, bl0, bh1, bl1;
+        split_tf32(kv.x, bh0, bl0);
+        split_tf32(kv.y, bh1, bl1);
+        mma3(s[nt], ah, al, bh0, bh1, bl0, bl1);
+      }
+    }
+  }
+}
+
+// O += P V for the NT tiles of 8 keys before `n_sub`: P is the C fragment
+// of S as it stands (A column t is key 2t, t + 4 key 2t + 1), V from `sv`
+// (pitch DHP + 4).
+template <int DHP, int NT>
+__device__ __forceinline__ void values(float (&o)[DHP / 8][4],
+                                       const float (&p)[NT][4],
+                                       const float* sv, int n_sub, int g,
+                                       int t) {
+  constexpr int LV = DHP + 4;
+#pragma unroll
+  for (int kt = 0; kt < NT; ++kt) {
+    if (kt * 8 >= n_sub) continue;  // warp-uniform
+    uint32_t ah[4], al[4];
+    split_tf32(p[kt][0], ah[0], al[0]);
+    split_tf32(p[kt][2], ah[1], al[1]);
+    split_tf32(p[kt][1], ah[2], al[2]);
+    split_tf32(p[kt][3], ah[3], al[3]);
+    const float* v0 = sv + (kt * 8 + 2 * t) * LV + g;
+#pragma unroll
+    for (int nd = 0; nd < DHP / 8; ++nd) {
+      uint32_t bh0, bl0, bh1, bl1;
+      split_tf32(v0[nd * 8], bh0, bl0);
+      split_tf32(v0[LV + nd * 8], bh1, bl1);
+      mma3(o[nd], ah, al, bh0, bh1, bl0, bl1);
+    }
+  }
+}
+
+// The logits of NT key tiles in the log2 domain: s scale log2 e + bias
+// log2 e for the keys before n_in (columns c0 + 8 nt + 2t + {0, 1}), -inf
+// past them.
+template <int NT>
+__device__ __forceinline__ void logits(float (&s)[NT][4], const float* sb,
+                                       bool has_bias, int c0, int n_in,
+                                       float sl2, int t) {
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int col = c0 + nt * 8 + 2 * t + (e & 1);
+      s[nt][e] = col < n_in
+                     ? fmaf(s[nt][e], sl2, has_bias ? sb[col] * kLog2e : 0.f)
+                     : -INFINITY;
+    }
+  }
+}
+
+// Four elements from p, of which n (1..4) lie inside the head dim, as f32.
+template <typename T>
+__device__ __forceinline__ float4 load4(const T* p, int n) {
+  float x[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) x[e] = e < n ? widen(__ldg(p + e)) : 0.f;
+  return make_float4(x[0], x[1], x[2], x[3]);
+}
+
+// Rows [0, rows) of an f32 tile of `width` floats (a multiple of 4) at
+// pitch ld from rows [0, live) of `src`, `stride` elements apart; zero past
+// `live` and past Dh. By 16-byte cp.async where `vec` (f32 rows of whole,
+// aligned float4s), else by loads widened to f32 and stored. The caller
+// commits and waits.
+template <typename T>
+__device__ __forceinline__ void stage_rows(float* dst, int ld, int width,
+                                           const T* src, int64_t stride,
+                                           int rows, int live, int Dh,
+                                           bool vec) {
+  const int w4 = width / 4;
+  for (int i = threadIdx.x; i < rows * w4; i += kBlock) {
+    const int r = i / w4, c = (i % w4) * 4;
+    const bool on = r < live && c < Dh;
+    float* d = dst + r * ld + c;
+    const T* s = on ? src + r * stride + c : src;
+    if constexpr (std::is_same<T, float>::value) {
+      if (vec) {
+        cp_async16f(d, s, on);
+        continue;
+      }
+    }
+    *reinterpret_cast<float4*>(d) =
+        on ? load4(s, min(4, Dh - c)) : make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+}
+
+// The bias of keys [0, rows) from bias row `bp` (raw: times log2 e where it
+// is read), zero past `live`.
+__device__ __forceinline__ void stage_bias(float* dst, const float* bp,
+                                           int rows, int live) {
+  for (int j = threadIdx.x; j < rows; j += kBlock) {
+    cp_async4(dst + j, bp + (j < live ? j : 0), j < live);
+  }
+}
+
+// Many queries (i2t: Sq > 32 over Sk = 15..30 keys), the twin of
+// `_attention_kernel` there. Bound: bytes, q read and the output written
+// once (38.6 MB in f32 at B=8, Sq=785: 11.7 us). Design, mma::fused_fwd_kernel's
+// in 3xTF32: a block of 4 warps owns 64 query rows of one (batch, head),
+// 16 a warp; it stages the Q tile coalesced (cp.async) and the keys in
+// chunks of kFwdChunk = 16 (one at i2t's 15 keys: two score tiles keep
+// the registers low and so the blocks an SM many; 64-key chunks ran slower
+// on an H100), K, V and the bias row; a warp takes its A
+// fragments of Q from the tile at each 8-step, runs the online softmax in
+// the log2 domain on the C fragments, and the output goes back through the
+// Q tile (each warp its own rows) and out coalesced.
+template <typename T, int DHP>
+__global__ void __launch_bounds__(kBlock)
+    fused_tf32_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                          const T* __restrict__ v,
+                          const float* __restrict__ bias, T* __restrict__ out,
+                          int H, int Sq, int Sk, int Dh, Strides qs,
+                          Strides ks, Strides vs, Strides os, int64_t bias_b,
+                          int64_t bias_h, int tiles, float scale, bool vec) {
+  constexpr int LQ = DHP + 8, LV = DHP + 4, kRows = 16 * kWarps;
+  constexpr int NT = kFwdChunk / 8, keys = kFwdChunk;
+  extern __shared__ float4 smem4[];
+  float* sQ = reinterpret_cast<float*>(smem4);  // [kRows][LQ]
+  float* sK = sQ + kRows * LQ;                   // [keys][LQ]
+  float* sV = sK + keys * LQ;                    // [keys][LV]
+  float* sB = sV + keys * LV;                    // [keys]
+
+  const int tile = blockIdx.x % tiles;
+  const int h = (blockIdx.x / tiles) % H;
+  const int b = blockIdx.x / tiles / H;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3;  // mma fragment row / column pair
+  const int row0 = tile * kRows;
+  const T* kbase = k + b * ks.b + h * ks.h;
+  const T* vbase = v + b * vs.b + h * vs.h;
+  const float* bp = bias ? bias + b * bias_b + h * bias_h : nullptr;
+  stage_rows(sQ, LQ, DHP, q + b * qs.b + h * qs.h + row0 * qs.s, qs.s, kRows,
+             Sq - row0, Dh, vec);
+
+  float o[DHP / 8][4];
+#pragma unroll
+  for (int nd = 0; nd < DHP / 8; ++nd) o[nd][0] = o[nd][1] = o[nd][2] = o[nd][3] = 0.f;
+  float m_lo = -INFINITY, m_hi = -INFINITY, l_lo = 0.f, l_hi = 0.f;
+  const float sl2 = scale * kLog2e;
+  float* qw = sQ + warp * 16 * LQ;  // this warp's 16 rows
+  for (int c0 = 0; c0 < Sk; c0 += keys) {
+    const int n_in = min(keys, Sk - c0);
+    if (c0 > 0) __syncthreads();  // the previous chunk is consumed
+    stage_rows(sK, LQ, DHP, kbase + c0 * ks.s, ks.s, keys, n_in, Dh, vec);
+    stage_rows(sV, LV, DHP, vbase + c0 * vs.s, vs.s, keys, n_in, Dh, vec);
+    if (bp) stage_bias(sB, bp + c0, keys, n_in);
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+    float s[NT][4];
+    scores<DHP, NT>(s, qw, sK, n_in, g, t);
+    logits<NT>(s, sB, bp != nullptr, 0, n_in, sl2, t);
+    mma::softmax_step<NT, DHP>(s, o, m_lo, m_hi, l_lo, l_hi);
+    values<DHP, NT>(o, s, sV, n_in, g, t);
+  }
+
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    l_lo += __shfl_xor_sync(0xffffffffu, l_lo, off);
+    l_hi += __shfl_xor_sync(0xffffffffu, l_hi, off);
+  }
+  const float inv_lo = 1.f / l_lo, inv_hi = 1.f / l_hi;
+  __syncwarp();  // the warp's reads of its Q rows are done
+#pragma unroll
+  for (int nd = 0; nd < DHP / 8; ++nd) {
+    float* r = qw + g * LQ + nd * 8 + 2 * t;
+    *reinterpret_cast<float2*>(r) = make_float2(o[nd][0] * inv_lo, o[nd][1] * inv_lo);
+    *reinterpret_cast<float2*>(r + 8 * LQ) =
+        make_float2(o[nd][2] * inv_hi, o[nd][3] * inv_hi);
+  }
+  __syncthreads();
+  const int w4 = (Dh + 3) / 4;
+  T* obase = out + b * os.b + h * os.h + row0 * os.s;
+  for (int i = threadIdx.x; i < kRows * w4; i += kBlock) {
+    const int r = i / w4, c = (i % w4) * 4;
+    if (row0 + r >= Sq) break;  // rows ascend with i
+    const float* o4 = sQ + r * LQ + c;
+    T* dst = obase + r * os.s + c;
+    if constexpr (std::is_same<T, float>::value) {
+      if (vec) {
+        *reinterpret_cast<float4*>(dst) = *reinterpret_cast<const float4*>(o4);
+        continue;
+      }
+    }
+    const int n = min(4, Dh - c);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      if (e < n) store_one(dst + e, o4[e]);
+    }
+  }
+}
+
+// Few queries (t2i, text self-attention: Sq <= 32), the twin of
+// `_attention_kernel` there. Bound: bytes, K and V read once (38.6 MB in
+// f32 at B=8, Sk=785: 11.7 us). Design, mma::fused_split_kernel's in
+// 3xTF32: a block owns every query row of one (batch, head), up to 32, and
+// a run of its keys (the grid (H, splits, B), heads fastest; more than one
+// run only where B * H gives fewer blocks than SMs, and fused_merge_kernel
+// merges the f32 partials in split order); the run is staged in chunks of
+// kChunk = 32 keys (K, V, the bias) by cp.async into a ring of kStages, the
+// next chunk in flight while one is multiplied, the Q rows once beside
+// them (41 KB at Dh=64: five blocks an SM; 64-key chunks ran slower on an
+// H100); RT row tiles of 16 (1 for Sq <= 16, else 2): the 4 / RT warps of a
+// row tile score their own KW = 8 RT keys of every chunk, each with its own
+// online softmax, and are merged through shared memory in warp order at
+// the end.
+template <typename T, int DHP, int RT>
+__global__ void __launch_bounds__(kBlock)
+    fused_tf32_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                            const T* __restrict__ v,
+                            const float* __restrict__ bias,
+                            T* __restrict__ out, float* __restrict__ partials,
+                            int H, int Sq, int Sk, int Dh, int run, int splits,
+                            Strides qs, Strides ks, Strides vs, Strides os,
+                            int64_t bias_b, int64_t bias_h, float scale,
+                            bool vec) {
+  static_assert(RT == 1 || RT == 2, "one or two row tiles of 16");
+  constexpr int LQ = DHP + 8, LV = DHP + 4;
+  constexpr int kTileWarps = kWarps / RT;  // warps of a row tile
+  constexpr int KW = kChunk / kTileWarps;  // keys a warp scores a chunk
+  constexpr int NT = KW / 8;               // their 8-key tiles
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int rows = staged_keys(Sk, KW);
+  const int stage_floats = rows * (LQ + LV) + rows;  // K, V, bias
+  float* sQ = smem + kStages * stage_floats;         // [16 RT][LQ]
+
+  // Heads fastest: the blocks of the heads of a (batch, split) read
+  // neighbouring slices of the same key rows of a [B, S, H * Dh]
+  // projection, and run side by side.
+  const int h = blockIdx.x % H;
+  const int split = (blockIdx.x / H) % splits;
+  const int b = blockIdx.x / H / splits;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3;  // mma fragment row / column pair
+  const int rt = warp / kTileWarps;         // this warp's row tile
+  const int j0 = (warp % kTileWarps) * KW;  // its first key of every chunk
+  const int k_begin = split * run, k_end = min(Sk, k_begin + run);
+  const int chunks = (k_end - k_begin + kChunk - 1) / kChunk;
+  const T* kbase = k + b * ks.b + h * ks.h;
+  const T* vbase = v + b * vs.b + h * vs.h;
+  const float* bp = bias ? bias + b * bias_b + h * bias_h : nullptr;
+
+  // Chunk c into stage c % kStages.
+  auto stage = [&](int c) {
+    float* sK = smem + (c % kStages) * stage_floats;
+    const int c0 = k_begin + c * kChunk;
+    const int live = min(rows, k_end - c0);
+    stage_rows(sK, LQ, DHP, kbase + c0 * ks.s, ks.s, rows, live, Dh, vec);
+    stage_rows(sK + rows * LQ, LV, DHP, vbase + c0 * vs.s, vs.s, rows, live,
+               Dh, vec);
+    if (bp) stage_bias(sK + rows * (LQ + LV), bp + c0, rows, live);
+  };
+
+  stage_rows(sQ, LQ, DHP, q + b * qs.b + h * qs.h, qs.s, 16 * RT, Sq, Dh,
+             vec);
+#pragma unroll
+  for (int c = 0; c < kStages - 1; ++c) {
+    if (c < chunks) stage(c);
+    cp_async_commit();  // one group a chunk (Q with the first), empty past the last
+  }
+  float o[DHP / 8][4];
+#pragma unroll
+  for (int nd = 0; nd < DHP / 8; ++nd) o[nd][0] = o[nd][1] = o[nd][2] = o[nd][3] = 0.f;
+  float m_lo = -INFINITY, m_hi = -INFINITY, l_lo = 0.f, l_hi = 0.f;
+  const float sl2 = scale * kLog2e;
+  const float* qw = sQ + rt * 16 * LQ;  // this warp's row tile
+
+  for (int c = 0; c < chunks; ++c) {
+    cp_async_wait<kStages - 2>();  // this thread's copies of chunk c are in
+    // Everyone's copies of chunk c are in, and chunk c - 1 is consumed:
+    // its stage takes chunk c + kStages - 1.
+    __syncthreads();
+    if (c + kStages - 1 < chunks) stage(c + kStages - 1);
+    cp_async_commit();
+    const float* sK = smem + (c % kStages) * stage_floats;
+    const float* sV = sK + rows * LQ;
+    const float* sB = sV + rows * LV;
+    const int n_in = min(kChunk, k_end - k_begin - c * kChunk);
+    if (j0 >= n_in) continue;  // none of this warp's keys: warp-uniform
+    const int n_sub = n_in - j0;
+    float s[NT][4];
+    scores<DHP, NT>(s, qw, sK + j0 * LQ, n_sub, g, t);
+    logits<NT>(s, sB, bp != nullptr, j0, n_in, sl2, t);
+    mma::softmax_step<NT, DHP>(s, o, m_lo, m_hi, l_lo, l_hi);
+    values<DHP, NT>(o, s, sV + j0 * LV, n_sub, g, t);
+  }
+
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    l_lo += __shfl_xor_sync(0xffffffffu, l_lo, off);
+    l_hi += __shfl_xor_sync(0xffffffffu, l_hi, off);
+  }
+  // The warps' partials of their 16 rows, through the ring (every group is
+  // complete: the last ones are empty). A warp that had no key of the run
+  // keeps m = -inf and weighs 0; the first warp of a row tile always has
+  // one.
+  cp_async_wait<0>();
+  __syncthreads();  // every warp is done with the ring
+  float* mo = smem;                    // [kWarps][16][DHP]
+  float* mm = mo + kWarps * 16 * DHP;  // [kWarps][16] running maxima
+  float* ml = mm + kWarps * 16;        // [kWarps][16] running sums
+#pragma unroll
+  for (int nd = 0; nd < DHP / 8; ++nd) {
+    float* lo = mo + (warp * 16 + g) * DHP + nd * 8 + 2 * t;
+    *reinterpret_cast<float2*>(lo) = make_float2(o[nd][0], o[nd][1]);
+    *reinterpret_cast<float2*>(lo + 8 * DHP) = make_float2(o[nd][2], o[nd][3]);
+  }
+  if (t == 0) {
+    mm[warp * 16 + g] = m_lo; mm[warp * 16 + g + 8] = m_hi;
+    ml[warp * 16 + g] = l_lo; ml[warp * 16 + g + 8] = l_hi;
+  }
+  __syncthreads();
+  for (int idx = threadIdx.x; idx < Sq * Dh; idx += kBlock) {
+    const int r = idx / Dh, c = idx % Dh;
+    const int w0 = (r / 16) * kTileWarps, rr = r % 16;
+    float mx = -INFINITY;
+#pragma unroll
+    for (int w = 0; w < kTileWarps; ++w) mx = fmaxf(mx, mm[(w0 + w) * 16 + rr]);
+    float lsum = 0.f, a = 0.f;
+#pragma unroll
+    for (int w = 0; w < kTileWarps; ++w) {
+      const int at = (w0 + w) * 16 + rr;
+      const float mw = mm[at];
+      const float wgt = mw == -INFINITY ? 0.f : exp2f(mw - mx);
+      lsum += ml[at] * wgt;
+      a += mo[at * DHP + c] * wgt;
+    }
+    if (splits == 1) {
+      store_one(out + b * os.b + h * os.h + r * os.s + c, a / lsum);
+    } else {
+      const int64_t prow = ((int64_t)b * H + h) * splits + split;
+      float* p = partials + (prow * Sq + r) * (Dh + 2);
+      p[c] = a;
+      if (c == 0) {
+        p[Dh] = mx;
+        p[Dh + 1] = lsum;
+      }
+    }
+  }
+}
+
+}  // namespace tf32
+
 
 // Many query rows (i2t): 64 rows a block, 16 a warp.
 template <int DH>
@@ -826,6 +1181,19 @@ int launch_many(const void* q, const void* k, const void* v,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The merge launch of a few-query form after its split kernel, where there
+// is more than one split.
+template <typename T>
+int launch_merge(const float* partials, void* out, int B, int H, int Sq,
+                 int Dh, int splits, Strides os, bool vec,
+                 cudaStream_t stream) {
+  const cudaError_t launched = cudaGetLastError();
+  if (launched != cudaSuccess || splits == 1) return static_cast<int>(launched);
+  fused_merge_kernel<T><<<(unsigned)(B * H), 128, 0, stream>>>(
+      partials, static_cast<T*>(out), H, Sq, Dh, splits, os, vec);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // Few query rows (t2i, text self-attention): the split kernel on the
 // geometry given, then the merge where there is more than one split.
 template <int DH, int RT>
@@ -835,26 +1203,19 @@ int launch_split(const void* q, const void* k, const void* v,
                  Strides ks, Strides vs, Strides os, int64_t bias_b,
                  int64_t bias_h, float scale, int shared_bytes,
                  cudaStream_t stream) {
-  const int64_t blocks = (int64_t)splits * H * B;
-  if (blocks > 0x7fffffffLL || (int64_t)B * H > 0x7fffffffLL) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
   auto kernel = mma::fused_split_kernel<DH, RT>;
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, shared_bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  auto* op = static_cast<__nv_bfloat16*>(out);
-  kernel<<<(unsigned)blocks, mma::kWarps * 32, shared_bytes, stream>>>(
+  kernel<<<(unsigned)((int64_t)splits * H * B), mma::kWarps * 32,
+           shared_bytes, stream>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), bias, op, partials, H, Sq, Sk,
-      run, splits, rows, qs, ks, vs, os, bias_b, bias_h, scale);
-  const cudaError_t launched = cudaGetLastError();
-  if (launched != cudaSuccess || splits == 1) return static_cast<int>(launched);
-  mma::fused_merge_kernel<DH>
-      <<<(unsigned)(B * H), mma::kWarps * 32, 0, stream>>>(partials, op, H,
-                                                          Sq, splits, os);
-  return static_cast<int>(cudaGetLastError());
+      static_cast<const __nv_bfloat16*>(v), bias,
+      static_cast<__nv_bfloat16*>(out), partials, H, Sq, Sk, run, splits,
+      rows, qs, ks, vs, os, bias_b, bias_h, scale);
+  return launch_merge<__nv_bfloat16>(partials, out, B, H, Sq, DH, splits, os,
+                                     true, stream);
 }
 
 template <int DH>
@@ -869,27 +1230,84 @@ int launch_few(const void* q, const void* k, const void* v, const float* bias,
                 qs, ks, vs, os, bias_b, bias_h, scale, shared_bytes, stream);
 }
 
-template <typename T>
-int dispatch_group(const void* q, const void* k, const void* v,
-                   const float* bias, void* out, int B, int H, int Sq, int Sk,
-                   int Dh, Strides qs, Strides ks, Strides vs, Strides os,
-                   int64_t bias_b, int64_t bias_h, float scale,
+// The 3xTF32 forms' arguments, as the entry point checked them.
+struct Tf32Args {
+  const void *q, *k, *v;
+  const float* bias;
+  void* out;
+  float* partials;
+  int B, H, Sq, Sk, Dh, run, splits;
+  Strides qs, ks, vs, os;
+  int64_t bias_b, bias_h;
+  float scale;
+  int shared_bytes;
+  bool vec;
+};
+
+// Many queries in 3xTF32: 64 rows a block.
+template <typename T, int DHP>
+int launch_tf32_fwd(const Tf32Args& a, cudaStream_t stream) {
+  const int rows = 16 * tf32::kWarps;
+  const int tiles = (a.Sq + rows - 1) / rows;
+  const int64_t blocks = (int64_t)a.B * a.H * tiles;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = tf32::fused_tf32_fwd_kernel<T, DHP>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, a.shared_bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<(unsigned)blocks, tf32::kBlock, a.shared_bytes, stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), a.bias, static_cast<T*>(a.out), a.H, a.Sq,
+      a.Sk, a.Dh, a.qs, a.ks, a.vs, a.os, a.bias_b, a.bias_h, tiles, a.scale,
+      a.vec);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Few queries in 3xTF32, RT row tiles; then the merge where there is more
+// than one split.
+template <typename T, int DHP, int RT>
+int launch_tf32_split(const Tf32Args& a, cudaStream_t stream) {
+  auto kernel = tf32::fused_tf32_split_kernel<T, DHP, RT>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, a.shared_bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<(unsigned)((int64_t)a.splits * a.H * a.B), tf32::kBlock,
+           a.shared_bytes, stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), a.bias, static_cast<T*>(a.out), a.partials,
+      a.H, a.Sq, a.Sk, a.Dh, a.run, a.splits, a.qs, a.ks, a.vs, a.os,
+      a.bias_b, a.bias_h, a.scale, a.vec);
+  return launch_merge<T>(a.partials, a.out, a.B, a.H, a.Sq, a.Dh, a.splits,
+                         a.os, a.vec, stream);
+}
+
+// Form 3 (many queries) or 4 (few queries) at the padded head dim.
+template <typename T, int DHP>
+int launch_tf32_dh(int form, int row_tiles, const Tf32Args& a,
                    cudaStream_t stream) {
-#define EGOVLP_LAUNCH(G)                                                     \
-  return Dh % kVec == 0                                                      \
-             ? launch<T, G, true>(q, k, v, bias, out, B, H, Sq, Sk, Dh, qs,  \
-                                  ks, vs, os, bias_b, bias_h, scale, stream) \
-             : launch<T, G, false>(q, k, v, bias, out, B, H, Sq, Sk, Dh, qs, \
-                                   ks, vs, os, bias_b, bias_h, scale, stream)
-  switch (group_size(Dh)) {
-    case 1: EGOVLP_LAUNCH(1);
-    case 2: EGOVLP_LAUNCH(2);
-    case 4: EGOVLP_LAUNCH(4);
-    case 8: EGOVLP_LAUNCH(8);
-    case 16: EGOVLP_LAUNCH(16);
-    default: return static_cast<int>(cudaErrorInvalidValue);
+  if (form == 3) return launch_tf32_fwd<T, DHP>(a, stream);
+  return row_tiles == 1 ? launch_tf32_split<T, DHP, 1>(a, stream)
+                        : launch_tf32_split<T, DHP, 2>(a, stream);
+}
+
+template <typename T>
+int launch_tf32(int form, int row_tiles, const Tf32Args& a,
+                cudaStream_t stream) {
+  switch (tf32::padded_dh(a.Dh)) {
+    case 16: return launch_tf32_dh<T, 16>(form, row_tiles, a, stream);
+    case 32: return launch_tf32_dh<T, 32>(form, row_tiles, a, stream);
+    case 64: return launch_tf32_dh<T, 64>(form, row_tiles, a, stream);
+    default: return launch_tf32_dh<T, 128>(form, row_tiles, a, stream);
   }
-#undef EGOVLP_LAUNCH
+}
+
+// Every row of t at 16-byte aligned addresses: the base and each stride of
+// an axis longer than one, in bytes.
+bool aligned16(const void* p, int64_t elem, int nb, int64_t sb, int nh,
+               int64_t sh, int ns, int64_t ss) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0 &&
+         (nb == 1 || sb * elem % 16 == 0) && (nh == 1 || sh * elem % 16 == 0) &&
+         (ns == 1 || ss * elem % 16 == 0);
 }
 
 }  // namespace
@@ -901,13 +1319,14 @@ extern "C" {
 // that the head dim is contiguous and at most 128, and, where the head dim
 // is a multiple of 8, that every pointer and stride keeps 16-byte
 // alignment. The geometry is `flash_fwd_geometry`'s (ops/_kernels.py):
-// `form` 0 (CUDA cores), 1 (many queries) or 2 (few queries), and for the
-// few-query form `run` keys a block, `splits` = ceil(Sk / run) blocks a
-// (batch, head), `row_tiles` of 16 query rows, a ring of `stages` chunks in
-// `shared_bytes` of dynamic shared memory, and `partials` (f32 [B, H,
-// splits, Sq, Dh + 2], null at one split). It is launched as given; a form
-// other than the one the dtype, Dh and Sq call for, or a few-query geometry
-// that does not hold together, is refused (CUDA error 1, invalid argument).
+// `form` 1 (many queries) or 2 (few queries) in bf16, 3 (many queries) or
+// 4 (few queries) in 3xTF32; for the few-query forms
+// `run` keys a block, `splits` = ceil(Sk / run) blocks a (batch, head),
+// `row_tiles` of 16 query rows, a ring of `stages` chunks and `partials`
+// (f32 [B, H, splits, Sq, Dh + 2], null at one split); `shared_bytes` of
+// dynamic shared memory (0 for form 1). It is launched as given; a form
+// other than the one the dtype, Dh and Sq call for, or a geometry that does
+// not hold together, is refused (CUDA error 1, invalid argument).
 int fused_attention_fwd(const void* q, const void* k, const void* v,
                         const void* bias, void* out, void* partials, int dtype,
                         int B, int H, int Sq, int Sk, int Dh, int64_t q_b,
@@ -917,25 +1336,20 @@ int fused_attention_fwd(const void* q, const void* k, const void* v,
                         int64_t bias_h, float scale, int form, int run,
                         int splits, int row_tiles, int stages,
                         int shared_bytes, void* stream) {
-  if (B < 1 || H < 1 || Sq < 1 || Sk < 1 || (dtype != 0 && dtype != 1)) {
-    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t bad = cudaErrorInvalidValue;
+  if (B < 1 || H < 1 || Sq < 1 || Sk < 1 || Dh < 1 || Dh > 128 ||
+      (dtype != 0 && dtype != 1) || (int64_t)B * H > 0x7fffffffLL) {
+    return static_cast<int>(bad);
   }
   const bool tensor_cores = dtype == 1 && (Dh == 32 || Dh == 64 || Dh == 128);
-  const int expected = !tensor_cores ? 0 : Sq <= mma::kFewRows ? 2 : 1;
-  if (form != expected) return static_cast<int>(cudaErrorInvalidValue);
+  const bool few = Sq <= mma::kFewRows;
+  const int expected = tensor_cores ? (few ? 2 : 1) : (few ? 4 : 3);
+  if (form != expected) return static_cast<int>(bad);
   const Strides qs{q_b, q_h, q_s}, ks{k_b, k_h, k_s}, vs{v_b, v_h, v_s},
       os{o_b, o_h, o_s};
   const float* bias_f = static_cast<const float*>(bias);
   float* part = static_cast<float*>(partials);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (form == 0) {
-    return dtype == 0
-               ? dispatch_group<float>(q, k, v, bias_f, out, B, H, Sq, Sk, Dh,
-                                       qs, ks, vs, os, bias_b, bias_h, scale, s)
-               : dispatch_group<__nv_bfloat16>(q, k, v, bias_f, out, B, H, Sq,
-                                               Sk, Dh, qs, ks, vs, os, bias_b,
-                                               bias_h, scale, s);
-  }
   if (form == 1) {
 #define EGOVLP_MANY(DH)                                                       \
   return launch_many<DH>(q, k, v, bias_f, out, B, H, Sq, Sk, qs, ks, vs, os, \
@@ -945,21 +1359,46 @@ int fused_attention_fwd(const void* q, const void* k, const void* v,
     EGOVLP_MANY(128);
 #undef EGOVLP_MANY
   }
-  if (run < mma::kSplitKeys || run % mma::kSplitKeys ||
-      splits != (Sk + run - 1) / run ||
-      row_tiles != (Sq <= 16 ? 1 : 2) || stages != mma::kStages ||
-      shared_bytes != mma::few_shared_bytes(Dh, mma::few_rows(Sk)) ||
-      (splits > 1 && part == nullptr)) {
-    return static_cast<int>(cudaErrorInvalidValue);
+  const int row_tiles_want = Sq <= 16 ? 1 : 2;
+  if (form == 2 || form == 4) {
+    const int chunk = form == 2 ? mma::kSplitKeys : tf32::kChunk;
+    const int want_bytes = form == 2
+        ? mma::few_shared_bytes(Dh, mma::few_rows(Sk))
+        : tf32::split_shared_bytes(Dh, Sk, row_tiles_want);
+    if (run < chunk || run % chunk || splits != (Sk + run - 1) / run ||
+        (int64_t)splits * H * B > 0x7fffffffLL ||
+        row_tiles != row_tiles_want ||
+        stages != (form == 2 ? mma::kStages : tf32::kStages) ||
+        shared_bytes != want_bytes || (splits > 1 && part == nullptr)) {
+      return static_cast<int>(bad);
+    }
   }
+  if (form == 2) {
 #define EGOVLP_FEW(DH)                                                         \
   return launch_few<DH>(q, k, v, bias_f, out, part, B, H, Sq, Sk, run, splits, \
                         mma::few_rows(Sk), row_tiles, qs, ks, vs, os,          \
                         bias_b, bias_h, scale, shared_bytes, s)
-  if (Dh == 32) EGOVLP_FEW(32);
-  if (Dh == 64) EGOVLP_FEW(64);
-  EGOVLP_FEW(128);
+    if (Dh == 32) EGOVLP_FEW(32);
+    if (Dh == 64) EGOVLP_FEW(64);
+    EGOVLP_FEW(128);
 #undef EGOVLP_FEW
+  }
+  if (form == 3 && shared_bytes != tf32::fwd_shared_bytes(Dh)) {
+    return static_cast<int>(bad);
+  }
+  // Vectors of 16 bytes where every row of q, k, v and the output is whole
+  // 16-byte words at aligned addresses.
+  const int64_t elem = dtype == 0 ? 4 : 2;
+  const bool vec = Dh * elem % 16 == 0 &&
+                   aligned16(q, elem, B, q_b, H, q_h, Sq, q_s) &&
+                   aligned16(k, elem, B, k_b, H, k_h, Sk, k_s) &&
+                   aligned16(v, elem, B, v_b, H, v_h, Sk, v_s) &&
+                   aligned16(out, elem, B, o_b, H, o_h, Sq, o_s);
+  const Tf32Args a{q,  k,  v,  bias_f, out,    part,  B,            H,
+                   Sq, Sk, Dh, run,    splits, qs,    ks,           vs,
+                   os, bias_b, bias_h, scale,  shared_bytes, vec};
+  return dtype == 0 ? launch_tf32<float>(form, row_tiles, a, s)
+                    : launch_tf32<__nv_bfloat16>(form, row_tiles, a, s);
 }
 
 }  // extern "C"

@@ -56,9 +56,15 @@ launch_counts = {"space_attention_fwd": 0, "time_attention_fwd": 0,
                  "divided_attention_general_bwd": 0}
 
 
+# K9's launches since the last reset by the form `flash_fwd_geometry` named.
+flash_form_counts = {"many_queries": 0, "few_queries": 0,
+                     "many_queries_tf32": 0, "few_queries_tf32": 0}
+
+
 def reset_launch_counts() -> None:
-    for name in launch_counts:
-        launch_counts[name] = 0
+    for counts in (launch_counts, flash_form_counts):
+        for name in counts:
+            counts[name] = 0
 
 
 def _nvcc() -> str:
@@ -592,72 +598,107 @@ def _check_strided(name: str, t: torch.Tensor, like: torch.Tensor,
     return strides
 
 
-# K9's forms (`csrc/fused_attention.cu`) by the code its entry point takes.
-_FLASH_FORMS = {"cuda_cores": 0, "many_queries": 1, "few_queries": 2}
-FLASH_FEW_ROWS = 32  # the most query rows of the few-query form
+# K9's forms (`csrc/fused_attention.cu`) by the code its entry point takes:
+# bf16 at a head dim of 32, 64 or 128, and 3xTF32 (float32, and bf16 at any
+# other head dim), each for many queries and for few.
+_FLASH_FORMS = {"many_queries": 1, "few_queries": 2, "many_queries_tf32": 3,
+                "few_queries_tf32": 4}
+FLASH_FEW_ROWS = 32  # the most query rows of the few-query forms
 FLASH_CHUNK = 128  # keys a staged chunk; a run is a multiple of it
-# The few-query form splits the keys of a (batch, head) into runs over
-# blocks only where B * H is under FLASH_BLOCKS (one block an SM of the
-# 132): on an H100 one run was fastest at every path shape at or above it,
-# where the merge launch costs 3-5 us, and three runs beat one below it
-# (EgoMCQ one question at a time, B=5: 24 against 33 us; PERF.md). A run
-# holds at least FLASH_MIN_RUN keys where Sk has them, so that the f32
-# partials stay a few percent of the K/V bytes.
+FLASH_TF32_CHUNK = 32  # the same in the 3xTF32 forms (f32 rows)
+FLASH_TF32_FWD_CHUNK = 16  # keys a staged chunk of "many_queries_tf32"
+# The few-query forms split the keys of a (batch, head) into runs over
+# blocks only where B * H is under their block target. In bf16 that is
+# FLASH_BLOCKS (one block an SM of the 132): on an H100 one run was fastest
+# at every path shape at or above it, where the merge launch costs 3-5 us,
+# and three runs beat one below it (EgoMCQ one question at a time, B=5: 24
+# against 33 us). In 3xTF32 it is FLASH_TF32_BLOCKS: on an H100 four runs
+# were fastest at the EgoTaskQA t2i (B=8, Sk=785: B * H = 96), two at B=16,
+# one at B=64 (PERF.md). A run holds at least FLASH_MIN_RUN keys where Sk
+# has them, so that the f32 partials stay a few percent of the K/V bytes.
 FLASH_BLOCKS = 132
+FLASH_TF32_BLOCKS = 384
 FLASH_MIN_RUN = 256
 FLASH_STAGES = 2  # chunks in a block's ring, kStages of the source
+
+
+def flash_tf32_dh(dh: int) -> int:
+    """The head dim the 3xTF32 forms pad to with zeros: 16, 32, 64 or 128."""
+    return next(p for p in (16, 32, 64, 128) if dh <= p)
 
 
 def flash_fwd_geometry(dtype: torch.dtype, dh: int, sq: int, sk: int, b: int,
                        h: int) -> SimpleNamespace:
     """K9's launch geometry for q [B, H, Sq, Dh] over Sk keys in `dtype`:
-      * `form`: "few_queries" for bf16 at a head dim of 32, 64 or 128 and
-        Sq <= FLASH_FEW_ROWS (t2i and text self-attention: a block every
-        query row of a (batch, head) and a run of its keys), "many_queries"
-        there at larger Sq (i2t: 64 query rows a block), else "cuda_cores";
-      * `run`: keys a block of the few-query form: Sk over
-        ceil(FLASH_BLOCKS / (B * H)) rounded up to a multiple of
-        FLASH_CHUNK, so all of Sk where B * H >= FLASH_BLOCKS; at least
+      * `form`: "few_queries" at Sq <= FLASH_FEW_ROWS (t2i and text
+        self-attention: a block every query row of a (batch, head) and a
+        run of its keys) and "many_queries" at larger Sq (i2t: 64 query
+        rows a block), for bf16 at a head dim of 32, 64 or 128; the same
+        two structures in 3xTF32, "few_queries_tf32" and
+        "many_queries_tf32", for float32 and for bf16 at any other head
+        dim;
+      * `run`: keys a block of a few-query form: Sk over ceil(target /
+        (B * H)) rounded up to a multiple of the chunk, so all of Sk where
+        B * H reaches the target (FLASH_BLOCKS and FLASH_CHUNK in bf16,
+        FLASH_TF32_BLOCKS and FLASH_TF32_CHUNK in 3xTF32); at least
         FLASH_MIN_RUN (less only where Sk is);
       * `splits`: ceil(Sk / run), the blocks a (batch, head): the splits
         axis of the f32 partials [B, H, splits, Sq, Dh + 2] that a second
         launch merges in order where there is more than one;
       * `row_tiles`: 16-row tiles of the queries, 1 for Sq <= 16, else 2;
       * `stages`: the block's ring of staged chunks, FLASH_STAGES: one
-        chunk in flight while one is multiplied, three blocks an SM at
-        Dh=64 (the 768 blocks of B=64 take two even waves);
-      * `shared_bytes`: a block's dynamic shared memory: each stage holds
-        the K and V rows of a chunk at a pitch of Dh + 8 bf16 and their f32
-        bias, FLASH_CHUNK rows, or Sk rounded up to 16 where it is shorter;
-        after the last chunk the warps' f32 partials, 256 * (dh + 2)
-        bytes, where they need more.
-    The other forms have `splits` 1 and no run, row tiles, stages or
-    dynamic shared memory (None). Pure, and the one place this geometry is
-    decided: the CPU tests check it, and the C entry point launches with it
-    as given, refusing any other (CUDA error 1, invalid argument)."""
+        chunk in flight while one is multiplied;
+      * `shared_bytes`: a block's dynamic shared memory. "few_queries": each
+        stage holds the K and V rows of a chunk at a pitch of Dh + 8 bf16
+        and their f32 bias, FLASH_CHUNK rows, or Sk rounded up to 16 where
+        it is shorter; after the last chunk the warps' f32 partials, 256 *
+        (dh + 2) bytes, where they need more. In 3xTF32 every tile is f32
+        at the head dim of `flash_tf32_dh`, Q and K rows at a pitch of it
+        + 8 floats, V rows + 4: "few_queries_tf32" a ring of the K, V and
+        bias of FLASH_TF32_CHUNK keys (Sk rounded up to 8 * row_tiles, the
+        keys a warp scores a chunk, where shorter) and the Q rows, or the
+        4 warps' partials after the last chunk where they need more;
+        "many_queries_tf32" the 64-row Q tile and one chunk's K, V and
+        bias, FLASH_TF32_FWD_CHUNK keys.
+    The many-query forms have `splits` 1 and no run, row tiles or stages;
+    "many_queries" no dynamic shared memory (None). Pure, and the one place
+    this geometry is decided: the CPU tests check it, and the C entry point
+    launches with it as given, refusing any other (CUDA error 1, invalid
+    argument)."""
     if dtype not in _DTYPE_CODES:
         raise TypeError(f"kernel takes float32 or bfloat16, got {dtype}")
     if not 1 <= dh <= 128 or min(sq, sk, b, h) < 1:
         raise ValueError(f"attention kernel takes a head dim up to 128 and "
                          f"Sq, Sk, B, H >= 1, got Dh={dh}, Sq={sq}, Sk={sk}, "
                          f"B={b}, H={h}")
-    none = dict(run=None, splits=1, row_tiles=None, stages=None,
-                shared_bytes=None)
-    if dtype != torch.bfloat16 or dh not in (32, 64, 128):
-        return SimpleNamespace(form="cuda_cores", **none)
+    many = dict(run=None, splits=1, row_tiles=None, stages=None)
+    bf16 = dtype == torch.bfloat16 and dh in (32, 64, 128)
+    if bf16 and sq > FLASH_FEW_ROWS:
+        return SimpleNamespace(form="many_queries", shared_bytes=None, **many)
+    dp = flash_tf32_dh(dh)
+    row_bytes = 4 * (2 * dp + 12 + 1)  # a key's K, V and bias in 3xTF32
     if sq > FLASH_FEW_ROWS:
-        return SimpleNamespace(form="many_queries", **none)
-    chunk = FLASH_CHUNK
+        return SimpleNamespace(form="many_queries_tf32",
+                               shared_bytes=4 * 64 * (dp + 8)
+                               + FLASH_TF32_FWD_CHUNK * row_bytes, **many)
+    row_tiles, stages = (1 if sq <= 16 else 2), FLASH_STAGES
+    if bf16:
+        chunk, form, blocks = FLASH_CHUNK, "few_queries", FLASH_BLOCKS
+        rows = min(chunk, -(-sk // 16) * 16)  # keys staged a chunk
+        shared = max(stages * rows * (4 * dh + 36), 256 * (dh + 2))
+    else:
+        chunk, form = FLASH_TF32_CHUNK, "few_queries_tf32"
+        blocks = FLASH_TF32_BLOCKS
+        kw = chunk * row_tiles // 4  # keys a warp scores a chunk
+        rows = min(chunk, -(-sk // kw) * kw)
+        shared = max(stages * rows * row_bytes + 4 * 16 * row_tiles * (dp + 8),
+                     4 * (4 * 16 * dp + 2 * 4 * 16))
     whole = -(-sk // chunk) * chunk  # Sk rounded up to whole chunks
-    want = -(-FLASH_BLOCKS // (b * h))  # splits a (batch, head)
-    run = -(-sk // (want * chunk)) * chunk
-    run = min(max(run, FLASH_MIN_RUN), whole)
-    rows = min(chunk, -(-sk // 16) * 16)  # keys staged a chunk
-    stages = FLASH_STAGES
-    return SimpleNamespace(form="few_queries", run=run, splits=-(-sk // run),
-                           row_tiles=1 if sq <= 16 else 2, stages=stages,
-                           shared_bytes=max(stages * rows * (4 * dh + 36),
-                                            256 * (dh + 2)))
+    want = -(-blocks // (b * h))  # splits a (batch, head)
+    run = min(max(-(-sk // (want * chunk)) * chunk, FLASH_MIN_RUN), whole)
+    return SimpleNamespace(form=form, run=run, splits=-(-sk // run),
+                           row_tiles=row_tiles, stages=stages,
+                           shared_bytes=shared)
 
 
 def flash_fwd_scratch(q: torch.Tensor, geometry: SimpleNamespace):
@@ -681,8 +722,10 @@ def fused_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     contiguous; rows 16-byte aligned where Dh is a multiple of 8); `bias`
     is None or a float32 additive row [B or 1, H or 1, 1, Sk], Sk
     contiguous, broadcast over the axes of size 1. Runs the form that
-    `flash_fwd_geometry` names: one `__global__` launch, two for the few-query form at more than one split (the split
-    kernel, then the merge of its f32 partials, allocated here)."""
+    `flash_fwd_geometry` names: one `__global__` launch, two for a
+    few-query form at more than one split (the split kernel, then the merge
+    of its f32 partials, allocated here). Counts the launch in
+    `launch_counts` and, by form, in `flash_form_counts`."""
     name = "fused_attention_fwd"
     if q.device.type != "cuda":
         raise ValueError(f"kernel needs q on a CUDA device, got {q.device}")
@@ -729,6 +772,7 @@ def fused_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             stream)
     _raise_on_error(name, code)
     launch_counts[name] += 1
+    flash_form_counts[geo.form] += 1
 
 
 # ---------------- general divided attention ----------------

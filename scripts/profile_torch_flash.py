@@ -1,7 +1,7 @@
 """Device time of the fused attention kernel (K9) a call, on one CUDA card.
 
     python3 scripts/profile_torch_flash.py [--calls 30] [--runs 1152 3200]
-        [--only t2i]
+        [--only t2i] [--dtypes float32]
 
 `chip_smoke.py` times a wrapper call with CUDA events, and below about 0.2 ms
 that reads the host's time to issue the call, not the kernel's. This script
@@ -14,14 +14,16 @@ merge), each kernel's own time and name, the geometry of
 `flash_fwd_geometry` (form, run, splits) where the tree has one, and the
 device time of one `scaled_dot_product_attention` call on contiguous copies
 of the same inputs (the library call of `chip_smoke.py`) and on the views
-themselves.
+themselves, the plain version's (`attend_plain`) and the call's bound (bytes
+or operations, as `chip_smoke.py` counts them).
 
-`--runs` also times the bf16 few-query shapes at each run of keys given (a
-multiple of 128; Sk rounded up to one is a single split), the geometry's
-other fields as `flash_fwd_geometry` gives them: the sweep the geometry's
-choice of run comes from. It calls the C entry point itself, since the
-wrapper launches only the geometry's own choice. `--only` keeps the cases
-of one label.
+`--runs` also times the few-query shapes at each run of keys given (a
+multiple of the form's chunk, 128 in bf16 and 64 in float32; Sk rounded up
+to one is a single split), the geometry's other fields as
+`flash_fwd_geometry` gives them: the sweep the geometry's choice of run
+comes from. It calls the C entry point itself, since the wrapper launches
+only the geometry's own choice. `--only` keeps the cases of one label,
+`--dtypes` the dtypes named.
 
 The package is imported from the current directory when it holds one, so that
 two trees can be compared inside one call: run the script of this tree from
@@ -42,11 +44,19 @@ from torch.autograd import DeviceType  # noqa: E402
 from torch.nn import functional as F  # noqa: E402
 
 from egovlpv2_torch.ops import _kernels, flash  # noqa: E402
-from egovlpv2_torch.ops.attention import make_additive_mask  # noqa: E402
+from egovlpv2_torch.ops.attention import (attend_plain,  # noqa: E402
+                                          make_additive_mask)
 # after the package: it then uses the tree just imported, not its own
 from profile_torch_pretrain import K9_KERNELS  # noqa: E402
 
+# K9's kernels in this tree and, so that an older tree is measured too, the
+# single float32 kernel it had before the 3xTF32 forms
+KERNELS = (*K9_KERNELS, "fused_attention_fwd_kernel")
 H, DH = 12, 64
+# The card's published peaks (NVIDIA H100 SXM data sheet, dense), as
+# chip_smoke.py has them.
+PEAK_BYTES_S = 3.35e12
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 # (label, B, Sq, Sk, masked)
 CASES = (
     ("i2t", 64, 3137, 15, True), ("i2t", 20, 3137, 15, True),
@@ -56,6 +66,9 @@ CASES = (
     ("t2i", 5, 15, 3137, False),  # EgoMCQ 16f, one question: 3 splits
     ("text self", 64, 15, 15, True), ("text self", 8, 30, 30, True),
     ("above 32", 16, 197, 197, False), ("above 32", 16, 64, 64, True),
+    # the EgoTaskQA step's i2t and its evaluation's t2i and text (f32)
+    ("i2t", 8, 785, 15, True), ("t2i", 8, 15, 785, False),
+    ("text self", 8, 15, 15, True),
 )
 
 
@@ -76,6 +89,16 @@ def _launch(q, k, v, bias, out, geo, scale) -> None:
         torch.cuda.current_stream().cuda_stream)
     if code:
         raise RuntimeError(f"fused_attention_fwd: CUDA error {code}")
+
+
+def _bound_us(dtype, b: int, sq: int, sk: int, masked: bool) -> float:
+    """The least time of a call, as `chip_smoke.flash_bound_ms` counts it:
+    q, k, v and the float32 mask read once, the output written once, or
+    4 Sq Sk Dh operations a (batch, head) at the dtype's peak, the larger."""
+    e = torch.finfo(dtype).bits // 8
+    t_bytes = ((2 * sq + 2 * sk) * b * H * DH * e + masked * b * sk * 4) \
+        / PEAK_BYTES_S
+    return max(t_bytes, 4 * b * H * sq * sk * DH / PEAK_FLOPS[dtype]) * 1e6
 
 
 def _per_call(fn, calls: int) -> dict:
@@ -105,6 +128,8 @@ def main(argv=None) -> None:
     p.add_argument("--calls", type=int, default=30)
     p.add_argument("--runs", type=int, nargs="*", default=[])
     p.add_argument("--only", default=None)
+    p.add_argument("--dtypes", nargs="*", default=["bfloat16", "float32"],
+                   choices=["bfloat16", "float32"])
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch_flash: CUDA is not available")
@@ -122,7 +147,7 @@ def main(argv=None) -> None:
         return torch.randn((b, s, H, DH), generator=gen,
                            device="cuda").to(dtype).transpose(1, 2)
 
-    for dtype in (torch.bfloat16, torch.float32):
+    for dtype in (getattr(torch, d) for d in args.dtypes):
         for label, b, sq, sk, masked in CASES:
             if args.only not in (None, label):
                 continue
@@ -135,7 +160,7 @@ def main(argv=None) -> None:
             events = _per_call(lambda: flash.flash_attention(
                 q, k, v, scale=DH ** -0.5, bias=bias), args.calls)
             events = {key: t for key, t in events.items()
-                      if any(n in key for n in K9_KERNELS)}
+                      if any(n in key for n in KERNELS)}
             qc, kc, vc = q.contiguous(), k.contiguous(), v.contiguous()
             lib_mask = None if bias is None else bias.to(dtype)
             lib = sum(_per_call(lambda: F.scaled_dot_product_attention(
@@ -144,13 +169,17 @@ def main(argv=None) -> None:
             lib_views = sum(_per_call(lambda: F.scaled_dot_product_attention(
                 q, k, v, attn_mask=lib_mask, scale=DH ** -0.5),
                 args.calls).values())
-            what = f" (library {lib:.1f} us, on the views {lib_views:.1f})"
+            plain = sum(_per_call(lambda: attend_plain(
+                q, k, v, scale=DH ** -0.5, bias=bias), args.calls).values())
+            what = (f" (library {lib:.1f} us, on the views {lib_views:.1f}; "
+                    f"plain {plain:.1f} us; bound "
+                    f"{_bound_us(dtype, b, sq, sk, masked):.1f} us)")
             if geometry is not None:
                 geo = geometry(dtype, DH, sq, sk, b, H)
                 what += f" ({geo.form}, run {geo.run}, {geo.splits} splits)"
             print(_line(tree, dtype, label, b, sq, sk, events, what), flush=True)
-            if geometry is None or geometry(dtype, DH, sq, sk, b, H).form \
-                    != "few_queries":
+            if geometry is None or not geometry(
+                    dtype, DH, sq, sk, b, H).form.startswith("few_queries"):
                 continue
             for run in args.runs:
                 geo = geometry(dtype, DH, sq, sk, b, H)

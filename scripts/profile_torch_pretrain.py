@@ -43,10 +43,12 @@ from egovlpv2_torch.core.config import load_train_config  # noqa: E402
 from egovlpv2_torch.tasks.pretrain import (build_pretrain,  # noqa: E402
                                            synthetic_batch)
 
-# K9's kernels: the CUDA-core form, the many-query form (i2t), the
-# few-query form's split kernel and merge (t2i, text self-attention)
-K9_KERNELS = ("fused_attention_fwd_kernel", "fused_fwd_kernel",
-              "fused_split_kernel", "fused_merge_kernel")
+# K9's kernels: the many-query forms (i2t) in bf16 and in 3xTF32 (float32
+# and the other head dims), the few-query forms' split kernels (t2i, text
+# self-attention) and their merge
+K9_KERNELS = ("fused_fwd_kernel", "fused_tf32_fwd_kernel",
+              "fused_split_kernel", "fused_tf32_split_kernel",
+              "fused_merge_kernel")
 KINDS = (  # first match wins
     ("memcpy", ("memcpy",)),
     ("hand kernels, forward (K1/K2/K3)", ("space_fwd_kernel", "time_fwd_kernel",
@@ -88,7 +90,7 @@ def k9_launches(table) -> str:
     launches and device ms. `fused_fwd_kernel` is the many-query form
     (i2t); `fused_split_kernel` the few-query form (text self-attention and
     t2i together), `fused_merge_kernel` its merge where a call splits the
-    keys."""
+    keys; `fused_tf32_*` the same in 3xTF32 (float32)."""
     parts = []
     for e in table:
         found = re.search(r"fused_\w+_kernel(<[^>]*>)?", e.key)

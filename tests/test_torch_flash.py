@@ -205,7 +205,8 @@ def test_flash_attention_rejects_what_it_cannot_take():
                               scale=1.0)
 
 
-# ---- K9's few-query form: its geometry and its split-and-merge arithmetic
+# ---- K9's forms: their geometry, and the few-query forms' split-and-merge
+# arithmetic
 
 LOG2E = 1.4426950408889634
 
@@ -251,18 +252,104 @@ def test_flash_fwd_geometry(sq, sk, b, h, dh):
     assert geo.shared_bytes <= _kernels.SHARED_BYTES_MAX
 
 
+def _tf32_row_bytes(dh):
+    """A key's K, V (pitches dp + 8 and dp + 4 floats) and bias in the
+    3xTF32 forms' shared memory, dp the padded head dim."""
+    dp = _kernels.flash_tf32_dh(dh)
+    return 4 * ((dp + 8) + (dp + 4) + 1)
+
+
 @pytest.mark.parametrize("dtype, dh, sq, form", [
     (torch.bfloat16, 64, 33, "many_queries"),
     (torch.bfloat16, 64, 785, "many_queries"),
-    (torch.bfloat16, 40, 15, "cuda_cores"),
-    (torch.bfloat16, 16, 15, "cuda_cores"),
-    (torch.float32, 64, 15, "cuda_cores"),
-    (torch.float32, 64, 785, "cuda_cores"),
+    (torch.bfloat16, 40, 15, "few_queries_tf32"),
+    (torch.bfloat16, 16, 15, "few_queries_tf32"),
+    (torch.float32, 64, 15, "few_queries_tf32"),    # EgoTaskQA eval's t2i
+    (torch.float32, 64, 785, "many_queries_tf32"),  # EgoTaskQA's i2t
+    (torch.bfloat16, 12, 15, "few_queries_tf32"),
+    (torch.bfloat16, 40, 37, "many_queries_tf32"),
+    (torch.bfloat16, 12, 37, "many_queries_tf32"),
+    (torch.bfloat16, 100, 785, "many_queries_tf32"),
+    (torch.float32, 64, 30, "few_queries_tf32"),
+    (torch.float32, 128, 3137, "many_queries_tf32"),
+    (torch.float32, 7, 40, "many_queries_tf32"),
+    (torch.float32, 12, 37, "many_queries_tf32"),
 ])
 def test_flash_fwd_geometry_other_forms(dtype, dh, sq, form):
-    geo = _kernels.flash_fwd_geometry(dtype, dh, sq, 3137, 20, 12)
-    assert geo.form == form and geo.splits == 1
-    assert geo.run is geo.row_tiles is geo.stages is geo.shared_bytes is None
+    """bf16 above 32 query rows at a tensor-core head dim is the bf16
+    many-query form; float32 at any head dim and bf16 at the others take
+    the 3xTF32 forms, with the head dim padded to 16, 32, 64 or 128 and the
+    shared memory of `flash_fwd_geometry`'s docstring. B=8, H=12; i2t over
+    15 keys above 32 query rows, t2i over 785 keys at or below."""
+    sk, b = (15 if sq > 32 else 785), 8
+    geo = _kernels.flash_fwd_geometry(dtype, dh, sq, sk, b, 12)
+    assert geo.form == form
+    assert "cuda_cores" not in _kernels._FLASH_FORMS
+    if form.startswith("many"):
+        assert geo.splits == 1
+        assert geo.run is geo.row_tiles is geo.stages is None
+        if form == "many_queries":
+            assert geo.shared_bytes is None
+        else:
+            dp = _kernels.flash_tf32_dh(dh)
+            assert geo.shared_bytes == 4 * 64 * (dp + 8) \
+                + _kernels.FLASH_TF32_FWD_CHUNK * _tf32_row_bytes(dh)
+            assert geo.shared_bytes <= _kernels.SHARED_BYTES_MAX
+    else:
+        assert geo.run % _kernels.FLASH_TF32_CHUNK == 0
+        assert geo.splits == -(-sk // geo.run)
+        assert geo.shared_bytes <= _kernels.SHARED_BYTES_MAX
+
+
+@pytest.mark.parametrize("dh, pad", [(1, 16), (12, 16), (16, 16), (17, 32),
+                                     (40, 64), (64, 64), (65, 128),
+                                     (100, 128), (128, 128)])
+def test_flash_tf32_pads_the_head_dim(dh, pad):
+    assert _kernels.flash_tf32_dh(dh) == pad
+
+
+@pytest.mark.parametrize("sq, sk, b, h", [
+    (15, 785, 8, 12),    # t2i, the f32 EgoTaskQA evaluation: B*H = 96
+    (15, 15, 8, 12),     # its text self-attention
+    (15, 785, 16, 12),   # B*H = 192
+    (15, 3137, 20, 12),  # 240
+    (15, 3137, 32, 12),  # 384: FLASH_TF32_BLOCKS, one run
+    (15, 3137, 64, 12),  # 768
+    (30, 30, 8, 12),
+    (32, 6273, 1, 2),
+    (1, 1, 1, 1),
+    (17, 64, 3, 5),
+])
+@pytest.mark.parametrize("dh", [12, 40, 64, 128])
+def test_flash_fwd_geometry_tf32_few_queries(sq, sk, b, h, dh):
+    """The 3xTF32 few-query form's runs of keys cover Sk in multiples of
+    its 32-key chunk, one split wherever B * H reaches FLASH_TF32_BLOCKS or
+    Sk fits one run; otherwise the shortest run that gives at most
+    ceil(FLASH_TF32_BLOCKS / (B * H)) splits, unless FLASH_MIN_RUN stops it;
+    the ring, the Q rows and the warps' partials fit a block."""
+    geo = _kernels.flash_fwd_geometry(torch.float32, dh, sq, sk, b, h)
+    assert geo.form == "few_queries_tf32"
+    chunk = _kernels.FLASH_TF32_CHUNK
+    assert geo.run % chunk == 0 and geo.run >= chunk
+    assert (geo.splits - 1) * geo.run < sk <= geo.splits * geo.run
+    assert geo.run <= -(-sk // chunk) * chunk
+    assert geo.row_tiles == (1 if sq <= 16 else 2)
+    want = -(-_kernels.FLASH_TF32_BLOCKS // (b * h))
+    assert geo.splits <= want
+    if b * h >= _kernels.FLASH_TF32_BLOCKS:
+        assert geo.splits == 1
+    if _kernels.FLASH_MIN_RUN < geo.run < -(-sk // chunk) * chunk:
+        assert -(-sk // (geo.run - chunk)) > want
+    if (sq, sk, b, h) == (15, 785, 8, 12):
+        assert (geo.run, geo.splits) == (256, 4)
+    assert geo.stages == _kernels.FLASH_STAGES
+    kw = chunk * geo.row_tiles // 4  # keys a warp scores a chunk
+    rows = min(chunk, -(-sk // kw) * kw)
+    dp = _kernels.flash_tf32_dh(dh)
+    ring = geo.stages * rows * _tf32_row_bytes(dh) \
+        + 4 * 16 * geo.row_tiles * (dp + 8)
+    assert geo.shared_bytes == max(ring, 4 * (4 * 16 * dp + 2 * 4 * 16))
+    assert geo.shared_bytes <= _kernels.SHARED_BYTES_MAX
 
 
 def test_flash_fwd_geometry_refuses_bad_input():
@@ -298,22 +385,37 @@ def _split_merge(q, k, v, bias, scale, run):
     return num / den, weights
 
 
-@pytest.mark.parametrize("sk, masking", [
+SPLIT_CASES = [
     (785, None),            # t2i at 4 frames, several splits
     ("run", None),          # Sk = run: one split
     ("run+1", None),        # a last split of one key
     (785, "split"),         # one split's keys all masked, in rows with live keys
     (785, "row"),           # every key of batch row 0 masked
-])
+]
+
+
+@pytest.mark.parametrize("sk, masking", SPLIT_CASES)
 def test_split_merge_model_matches_reference_and_jax(sk, masking):
-    """The split-and-merge arithmetic on the geometry's runs, held against
-    `flash_attention_reference` and the JAX package (Sq=15 < 32: the JAX
-    function hands the call to XLA) in f32: a split whose keys are all
-    masked weighs exactly 0, a fully masked row comes out uniform."""
+    """The split-and-merge arithmetic on the bf16 form's runs (128-key
+    chunks), held against `flash_attention_reference` and the JAX package
+    (Sq=15 < 32: the JAX function hands the call to XLA) in f32: a split
+    whose keys are all masked weighs exactly 0, a fully masked row comes
+    out uniform."""
+    _check_split_merge(torch.bfloat16, sk, masking)
+
+
+@pytest.mark.parametrize("sk, masking", SPLIT_CASES)
+def test_split_merge_model_matches_reference_and_jax_tf32(sk, masking):
+    """The same on the runs of the 3xTF32 form's geometry (32-key chunks,
+    the split target FLASH_TF32_BLOCKS)."""
+    _check_split_merge(torch.float32, sk, masking)
+
+
+def _check_split_merge(dtype, sk, masking):
     b, h, sq, dh = 2, 3, 15, 64
-    run = _kernels.flash_fwd_geometry(torch.bfloat16, dh, sq, 785, b, h).run
+    run = _kernels.flash_fwd_geometry(dtype, dh, sq, 785, b, h).run
     sk = {"run": run, "run+1": run + 1}.get(sk, sk)
-    geo = _kernels.flash_fwd_geometry(torch.bfloat16, dh, sq, sk, b, h)
+    geo = _kernels.flash_fwd_geometry(dtype, dh, sq, sk, b, h)
     assert geo.run == run and geo.splits == -(-sk // run) \
         and (geo.splits > 1) == (sk > run)
     q, k, v = _qkv(11, (b, h, sq, dh), sk)
@@ -344,13 +446,22 @@ def test_split_merge_model_matches_reference_and_jax(sk, masking):
 
 
 def test_split_merge_model_matches_jax_pallas_at_32_rows():
-    """At Sq = 32, the most rows of the few-query form (two row tiles), the
+    """At Sq = 32, the most rows of the few-query forms (two row tiles), the
     JAX function reaches its Pallas kernel (interpret mode): Sk = run + 1
-    with a padding mask."""
+    with a padding mask, on the bf16 form's runs."""
+    _check_split_merge_at_32_rows(torch.bfloat16)
+
+
+def test_split_merge_model_matches_jax_pallas_at_32_rows_tf32():
+    """The same on the 3xTF32 form's runs."""
+    _check_split_merge_at_32_rows(torch.float32)
+
+
+def _check_split_merge_at_32_rows(dtype):
     b, h, sq, dh = 1, 2, 32, 32
-    run = _kernels.flash_fwd_geometry(torch.bfloat16, dh, sq, 785, b, h).run
+    run = _kernels.flash_fwd_geometry(dtype, dh, sq, 785, b, h).run
     sk = run + 1
-    geo = _kernels.flash_fwd_geometry(torch.bfloat16, dh, sq, sk, b, h)
+    geo = _kernels.flash_fwd_geometry(dtype, dh, sq, sk, b, h)
     assert (geo.splits, geo.row_tiles) == (2, 2)
     q, k, v = _qkv(13, (b, h, sq, dh), sk)
     mask = _mask(14, b, sk)

@@ -779,12 +779,134 @@ def test_fused_attention_refuses_a_geometry_that_does_not_hold(cuda):
     ref = flash.flash_attention_reference(q.float(), k.float(), v.float(),
                                           scale=0.125)
     assert _flash_rel(out, ref) <= FLASH_TOL[torch.bfloat16]
-    bad = [dict(form="many_queries"), dict(form="cuda_cores"),
+    bad = [dict(form="many_queries"), dict(form="many_queries_tf32"),
+           dict(form="few_queries_tf32"),
            dict(run=100), dict(run=192), dict(splits=geo.splits + 1),
            dict(row_tiles=2), dict(stages=3),
            dict(shared_bytes=geo.shared_bytes - 256)]
     for change in bad:
         assert launch(SimpleNamespace(**{**vars(geo), **change})) == 1, change
+
+
+# The 3xTF32 forms at the shapes the paths give them, and at head dims off
+# the bf16 forms: (B, H, Sq, Sk, Dh, layout, bias, the form the geometry
+# names in f32; in bf16 the odd head dims take the same form).
+TF32_CASES = [
+    (8, 12, 785, 15, 64, "packed", "masked_row", "many_queries_tf32"),
+    (8, 12, 15, 785, 64, "heads", "masked_row", "few_queries_tf32"),
+    (8, 12, 15, 15, 64, "heads", "masked_row", "few_queries_tf32"),
+    (2, 3, 37, 33, 40, "heads", "masked_row", "many_queries_tf32"),
+    (2, 3, 15, 300, 40, "heads", "masked_row", "few_queries_tf32"),
+    (2, 2, 31, 77, 12, "heads", "masked_row", "few_queries_tf32"),
+    (2, 2, 100, 77, 12, "heads", "masked_row", "many_queries_tf32"),
+    (2, 2, 20, 300, 100, "heads", "masked_row", "few_queries_tf32"),
+    (1, 2, 40, 70, 100, "packed", "masked_row", "many_queries_tf32"),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case, dtype", [
+    (case, dtype) for case in TF32_CASES
+    for dtype in (torch.float32, torch.bfloat16)
+    if dtype == torch.float32 or case[4] not in (32, 64, 128)])
+def test_tf32_forms_match_plain(cuda, case, dtype):
+    """Each 3xTF32 form (float32; bf16 at a head dim other than 32, 64 or
+    128) against `flash_attention_reference` on the same values in f32:
+    within 1e-4 (f32) / 4e-3 (bf16) of max |reference|; the fully masked
+    batch row uniform over its keys; two runs the same bits; the form and
+    its kernels as `flash_fwd_geometry` names them."""
+    b, h, sq, sk, dh = case[:5]
+    form = case[7]
+    geo = _kernels.flash_fwd_geometry(dtype, dh, sq, sk, b, h)
+    assert geo.form == form
+    q, k, v, bias = _flash_inputs(case[:7], dtype, cuda)
+    before = dict(_kernels.flash_form_counts)
+    runs = [flash.flash_attention(q, k, v, scale=dh ** -0.5, bias=bias)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    assert _kernels.flash_form_counts[form] == before[form] + 2
+    ref = flash.flash_attention_reference(q.float(), k.float(), v.float(),
+                                          scale=dh ** -0.5, bias=bias)
+    assert torch.isfinite(runs[0]).all()
+    assert _flash_rel(runs[0], ref) <= FLASH_TOL[dtype]
+    uniform = v[0].float().mean(dim=-2, keepdim=True).expand(h, sq, dh)
+    assert _flash_rel(runs[0][0], uniform) <= FLASH_TOL[dtype]
+    assert torch.equal(runs[0], runs[1])
+    names = _profiled_kernels(lambda: flash.flash_attention(
+        q, k, v, scale=dh ** -0.5, bias=bias))
+    kernel = "fused_tf32_fwd_kernel" if form.startswith("many") \
+        else "fused_tf32_split_kernel"
+    assert any(kernel in n for n in names), names
+    assert any("fused_merge_kernel" in n for n in names) == (geo.splits > 1)
+    assert len(names) == 1 + (geo.splits > 1), names
+
+
+def _profiled_kernels(fn, calls=10):
+    """The names of the device kernels that `calls` calls of `fn` ran, after
+    3 warm ones (the tracer can drop a window's first launch, so one call
+    is not enough). A profile that holds no device event is taken again,
+    twice at most."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        names = {e.key for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and e.self_device_time_total}
+        if names:
+            return names
+    raise AssertionError("torch.profiler recorded no device event in three "
+                         "profiles")
+
+
+@pytest.mark.gpu
+def test_fused_attention_refuses_a_tf32_geometry_that_does_not_hold(cuda):
+    """The 3xTF32 forms' geometry as the C entry point checks it: the f32
+    few-query form at the EgoTaskQA t2i (four runs of 256 keys) launches as
+    given and matches the plain version; another form, a run off its 32-key
+    chunk, splits that do not cover Sk, other row tiles, stages or shared
+    memory are refused (CUDA error 1), as is the many-query form with
+    other shared memory."""
+    q, k, v, _ = _flash_inputs((8, 12, 15, 785, 64, "heads", None),
+                               torch.float32, cuda)
+    out = torch.empty_like(q)
+    geo = _kernels.flash_fwd_geometry(torch.float32, 64, 15, 785, 8, 12)
+    assert (geo.form, geo.run, geo.splits) == ("few_queries_tf32", 256, 4)
+    partials = _kernels.flash_fwd_scratch(q, geo)
+
+    def launch(g, q=q, k=k, v=v, out=out):
+        b, h, sq, dh = q.shape
+        strides = [x for t in (q, k, v, out)
+                   for x in _kernels.attention_strides(t)]
+        return _kernels.load().fused_attention_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), None, out.data_ptr(),
+            partials.data_ptr(), 0, b, h, sq, k.shape[2], dh, *strides, 0, 0,
+            0.125, _kernels._FLASH_FORMS[g.form], g.run or 0, g.splits,
+            g.row_tiles or 0, g.stages or 0, g.shared_bytes,
+            torch.cuda.current_stream(cuda).cuda_stream)
+
+    assert launch(geo) == 0
+    torch.cuda.synchronize()
+    ref = flash.flash_attention_reference(q, k, v, scale=0.125)
+    assert _flash_rel(out, ref) <= FLASH_TOL[torch.float32]
+    bad = [dict(form="few_queries"), dict(form="many_queries_tf32"),
+           dict(run=80), dict(splits=geo.splits + 1),
+           dict(row_tiles=2), dict(stages=3),
+           dict(shared_bytes=geo.shared_bytes - 256)]
+    for change in bad:
+        assert launch(SimpleNamespace(**{**vars(geo), **change})) == 1, change
+    qi, ki, vi, _ = _flash_inputs((2, 12, 785, 15, 64, "packed", None),
+                                  torch.float32, cuda)
+    many = _kernels.flash_fwd_geometry(torch.float32, 64, 785, 15, 2, 12)
+    assert launch(many, qi, ki, vi, torch.empty_like(qi)) == 0
+    assert launch(SimpleNamespace(**{**vars(many), "shared_bytes":
+                                     many.shared_bytes + 4}),
+                  qi, ki, vi, torch.empty_like(qi)) == 1
 
 
 @pytest.mark.gpu
