@@ -8,7 +8,7 @@ Run from the root of a checkout on a machine with one card:
 Phases, each printing its own lines; any failure raises and exits non-zero:
   1. device   — CUDA present; the card's name and power limit (nvidia-smi);
                 TF32 off for matmul and cuDNN.
-  2. build    — nvcc builds the five sources of csrc/ into
+  2. build    — nvcc builds the six sources of csrc/ into
                 build/egovlpv2_torch/, one compiler a source, side by side.
   3. kernels  — each kernel against its plain PyTorch version on the card,
                 bf16 and f32, with its time, the plain version's, one
@@ -48,14 +48,19 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
                 kernels are those of the form `time_bwd_geometry` names
                 (the tensor cores in bf16 at these shapes: one
                 `time_bwd_kernel`; f32 the grouped query and key passes).
-                K3's, K5's and K6's times before their redesigns
-                (K3_BEFORE_MS, K5_BEFORE_MS, K6_BEFORE_MS) are printed
-                beside the new ones on the text line only.
+                K2 twice on one input gives the same bits, and its profiled
+                kernel is the one of the form `time_fwd_geometry` names
+                (`time_fwd_tc_kernel`, the tensor cores, or the grouped
+                `time_fwd_kernel`).
+                K2's, K3's, K5's and K6's times before their redesigns
+                (K2_BEFORE_MS, K3_BEFORE_MS, K5_BEFORE_MS, K6_BEFORE_MS) are
+                printed beside the new ones on the text line only.
                 LayerNorm K7 forward and K8 backward at R x D = 12,560 x
                 768 (the pretrain step's), 50,184 x 768 (the fine-tune's),
                 200,768 x 768 (an MQ or NLQ inner batch), 15,696 x 768 (a
-                QFVS one), 240 x 768 (text rows) and 301 x 776, eps 1e-5
-                and 1e-12,
+                QFVS one), 240 x 768 (text rows), 301 x 776, and 120 x 768
+                and 6,280 x 768 (the f32 EgoTaskQA step's text and video
+                rows), eps 1e-5 and 1e-12,
                 against `layernorm_reference` and
                 `layernorm_backward_reference`: y and dx within 2e-2 (bf16:
                 one rounding step where the f32 values differ in their last
@@ -64,6 +69,9 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
                 |reference| (f32 sums over the rows in another order); the
                 times are taken over input sets that together exceed the
                 L2 cache. Library: `F.layer_norm` and its autograd backward.
+                K8 twice on one input gives the same bits, and its profiled
+                kernels are its two launches (the pass over the rows, the
+                sum of the blocks' partials).
                 Fused attention K9, H=12, Dh=64, against
                 `flash_attention_reference` on strided views as the models
                 hand them over (q a transposed view of a [B, S, H*Dh]
@@ -144,7 +152,9 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
                 forward kernels launched;
                 `egovlpv2_torch.cli pretrain --synthetic`: batch 16, 4
                 frames, no remat: every loss part finite at every step,
-                parameters changed, all nine kernels launched every step;
+                parameters changed, all nine kernels launched every step,
+                K8's launches a step printed by row count (so in the
+                fine-tune and EgoTaskQA runs);
                 `egovlpv2_torch.cli ft-charades --synthetic` from
                 configs/ft_charades.json (32 frames, S=6273, small
                 projection at 256, 30 text tokens), batch 8: 5 steps
@@ -219,13 +229,16 @@ from egovlpv2_torch.train import step as train_step_module
 from egovlpv2_torch.weights import random_init_, training_init_
 
 FWD_SOURCE = "egovlpv2_torch/csrc/divided_attention.cu"
+TIME_FWD_SOURCE = "egovlpv2_torch/csrc/time_attention.cu"  # K2's tensor cores
 BWD_SOURCE = "egovlpv2_torch/csrc/divided_attention_bwd.cu"
 LN_SOURCE = "egovlpv2_torch/csrc/layernorm.cu"
 FLASH_SOURCE = "egovlpv2_torch/csrc/fused_attention.cu"
 GENERAL_SOURCE = "egovlpv2_torch/csrc/divided_attention_general.cu"
 KERNELS = {  # name -> (source, the TPU kernel body it replaces)
     "space_attention_fwd": (FWD_SOURCE, "egovlpv2_tpu/ops/divided.py:774"),
-    "time_attention_fwd": (FWD_SOURCE, "egovlpv2_tpu/ops/divided.py:811"),
+    # K2's tensor-core form, which every bf16 path runs (its grouped form,
+    # for f32, is in FWD_SOURCE)
+    "time_attention_fwd": (TIME_FWD_SOURCE, "egovlpv2_tpu/ops/divided.py:811"),
     "cls_row_attention_fwd": (FWD_SOURCE, "egovlpv2_tpu/ops/divided.py:359"),
     "space_attention_bwd": (BWD_SOURCE, "egovlpv2_tpu/ops/divided.py:623"),
     "time_attention_bwd": (BWD_SOURCE, "egovlpv2_tpu/ops/divided.py:957"),
@@ -239,11 +252,13 @@ KERNELS = {  # name -> (source, the TPU kernel body it replaces)
                                       "egovlpv2_tpu/ops/divided.py:565"),
 }
 # K10/K11 replace row 1d too: the dense masked branch of the packed kernels;
-# K5 the patch-major window branch of the packed backward at F > 8.
+# K5 the patch-major window branch of the packed backward at F > 8, K2 that
+# of the packed forward.
 ALSO_REPLACES = {
     "divided_attention_general_fwd": ["egovlpv2_tpu/ops/divided.py:855"],
     "divided_attention_general_bwd": ["egovlpv2_tpu/ops/divided.py:915"],
     "time_attention_bwd": ["egovlpv2_tpu/ops/divided.py:874"],
+    "time_attention_fwd": ["egovlpv2_tpu/ops/divided.py:789"],
 }
 GROUPED_KERNELS = tuple(KERNELS)[:6]  # K1-K6: bf16, contiguous, Dh % 8 == 0
 GENERAL_KERNELS = ("divided_attention_general_fwd",
@@ -262,7 +277,9 @@ BWD_CASES = ((16, 4), (16, 16), (8, 32), (8, 4))
 MAIN_CASE = (torch.bfloat16, 16, 4)  # the pretrain step's: the JSON line's times
 # LayerNorm: (rows, D); y and dx, then dscale and dbias, of max |reference|
 LN_CASES = ((16 * 785, 768), (8 * 6273, 768), (64 * 3137, 768),
-            (16 * 981, 768), (240, 768), (301, 776))
+            (16 * 981, 768), (240, 768), (301, 776),
+            # the f32 EgoTaskQA step's text and video rows
+            (120, 768), (8 * 785, 768))
 LN_MAIN_CASE = (torch.bfloat16, 16 * 785, 768)
 LN_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-5}
 LN_SUM_TOL = 1e-3
@@ -383,14 +400,26 @@ K5_BEFORE_MS = {
     (torch.float32, 8, 4): 0.1264, (torch.float32, 8, 32): 3.8167,
     (torch.float32, 16, 4): 0.2400, (torch.float32, 16, 16): 2.0750,
 }
+# K2's the same way before its tensor-core form (the grouped CUDA-core form
+# at every shape): PERF.md section 6's table (H100 80GB HBM3, 700 W), bf16.
+K2_BEFORE_MS = {
+    (torch.bfloat16, 16, 4): 0.0623, (torch.bfloat16, 16, 5): 0.0854,
+    (torch.bfloat16, 20, 16): 0.8013, (torch.bfloat16, 64, 16): 2.5361,
+    (torch.bfloat16, 8, 32): 1.2022,
+}
 # name -> (what changed, its time before, by (dtype, B, frames))
 BEFORE_MS = {"cls_row_attention_fwd": ("the key runs", K3_BEFORE_MS),
              "cls_row_attention_bwd": ("the key runs", K6_BEFORE_MS),
-             "time_attention_bwd": ("the tensor cores", K5_BEFORE_MS)}
+             "time_attention_bwd": ("the tensor cores", K5_BEFORE_MS),
+             "time_attention_fwd": ("the tensor cores", K2_BEFORE_MS)}
 # K5's kernels by form, as the profiler names them
 TIME_BWD_KERNELS = {"tensor_cores": ("time_bwd_kernel",),
                     "grouped": ("grouped_bwd_query_kernel",
                                 "grouped_bwd_key_kernel")}
+# K2's the same way, and K8's two launches
+TIME_FWD_KERNELS = {"tensor_cores": ("time_fwd_tc_kernel",),
+                    "grouped": ("time_fwd_kernel",)}
+LN_BWD_KERNELS = ("layernorm_bwd_kernel", "layernorm_bwd_sum_kernel")
 # of max |reference|, each against the plain version on the same values in
 # f32 (the kernels keep P, dP and dS in f32 and round only the stores)
 GENERAL_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
@@ -722,8 +751,12 @@ def phase_kernels() -> dict:
                     check = "abs"
                     if name == "cls_row_attention_fwd":
                         check += _check_cls_row_fwd(qkv, flat, out, lse0)
-                    record(name, dtype, b, frames, err, check, _time_ms(kernel),
-                           _time_ms(plain), _time_ms(library[name]))
+                    events = _device_events(kernel)
+                    if name == "time_attention_fwd":
+                        check += _check_time_fwd(flat, out, kw, events)
+                    record(name, dtype, b, frames, err, check,
+                           sum(events.values()), _time_ms(plain),
+                           _time_ms(library[name]))
 
             if (b, frames) in BWD_CASES:
                 dqkv = torch.empty_like(flat)
@@ -819,12 +852,40 @@ def _check_time_bwd(flat, gflat, dqkv, parts, kw, events) -> str:
                              f"one input differ")
     form = _kernels.time_bwd_geometry(flat.dtype, DH, s,
                                       kw["num_frames"]).form
-    ran = {k for k in TIME_BWD_KERNELS[form] if any(k in e for e in events)}
-    if ran != set(TIME_BWD_KERNELS[form]) or len(events) != len(ran):
-        raise AssertionError(f"time_attention_bwd B={b} S={s}: the {form} "
-                             f"form should run {TIME_BWD_KERNELS[form]}, the "
-                             f"profiler saw {sorted(events)}")
+    _check_kernels("time_attention_bwd", b, s, form, TIME_BWD_KERNELS[form],
+                   events)
     return f"; {form} form, bitwise equal twice"
+
+
+def _check_time_fwd(flat, out, kw, events) -> str:
+    """K2 (from the call just made into `out`) a second time on the same
+    input: the same bits; and `events`, the profiled kernels of a call, are
+    those of the form `time_fwd_geometry` names. Returns the check's
+    text."""
+    b, s = flat.shape[:2]
+    again = torch.full_like(out, float("nan"))
+    _kernels.time_attention_fwd(flat, again, **kw)
+    torch.cuda.synchronize()
+    if not _same_bits(out[:, 1:], again[:, 1:]):
+        raise AssertionError(f"time_attention_fwd B={b} S={s}: two runs on "
+                             f"one input differ")
+    geo = _kernels.time_fwd_geometry(flat.dtype, DH, s, kw["num_frames"])
+    _check_kernels("time_attention_fwd", b, s, geo.form,
+                   TIME_FWD_KERNELS[geo.form], events)
+    if geo.form == "grouped":
+        return "; grouped form, bitwise equal twice"
+    return f"; tensor-core form ({geo.cols} cols a warp), bitwise equal twice"
+
+
+def _check_kernels(name: str, b: int, s: int, form: str, kernels: tuple,
+                   events: dict) -> None:
+    """`events`, the profiled kernels of a call, are `kernels`, those of
+    `form`, and no other. (b, s) name the shape: B and S, or R and D."""
+    ran = {k for k in kernels if any(k in e for e in events)}
+    if ran != set(kernels) or len(events) != len(ran):
+        raise AssertionError(f"{name} at {b}, {s}: the {form} form should "
+                             f"run {kernels}, the profiler saw "
+                             f"{sorted(events)}")
 
 
 def _check_cls_row_fwd(qkv, flat, out, lse0) -> str:
@@ -956,10 +1017,14 @@ def phase_layernorm(results: dict) -> None:
                 "layernorm_bwd": (kernel_bwd, plain_bwd, library_bwd),
             }
             for i, (name, (kernel, plain, library)) in enumerate(runs.items()):
-                ms, plain_ms, lib_ms = _time_ms(kernel), _time_ms(plain), _time_ms(library)
+                events = _device_events(kernel)
+                ms, plain_ms, lib_ms = sum(events.values()), _time_ms(plain), _time_ms(library)
                 least, by = ln_bound_ms(name, dtype, rows, d)
                 tag = f"{str(dtype).split('.')[-1]} R={rows} D={d}"
                 check = "; ".join(f"eps {k:g}: {v[i]}" for k, v in checks.items())
+                if name == "layernorm_bwd":
+                    check += _check_layernorm_bwd(x, scale, g, partials, eps,
+                                                  events)
                 print(f"[3 kernels] {name:22s} {tag:24s} err={errs[name]:.3e} "
                       f"({check}; tol {LN_TOL[dtype]:.0e}, sums {LN_SUM_TOL:.0e})  "
                       f"kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  library "
@@ -972,6 +1037,29 @@ def phase_layernorm(results: dict) -> None:
                              bound_ms=least, bound_by=by, shape=tag)
             del sets, graphs
             torch.cuda.empty_cache()
+
+
+def _check_layernorm_bwd(x, scale, g, partials, eps, events) -> str:
+    """K8 twice on one input: the same bits in dx, dscale and dbias (the
+    blocks' sums are added in a fixed order, no atomics); and `events`, the
+    profiled kernels of a call, are its two launches. Returns the check's
+    text."""
+    rows, d = x.shape
+    runs = []
+    for _ in range(2):
+        out = (torch.full_like(x, float("nan")),
+               torch.full_like(scale, float("nan")),
+               torch.full_like(scale, float("nan")))
+        _kernels.layernorm_bwd(x, scale, g, *out, partials, eps=eps)
+        runs.append(out)
+    torch.cuda.synchronize()
+    if not all(_same_bits(a, b) for a, b in zip(*runs)):
+        raise AssertionError(f"layernorm_bwd R={rows} D={d}: two runs on one "
+                             f"input differ")
+    geo = _kernels.layernorm_bwd_geometry(x.dtype, rows, d)
+    _check_kernels("layernorm_bwd", rows, d, "two-launch", LN_BWD_KERNELS,
+                   events)
+    return f"; {geo.parts} blocks, bitwise equal twice"
 
 
 def _flash_inputs(gen, dtype, b, h, sq, sk, dh, layout, masked):
@@ -1493,6 +1581,13 @@ def phase_egomcq() -> dict:
     return by_path
 
 
+def _ln_rows_a_step(steps: int) -> dict:
+    """K8's launches a step since the last reset, by the rows of x (a
+    training path runs the LayerNorm backward in its steps alone)."""
+    return {rows: n / steps for rows, n in
+            sorted(_kernels.layernorm_bwd_rows.items())}
+
+
 def phase_pretrain() -> dict:
     args = ["pretrain", "--synthetic", "--device", "cuda", "--steps_per_epoch",
             str(PRETRAIN_STEPS), "--set", *PRETRAIN_SETS]
@@ -1524,9 +1619,10 @@ def phase_pretrain() -> dict:
           f"{rows[-1]} | step ms {[round(x, 1) for x in steps_ms]}, median of "
           f"the last {PRETRAIN_STEPS - 2} {warm:.1f} ms = "
           f"{res['clips_per_step'] / warm * 1e3:.2f} clips/s | launches a "
-          f"step {per_step} | LayerNorm inputs copied to make them contiguous "
-          f"{ln.contiguous_copies}, K9 inputs {flash.contiguous_copies} | "
-          f"parameters changed {moved}/{n_params} | "
+          f"step {per_step} | K8 launches a step by rows "
+          f"{_ln_rows_a_step(PRETRAIN_STEPS)} | LayerNorm inputs copied to "
+          f"make them contiguous {ln.contiguous_copies}, K9 inputs "
+          f"{flash.contiguous_copies} | parameters changed {moved}/{n_params} | "
           f"peak memory {peak / 2**30:.2f} GiB", flush=True)
     _no_flash_copies("pretrain")
     if moved < n_params // 2:
@@ -1575,7 +1671,8 @@ def phase_finetune() -> dict:
               f"ms {[round(x, 1) for x in steps_ms]}, "
               f"{'median of the last ' + str(steps - 2) if steps > 2 else 'the last'}"
               f" {warm:.1f} ms = {res['clips_per_step'] / warm * 1e3:.2f} "
-              f"clips/s | launches a step {per_step} | LayerNorm inputs copied "
+              f"clips/s | launches a step {per_step} | K8 launches a step by "
+              f"rows {_ln_rows_a_step(steps)} | LayerNorm inputs copied "
               f"to make them contiguous {ln.contiguous_copies} | parameters "
               f"changed {moved}/{n_params} | peak memory {peak / 2**30:.2f} GiB",
               flush=True)
@@ -1758,7 +1855,8 @@ def phase_taskqa() -> dict:
           f" | launches in all (steps and evaluation) "
           f"{ {k: n for k, n in counts.items() if n} } | K9 by form a step "
           f"{ {k: n for k, n in step_forms[-1].items() if n} }, in the "
-          f"evaluation { {k: n for k, n in eval_forms.items() if n} } | "
+          f"evaluation { {k: n for k, n in eval_forms.items() if n} } | K8 "
+          f"launches a step by rows {_ln_rows_a_step(TASKQA_STEPS)} | "
           f"evaluation {metrics} | peak memory {peak / 2**30:.2f} GiB",
           flush=True)
     if len(rows) != TASKQA_STEPS \

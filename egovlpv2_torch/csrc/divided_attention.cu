@@ -19,7 +19,9 @@
 // cls_row_attention_fwd writes row 0.
 //
 // Work split. K1 in bf16 with Dh a multiple of 16 (the slice) runs on the
-// tensor cores (mma::space_fwd_kernel, described there). Everything else
+// tensor cores (mma::space_fwd_kernel, described there), and so does K2 in
+// bf16 with Dh a multiple of 16 up to 64 and F <= 63 (time_fwd_tc_kernel,
+// in time_attention.cu), where `time_fwd_geometry` names it. Everything else
 // runs on the CUDA cores: a group of G threads owns one query row of one
 // head; each thread holds 8 consecutive elements of the head dim (16 B of
 // bf16), so G = Dh/8 rounded up to a power of two (G <= 16 for Dh <= 128;
@@ -332,8 +334,10 @@ __global__ void __launch_bounds__(kWarps * 32)
 // Bound: memory. Each row has only F+1 logits (17 at F=16), so the kernel
 // is a gather of F+1 keys and values per row at stride N rows; compute is
 // negligible.
-// Design: no permute. Row groups enumerate rows column-major (group
-// g -> patch n = g / F, frame f = g % F), so the F queries of one patch
+// This is K2's grouped form, which `time_fwd_geometry` names for f32, for
+// the head dims the tensor-core form (time_attention.cu) does not take and
+// for F > 63. Design: no permute. Row groups enumerate rows column-major
+// (group g -> patch n = g / F, frame f = g % F), so the F queries of one patch
 // column sit side by side in a block and share each key load, read at
 // stride N straight from the qkv output. Any F works (online softmax).
 template <typename T, int G>
@@ -654,8 +658,16 @@ int space_attention_fwd(const void* qkv, void* out, int dtype, int B, int S,
   return dispatch<Space>(qkv, out, dtype, B, S, H, Dh, F, scale, stream);
 }
 
+// K2's grouped form on `time_fwd_geometry`: `rows` patch rows a block
+// (kThreads / G) and `parts` blocks a (b, h) covering the S - 1 patch rows;
+// any other geometry is refused. The tensor-core form is
+// time_attention_fwd_tc, in time_attention.cu.
 int time_attention_fwd(const void* qkv, void* out, int dtype, int B, int S,
-                       int H, int Dh, int F, float scale, void* stream) {
+                       int H, int Dh, int F, float scale, int rows, int parts,
+                       void* stream) {
+  if (rows != kThreads / group_size(Dh) || parts != (S - 1 + rows - 1) / rows) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   return dispatch<Time>(qkv, out, dtype, B, S, H, Dh, F, scale, stream);
 }
 

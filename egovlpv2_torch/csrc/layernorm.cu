@@ -28,7 +28,18 @@
 // the strip, the row groups of a block add theirs through shared memory in
 // a fixed order, and the block writes one float32 partial [2, D].
 // layernorm_bwd_sum_kernel then adds the partials in a fixed order. There
-// are no atomics: the same inputs give the same bits from run to run.
+// are no atomics: the same inputs give the same bits from run to run. The
+// split, the blocks and their strips, is `layernorm_bwd_geometry`'s
+// (ops/_kernels.py), which the entry point launches as given.
+//
+// Few rows. At a few hundred rows (R = 240, D = 768: 1.1 MB) both launches
+// are latency. One launch in place of the two lost on an H100 at every row
+// count tried, from 8 to 6,280 (PERF.md, section 6): one thread-block cluster
+// of 8 blocks cannot spread 240 rows of arithmetic, and clusters whose last
+// block adds their partials (an atomic ticket after __threadfence()) pay
+// more for the fence, the ticket and the re-read than the second launch
+// costs. Nor did blocks of 256 threads (fewer partials) or a prefetch of
+// scale into L1 beat the split below.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -36,13 +47,12 @@
 
 namespace {
 
+// kBlock and kHeld must match `_LN_BLOCK` and `_LN_HELD` of ops/_kernels.py,
+// from which `layernorm_bwd_geometry` cuts the backward's strips.
 constexpr int kBlock = 128;     // threads a block while a row takes <= 128
 constexpr int kMaxGroup = 256;  // most threads one row is spread over
 constexpr int kHeld = 32;       // elements of a row one thread holds
 constexpr int kMaxD = kMaxGroup * kHeld;
-// Most blocks (and so partials) of the backward: 4 for each of the H100's
-// 132 SMs, enough loads in flight to cover the memory's latency.
-constexpr int kMaxParts = 4 * 132;
 constexpr int kSumCols = 32;    // layernorm_bwd_sum_kernel: columns a block
 constexpr int kSumSlices = 8;   // and the slices it cuts the partials into
 
@@ -372,19 +382,6 @@ inline bool shape_ok(int rows, int d, int dtype) {
          (dtype == 0 || dtype == 1);
 }
 
-// The backward's work split: rows a block takes (`strip`, a multiple of
-// the rows it takes at once) and the number of blocks, every one of which
-// has at least one row.
-inline void bwd_split(int rows, int d, int& strip, int& parts) {
-  const int tpr = group_threads(d);
-  const int at_once = (tpr > kBlock ? tpr : kBlock) / tpr;
-  const int64_t turns = ((int64_t)rows + at_once - 1) / at_once;
-  const int64_t blocks = turns < kMaxParts ? turns : kMaxParts;
-  const int64_t per = (turns + blocks - 1) / blocks;
-  strip = (int)(per * at_once);
-  parts = (int)((turns + per - 1) / per);
-}
-
 template <typename T, int TPR>
 void launch_fwd(const void* x, const float* scale, const float* bias, void* y,
                 int rows, int d, float eps, cudaStream_t stream) {
@@ -394,16 +391,26 @@ void launch_fwd(const void* x, const float* scale, const float* bias, void* y,
       static_cast<const T*>(x), scale, bias, static_cast<T*>(y), rows, d, eps);
 }
 
+// K8's pass over the rows on the geometry of `layernorm_bwd_geometry`,
+// which alone decides the split (and how many blocks at most): `parts`
+// strips of `strip` rows, a whole number of the rows a block takes at once,
+// that cover the rows with a row for each. A geometry that does not hold is
+// refused.
 template <typename T, int TPR>
-void launch_bwd(const void* x, const float* scale, const void* g, void* dx,
-                float* partials, int rows, int d, int strip, int parts,
-                float eps, cudaStream_t stream) {
+int launch_bwd(const void* x, const float* scale, const void* g, void* dx,
+               float* partials, int rows, int d, int strip, int parts,
+               float eps, cudaStream_t stream) {
   constexpr int kRows = Shape<TPR>::kRows;
+  if (parts < 1 || strip < kRows || strip % kRows ||
+      (int64_t)(parts - 1) * strip >= rows || (int64_t)parts * strip < rows) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const size_t smem = kRows > 1 ? sizeof(float) * kRows * 2 * d : 0;
   layernorm_bwd_kernel<T, TPR>
       <<<parts, Shape<TPR>::kThreads, smem, stream>>>(
           static_cast<const T*>(x), scale, static_cast<const T*>(g),
           static_cast<T*>(dx), partials, rows, d, strip, eps);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
@@ -422,27 +429,14 @@ int run_fwd(const void* x, const float* scale, const float* bias, void* y,
 template <typename T>
 int run_bwd(const void* x, const float* scale, const void* g, void* dx,
             float* partials, int rows, int d, int strip, int parts, float eps,
-            cudaStream_t stream) {
+            cudaStream_t s) {
   switch (group_threads(d)) {
-    case 32:
-      launch_bwd<T, 32>(x, scale, g, dx, partials, rows, d, strip, parts, eps,
-                        stream);
-      break;
-    case 64:
-      launch_bwd<T, 64>(x, scale, g, dx, partials, rows, d, strip, parts, eps,
-                        stream);
-      break;
-    case 128:
-      launch_bwd<T, 128>(x, scale, g, dx, partials, rows, d, strip, parts, eps,
-                         stream);
-      break;
-    case 256:
-      launch_bwd<T, 256>(x, scale, g, dx, partials, rows, d, strip, parts, eps,
-                         stream);
-      break;
+    case 32: return launch_bwd<T, 32>(x, scale, g, dx, partials, rows, d, strip, parts, eps, s);
+    case 64: return launch_bwd<T, 64>(x, scale, g, dx, partials, rows, d, strip, parts, eps, s);
+    case 128: return launch_bwd<T, 128>(x, scale, g, dx, partials, rows, d, strip, parts, eps, s);
+    case 256: return launch_bwd<T, 256>(x, scale, g, dx, partials, rows, d, strip, parts, eps, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -463,23 +457,13 @@ int layernorm_fwd(const void* x, const float* scale, const float* bias,
              : run_fwd<float>(x, scale, bias, y, rows, d, eps, s);
 }
 
-// Partials the backward writes for this shape: `partials` must be a
-// float32 [layernorm_bwd_parts(rows, d), 2, d]. 0 for a shape it does not
-// take.
-int layernorm_bwd_parts(int rows, int d) {
-  if (!shape_ok(rows, d, 0)) return 0;
-  int strip, parts;
-  bwd_split(rows, d, strip, parts);
-  return parts;
-}
-
+// `strip` and `parts` come from `layernorm_bwd_geometry`; `partials` is
+// its f32 scratch [parts, 2, d].
 int layernorm_bwd(const void* x, const float* scale, const void* g, void* dx,
                   float* dscale, float* dbias, float* partials, int rows, int d,
-                  float eps, int dtype, void* stream) {
+                  float eps, int dtype, int strip, int parts, void* stream) {
   if (!shape_ok(rows, d, dtype)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  int strip, parts;
-  bwd_split(rows, d, strip, parts);
   const int code =
       dtype == 1 ? run_bwd<__nv_bfloat16>(x, scale, g, dx, partials, rows, d,
                                           strip, parts, eps, s)

@@ -35,7 +35,8 @@ _SOURCES = {
     "divided_attention_bwd.cu": (
         "space_attention_bwd", "time_attention_bwd", "cls_row_attention_bwd",
         "attention_bwd_parts"),
-    "layernorm.cu": ("layernorm_fwd", "layernorm_bwd", "layernorm_bwd_parts"),
+    "time_attention.cu": ("time_attention_fwd_tc",),
+    "layernorm.cu": ("layernorm_fwd", "layernorm_bwd"),
     "fused_attention.cu": ("fused_attention_fwd",),
     "divided_attention_general.cu": (
         "general_attention_fwd", "general_attention_bwd"),
@@ -61,10 +62,15 @@ flash_form_counts = {"many_queries": 0, "few_queries": 0,
                      "many_queries_tf32": 0, "few_queries_tf32": 0}
 
 
+# K8's launches since the last reset by the rows of x.
+layernorm_bwd_rows: dict = {}
+
+
 def reset_launch_counts() -> None:
     for counts in (launch_counts, flash_form_counts):
         for name in counts:
             counts[name] = 0
+    layernorm_bwd_rows.clear()
 
 
 def _nvcc() -> str:
@@ -129,9 +135,14 @@ def load() -> SimpleNamespace:
             setattr(fns, name, getattr(cdll, name))
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     i64 = ctypes.c_int64
-    for fn in (fns.space_attention_fwd, fns.time_attention_fwd):
-        fn.argtypes = [ptr, ptr, i32, i32, i32, i32, i32, i32, f32, ptr]
-        fn.restype = i32
+    fns.space_attention_fwd.argtypes = [ptr, ptr] + [i32] * 6 + [f32, ptr]
+    fns.space_attention_fwd.restype = i32
+    fns.time_attention_fwd.argtypes = [ptr, ptr] + [i32] * 6 + [f32] \
+        + [i32] * 2 + [ptr]
+    fns.time_attention_fwd.restype = i32
+    fns.time_attention_fwd_tc.argtypes = [ptr, ptr] + [i32] * 6 + [f32] \
+        + [i32] * 3 + [ptr]
+    fns.time_attention_fwd_tc.restype = i32
     fns.cls_row_attention_fwd.argtypes = [ptr] * 4 + [i32] * 7 + [f32, ptr]
     fns.cls_row_attention_fwd.restype = i32
     fns.space_attention_bwd.argtypes = [ptr] * 5 + [i32] * 6 + [f32, ptr]
@@ -146,11 +157,9 @@ def load() -> SimpleNamespace:
     fns.attention_bwd_parts.restype = i32
     fns.layernorm_fwd.argtypes = [ptr, ptr, ptr, ptr, i32, i32, f32, i32, ptr]
     fns.layernorm_fwd.restype = i32
-    fns.layernorm_bwd.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32,
-                                  f32, i32, ptr]
+    fns.layernorm_bwd.argtypes = [ptr] * 7 + [i32, i32, f32] + [i32] * 3 \
+        + [ptr]
     fns.layernorm_bwd.restype = i32
-    fns.layernorm_bwd_parts.argtypes = [i32, i32]
-    fns.layernorm_bwd_parts.restype = i32
     fns.fused_attention_fwd.argtypes = [ptr] * 6 + [i32] * 6 + [i64] * 14 \
         + [f32] + [i32] * 6 + [ptr]
     fns.fused_attention_fwd.restype = i32
@@ -198,31 +207,94 @@ def _raise_on_error(name: str, code: int) -> None:
         raise RuntimeError(f"{name} failed to launch: CUDA error {code} ({msg})")
 
 
-def _launch_grouped(name: str, qkv, out, *, num_heads, num_frames, scale):
-    b, s, dh = _check(qkv, out, num_heads, num_frames)
-    fn = getattr(load(), name)
-    with torch.cuda.device(qkv.device):
-        stream = torch.cuda.current_stream(qkv.device).cuda_stream
-        code = fn(qkv.data_ptr(), out.data_ptr(), _DTYPE_CODES[qkv.dtype],
-                  b, s, num_heads, dh, num_frames, float(scale), stream)
-    _raise_on_error(name, code)
-    launch_counts[name] += 1
-
-
 def space_attention_fwd(qkv: torch.Tensor, out: torch.Tensor, *,
                         num_heads: int, num_frames: int, scale: float) -> None:
     """K1: rows 1..S-1 of divided SPACE attention, written into `out`.
 
     qkv [B, S, 3*H*Dh] (the qkv Linear output), out [B, S, H*Dh]."""
-    _launch_grouped("space_attention_fwd", qkv, out, num_heads=num_heads,
-                    num_frames=num_frames, scale=scale)
+    name = "space_attention_fwd"
+    b, s, dh = _check(qkv, out, num_heads, num_frames)
+    with torch.cuda.device(qkv.device):
+        stream = torch.cuda.current_stream(qkv.device).cuda_stream
+        code = load().space_attention_fwd(
+            qkv.data_ptr(), out.data_ptr(), _DTYPE_CODES[qkv.dtype], b, s,
+            num_heads, dh, num_frames, float(scale), stream)
+    _raise_on_error(name, code)
+    launch_counts[name] += 1
+
+
+# K2's tensor-core form (`csrc/time_attention.cu`): a block is one warp that
+# takes ceil(TIME_FWD_ROWS / F) patch columns of one (b, h) one after
+# another in one buffer; on an H100 the fastest of the geometries PERF.md
+# records at F = 4, 5, 16 and 32, and faster than the grouped form at each.
+TIME_FWD_ROWS = 16  # a block's columns hold at least this many query rows
+TIME_FWD_MAX_F = 63  # F + 1 keys in at most four 16-row tiles
+_TIME_FWD_PAD = 8  # bf16 of padding a staged row
+
+
+def time_fwd_geometry(dtype: torch.dtype, dh: int, s: int,
+                      num_frames: int) -> SimpleNamespace:
+    """K2's launch geometry for qkv of `dtype` at head dim `dh` and
+    S = 1 + num_frames * N:
+      * `form`: "tensor_cores" for bf16 with `dh` a multiple of 16 up to 64
+        and F <= TIME_FWD_MAX_F, else "grouped" (the CUDA-core form,
+        kThreads / G patch rows a block);
+      * `rows`: patch rows a block in column-major order (row f * N + n of
+        the patch rows is entry n * F + f): whole columns, `cols` of them,
+        in the tensor-core form;
+      * `parts`: blocks a (batch, head), ceil((S - 1) / rows);
+      * `cols` (tensor-core form, else None): patch columns a block of one
+        warp, ceil(TIME_FWD_ROWS / F), so that the rows it stages once, the
+        CLS key and the zeros past F, are shared by at least 16 query rows;
+      * `key_tiles`, `query_tiles`: the 16-row MMA tiles of a column's
+        F + 1 keys and F queries (tensor-core form);
+      * `shared_bytes`: a tensor-core block's dynamic shared memory, one
+        buffer of K and V (16 * key_tiles rows) and Q (16 * query_tiles
+        rows) at a pitch of dh + 8 bf16; None in the grouped form, which
+        has none.
+    Pure, and the one place this geometry is decided: the CPU tests check
+    it, and each C entry point launches with it as given, refusing any
+    other (CUDA error 1, invalid argument)."""
+    if dtype not in _DTYPE_CODES:
+        raise TypeError(f"kernel takes float32 or bfloat16, got {dtype}")
+    if dh < 8 or dh % 8 or dh > 128:
+        raise ValueError(f"head dim {dh} must be a multiple of 8 and <= 128")
+    if num_frames < 1 or s < 2 or (s - 1) % num_frames:
+        raise ValueError(f"S={s} is not 1 + {num_frames} frames * N patches")
+    f, n = num_frames, (s - 1) // num_frames
+    if not (dtype == torch.bfloat16 and dh % 16 == 0 and dh <= 64
+            and f <= TIME_FWD_MAX_F):
+        rows = 256 // cls_row_geometry(dtype, dh, s).group  # kThreads / G
+        return SimpleNamespace(form="grouped", rows=rows,
+                               parts=-(-(s - 1) // rows), cols=None,
+                               key_tiles=None, query_tiles=None,
+                               shared_bytes=None)
+    kt, qt = (f + 16) // 16, (f + 15) // 16
+    cols = -(-TIME_FWD_ROWS // f)
+    return SimpleNamespace(form="tensor_cores", rows=cols * f,
+                           parts=-(-n // cols), cols=cols, key_tiles=kt,
+                           query_tiles=qt, shared_bytes=2 * (
+                               2 * 16 * kt + 16 * qt) * (dh + _TIME_FWD_PAD))
 
 
 def time_attention_fwd(qkv: torch.Tensor, out: torch.Tensor, *,
                        num_heads: int, num_frames: int, scale: float) -> None:
-    """K2: rows 1..S-1 of divided TIME attention, written into `out`."""
-    _launch_grouped("time_attention_fwd", qkv, out, num_heads=num_heads,
-                    num_frames=num_frames, scale=scale)
+    """K2: rows 1..S-1 of divided TIME attention, written into `out`, in the
+    form `time_fwd_geometry` names: one `__global__` launch either way."""
+    name = "time_attention_fwd"
+    b, s, dh = _check(qkv, out, num_heads, num_frames)
+    geo = time_fwd_geometry(qkv.dtype, dh, s, num_frames)
+    if geo.form == "tensor_cores":
+        fn, extra = load().time_attention_fwd_tc, (
+            geo.cols, geo.parts, geo.shared_bytes)
+    else:
+        fn, extra = load().time_attention_fwd, (geo.rows, geo.parts)
+    with torch.cuda.device(qkv.device):
+        stream = torch.cuda.current_stream(qkv.device).cuda_stream
+        code = fn(qkv.data_ptr(), out.data_ptr(), _DTYPE_CODES[qkv.dtype], b, s,
+                  num_heads, dh, num_frames, float(scale), *extra, stream)
+    _raise_on_error(name, code)
+    launch_counts[name] += 1
 
 
 # K3/K6's first launch: threads a block, 8 head-dim elements a lane.
@@ -530,12 +602,54 @@ def layernorm_fwd(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     launch_counts[name] += 1
 
 
+# K8's most blocks (and so partials): 4 for each of the H100's 132 SMs,
+# enough loads in flight to cover the memory's latency. Decided here alone.
+LN_BWD_MAX_PARTS = 4 * 132
+# Must match kHeld and kBlock of `csrc/layernorm.cu`, whose entry point
+# checks the strips against them: elements of a row one thread holds, at
+# most, and threads a block while a row takes at most that many.
+_LN_HELD, _LN_BLOCK = 32, 128
+
+
+def layernorm_bwd_geometry(dtype: torch.dtype, rows: int,
+                           d: int) -> SimpleNamespace:
+    """K8's launch geometry for x [rows, d] of `dtype`:
+      * `group`: threads a row (32, 64, 128 or 256: the fewest that hold it
+        with 32 elements a thread); a block is 128 threads, or one group
+        where that is wider, and takes `at_once` rows at once;
+      * `strip`: rows a block, consecutive, a multiple of `at_once`: one
+        group of rows while that needs at most LN_BWD_MAX_PARTS blocks, else
+        as few more as keep to them;
+      * `parts`: the blocks, each with a row; also the parts axis of the f32
+        partials [parts, 2, d] that the second launch adds in order.
+    Pure, and the one place this split is decided: the CPU tests check it,
+    and the C entry point launches with it as given, refusing one that does
+    not hold (CUDA error 1, invalid argument)."""
+    if dtype not in _DTYPE_CODES:
+        raise TypeError(f"kernel takes float32 or bfloat16, got {dtype}")
+    if rows < 1 or d < 8 or d % 8 or d > LN_MAX_DIM:
+        raise ValueError(f"LayerNorm kernel takes R >= 1 rows of D a multiple "
+                         f"of 8 up to {LN_MAX_DIM}, got {rows} x {d}")
+    group = 32
+    while group * _LN_HELD < d:
+        group *= 2
+    at_once = max(group, _LN_BLOCK) // group
+    turns = -(-rows // at_once)
+    per = -(-turns // min(turns, LN_BWD_MAX_PARTS))
+    return SimpleNamespace(group=group, at_once=at_once, strip=per * at_once,
+                           parts=-(-turns // per))
+
+
 def layernorm_bwd_scratch(x: torch.Tensor) -> torch.Tensor:
     """The f32 scratch of one LayerNorm backward on x [R, D]: the blocks'
-    column sums [parts, 2, D], sized from the grid the kernel launches.
-    Uninitialised: the kernel fills it."""
-    rows, d = _check_ln(x)
-    parts = load().layernorm_bwd_parts(rows, d)
+    column sums [parts, 2, D] of `layernorm_bwd_geometry`. Uninitialised:
+    the kernel fills it. A meta x gives the shape without a card."""
+    if x.device.type not in ("cuda", "meta"):
+        raise ValueError(f"kernel scratch needs a CUDA x, got {x.device}")
+    if x.dim() != 2:
+        raise ValueError(f"kernel takes x [R, D], got {tuple(x.shape)}")
+    rows, d = x.shape
+    parts = layernorm_bwd_geometry(x.dtype, rows, d).parts
     return torch.empty((parts, 2, d), dtype=torch.float32, device=x.device)
 
 
@@ -544,22 +658,24 @@ def layernorm_bwd(x: torch.Tensor, scale: torch.Tensor, g: torch.Tensor,
                   partials: torch.Tensor, *, eps: float) -> None:
     """K8: backward of K7 from x, scale and the cotangent g of y. Writes dx
     (x's shape and dtype) and the float32 [D] dscale and dbias; `partials`
-    is the scratch of `layernorm_bwd_scratch`. Two `__global__` launches:
-    the pass over the rows, then the sum of the blocks' partials."""
+    is the scratch of `layernorm_bwd_scratch`. Two `__global__` launches on
+    `layernorm_bwd_geometry`: the pass over the rows, then the sum of the
+    blocks' partials."""
     name = "layernorm_bwd"
     rows, d = _check_ln(x, scale=scale, dscale=dscale, dbias=dbias)
     _check_ln_rows("g", g, x)
     _check_ln_rows("dx", dx, x)
-    parts = load().layernorm_bwd_parts(rows, d)
-    _check_scratch("partials", partials, (parts, 2, d), x.device)
+    geo = layernorm_bwd_geometry(x.dtype, rows, d)
+    _check_scratch("partials", partials, (geo.parts, 2, d), x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         code = load().layernorm_bwd(
             x.data_ptr(), scale.data_ptr(), g.data_ptr(), dx.data_ptr(),
             dscale.data_ptr(), dbias.data_ptr(), partials.data_ptr(), rows, d,
-            float(eps), _DTYPE_CODES[x.dtype], stream)
+            float(eps), _DTYPE_CODES[x.dtype], geo.strip, geo.parts, stream)
     _raise_on_error(name, code)
     launch_counts[name] += 1
+    layernorm_bwd_rows[rows] = layernorm_bwd_rows.get(rows, 0) + 1
 
 
 # ---------------- fused attention ----------------

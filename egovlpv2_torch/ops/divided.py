@@ -34,6 +34,8 @@ between their launches: `cls_run_partials_reference` and
 runs of keys, their merge and the row's log-sum-exp lse0, which K6
 reads), `cls_run_grad_reference` (K6's one pass over the keys: the
 partials of dq0 and the CLS query's share of every dk/dv row),
+`time_column_reference` (K2's tensor-core block: the exact softmax of a
+patch column, its numerator rounded before the product with V),
 `time_column_grad_reference` (K5's tensor-core block: both passes of a
 patch column, and the blocks' partials of the CLS key's dk/dv); nor those
 of what K10 and K11 keep between theirs: `row_lse_reference` (K10's
@@ -159,6 +161,49 @@ def cls_run_grad_reference(qkv: torch.Tensor, g: torch.Tensor,
     return dq_parts, dkd, dvd
 
 
+def _columns(t: torch.Tensor, num_frames: int) -> torch.Tensor:
+    """[B, S, H, Dh] -> the patch columns [B, H, N, F, Dh]."""
+    b, s, h, dh = t.shape
+    n = (s - 1) // num_frames
+    return t[:, 1:].reshape(b, num_frames, n, h, dh).permute(0, 3, 2, 1, 4)
+
+
+def _columns_with_cls(t: torch.Tensor, num_frames: int) -> torch.Tensor:
+    """The patch columns [B, H, N, F + 1, Dh] of `_columns` with the CLS
+    row in front of each."""
+    cols = _columns(t, num_frames)
+    b, h, n, _, dh = cols.shape
+    return torch.cat([t[:, 0][:, :, None, None].expand(b, h, n, 1, dh), cols],
+                     dim=3)
+
+
+def _from_columns(t: torch.Tensor) -> torch.Tensor:
+    """The patch columns [B, H, N, F, Dh] back to rows 1..S-1, [B, S-1, H,
+    Dh] (row 1 + f * N + n)."""
+    b, h, n, f, dh = t.shape
+    return t.permute(0, 3, 2, 1, 4).reshape(b, f * n, h, dh)
+
+
+def time_column_reference(qkv: torch.Tensor, *, scale: float,
+                          num_frames: int) -> torch.Tensor:
+    """The plain version of K2's tensor-core block: for each patch column
+    of each (batch, head), its F queries over the CLS key and its F frames'
+    keys, the exact softmax in f32 with its numerator E = exp(scale Q K^T -
+    row max) rounded to qkv's dtype before E V, and that product divided by
+    the f32 sum of E, as the kernel computes it. qkv [B, S, 3, H, Dh] ->
+    rows 1..S-1, [B, S-1, H, Dh] in qkv's dtype. Nothing on the card's path
+    calls it."""
+    x = qkv.float()
+    q = _columns(x[:, :, 0], num_frames)
+    k = _columns_with_cls(x[:, :, 1], num_frames)
+    v = _columns_with_cls(x[:, :, 2], num_frames)
+    logits = torch.einsum("bhnid,bhnjd->bhnij", q, k) * scale
+    e = torch.exp(logits - logits.amax(-1, keepdim=True))
+    out = torch.einsum("bhnij,bhnjd->bhnid", e.to(qkv.dtype).float(), v) \
+        / e.sum(-1, keepdim=True)
+    return _from_columns(out).to(qkv.dtype)
+
+
 def time_column_grad_reference(qkv: torch.Tensor, g: torch.Tensor, *,
                                scale: float, num_frames: int,
                                cols: int = _kernels.TIME_BWD_COLS) -> tuple:
@@ -175,20 +220,11 @@ def time_column_grad_reference(qkv: torch.Tensor, g: torch.Tensor, *,
         ceil(N / cols), the `cls_part` of `_kernels.time_bwd_geometry`).
     qkv [B, S, 3, H, Dh], g [B, S, H, Dh]. Nothing on the card's path calls
     it."""
-    b, s, _, h, dh = qkv.shape
     f = num_frames
-    n = (s - 1) // f
+    n = (qkv.shape[1] - 1) // f
     x, gf = qkv.float(), g.float()
-
-    def columns(t):  # [B, S, H, Dh] -> the patch columns [B, H, N, F, Dh]
-        return t[:, 1:].reshape(b, f, n, h, dh).permute(0, 3, 2, 1, 4)
-
-    def with_cls(t):  # the CLS key's row in front of each column's
-        return torch.cat([t[:, 0][:, :, None, None].expand(b, h, n, 1, dh),
-                          columns(t)], dim=3)
-
-    q, k, v, go = columns(x[:, :, 0]), with_cls(x[:, :, 1]), \
-        with_cls(x[:, :, 2]), columns(gf)
+    q, k, v, go = _columns(x[:, :, 0], f), _columns_with_cls(x[:, :, 1], f), \
+        _columns_with_cls(x[:, :, 2], f), _columns(gf, f)
     p = torch.softmax(torch.einsum("bhnid,bhnjd->bhnij", q, k) * scale, -1)
     dp = torch.einsum("bhnid,bhnjd->bhnij", go, v)
     ds = p * (dp - (p * dp).sum(-1, keepdim=True))
@@ -198,7 +234,7 @@ def time_column_grad_reference(qkv: torch.Tensor, g: torch.Tensor, *,
     dv = torch.einsum("bhnij,bhnid->bhnjd", p, go)
     dqkv = x.new_zeros(x.shape)
     for c, t in enumerate((dq, dk[:, :, :, 1:], dv[:, :, :, 1:])):
-        dqkv[:, 1:, c] = t.permute(0, 3, 2, 1, 4).reshape(b, f * n, h, dh)
+        dqkv[:, 1:, c] = _from_columns(t)
     cls = torch.stack([dk[:, :, :, 0], dv[:, :, :, 0]], dim=3)  # [B,H,N,2,Dh]
     parts = []
     for c0 in range(0, n, cols):

@@ -52,6 +52,7 @@ K9_KERNELS = ("fused_fwd_kernel", "fused_tf32_fwd_kernel",
 KINDS = (  # first match wins
     ("memcpy", ("memcpy",)),
     ("hand kernels, forward (K1/K2/K3)", ("space_fwd_kernel", "time_fwd_kernel",
+                                           "time_fwd_tc_kernel",
                                            "cls_row_part_kernel",
                                            "cls_row_merge_kernel")),
     ("hand kernels, general divided attention (K10/K11)", (

@@ -30,6 +30,13 @@ TPU kernels K5 replaces on the time axis, the frame-pair branch at F <= 8
 and the patch-major window branch at F > 8; its launch geometry (a pure
 function) is checked at every head dim K5 takes.
 
+K2, the bf16 time-axis forward of the patch rows, takes in its
+tensor-core form whole patch columns too: the plain version of its block
+(`time_column_reference`, the softmax's numerator rounded as the kernel
+rounds it) is held to the same TPU kernels' forward, and its launch
+geometry (a pure function) is checked at every head dim and at the frame
+counts on both sides of each edge.
+
 K3 and K6, the bf16 kernels of the CLS row, split the CLS query's keys
 into runs of `cls_row_geometry`: K3 writes each run's partial and merges
 them into row 0 and its log-sum-exp lse0; K6 reads lse0 and the output's
@@ -58,7 +65,8 @@ from egovlpv2_torch.ops.divided import (cls_grad_partials_reference,
                                         merge_cls_partials_reference,
                                         merge_cls_run_partials_reference,
                                         row_lse_reference,
-                                        time_column_grad_reference)
+                                        time_column_grad_reference,
+                                        time_column_reference)
 
 torch.set_num_threads(2)
 
@@ -495,3 +503,67 @@ def test_time_bwd_geometry(dtype, s, frames):
             for f in (63, 64)}
     assert (edge[63].form, edge[64].form) == ("tensor_cores", "grouped")
     assert edge[63].shared_bytes > 48 * 1024  # past the static limit
+
+
+@pytest.mark.parametrize("name", list(TIME_CASES))
+def test_time_column_matches_the_tpu_kernels(name, monkeypatch):
+    """The plain version of K2's tensor-core block gives the TPU kernels'
+    time-axis forward of the patch rows (`divided_attention`, interpret
+    mode; the frame-pair branch at F <= 8, the patch-major window branch at
+    F > 8) within 1e-5, f32 (sums in another order)."""
+    b, f, n, h, dh, packed_max = TIME_CASES[name]
+    if packed_max is not None:
+        monkeypatch.setattr(jdiv, "_PACKED_MAX_S", packed_max)
+    s = 1 + f * n
+    scale = dh ** -0.5
+    qkv = np.random.RandomState(37).randn(b, s, 3, h, dh).astype(np.float32)
+    with pltpu.force_tpu_interpret_mode():
+        ref = np.asarray(jdiv.divided_attention(
+            jnp.asarray(qkv), scale=scale, axis="time", num_frames=f,
+            impl="pallas"))
+    got = time_column_reference(torch.from_numpy(qkv), scale=scale,
+                                num_frames=f)
+    assert got.shape == (b, s - 1, h, dh) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), ref[:, 1:], rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("frames", [1, 4, 5, 8, 16, 32, 63, 64])
+def test_time_fwd_geometry(dtype, frames):
+    """At every head dim K2 takes (8 to 128 in steps of 8) and N = 13
+    patch columns: the form (the tensor cores for bf16 at Dh 16, 32, 48, 64
+    up to TIME_FWD_MAX_F = 63 frames, else the grouped form); the blocks'
+    runs of patch rows in column-major order cover every patch row once,
+    whole columns in the tensor-core form, the last block short where the
+    columns do not divide N; a tensor-core block (one warp) takes
+    ceil(16 / F) columns, at least 16 query rows, its tiles hold the F + 1
+    keys and F queries, and its shared memory, by the kernel's own layout
+    (one buffer of K and V at 16 * key_tiles rows and Q at 16 * query_tiles,
+    a pitch of Dh + 8 bf16), fits Hopper's 232,448 bytes."""
+    n = 13
+    s = 1 + frames * n
+    for dh in range(8, 129, 8):
+        geo = _kernels.time_fwd_geometry(dtype, dh, s, frames)
+        on = dtype == torch.bfloat16 and dh % 16 == 0 and dh <= 64 \
+            and frames <= 63
+        assert geo.form == ("tensor_cores" if on else "grouped")
+        covered = np.zeros(s - 1, dtype=int)
+        for part in range(geo.parts):
+            idx = np.arange(part * geo.rows, min((part + 1) * geo.rows, s - 1))
+            covered[(idx % frames) * n + idx // frames] += 1
+        assert (covered == 1).all()
+        assert (geo.parts - 1) * geo.rows < s - 1 <= geo.parts * geo.rows
+        if on:
+            assert geo.rows == geo.cols * frames
+            assert geo.cols == -(-16 // frames) >= 1
+            assert geo.parts == -(-n // geo.cols)
+            if frames in (4, 5, 8):  # 4, 4 and 2 columns: the last block short
+                assert n % geo.cols
+            kp, qp = 16 * geo.key_tiles, 16 * geo.query_tiles
+            assert kp - 16 < frames + 1 <= kp and qp - 16 < frames <= qp
+            layout = 2 * (2 * kp + qp) * (dh + 8)
+            assert geo.shared_bytes == layout <= _kernels.SHARED_BYTES_MAX
+        else:
+            assert geo.rows == 256 // _kernels.cls_row_geometry(
+                dtype, dh, s).group
+            assert (geo.cols, geo.key_tiles, geo.shared_bytes) == (None,) * 3

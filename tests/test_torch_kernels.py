@@ -27,6 +27,7 @@ from egovlpv2_torch.ops.divided import (cls_row_reference,
                                         divided_attention_backward_reference,
                                         divided_attention_reference,
                                         grouped_kernels_take,
+                                        grouped_reference,
                                         row_lse_reference)
 
 torch.set_num_threads(2)
@@ -229,6 +230,113 @@ def test_time_bwd_kernel_alone(cuda, frames):
         qkv, g, scale=scale, axis="time", num_frames=frames, rows="grouped")
     errs = _rel_errs(got, ref)
     assert max(errs) <= BWD_RTOL[torch.bfloat16], errs
+
+
+def _profiled_names(fn) -> list:
+    """The kernels that `fn` runs, as the profiler names them, sorted: the
+    union over three profiles of ten calls each, after a warm call. The
+    tracer may miss launches in a profile (at the start of its window, and
+    now and then every launch of one kernel: K8's sum at 2,112 rows), or
+    hand back no event at all; a kernel that runs shows in the union."""
+    fn()
+    torch.cuda.synchronize()
+    names = set()
+    for _ in range(3):
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(10):
+                fn()
+            torch.cuda.synchronize()
+        names |= {e.key for e in prof.key_averages()
+                  if e.self_device_time_total}
+    return sorted(names)
+
+
+# K2's kernels by form, as the profiler names them
+TIME_FWD_KERNELS = {"tensor_cores": "time_fwd_tc_kernel",
+                    "grouped": "time_fwd_kernel"}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dh", [16, 32, 64])
+@pytest.mark.parametrize("frames", [4, 5, 7, 16, 32, 63])
+def test_time_fwd_tensor_cores_match_plain(cuda, frames, dh):
+    """K2's tensor-core form, which the geometry names at each of these
+    shapes, through its wrapper: rows 1..S-1 against the plain version on
+    the same values in f32 within 2e-2 (one to four key tiles, one to four
+    query tiles), row 0 left alone; N = 11 leaves the last block fewer
+    columns than `cols` where F < 16."""
+    b, n, h = 2, 11, 3
+    s, scale = 1 + frames * n, dh ** -0.5
+    qkv = _qkv(9, b, s, h, dh, torch.bfloat16, cuda)
+    flat = qkv.view(b, s, -1)
+    ref = grouped_reference(qkv.float(), scale=scale, axis="time",
+                            num_frames=frames).reshape(b, s - 1, h * dh)
+    geo = _kernels.time_fwd_geometry(torch.bfloat16, dh, s, frames)
+    assert geo.form == "tensor_cores"
+    out = torch.full((b, s, h * dh), float("nan"), dtype=torch.bfloat16,
+                     device=cuda)
+    _kernels.time_attention_fwd(flat, out, num_heads=h, num_frames=frames,
+                                scale=scale)
+    torch.cuda.synchronize()
+    assert torch.isnan(out[:, 0]).all()
+    err = (out[:, 1:].float() - ref).abs().max().item()
+    assert err <= TOL[torch.bfloat16], (geo, err)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("frames", [4, 5, 16, 32])
+def test_time_fwd_kernel_alone(cuda, frames):
+    """K2 through its wrapper at the paths' frame counts (bf16, Dh=64):
+    against the plain version on the same values in f32, two runs on one
+    input the same bits, and in the profiler's kernel names the one launch
+    of the form `time_fwd_geometry` names."""
+    b, n, h, dh = 2, 30, 3, 64
+    s, scale = 1 + frames * n, dh ** -0.5
+    qkv = _qkv(10, b, s, h, dh, torch.bfloat16, cuda)
+    flat = qkv.view(b, s, -1)
+    form = _kernels.time_fwd_geometry(torch.bfloat16, dh, s, frames).form
+    outs = []
+    for _ in range(2):
+        out = torch.full((b, s, h * dh), float("nan"), dtype=torch.bfloat16,
+                         device=cuda)
+        names = _profiled_names(lambda: _kernels.time_attention_fwd(
+            flat, out, num_heads=h, num_frames=frames, scale=scale))
+        outs.append(out)
+    assert len(names) == 1 and TIME_FWD_KERNELS[form] in names[0], names
+    assert _same_bits(outs[0], outs[1])
+    ref = grouped_reference(qkv.float(), scale=scale, axis="time",
+                            num_frames=frames).reshape(b, s - 1, h * dh)
+    assert (outs[0][:, 1:].float() - ref).abs().max().item() \
+        <= TOL[torch.bfloat16]
+
+
+@pytest.mark.gpu
+def test_time_attention_fwd_tc_refuses_a_geometry_that_does_not_hold(cuda):
+    """K2's tensor-core C entry point launches `time_fwd_geometry`'s
+    geometry as given and refuses any other (CUDA error 1): other columns a
+    block, blocks that do not cover N, other shared memory, f32, F > 63."""
+    b, n, h, dh, frames = 2, 13, 3, 64, 4
+    s = 1 + frames * n
+    flat = _qkv(11, b, s, h, dh, torch.bfloat16, cuda).view(b, s, -1)
+    out = torch.empty((b, s, h * dh), dtype=torch.bfloat16, device=cuda)
+    geo = _kernels.time_fwd_geometry(torch.bfloat16, dh, s, frames)
+
+    def launch(g, dtype=1, f=frames):
+        return _kernels.load().time_attention_fwd_tc(
+            flat.data_ptr(), out.data_ptr(), dtype, b, s, h, dh, f, 0.125,
+            g.cols, g.parts, g.shared_bytes,
+            torch.cuda.current_stream(cuda).cuda_stream)
+
+    assert launch(geo) == 0
+    torch.cuda.synchronize()
+    bad = [dict(cols=geo.cols + 1), dict(cols=geo.cols - 1),
+           dict(parts=geo.parts + 1), dict(parts=geo.parts - 1),
+           dict(shared_bytes=geo.shared_bytes + 16)]
+    for change in bad:
+        assert launch(SimpleNamespace(**{**vars(geo), **change})) == 1, change
+    assert launch(geo, dtype=0) == 1
+    assert launch(geo, f=64) == 1
 
 
 def _cls_row_forward(flat, h, scale):
@@ -583,6 +691,98 @@ def test_layernorm_kernels_take_views_and_leading_axes(cuda):
     assert leaf.grad.shape == x.shape
     assert not leaf.grad[:, 1:].any()
     assert _ln_rel(leaf.grad[:, 0], ref_dx) <= LN_TOL[torch.bfloat16]
+
+
+# Row counts of K8 at few rows: one row, a block's group of rows at once
+# cut short, the f32 EgoTaskQA text rows (120), the pretrain and fine-tune
+# text rows (240), a last block that ends part-way, and the edge where the
+# blocks run out (4 x 132 of them at 4 rows each at D=768) on both sides.
+LN_EDGE = 4 * _kernels.LN_BWD_MAX_PARTS
+LN_FEW_ROWS = [1, 2, 7, 120, 240, 301, LN_EDGE - 1, LN_EDGE, LN_EDGE + 1]
+LN_BWD_KERNELS = ("layernorm_bwd_kernel", "layernorm_bwd_sum_kernel")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [768, 776, 2048, 8192])
+@pytest.mark.parametrize("rows", LN_FEW_ROWS + [6280, 12560, 200768])
+def test_layernorm_bwd_geometry(rows, d, dtype):
+    """K8's split: blocks of 128 threads (or of one row group, where that
+    is wider), the strips a whole number of the rows a block takes at once,
+    covering the rows with a row for every block; one group of rows a block
+    while that needs at most 4 blocks an SM, else the fewest rows a block
+    that keep to them; the partials `layernorm_bwd_scratch` sizes are one a
+    block."""
+    geo = _kernels.layernorm_bwd_geometry(dtype, rows, d)
+    assert geo.group * 32 >= d and (geo.group == 32 or geo.group * 16 < d)
+    assert geo.at_once == max(geo.group, 128) // geo.group
+    assert geo.strip % geo.at_once == 0
+    assert (geo.parts - 1) * geo.strip < rows <= geo.parts * geo.strip
+    assert geo.parts <= _kernels.LN_BWD_MAX_PARTS == 4 * 132
+    if -(-rows // geo.at_once) <= _kernels.LN_BWD_MAX_PARTS:
+        assert geo.strip == geo.at_once
+    else:
+        assert -(-rows // (geo.strip - geo.at_once)) \
+            > _kernels.LN_BWD_MAX_PARTS
+    x = torch.empty((rows, d), dtype=dtype, device="meta")
+    assert tuple(_kernels.layernorm_bwd_scratch(x).shape) == (geo.parts, 2, d)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("eps", [1e-5, 1e-12])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows", LN_FEW_ROWS)
+def test_layernorm_bwd_few_rows(cuda, rows, dtype, eps):
+    """K8 at D=768 over the few rows of the paths and the edge of the
+    split: dx within LN_TOL, dscale and dbias within 1e-3 of max
+    |reference|, two runs on one input the same bits (the partials are
+    added in a fixed order, no atomics), and the profiled kernels its two
+    launches."""
+    d = 768
+    x, g, scale, _ = _ln_inputs(rows, d, dtype, cuda)
+    runs = []
+    for _ in range(2):
+        out = (torch.full_like(x, float("nan")),
+               torch.full_like(scale, float("nan")),
+               torch.full_like(scale, float("nan")))
+        names = _profiled_names(lambda: _kernels.layernorm_bwd(
+            x, scale, g, *out, _kernels.layernorm_bwd_scratch(x), eps=eps))
+        runs.append(out)
+    assert len(names) == len(LN_BWD_KERNELS), names
+    for kernel in LN_BWD_KERNELS:
+        assert any(kernel in n for n in names), names
+    for a, b in zip(*runs):
+        assert _same_bits(a, b)
+    dx, dscale, dbias = runs[0]
+    ref_dx, ref_dscale, ref_dbias = ln.layernorm_backward_reference(
+        x, scale, g, eps)
+    assert _ln_rel(dx, ref_dx) <= LN_TOL[dtype]
+    assert _ln_rel(dscale, ref_dscale) <= 1e-3
+    assert _ln_rel(dbias, ref_dbias) <= 1e-3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_layernorm_bwd_shapes_back_to_back(cuda, dtype):
+    """K8 on shapes of few and many rows and several widths, one call after
+    the other on one stream before a synchronisation: each result as the
+    plain backward gives it."""
+    shapes = [(240, 768), (7, 776), (12560, 768), (120, 768), (3, 4096),
+              (9, 2048), (240, 768)]
+    results = []
+    for rows, d in shapes:
+        x, g, scale, _ = _ln_inputs(rows, d, dtype, cuda)
+        dx, dscale, dbias = (torch.empty_like(x), torch.empty_like(scale),
+                             torch.empty_like(scale))
+        _kernels.layernorm_bwd(x, scale, g, dx, dscale, dbias,
+                               _kernels.layernorm_bwd_scratch(x), eps=1e-5)
+        results.append(((x, g, scale), (dx, dscale, dbias)))
+    torch.cuda.synchronize()
+    for (x, g, scale), (dx, dscale, dbias) in results:
+        ref_dx, ref_dscale, ref_dbias = ln.layernorm_backward_reference(
+            x, scale, g, 1e-5)
+        assert _ln_rel(dx, ref_dx) <= LN_TOL[dtype]
+        assert _ln_rel(dscale, ref_dscale) <= 1e-3
+        assert _ln_rel(dbias, ref_dbias) <= 1e-3
 
 
 @pytest.mark.gpu
@@ -1010,8 +1210,8 @@ def test_kernel_wrappers_refuse_cpu_tensors_before_building():
                                                q5[:, :, 1], q5, scale=1.0,
                                                axis="time", num_frames=2)
     assert set(libs) == {"divided_attention.cu", "divided_attention_bwd.cu",
-                         "layernorm.cu", "fused_attention.cu",
-                         "divided_attention_general.cu"}
+                         "time_attention.cu", "layernorm.cu",
+                         "fused_attention.cu", "divided_attention_general.cu"}
     for lib in libs.values():
         assert lib.parent == _kernels.BUILD_DIR
         assert lib.parent.parts[-2:] == ("build", "egovlpv2_torch")
@@ -1055,7 +1255,7 @@ def test_port_imports_no_jax():
         "import profile_torch_egomcq, profile_torch_pretrain\n"
         "import profile_torch_finetune, profile_torch_extract\n"
         "import profile_torch_flash, profile_torch_taskqa\n"
-        "import profile_torch_cls_row\n"
+        "import profile_torch_cls_row, profile_torch_kernels\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'egovlpv2_tpu'))\n"
         "assert not bad, bad\n"
