@@ -52,9 +52,15 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
                 kernel is the one of the form `time_fwd_geometry` names
                 (`time_fwd_tc_kernel`, the tensor cores, or the grouped
                 `time_fwd_kernel`).
-                K2's, K3's, K5's and K6's times before their redesigns
-                (K2_BEFORE_MS, K3_BEFORE_MS, K5_BEFORE_MS, K6_BEFORE_MS) are
-                printed beside the new ones on the text line only.
+                K1 and K4 likewise: twice the same bits, the profiled
+                kernels those of the form `space_fwd_geometry` /
+                `space_bwd_geometry` names (in bf16 the frame forms, one
+                `space_fwd_frame_kernel` / `space_bwd_frame_kernel` launch,
+                K4's `cls_part` one row a frame), and K6 after K4, fed its
+                `cls_part`, against the whole space-axis gradient.
+                K1's, K2's, K3's, K4's, K5's and K6's times before their
+                redesigns (K1_BEFORE_MS ... K6_BEFORE_MS) are printed beside
+                the new ones on the text line only.
                 LayerNorm K7 forward and K8 backward at R x D = 12,560 x
                 768 (the pretrain step's), 50,184 x 768 (the fine-tune's),
                 200,768 x 768 (an MQ or NLQ inner batch), 15,696 x 768 (a
@@ -230,17 +236,20 @@ from egovlpv2_torch.weights import random_init_, training_init_
 
 FWD_SOURCE = "egovlpv2_torch/csrc/divided_attention.cu"
 TIME_FWD_SOURCE = "egovlpv2_torch/csrc/time_attention.cu"  # K2's tensor cores
+SPACE_SOURCE = "egovlpv2_torch/csrc/space_attention.cu"  # K1's and K4's frames
 BWD_SOURCE = "egovlpv2_torch/csrc/divided_attention_bwd.cu"
 LN_SOURCE = "egovlpv2_torch/csrc/layernorm.cu"
 FLASH_SOURCE = "egovlpv2_torch/csrc/fused_attention.cu"
 GENERAL_SOURCE = "egovlpv2_torch/csrc/divided_attention_general.cu"
 KERNELS = {  # name -> (source, the TPU kernel body it replaces)
-    "space_attention_fwd": (FWD_SOURCE, "egovlpv2_tpu/ops/divided.py:774"),
+    # K1's and K4's frame forms, which every bf16 path runs (their grouped
+    # forms, for f32, are in FWD_SOURCE and BWD_SOURCE)
+    "space_attention_fwd": (SPACE_SOURCE, "egovlpv2_tpu/ops/divided.py:774"),
     # K2's tensor-core form, which every bf16 path runs (its grouped form,
     # for f32, is in FWD_SOURCE)
     "time_attention_fwd": (TIME_FWD_SOURCE, "egovlpv2_tpu/ops/divided.py:811"),
     "cls_row_attention_fwd": (FWD_SOURCE, "egovlpv2_tpu/ops/divided.py:359"),
-    "space_attention_bwd": (BWD_SOURCE, "egovlpv2_tpu/ops/divided.py:623"),
+    "space_attention_bwd": (SPACE_SOURCE, "egovlpv2_tpu/ops/divided.py:623"),
     "time_attention_bwd": (BWD_SOURCE, "egovlpv2_tpu/ops/divided.py:957"),
     "cls_row_attention_bwd": (BWD_SOURCE, "egovlpv2_tpu/ops/divided.py:377"),
     "layernorm_fwd": (LN_SOURCE, "egovlpv2_tpu/ops/layernorm.py:52"),
@@ -407,18 +416,39 @@ K2_BEFORE_MS = {
     (torch.bfloat16, 20, 16): 0.8013, (torch.bfloat16, 64, 16): 2.5361,
     (torch.bfloat16, 8, 32): 1.2022,
 }
+# K1's and K4's the same way before their frame forms (a block 64 query or
+# key rows of a frame, K4 two launches): bf16, the mean of the parent
+# commit's two runs of `scripts/profile_torch_kernels.py` in the call that
+# compared the trees in turns (H100 80GB HBM3, 700 W), PERF.md section 6.
+K1_BEFORE_MS = {
+    (torch.bfloat16, 8, 4): 0.0635, (torch.bfloat16, 8, 32): 0.4655,
+    (torch.bfloat16, 16, 4): 0.1217, (torch.bfloat16, 16, 5): 0.1515,
+    (torch.bfloat16, 20, 4): 0.1467, (torch.bfloat16, 20, 16): 0.5703,
+    (torch.bfloat16, 64, 16): 1.8369,
+}
+K4_BEFORE_MS = {
+    (torch.bfloat16, 8, 4): 0.2701, (torch.bfloat16, 8, 32): 2.0068,
+    (torch.bfloat16, 16, 4): 0.5219, (torch.bfloat16, 16, 16): 1.9965,
+}
 # name -> (what changed, its time before, by (dtype, B, frames))
 BEFORE_MS = {"cls_row_attention_fwd": ("the key runs", K3_BEFORE_MS),
              "cls_row_attention_bwd": ("the key runs", K6_BEFORE_MS),
              "time_attention_bwd": ("the tensor cores", K5_BEFORE_MS),
-             "time_attention_fwd": ("the tensor cores", K2_BEFORE_MS)}
+             "time_attention_fwd": ("the tensor cores", K2_BEFORE_MS),
+             "space_attention_fwd": ("the frame form", K1_BEFORE_MS),
+             "space_attention_bwd": ("the frame form", K4_BEFORE_MS)}
 # K5's kernels by form, as the profiler names them
 TIME_BWD_KERNELS = {"tensor_cores": ("time_bwd_kernel",),
                     "grouped": ("grouped_bwd_query_kernel",
                                 "grouped_bwd_key_kernel")}
-# K2's the same way, and K8's two launches
+# K2's the same way, K1's and K4's, and K8's two launches
 TIME_FWD_KERNELS = {"tensor_cores": ("time_fwd_tc_kernel",),
                     "grouped": ("time_fwd_kernel",)}
+SPACE_FWD_KERNELS = {"frame": ("space_fwd_frame_kernel",),
+                     "grouped": ("space_fwd_kernel",)}
+SPACE_BWD_KERNELS = {"frame": ("space_bwd_frame_kernel",),
+                     "grouped": ("grouped_bwd_query_kernel",
+                                 "grouped_bwd_key_kernel")}
 LN_BWD_KERNELS = ("layernorm_bwd_kernel", "layernorm_bwd_sum_kernel")
 # of max |reference|, each against the plain version on the same values in
 # f32 (the kernels keep P, dP and dS in f32 and round only the stores)
@@ -754,6 +784,8 @@ def phase_kernels() -> dict:
                     events = _device_events(kernel)
                     if name == "time_attention_fwd":
                         check += _check_time_fwd(flat, out, kw, events)
+                    if name == "space_attention_fwd":
+                        check += _check_space_fwd(flat, out, kw, events)
                     record(name, dtype, b, frames, err, check,
                            sum(events.values()), _time_ms(plain),
                            _time_ms(library[name]))
@@ -791,6 +823,10 @@ def phase_kernels() -> dict:
                     if axis == "time":
                         check += _check_time_bwd(flat, gflat, dqkv, parts, kw,
                                                  events)
+                    else:
+                        check += _check_space_bwd(flat, gflat, dqkv, parts, kw,
+                                                  events)
+                        space_parts = parts
                     record(name, dtype, b, frames, err, check,
                            sum(events.values()), _time_ms(plain),
                            _time_ms(library[name]))
@@ -819,11 +855,30 @@ def phase_kernels() -> dict:
                         f"{name} {dtype} B={b} S={s}: relative error CLS row "
                         f"{rel_cls}, patch rows {rel} > {TOL[dtype]}")
                 del dqkv_again, zero_parts
+                # K6 after K4 as the autograd Function runs them, fed K4's
+                # `cls_part` (one row a frame in the frame form): the whole
+                # space-axis gradient
+                _kernels.space_attention_bwd(flat, gflat, dqkv, stats,
+                                             space_parts, **kw)
+                _kernels.cls_row_attention_bwd(flat, gflat, out0, lse0, dqkv,
+                                               space_parts, **ckw)
+                torch.cuda.synchronize()
+                _, rel_cls_all, rel_all = _rel_errs(
+                    dqkv.view(b, s, 3, H, DH),
+                    divided_attention_backward_reference(
+                        qkv, g, scale=scale, axis="space", num_frames=frames))
+                if not max(rel_cls_all, rel_all) <= TOL[dtype]:
+                    raise AssertionError(
+                        f"K6 after K4 {dtype} B={b} S={s}: relative error CLS "
+                        f"row {rel_cls_all}, patch rows {rel_all} > "
+                        f"{TOL[dtype]}")
                 # timed as the step runs it: adding to rows K4/K5 wrote
                 kernel = lambda: _kernels.cls_row_attention_bwd(
                     flat, gflat, out0, lse0, dqkv, parts, **ckw)
                 record(name, dtype, b, frames, err,
-                       f"rel cls row {rel_cls:.2e} patch rows {rel:.2e}",
+                       f"rel cls row {rel_cls:.2e} patch rows {rel:.2e}; "
+                       f"after K4 ({space_parts.shape[2]} cls_part rows) rel "
+                       f"cls row {rel_cls_all:.2e} patch rows {rel_all:.2e}",
                        _time_ms(kernel), _time_ms(plain),
                        _time_ms(library[name]))
             del library
@@ -853,6 +908,55 @@ def _check_time_bwd(flat, gflat, dqkv, parts, kw, events) -> str:
     form = _kernels.time_bwd_geometry(flat.dtype, DH, s,
                                       kw["num_frames"]).form
     _check_kernels("time_attention_bwd", b, s, form, TIME_BWD_KERNELS[form],
+                   events)
+    return f"; {form} form, bitwise equal twice"
+
+
+def _check_space_bwd(flat, gflat, dqkv, parts, kw, events) -> str:
+    """K4 (from the call just made into `dqkv` and `parts`) a second time on
+    the same input: the same bits in dqkv and in the CLS-key partials (no
+    atomics); `events`, the profiled kernels of a call, are those of the
+    form `space_bwd_geometry` names (the frame form one launch), and
+    `parts` has its parts: F in the frame form. Returns the check's text."""
+    b, s = flat.shape[:2]
+    frames = kw["num_frames"]
+    geo = _kernels.space_bwd_geometry(flat.dtype, DH, s, frames)
+    if parts.shape[2] != geo.parts or (geo.form == "frame"
+                                       and geo.parts != frames):
+        raise AssertionError(f"space_attention_bwd B={b} S={s}: cls_part has "
+                             f"{parts.shape[2]} parts, the {geo.form} form "
+                             f"{geo.parts}")
+    dqkv_again = torch.full_like(dqkv, float("nan"))
+    parts_again = torch.full_like(parts, float("nan"))
+    stats = torch.empty((2, b, H, s), device="cuda")
+    _kernels.space_attention_bwd(flat, gflat, dqkv_again, stats, parts_again,
+                                 **kw)
+    torch.cuda.synchronize()
+    if not (_same_bits(dqkv, dqkv_again) and _same_bits(parts, parts_again)):
+        raise AssertionError(f"space_attention_bwd B={b} S={s}: two runs on "
+                             f"one input differ")
+    _check_kernels("space_attention_bwd", b, s, geo.form,
+                   SPACE_BWD_KERNELS[geo.form], events)
+    return (f"; {geo.form} form ({len(SPACE_BWD_KERNELS[geo.form])} launch"
+            f"{'es' if geo.form == 'grouped' else ''}, {geo.parts} parts), "
+            f"bitwise equal twice")
+
+
+def _check_space_fwd(flat, out, kw, events) -> str:
+    """K1 (from the call just made into `out`) a second time on the same
+    input: the same bits; and `events`, the profiled kernels of a call, are
+    those of the form `space_fwd_geometry` names. Returns the check's
+    text."""
+    b, s = flat.shape[:2]
+    again = torch.full_like(out, float("nan"))
+    _kernels.space_attention_fwd(flat, again, **kw)
+    torch.cuda.synchronize()
+    if not _same_bits(out[:, 1:], again[:, 1:]):
+        raise AssertionError(f"space_attention_fwd B={b} S={s}: two runs on "
+                             f"one input differ")
+    form = _kernels.space_fwd_geometry(flat.dtype, DH, s,
+                                       kw["num_frames"]).form
+    _check_kernels("space_attention_fwd", b, s, form, SPACE_FWD_KERNELS[form],
                    events)
     return f"; {form} form, bitwise equal twice"
 
@@ -1911,10 +2015,11 @@ def main() -> None:
     # `launches` is the count of the kernel's main path's own run: the
     # pretrain run for K1-K9 (the bf16 paths), the EgoTaskQA run (steps and
     # evaluation) for K10/K11; each path's count stands beside it, never
-    # summed. A wrapper call is one count: K5 in its tensor-core form is one
-    # __global__ launch; K4 (and K5's grouped form) two (a query pass, then
-    # a key pass); K3, K6 and the LayerNorm backward two (a pass, then the
-    # merge or sum of the blocks' partials); K10 two and K11 three.
+    # summed. A wrapper call is one count: K4 in its frame form and K5 in
+    # its tensor-core form are one __global__ launch (phase 3 checks K4's),
+    # their grouped forms two (a query pass, then a key pass); K3, K6 and
+    # the LayerNorm backward two (a pass, then the merge or sum of the
+    # blocks' partials); K10 two and K11 three.
     steps = {"pretrain": PRETRAIN_STEPS, "taskqa": TASKQA_STEPS}
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": KERNELS[k][0],

@@ -18,9 +18,10 @@
 // space_attention_fwd / time_attention_fwd write rows 1..S-1 and
 // cls_row_attention_fwd writes row 0.
 //
-// Work split. K1 in bf16 with Dh a multiple of 16 (the slice) runs on the
-// tensor cores (mma::space_fwd_kernel, described there), and so does K2 in
-// bf16 with Dh a multiple of 16 up to 64 and F <= 63 (time_fwd_tc_kernel,
+// Work split. K1 in bf16 with Dh a multiple of 16 and at most 208 keys a
+// frame (every path) runs on the tensor cores (space_fwd_frame_kernel, in
+// space_attention.cu), where `space_fwd_geometry` names it, and so does K2
+// in bf16 with Dh a multiple of 16 up to 64 and F <= 63 (time_fwd_tc_kernel,
 // in time_attention.cu), where `time_fwd_geometry` names it. Everything else
 // runs on the CUDA cores: a group of G threads owns one query row of one
 // head; each thread holds 8 consecutive elements of the head dim (16 B of
@@ -118,6 +119,9 @@ __device__ __forceinline__ void store_row(T* out, const RowState& st, int b,
 // loads from L1 and L2 bound it; device memory need see the qkv tensor only
 // once (289 MB at B=20, S=3137: 86 us at 3.35 TB/s). One frame's K/V
 // (50 KB in bf16, 100 KB in f32) exceeds the 48 KB of static shared memory.
+// This is K1's grouped form, which `space_fwd_geometry` names for f32, for
+// the head dims the frame form (space_attention.cu) does not take and for
+// frames of more than 208 keys.
 // Design: no shared memory and no limit on N. Consecutive rows of a block
 // are consecutive patches of one frame, so the row groups of a warp read
 // the same key at the same time (one broadcast load), the block's 8 warps
@@ -140,192 +144,6 @@ __global__ void __launch_bounds__(kThreads)
   attend_keys<T, G>(hv, q, true, first, 1, N + 1, N + 1, scale, st);
   if (row_ok && hv.on) store_row(out, st, b, h, S, H, Dh, lane, r);
 }
-
-// K1 on the tensor cores: the bf16 form of space_fwd_kernel, for Dh a
-// multiple of 16 (the slice: Dh = 64).
-// Bound: the kernel above spends ~14 warp instructions on each (row, key)
-// pair on the CUDA cores; here QK^T and PV are mma.sync m16n8k16 products
-// (bf16 in, f32 accumulate), 38 GFLOP at the 16-frame shape, so loads of
-// K/V into shared memory and the softmax bound it instead.
-// Design: a block owns 64 query rows of one frame of one (b, h), 16 rows a
-// warp, Q held in registers as mma A fragments. It walks the frame's keys
-// (CLS first, then the N patches) in chunks of 64 staged in shared memory:
-// K row-major and V transposed, both padded by 8 so the fragment loads
-// spread over the banks (2 x 9 KB at Dh=64, any N). Each chunk: S = QK^T
-// in registers, scale, mask past the last key, online softmax (FA2 style:
-// row max over the 4 threads of a row, per-thread partial sums), P rounded
-// to bf16 as the A operand of P.V, as the plain version rounds it.
-namespace mma {
-
-constexpr int kWarps = 4;
-constexpr int kRows = 16 * kWarps;  // query rows a block
-constexpr int kKeys = 64;           // keys a chunk
-constexpr int kPad = 8;             // bf16 of padding a shared-memory row
-constexpr float kLog2e = 1.4426950408889634f;
-
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-template <int DH>
-__global__ void __launch_bounds__(kWarps * 32)
-    space_fwd_kernel(const __nv_bfloat16* __restrict__ qkv,
-                     __nv_bfloat16* __restrict__ out, int S, int H, int N,
-                     float scale) {
-  __shared__ __align__(16) __nv_bfloat16 sk[kKeys][DH + kPad];
-  __shared__ __align__(16) __nv_bfloat16 svt[DH][kKeys + kPad];
-  const int tiles = (N + kRows - 1) / kRows;
-  const int f = blockIdx.x / tiles, qt = blockIdx.x % tiles;
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, t = lane & 3;  // mma fragment row / column pair
-  const int64_t stride = 3LL * H * DH;
-  const __nv_bfloat16* qbase = qkv + (int64_t)b * S * stride + (int64_t)h * DH;
-  const __nv_bfloat16* kbase = qbase + (int64_t)H * DH;
-  const __nv_bfloat16* vbase = qbase + 2LL * H * DH;
-  const int first = 1 + f * N;  // sequence row of patch 0 of frame f
-  // This thread's two query rows (fragment rows g and g + 8).
-  const int p_lo = qt * kRows + warp * 16 + g, p_hi = p_lo + 8;
-  const bool ok_lo = p_lo < N, ok_hi = p_hi < N;
-
-  uint32_t qa[DH / 16][4];
-  {
-    const __nv_bfloat16* q_lo = qbase + (int64_t)(first + p_lo) * stride;
-    const __nv_bfloat16* q_hi = qbase + (int64_t)(first + p_hi) * stride;
-#pragma unroll
-    for (int kk = 0; kk < DH / 16; ++kk) {
-      const int c = kk * 16 + 2 * t;
-      qa[kk][0] = ok_lo ? ld32(q_lo + c) : 0u;
-      qa[kk][1] = ok_hi ? ld32(q_hi + c) : 0u;
-      qa[kk][2] = ok_lo ? ld32(q_lo + c + 8) : 0u;
-      qa[kk][3] = ok_hi ? ld32(q_hi + c + 8) : 0u;
-    }
-  }
-  float o[DH / 8][4];
-#pragma unroll
-  for (int nd = 0; nd < DH / 8; ++nd) o[nd][0] = o[nd][1] = o[nd][2] = o[nd][3] = 0.f;
-  float m_lo = -INFINITY, m_hi = -INFINITY, l_lo = 0.f, l_hi = 0.f;
-  const float sl2 = scale * kLog2e;
-
-  for (int c0 = 0; c0 <= N; c0 += kKeys) {  // keys 0..N: CLS, then patches
-    __syncthreads();  // the previous chunk is consumed
-    for (int i = threadIdx.x; i < kKeys * (DH / 8); i += kWarps * 32) {
-      const int j = i / (DH / 8), d8 = (i % (DH / 8)) * 8;
-      const int key = c0 + j;
-      uint4 kv = make_uint4(0, 0, 0, 0), vv = make_uint4(0, 0, 0, 0);
-      if (key <= N) {
-        const int64_t row = key == 0 ? 0 : first + key - 1;
-        kv = __ldg(reinterpret_cast<const uint4*>(kbase + row * stride + d8));
-        vv = __ldg(reinterpret_cast<const uint4*>(vbase + row * stride + d8));
-      }
-      *reinterpret_cast<uint4*>(&sk[j][d8]) = kv;
-      const __nv_bfloat16* ve = reinterpret_cast<const __nv_bfloat16*>(&vv);
-#pragma unroll
-      for (int e = 0; e < 8; ++e) svt[d8 + e][j] = ve[e];
-    }
-    __syncthreads();
-
-    float s[kKeys / 8][4];
-#pragma unroll
-    for (int nt = 0; nt < kKeys / 8; ++nt) {
-      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < DH / 16; ++kk) {
-        const __nv_bfloat16* kr = &sk[nt * 8 + g][kk * 16 + 2 * t];
-        mma_bf16(s[nt], qa[kk], ld32(kr), ld32(kr + 8));
-      }
-    }
-    float mx_lo = -INFINITY, mx_hi = -INFINITY;
-#pragma unroll
-    for (int nt = 0; nt < kKeys / 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const bool valid = c0 + nt * 8 + 2 * t + (e & 1) <= N;
-        s[nt][e] = valid ? s[nt][e] * sl2 : -INFINITY;
-      }
-      mx_lo = fmaxf(mx_lo, fmaxf(s[nt][0], s[nt][1]));
-      mx_hi = fmaxf(mx_hi, fmaxf(s[nt][2], s[nt][3]));
-    }
-#pragma unroll
-    for (int off = 1; off < 4; off <<= 1) {
-      mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, off));
-      mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, off));
-    }
-    // Every chunk holds a valid key (chunk 0 the CLS key), so the new
-    // maxima are finite and exp2(-inf - m) = 0 handles the first chunk.
-    const float mn_lo = fmaxf(m_lo, mx_lo), mn_hi = fmaxf(m_hi, mx_hi);
-    const float corr_lo = exp2f(m_lo - mn_lo), corr_hi = exp2f(m_hi - mn_hi);
-    m_lo = mn_lo;
-    m_hi = mn_hi;
-    l_lo *= corr_lo;
-    l_hi *= corr_hi;
-#pragma unroll
-    for (int nd = 0; nd < DH / 8; ++nd) {
-      o[nd][0] *= corr_lo; o[nd][1] *= corr_lo;
-      o[nd][2] *= corr_hi; o[nd][3] *= corr_hi;
-    }
-#pragma unroll
-    for (int nt = 0; nt < kKeys / 8; ++nt) {
-      s[nt][0] = exp2f(s[nt][0] - mn_lo);
-      s[nt][1] = exp2f(s[nt][1] - mn_lo);
-      s[nt][2] = exp2f(s[nt][2] - mn_hi);
-      s[nt][3] = exp2f(s[nt][3] - mn_hi);
-      l_lo += s[nt][0] + s[nt][1];
-      l_hi += s[nt][2] + s[nt][3];
-    }
-#pragma unroll
-    for (int kc = 0; kc < kKeys / 16; ++kc) {
-      // The C fragments of key tiles 2kc, 2kc+1 are the A fragment of P.
-      const uint32_t pa[4] = {pack_bf16(s[2 * kc][0], s[2 * kc][1]),
-                              pack_bf16(s[2 * kc][2], s[2 * kc][3]),
-                              pack_bf16(s[2 * kc + 1][0], s[2 * kc + 1][1]),
-                              pack_bf16(s[2 * kc + 1][2], s[2 * kc + 1][3])};
-#pragma unroll
-      for (int nd = 0; nd < DH / 8; ++nd) {
-        const __nv_bfloat16* vr = &svt[nd * 8 + g][kc * 16 + 2 * t];
-        mma_bf16(o[nd], pa, ld32(vr), ld32(vr + 8));
-      }
-    }
-  }
-
-#pragma unroll
-  for (int off = 1; off < 4; off <<= 1) {
-    l_lo += __shfl_xor_sync(0xffffffffu, l_lo, off);
-    l_hi += __shfl_xor_sync(0xffffffffu, l_hi, off);
-  }
-  const float inv_lo = 1.f / l_lo, inv_hi = 1.f / l_hi;
-  const int64_t width = (int64_t)H * DH;
-  __nv_bfloat16* o_lo = out + ((int64_t)b * S + first + p_lo) * width + h * DH;
-  __nv_bfloat16* o_hi = out + ((int64_t)b * S + first + p_hi) * width + h * DH;
-#pragma unroll
-  for (int nd = 0; nd < DH / 8; ++nd) {
-    const int c = nd * 8 + 2 * t;
-    if (ok_lo) {
-      *reinterpret_cast<uint32_t*>(o_lo + c) =
-          pack_bf16(o[nd][0] * inv_lo, o[nd][1] * inv_lo);
-    }
-    if (ok_hi) {
-      *reinterpret_cast<uint32_t*>(o_hi + c) =
-          pack_bf16(o[nd][2] * inv_hi, o[nd][3] * inv_hi);
-    }
-  }
-}
-
-}  // namespace mma
 
 // K2. Replaces the time branches of the packed TPU kernel: the frame-pair
 // branch (divided.py:811-830, `_time_fp_attend_mxu`) and the patch-major
@@ -601,32 +419,6 @@ int dispatch_group(const void* qkv, void* out, int B, int S, int H, int Dh,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int DH>
-void launch_space_mma(const void* qkv, void* out, int B, int S, int H, int F,
-                      float scale, cudaStream_t stream) {
-  const int N = (S - 1) / F;
-  const dim3 grid(F * ((N + mma::kRows - 1) / mma::kRows), H, B);
-  mma::space_fwd_kernel<DH><<<grid, mma::kWarps * 32, 0, stream>>>(
-      static_cast<const __nv_bfloat16*>(qkv), static_cast<__nv_bfloat16*>(out),
-      S, H, N, scale);
-}
-
-int space_mma(const void* qkv, void* out, int B, int S, int H, int Dh, int F,
-              float scale, cudaStream_t stream) {
-  switch (Dh) {
-    case 16: launch_space_mma<16>(qkv, out, B, S, H, F, scale, stream); break;
-    case 32: launch_space_mma<32>(qkv, out, B, S, H, F, scale, stream); break;
-    case 48: launch_space_mma<48>(qkv, out, B, S, H, F, scale, stream); break;
-    case 64: launch_space_mma<64>(qkv, out, B, S, H, F, scale, stream); break;
-    case 80: launch_space_mma<80>(qkv, out, B, S, H, F, scale, stream); break;
-    case 96: launch_space_mma<96>(qkv, out, B, S, H, F, scale, stream); break;
-    case 112: launch_space_mma<112>(qkv, out, B, S, H, F, scale, stream); break;
-    case 128: launch_space_mma<128>(qkv, out, B, S, H, F, scale, stream); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
 // dtype: 0 = float32, 1 = bfloat16. The Python wrapper has checked the
 // shapes, dtype, contiguity, alignment and Dh (a multiple of 8, <= 128).
 template <template <typename, int> class Launch>
@@ -647,13 +439,15 @@ int dispatch(const void* qkv, void* out, int dtype, int B, int S, int H,
 
 extern "C" {
 
-// bf16 with Dh a multiple of 16 runs on the tensor cores; the rest (f32,
-// other head dims) on the CUDA cores.
+// K1's grouped form on `space_fwd_geometry`: `rows` patch rows a block
+// (kThreads / G) and `parts` blocks a (b, h) covering the S - 1 patch rows;
+// any other geometry is refused. The frame form is
+// space_attention_fwd_frame, in space_attention.cu.
 int space_attention_fwd(const void* qkv, void* out, int dtype, int B, int S,
-                        int H, int Dh, int F, float scale, void* stream) {
-  if (dtype == 1 && Dh % 16 == 0) {
-    return space_mma(qkv, out, B, S, H, Dh, F, scale,
-                     static_cast<cudaStream_t>(stream));
+                        int H, int Dh, int F, float scale, int rows, int parts,
+                        void* stream) {
+  if (rows != kThreads / group_size(Dh) || parts != (S - 1 + rows - 1) / rows) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
   return dispatch<Space>(qkv, out, dtype, B, S, H, Dh, F, scale, stream);
 }

@@ -17,11 +17,14 @@
 // dk_j = scale sum_i ds_ij q_i, dv_j = sum_i p_ij g_i. The softmax is
 // recomputed from qkv for the patch rows (K4, K5); the CLS row's comes
 // from the log-sum-exp K3 saved (K6). Every sum is f32; the tensor-core
-// forms round dS (K4) or P and dS (K5) to bf16 before their products, as
-// the reference does, and the stores round to the input dtype.
+// forms round P and dS to bf16 before their products, as the reference
+// does, and the stores round to the input dtype.
 //
 // Three entry points:
-//   K4 space_attention_bwd, two launches:
+//   K4 space_attention_bwd, the grouped form that `space_bwd_geometry`
+//     names for f32, the head dims other than 16, 32, 48 and 64 and frames
+//     of more than 208 keys (its frame form, one launch on the tensor
+//     cores, is in space_attention.cu), two launches:
 //     1. query pass: a thread group owns one patch query row and walks its
 //        keys once with an online softmax, keeping sum e, sum e dp,
 //        sum e dp k and sum e k relative to the running max, so dq, delta
@@ -52,10 +55,10 @@
 // Bound: bytes for the function (qkv and g read once, dqkv written once).
 // On the CUDA cores each (query, key) pair costs two dots and two axpys of
 // Dh in each pass; K and V rows are read through L1 as in the forward
-// kernels. In bf16 with Dh a multiple of 16 up to 64 (the slice) K4 runs
-// both passes on the tensor cores, and so does K5 where F + 1 keys fit one
-// 64-row tile (namespace mma below); f32 stays on the CUDA cores. K6 (one
-// query) is bound by memory, and is described at its kernels.
+// kernels. In bf16 with Dh a multiple of 16 up to 64 K5 runs both passes
+// on the tensor cores where F + 1 keys fit four 16-row tiles (namespace mma
+// below); f32 stays on the CUDA cores. K6 (one query) is bound by memory,
+// and is described at its kernels.
 
 #include "attention_common.cuh"
 
@@ -476,36 +479,11 @@ __global__ void __launch_bounds__(kMergeThreads)
   }
 }
 
-// K4 on the tensor cores: the bf16 form of the two passes above for the
-// space axis, for Dh a multiple of 16 up to 64 (the slice: Dh = 64; larger
-// head dims would need more than the 48 KB of static shared memory and take
-// the CUDA-core passes).
-// Bound: the CUDA-core passes spend two dots and two axpys of Dh, with
-// their shuffles, on each (query, key) pair in each pass: 4.8 ms at B=16,
-// S=785 on an H100. Here every product is an mma.sync m16n8k16 (bf16 in,
-// f32 accumulate), so the loads into shared memory and the exponentials
-// bound it instead.
-// Design, as K1's tensor-core kernel: a block owns 64 rows of one frame of
-// one (b, h), 16 rows a warp, its own rows held in registers as mma A
-// fragments, and walks the other side of the frame in chunks of 64 staged in
-// shared memory, row-major for the products that contract over the head
-// dim and transposed for those that contract over the chunk.
-//   Query pass, rows = queries, chunks = keys (CLS first), two sweeps:
-//   sweep 1 takes S = Q K^T and dP = dO V^T for the row's log-sum-exp and
-//   delta = sum P dP (online, as K1's softmax); sweep 2 rebuilds them,
-//   forms dS = P (dP - delta), rounds it to bf16 as the A operand of
-//   dQ += dS K (as the plain version's autograd rounds it), and takes this
-//   block's share of the CLS key's dk and dv from column 0.
-//   Key pass, rows = patch keys, chunks = queries: S^T = K Q^T and
-//   dP^T = V dO^T against the statistics of the query pass, then
-//   dK += dS^T Q and dV += P^T dO.
-// The statistics are kept in the base-2 domain (lse2 = log2 sum 2^(s log2e)).
+// The tensor-core form of K5 (K4's is space_bwd_frame_kernel, in
+// space_attention.cu).
 namespace mma {
 
-constexpr int kWarps = 4;
-constexpr int kRows = 16 * kWarps;  // rows a block owns
-constexpr int kChunk = 64;          // rows of the other side a chunk
-constexpr int kPad = 8;             // bf16 of padding a shared-memory row
+constexpr int kPad = 8;  // bf16 of padding a shared-memory row
 constexpr float kLog2e = 1.4426950408889634f;
 
 __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
@@ -520,344 +498,6 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// A fragments of two rows (`lo`, `hi`; null = a row past the frame: zeros).
-template <int DH>
-__device__ __forceinline__ void load_a(const __nv_bfloat16* lo,
-                                       const __nv_bfloat16* hi, int t,
-                                       uint32_t (&a)[DH / 16][4]) {
-#pragma unroll
-  for (int kk = 0; kk < DH / 16; ++kk) {
-    const int c = kk * 16 + 2 * t;
-    a[kk][0] = lo ? ld32(lo + c) : 0u;
-    a[kk][1] = hi ? ld32(hi + c) : 0u;
-    a[kk][2] = lo ? ld32(lo + c + 8) : 0u;
-    a[kk][3] = hi ? ld32(hi + c + 8) : 0u;
-  }
-}
-
-// Stages `kChunk` rows of `src` (row i of the chunk at src + rows[i]*stride;
-// i >= n_valid gives zeros) into `rm` row-major and, if `tr`, transposed.
-// rows: i -> sequence row, by `first + i` with row 0 mapped to `row0` when
-// `cls_first` (the CLS key leads chunk 0 of the keys).
-template <int DH>
-__device__ __forceinline__ void stage(
-    const __nv_bfloat16* src, int64_t stride, int c0, int n_total,
-    bool cls_first, int first, __nv_bfloat16 (*rm)[DH + kPad],
-    __nv_bfloat16 (*tr)[kChunk + kPad]) {
-  for (int i = threadIdx.x; i < kChunk * (DH / 8); i += kWarps * 32) {
-    const int j = i / (DH / 8), d8 = (i % (DH / 8)) * 8;
-    const int idx = c0 + j;
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (idx < n_total) {
-      const int64_t row = cls_first ? (idx == 0 ? 0 : first + idx - 1)
-                                    : first + idx;
-      val = __ldg(reinterpret_cast<const uint4*>(src + row * stride + d8));
-    }
-    *reinterpret_cast<uint4*>(&rm[j][d8]) = val;
-    if (tr != nullptr) {
-      const __nv_bfloat16* ve = reinterpret_cast<const __nv_bfloat16*>(&val);
-#pragma unroll
-      for (int e = 0; e < 8; ++e) tr[d8 + e][j] = ve[e];
-    }
-  }
-}
-
-// c[nt] += A (16 x DH, registers) . B^T, B = 64 rows x DH row-major in smem.
-template <int DH>
-__device__ __forceinline__ void product_over_dh(
-    float (&c)[kChunk / 8][4], const uint32_t (&a)[DH / 16][4],
-    __nv_bfloat16 (*b)[DH + kPad], int g, int t) {
-#pragma unroll
-  for (int nt = 0; nt < kChunk / 8; ++nt) {
-    c[nt][0] = c[nt][1] = c[nt][2] = c[nt][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < DH / 16; ++kk) {
-      const __nv_bfloat16* br = &b[nt * 8 + g][kk * 16 + 2 * t];
-      mma_bf16(c[nt], a[kk], ld32(br), ld32(br + 8));
-    }
-  }
-}
-
-// acc += A (16 x 64, the C fragments `a` rounded to bf16) . B, B given
-// transposed in smem as [DH][64].
-template <int DH>
-__device__ __forceinline__ void product_over_chunk(
-    float (&acc)[DH / 8][4], const float (&a)[kChunk / 8][4],
-    __nv_bfloat16 (*bt)[kChunk + kPad], int g, int t) {
-#pragma unroll
-  for (int kc = 0; kc < kChunk / 16; ++kc) {
-    const uint32_t pa[4] = {pack_bf16(a[2 * kc][0], a[2 * kc][1]),
-                            pack_bf16(a[2 * kc][2], a[2 * kc][3]),
-                            pack_bf16(a[2 * kc + 1][0], a[2 * kc + 1][1]),
-                            pack_bf16(a[2 * kc + 1][2], a[2 * kc + 1][3])};
-#pragma unroll
-    for (int nd = 0; nd < DH / 8; ++nd) {
-      const __nv_bfloat16* br = &bt[nd * 8 + g][kc * 16 + 2 * t];
-      mma_bf16(acc[nd], pa, ld32(br), ld32(br + 8));
-    }
-  }
-}
-
-template <int DH>
-__global__ void __launch_bounds__(kWarps * 32)
-    space_bwd_query_kernel(const __nv_bfloat16* __restrict__ qkv,
-                           const __nv_bfloat16* __restrict__ gout,
-                           __nv_bfloat16* __restrict__ dqkv,
-                           float* __restrict__ stats,
-                           float* __restrict__ cls_part, int S, int H, int N,
-                           float scale) {
-  __shared__ __align__(16) __nv_bfloat16 sk[kChunk][DH + kPad];
-  __shared__ __align__(16) __nv_bfloat16 sv[kChunk][DH + kPad];
-  __shared__ __align__(16) __nv_bfloat16 skt[DH][kChunk + kPad];
-  __shared__ float s_ds0[kRows];
-  __shared__ float s_p0[kRows];
-  const int tiles = (N + kRows - 1) / kRows;
-  const int f = blockIdx.x / tiles, qt = blockIdx.x % tiles;
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, t = lane & 3;
-  const int64_t stride = 3LL * H * DH, width = (int64_t)H * DH;
-  const __nv_bfloat16* qbase = qkv + (int64_t)b * S * stride + (int64_t)h * DH;
-  const __nv_bfloat16* kbase = qbase + width;
-  const __nv_bfloat16* vbase = qbase + 2 * width;
-  const __nv_bfloat16* gbase = gout + (int64_t)b * S * width + (int64_t)h * DH;
-  const int first = 1 + f * N;
-  const int p_lo = qt * kRows + warp * 16 + g, p_hi = p_lo + 8;
-  const bool ok_lo = p_lo < N, ok_hi = p_hi < N;
-  const int64_t r_lo = first + p_lo, r_hi = first + p_hi;
-
-  uint32_t qa[DH / 16][4], ga[DH / 16][4];
-  load_a<DH>(ok_lo ? qbase + r_lo * stride : nullptr,
-             ok_hi ? qbase + r_hi * stride : nullptr, t, qa);
-  load_a<DH>(ok_lo ? gbase + r_lo * width : nullptr,
-             ok_hi ? gbase + r_hi * width : nullptr, t, ga);
-  const float sl2 = scale * kLog2e;
-  float s[kChunk / 8][4], dp[kChunk / 8][4];
-
-  // Scores of one staged chunk: s in the base-2 domain, -inf past key N.
-  auto scores = [&](int c0) {
-    product_over_dh<DH>(s, qa, sk, g, t);
-    product_over_dh<DH>(dp, ga, sv, g, t);
-#pragma unroll
-    for (int nt = 0; nt < kChunk / 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const bool valid = c0 + nt * 8 + 2 * t + (e & 1) <= N;
-        s[nt][e] = valid ? s[nt][e] * sl2 : -INFINITY;
-      }
-    }
-  };
-
-  // Sweep 1: the rows' log-sum-exp and delta.
-  float m_lo = -INFINITY, m_hi = -INFINITY, l_lo = 0.f, l_hi = 0.f;
-  float e_lo = 0.f, e_hi = 0.f;  // sum 2^(s - m) dp
-  for (int c0 = 0; c0 <= N; c0 += kChunk) {
-    __syncthreads();
-    stage<DH>(kbase, stride, c0, N + 1, true, first, sk, nullptr);
-    stage<DH>(vbase, stride, c0, N + 1, true, first, sv, nullptr);
-    __syncthreads();
-    scores(c0);
-    float mx_lo = -INFINITY, mx_hi = -INFINITY;
-#pragma unroll
-    for (int nt = 0; nt < kChunk / 8; ++nt) {
-      mx_lo = fmaxf(mx_lo, fmaxf(s[nt][0], s[nt][1]));
-      mx_hi = fmaxf(mx_hi, fmaxf(s[nt][2], s[nt][3]));
-    }
-#pragma unroll
-    for (int off = 1; off < 4; off <<= 1) {
-      mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, off));
-      mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, off));
-    }
-    // Every chunk holds a valid key, so the new maxima are finite.
-    const float mn_lo = fmaxf(m_lo, mx_lo), mn_hi = fmaxf(m_hi, mx_hi);
-    const float corr_lo = exp2f(m_lo - mn_lo), corr_hi = exp2f(m_hi - mn_hi);
-    m_lo = mn_lo;
-    m_hi = mn_hi;
-    l_lo *= corr_lo; e_lo *= corr_lo;
-    l_hi *= corr_hi; e_hi *= corr_hi;
-#pragma unroll
-    for (int nt = 0; nt < kChunk / 8; ++nt) {
-      const float x0 = exp2f(s[nt][0] - mn_lo), x1 = exp2f(s[nt][1] - mn_lo);
-      const float x2 = exp2f(s[nt][2] - mn_hi), x3 = exp2f(s[nt][3] - mn_hi);
-      l_lo += x0 + x1;
-      l_hi += x2 + x3;
-      e_lo += x0 * dp[nt][0] + x1 * dp[nt][1];
-      e_hi += x2 * dp[nt][2] + x3 * dp[nt][3];
-    }
-  }
-#pragma unroll
-  for (int off = 1; off < 4; off <<= 1) {
-    l_lo += __shfl_xor_sync(0xffffffffu, l_lo, off);
-    l_hi += __shfl_xor_sync(0xffffffffu, l_hi, off);
-    e_lo += __shfl_xor_sync(0xffffffffu, e_lo, off);
-    e_hi += __shfl_xor_sync(0xffffffffu, e_hi, off);
-  }
-  const float lse_lo = m_lo + log2f(l_lo), lse_hi = m_hi + log2f(l_hi);
-  const float delta_lo = e_lo / l_lo, delta_hi = e_hi / l_hi;
-  if (t == 0) {
-    const int64_t at = ((int64_t)b * H + h) * S;
-    const int64_t plane = (int64_t)gridDim.z * H * S;
-    if (ok_lo) { stats[at + r_lo] = lse_lo; stats[plane + at + r_lo] = delta_lo; }
-    if (ok_hi) { stats[at + r_hi] = lse_hi; stats[plane + at + r_hi] = delta_hi; }
-  }
-
-  // Sweep 2: dS, dQ and the CLS key's share.
-  float dq[DH / 8][4];
-#pragma unroll
-  for (int nd = 0; nd < DH / 8; ++nd) dq[nd][0] = dq[nd][1] = dq[nd][2] = dq[nd][3] = 0.f;
-  for (int c0 = 0; c0 <= N; c0 += kChunk) {
-    __syncthreads();
-    stage<DH>(kbase, stride, c0, N + 1, true, first, sk, skt);
-    stage<DH>(vbase, stride, c0, N + 1, true, first, sv, nullptr);
-    __syncthreads();
-    scores(c0);
-#pragma unroll
-    for (int nt = 0; nt < kChunk / 8; ++nt) {
-      const float p0 = exp2f(s[nt][0] - lse_lo), p1 = exp2f(s[nt][1] - lse_lo);
-      const float p2 = exp2f(s[nt][2] - lse_hi), p3 = exp2f(s[nt][3] - lse_hi);
-      if (c0 == 0 && nt == 0 && t == 0) {  // column 0: the CLS key
-        s_p0[warp * 16 + g] = ok_lo ? p0 : 0.f;
-        s_p0[warp * 16 + g + 8] = ok_hi ? p2 : 0.f;
-        s_ds0[warp * 16 + g] = ok_lo ? p0 * (dp[0][0] - delta_lo) : 0.f;
-        s_ds0[warp * 16 + g + 8] = ok_hi ? p2 * (dp[0][2] - delta_hi) : 0.f;
-      }
-      s[nt][0] = p0 * (dp[nt][0] - delta_lo);
-      s[nt][1] = p1 * (dp[nt][1] - delta_lo);
-      s[nt][2] = p2 * (dp[nt][2] - delta_hi);
-      s[nt][3] = p3 * (dp[nt][3] - delta_hi);
-    }
-    product_over_chunk<DH>(dq, s, skt, g, t);
-  }
-  __nv_bfloat16* d_lo = dqkv + ((int64_t)b * S + r_lo) * stride + h * DH;
-  __nv_bfloat16* d_hi = dqkv + ((int64_t)b * S + r_hi) * stride + h * DH;
-#pragma unroll
-  for (int nd = 0; nd < DH / 8; ++nd) {
-    const int c = nd * 8 + 2 * t;
-    if (ok_lo) {
-      *reinterpret_cast<uint32_t*>(d_lo + c) =
-          pack_bf16(dq[nd][0] * scale, dq[nd][1] * scale);
-    }
-    if (ok_hi) {
-      *reinterpret_cast<uint32_t*>(d_hi + c) =
-          pack_bf16(dq[nd][2] * scale, dq[nd][3] * scale);
-    }
-  }
-  // This block's share of the CLS key's dk (threads 0..DH-1) and dv
-  // (DH..2DH-1): a sum over its rows, which are read again (L1/L2).
-  __syncthreads();
-  if (threadIdx.x < 2 * DH) {
-    const int which = threadIdx.x / DH, d = threadIdx.x % DH;
-    const int rows = min(kRows, N - qt * kRows);
-    float sum = 0.f;
-    for (int i = 0; i < rows; ++i) {
-      const int64_t r = first + qt * kRows + i;
-      sum += which == 0
-                 ? s_ds0[i] * __bfloat162float(qbase[r * stride + d])
-                 : s_p0[i] * __bfloat162float(gbase[r * width + d]);
-    }
-    cls_part[((((int64_t)b * H + h) * gridDim.x + blockIdx.x) * 2 + which) *
-                 DH + d] = which == 0 ? sum * scale : sum;
-  }
-}
-
-template <int DH>
-__global__ void __launch_bounds__(kWarps * 32)
-    space_bwd_key_kernel(const __nv_bfloat16* __restrict__ qkv,
-                         const __nv_bfloat16* __restrict__ gout,
-                         __nv_bfloat16* __restrict__ dqkv,
-                         const float* __restrict__ stats, int S, int H, int N,
-                         float scale) {
-  __shared__ __align__(16) __nv_bfloat16 sq[kChunk][DH + kPad];
-  __shared__ __align__(16) __nv_bfloat16 sg[kChunk][DH + kPad];
-  __shared__ __align__(16) __nv_bfloat16 sqt[DH][kChunk + kPad];
-  __shared__ __align__(16) __nv_bfloat16 sgt[DH][kChunk + kPad];
-  __shared__ float s_lse[kChunk];
-  __shared__ float s_delta[kChunk];
-  const int tiles = (N + kRows - 1) / kRows;
-  const int f = blockIdx.x / tiles, kt = blockIdx.x % tiles;
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, t = lane & 3;
-  const int64_t stride = 3LL * H * DH, width = (int64_t)H * DH;
-  const __nv_bfloat16* qbase = qkv + (int64_t)b * S * stride + (int64_t)h * DH;
-  const __nv_bfloat16* kbase = qbase + width;
-  const __nv_bfloat16* vbase = qbase + 2 * width;
-  const __nv_bfloat16* gbase = gout + (int64_t)b * S * width + (int64_t)h * DH;
-  const int first = 1 + f * N;
-  const int p_lo = kt * kRows + warp * 16 + g, p_hi = p_lo + 8;
-  const bool ok_lo = p_lo < N, ok_hi = p_hi < N;
-  const int64_t r_lo = first + p_lo, r_hi = first + p_hi;
-
-  uint32_t ka[DH / 16][4], va[DH / 16][4];
-  load_a<DH>(ok_lo ? kbase + r_lo * stride : nullptr,
-             ok_hi ? kbase + r_hi * stride : nullptr, t, ka);
-  load_a<DH>(ok_lo ? vbase + r_lo * stride : nullptr,
-             ok_hi ? vbase + r_hi * stride : nullptr, t, va);
-  const float sl2 = scale * kLog2e;
-  const float* lse = stats + ((int64_t)b * H + h) * S;
-  const float* dlt = lse + (int64_t)gridDim.z * H * S;
-  float dk[DH / 8][4], dv[DH / 8][4];
-#pragma unroll
-  for (int nd = 0; nd < DH / 8; ++nd) {
-    dk[nd][0] = dk[nd][1] = dk[nd][2] = dk[nd][3] = 0.f;
-    dv[nd][0] = dv[nd][1] = dv[nd][2] = dv[nd][3] = 0.f;
-  }
-  float st[kChunk / 8][4], dpt[kChunk / 8][4];
-  for (int q0 = 0; q0 < N; q0 += kChunk) {
-    __syncthreads();
-    stage<DH>(qbase, stride, q0, N, false, first, sq, sqt);
-    stage<DH>(gbase, width, q0, N, false, first, sg, sgt);
-    if (threadIdx.x < kChunk) {
-      const bool valid = q0 + threadIdx.x < N;
-      // +inf turns a query past the frame into p = 0
-      s_lse[threadIdx.x] = valid ? lse[first + q0 + threadIdx.x] : INFINITY;
-      s_delta[threadIdx.x] = valid ? dlt[first + q0 + threadIdx.x] : 0.f;
-    }
-    __syncthreads();
-    product_over_dh<DH>(st, ka, sq, g, t);
-    product_over_dh<DH>(dpt, va, sg, g, t);
-#pragma unroll
-    for (int nt = 0; nt < kChunk / 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = nt * 8 + 2 * t + (e & 1);
-        const float p = exp2f(st[nt][e] * sl2 - s_lse[col]);
-        st[nt][e] = p;
-        dpt[nt][e] = p * (dpt[nt][e] - s_delta[col]);
-      }
-    }
-    product_over_chunk<DH>(dv, st, sgt, g, t);
-    product_over_chunk<DH>(dk, dpt, sqt, g, t);
-  }
-  __nv_bfloat16* k_lo = dqkv + ((int64_t)b * S + r_lo) * stride + width + h * DH;
-  __nv_bfloat16* k_hi = dqkv + ((int64_t)b * S + r_hi) * stride + width + h * DH;
-#pragma unroll
-  for (int nd = 0; nd < DH / 8; ++nd) {
-    const int c = nd * 8 + 2 * t;
-    if (ok_lo) {
-      *reinterpret_cast<uint32_t*>(k_lo + c) =
-          pack_bf16(dk[nd][0] * scale, dk[nd][1] * scale);
-      *reinterpret_cast<uint32_t*>(k_lo + width + c) =
-          pack_bf16(dv[nd][0], dv[nd][1]);
-    }
-    if (ok_hi) {
-      *reinterpret_cast<uint32_t*>(k_hi + c) =
-          pack_bf16(dk[nd][2] * scale, dk[nd][3] * scale);
-      *reinterpret_cast<uint32_t*>(k_hi + width + c) =
-          pack_bf16(dv[nd][2], dv[nd][3]);
-    }
-  }
-}
-
-inline int parts(int S, int F) {
-  const int N = (S - 1) / F;
-  return F * ((N + kRows - 1) / kRows);
 }
 
 // K5 on the tensor cores: the bf16 time axis for Dh a multiple of 16 up to
@@ -1175,33 +815,12 @@ int launch_time(const void* qkv, const void* gout, void* dqkv,
   }
 }
 
-template <int DH>
-int launch(const void* qkv, const void* gout, void* dqkv, float* stats,
-           float* cls_part, int B, int S, int H, int F, float scale,
-           cudaStream_t stream) {
-  const int N = (S - 1) / F;
-  const dim3 grid(parts(S, F), H, B);
-  const __nv_bfloat16* q = static_cast<const __nv_bfloat16*>(qkv);
-  const __nv_bfloat16* g = static_cast<const __nv_bfloat16*>(gout);
-  __nv_bfloat16* d = static_cast<__nv_bfloat16*>(dqkv);
-  space_bwd_query_kernel<DH><<<grid, kWarps * 32, 0, stream>>>(
-      q, g, d, stats, cls_part, S, H, N, scale);
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  space_bwd_key_kernel<DH><<<grid, kWarps * 32, 0, stream>>>(
-      q, g, d, stats, S, H, N, scale);
-  return static_cast<int>(cudaGetLastError());
-}
-
 }  // namespace mma
 
-// bf16 with Dh in {16, 32, 48, 64} on the space axis takes the tensor cores;
-// on the time axis too where F + 1 keys fit 64 and the caller asks for them.
-inline bool space_on_tensor_cores(int dtype, int Dh) {
-  return dtype == 1 && Dh % 16 == 0 && Dh <= 64;
-}
+// K5's tensor-core form: bf16 with Dh in {16, 32, 48, 64} and F + 1 keys
+// in at most four 16-row tiles.
 inline bool time_on_tensor_cores(int dtype, int Dh, int F) {
-  return space_on_tensor_cores(dtype, Dh) && F >= 1 && F <= 63;
+  return dtype == 1 && Dh % 16 == 0 && Dh <= 64 && F >= 1 && F <= 63;
 }
 
 int time_mma(const void* qkv, const void* gout, void* dqkv, float* cls_part,
@@ -1212,18 +831,6 @@ int time_mma(const void* qkv, const void* gout, void* dqkv, float* cls_part,
     case 32: return mma::launch_time<32>(qkv, gout, dqkv, cls_part, B, S, H, F, cols, parts, shared_bytes, scale, st);
     case 48: return mma::launch_time<48>(qkv, gout, dqkv, cls_part, B, S, H, F, cols, parts, shared_bytes, scale, st);
     case 64: return mma::launch_time<64>(qkv, gout, dqkv, cls_part, B, S, H, F, cols, parts, shared_bytes, scale, st);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-}
-
-int space_mma(const void* qkv, const void* gout, void* dqkv, float* stats,
-              float* cls_part, int B, int S, int H, int Dh, int F, float scale,
-              cudaStream_t st) {
-  switch (Dh) {
-    case 16: return mma::launch<16>(qkv, gout, dqkv, stats, cls_part, B, S, H, F, scale, st);
-    case 32: return mma::launch<32>(qkv, gout, dqkv, stats, cls_part, B, S, H, F, scale, st);
-    case 48: return mma::launch<48>(qkv, gout, dqkv, stats, cls_part, B, S, H, F, scale, st);
-    case 64: return mma::launch<64>(qkv, gout, dqkv, stats, cls_part, B, S, H, F, scale, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -1336,21 +943,16 @@ int grouped_bwd_any(bool time, const void* qkv, const void* gout, void* dqkv,
 
 extern "C" {
 
-// How many CLS-key partials K4 writes for each (batch, head): the blocks of
-// its query pass. The wrapper sizes `cls_part` [B, H, parts, 2, Dh] (f32)
-// with it; `stats` is [2, B, H, S] (f32). K5's come with its geometry.
-int attention_bwd_parts(int dtype, int S, int Dh, int F) {
-  if (space_on_tensor_cores(dtype, Dh)) return mma::parts(S, F);
-  return grouped_parts(S, Dh);
-}
-
+// K4's grouped form on `space_bwd_geometry`: `parts` the blocks of its
+// query pass a (b, h), the parts axis of `cls_part` [B, H, parts, 2, Dh]
+// (f32); `stats` is [2, B, H, S] (f32). Any other geometry is refused. The
+// frame form is space_attention_bwd_frame, in space_attention.cu.
 int space_attention_bwd(const void* qkv, const void* gout, void* dqkv,
                         void* stats, void* cls_part, int dtype, int B, int S,
-                        int H, int Dh, int F, float scale, void* stream) {
-  if (space_on_tensor_cores(dtype, Dh)) {
-    return space_mma(qkv, gout, dqkv, static_cast<float*>(stats),
-                     static_cast<float*>(cls_part), B, S, H, Dh, F, scale,
-                     static_cast<cudaStream_t>(stream));
+                        int H, int Dh, int F, float scale, int parts,
+                        void* stream) {
+  if (parts != grouped_parts(S, Dh)) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
   return grouped_bwd_any(false, qkv, gout, dqkv, stats, cls_part, dtype, B, S,
                          H, Dh, F, scale, stream);

@@ -33,8 +33,9 @@ _SOURCES = {
         "space_attention_fwd", "time_attention_fwd", "cls_row_attention_fwd",
         "cuda_error_string"),
     "divided_attention_bwd.cu": (
-        "space_attention_bwd", "time_attention_bwd", "cls_row_attention_bwd",
-        "attention_bwd_parts"),
+        "space_attention_bwd", "time_attention_bwd", "cls_row_attention_bwd"),
+    "space_attention.cu": ("space_attention_fwd_frame",
+                           "space_attention_bwd_frame"),
     "time_attention.cu": ("time_attention_fwd_tc",),
     "layernorm.cu": ("layernorm_fwd", "layernorm_bwd"),
     "fused_attention.cu": ("fused_attention_fwd",),
@@ -135,8 +136,12 @@ def load() -> SimpleNamespace:
             setattr(fns, name, getattr(cdll, name))
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     i64 = ctypes.c_int64
-    fns.space_attention_fwd.argtypes = [ptr, ptr] + [i32] * 6 + [f32, ptr]
+    fns.space_attention_fwd.argtypes = [ptr, ptr] + [i32] * 6 + [f32] \
+        + [i32] * 2 + [ptr]
     fns.space_attention_fwd.restype = i32
+    fns.space_attention_fwd_frame.argtypes = [ptr, ptr] + [i32] * 6 + [f32] \
+        + [i32] * 2 + [ptr]
+    fns.space_attention_fwd_frame.restype = i32
     fns.time_attention_fwd.argtypes = [ptr, ptr] + [i32] * 6 + [f32] \
         + [i32] * 2 + [ptr]
     fns.time_attention_fwd.restype = i32
@@ -145,16 +150,18 @@ def load() -> SimpleNamespace:
     fns.time_attention_fwd_tc.restype = i32
     fns.cls_row_attention_fwd.argtypes = [ptr] * 4 + [i32] * 7 + [f32, ptr]
     fns.cls_row_attention_fwd.restype = i32
-    fns.space_attention_bwd.argtypes = [ptr] * 5 + [i32] * 6 + [f32, ptr]
+    fns.space_attention_bwd.argtypes = [ptr] * 5 + [i32] * 6 + [f32, i32,
+                                                                ptr]
     fns.space_attention_bwd.restype = i32
+    fns.space_attention_bwd_frame.argtypes = [ptr] * 4 + [i32] * 6 + [f32] \
+        + [i32] * 2 + [ptr]
+    fns.space_attention_bwd_frame.restype = i32
     fns.time_attention_bwd.argtypes = [ptr] * 5 + [i32] * 6 + [f32] \
         + [i32] * 4 + [ptr]
     fns.time_attention_bwd.restype = i32
     fns.cls_row_attention_bwd.argtypes = [ptr] * 6 + [i32, ptr] + [i32] * 7 \
         + [f32, ptr]
     fns.cls_row_attention_bwd.restype = i32
-    fns.attention_bwd_parts.argtypes = [i32, i32, i32, i32]
-    fns.attention_bwd_parts.restype = i32
     fns.layernorm_fwd.argtypes = [ptr, ptr, ptr, ptr, i32, i32, f32, i32, ptr]
     fns.layernorm_fwd.restype = i32
     fns.layernorm_bwd.argtypes = [ptr] * 7 + [i32, i32, f32] + [i32] * 3 \
@@ -207,18 +214,120 @@ def _raise_on_error(name: str, code: int) -> None:
         raise RuntimeError(f"{name} failed to launch: CUDA error {code} ({msg})")
 
 
+# K1's and K4's frame forms (`csrc/space_attention.cu`): a block owns one
+# frame of one (b, h), its rows staged once in shared memory; K4 holds a
+# 16-row tile's scores over every key of the frame in registers, which
+# takes at most SPACE_MAX_KEY_TILES tiles of keys, and K1 takes the same
+# frames.
+SPACE_MAX_KEY_TILES = 13  # N + 1 <= 208 keys: N = 196 on every path
+_SPACE_PAD = 8  # bf16 of padding a padded staged row
+
+
+def _grouped_rows(dtype: torch.dtype, dh: int, s: int) -> int:
+    """Patch rows a block of a grouped (CUDA-core) form: kThreads (256) of
+    csrc/attention_common.cuh over G lanes (8 head-dim elements each) a
+    row."""
+    return 256 // cls_row_geometry(dtype, dh, s).group
+
+
+def _divided_shape(dtype: torch.dtype, dh: int, s: int,
+                   num_frames: int) -> tuple:
+    """The checks of K1, K2, K4 and K5's geometries; returns (F, N)."""
+    if dtype not in _DTYPE_CODES:
+        raise TypeError(f"kernel takes float32 or bfloat16, got {dtype}")
+    if dh < 8 or dh % 8 or dh > 128:
+        raise ValueError(f"head dim {dh} must be a multiple of 8 and <= 128")
+    if num_frames < 1 or s < 2 or (s - 1) % num_frames:
+        raise ValueError(f"S={s} is not 1 + {num_frames} frames * N patches")
+    return num_frames, (s - 1) // num_frames
+
+
+def space_fwd_geometry(dtype: torch.dtype, dh: int, s: int,
+                       num_frames: int) -> SimpleNamespace:
+    """K1's launch geometry for qkv of `dtype` at head dim `dh` and
+    S = 1 + num_frames * N:
+      * `form`: "frame" for bf16 with `dh` a multiple of 16 up to 128 and
+        N + 1 keys in at most SPACE_MAX_KEY_TILES 16-row tiles, else
+        "grouped" (the CUDA-core form);
+      * `rows`: patch rows a block, frame-major: a frame (N) in the frame
+        form, kThreads / G in the grouped one;
+      * `parts`: blocks a (batch, head), ceil((S - 1) / rows): F in the
+        frame form;
+      * `key_tiles`, `query_tiles`: the 16-row MMA tiles of a frame's
+        N + 1 keys and N queries (frame form);
+      * `shared_bytes`: a frame block's dynamic shared memory, K and V
+        (16 * key_tiles rows each) at a pitch of dh + 8 bf16; None in the
+        grouped form, which has none.
+    Pure, and the one place this geometry is decided: the CPU tests check
+    it, and each C entry point launches with it as given, refusing any
+    other (CUDA error 1, invalid argument)."""
+    f, n = _divided_shape(dtype, dh, s, num_frames)
+    kt, qt = (n + 16) // 16, (n + 15) // 16
+    if dtype == torch.bfloat16 and dh % 16 == 0 \
+            and kt <= SPACE_MAX_KEY_TILES:
+        return SimpleNamespace(form="frame", rows=n, parts=f, key_tiles=kt,
+                               query_tiles=qt, shared_bytes=2 * 2 * 16 * kt
+                               * (dh + _SPACE_PAD))
+    rows = _grouped_rows(dtype, dh, s)
+    return SimpleNamespace(form="grouped", rows=rows, parts=-(-(s - 1) // rows),
+                           key_tiles=None, query_tiles=None, shared_bytes=None)
+
+
+def space_bwd_geometry(dtype: torch.dtype, dh: int, s: int,
+                       num_frames: int) -> SimpleNamespace:
+    """K4's launch geometry for qkv of `dtype` at head dim `dh` and
+    S = 1 + num_frames * N:
+      * `form`: "frame" (one launch) for bf16 with `dh` 16, 32, 48 or 64 and
+        N + 1 keys in at most SPACE_MAX_KEY_TILES 16-row tiles, else
+        "grouped" (the CUDA-core query and key passes, two launches);
+      * `rows`: patch rows a block, frame-major: a frame (N) in the frame
+        form, kThreads / G in the grouped one;
+      * `parts`: blocks a (batch, head), ceil((S - 1) / rows): F in the
+        frame form; the parts axis of the f32 `cls_part` [B, H, parts, 2,
+        Dh], each block's share of the CLS key's dk and dv;
+      * `key_tiles`, `query_tiles`: as in `space_fwd_geometry`;
+      * `shared_bytes`: a frame block's dynamic shared memory: K and V (16 *
+        key_tiles rows) and Q and the cotangent (16 * query_tiles rows) at
+        dh bf16 a row (swizzled, unpadded; dh + 8 at dh = 48), and each
+        query row's f32 log-sum-exp and delta (at most SHARED_BYTES_TWO, so
+        two blocks share an SM); the grouped form's static 16 KB.
+    Pure, and the one place this geometry is decided: the CPU tests check
+    it, and each C entry point launches with it as given, refusing any
+    other (CUDA error 1, invalid argument)."""
+    f, n = _divided_shape(dtype, dh, s, num_frames)
+    kt, qt = (n + 16) // 16, (n + 15) // 16
+    if dtype == torch.bfloat16 and dh % 16 == 0 and dh <= 64 \
+            and kt <= SPACE_MAX_KEY_TILES:
+        kp, qp = 16 * kt, 16 * qt
+        ld = dh if dh in (16, 32, 64) else dh + _SPACE_PAD  # swizzled or not
+        return SimpleNamespace(form="frame", rows=n, parts=f, key_tiles=kt,
+                               query_tiles=qt, shared_bytes=2 * (
+                                   2 * kp + 2 * qp) * ld + 2 * 4 * qp)
+    rows = _grouped_rows(dtype, dh, s)
+    # sm_part [2][kThreads / G][8 G] f32 of the query pass
+    return SimpleNamespace(form="grouped", rows=rows, parts=-(-(s - 1) // rows),
+                           key_tiles=None, query_tiles=None,
+                           shared_bytes=2 * 256 * 8 * 4)
+
+
 def space_attention_fwd(qkv: torch.Tensor, out: torch.Tensor, *,
                         num_heads: int, num_frames: int, scale: float) -> None:
-    """K1: rows 1..S-1 of divided SPACE attention, written into `out`.
+    """K1: rows 1..S-1 of divided SPACE attention, written into `out`, in
+    the form `space_fwd_geometry` names: one `__global__` launch either way.
 
     qkv [B, S, 3*H*Dh] (the qkv Linear output), out [B, S, H*Dh]."""
     name = "space_attention_fwd"
     b, s, dh = _check(qkv, out, num_heads, num_frames)
+    geo = space_fwd_geometry(qkv.dtype, dh, s, num_frames)
+    if geo.form == "frame":
+        fn, extra = load().space_attention_fwd_frame, (geo.parts,
+                                                        geo.shared_bytes)
+    else:
+        fn, extra = load().space_attention_fwd, (geo.rows, geo.parts)
     with torch.cuda.device(qkv.device):
         stream = torch.cuda.current_stream(qkv.device).cuda_stream
-        code = load().space_attention_fwd(
-            qkv.data_ptr(), out.data_ptr(), _DTYPE_CODES[qkv.dtype], b, s,
-            num_heads, dh, num_frames, float(scale), stream)
+        code = fn(qkv.data_ptr(), out.data_ptr(), _DTYPE_CODES[qkv.dtype], b, s,
+                  num_heads, dh, num_frames, float(scale), *extra, stream)
     _raise_on_error(name, code)
     launch_counts[name] += 1
 
@@ -255,16 +364,10 @@ def time_fwd_geometry(dtype: torch.dtype, dh: int, s: int,
     Pure, and the one place this geometry is decided: the CPU tests check
     it, and each C entry point launches with it as given, refusing any
     other (CUDA error 1, invalid argument)."""
-    if dtype not in _DTYPE_CODES:
-        raise TypeError(f"kernel takes float32 or bfloat16, got {dtype}")
-    if dh < 8 or dh % 8 or dh > 128:
-        raise ValueError(f"head dim {dh} must be a multiple of 8 and <= 128")
-    if num_frames < 1 or s < 2 or (s - 1) % num_frames:
-        raise ValueError(f"S={s} is not 1 + {num_frames} frames * N patches")
-    f, n = num_frames, (s - 1) // num_frames
+    f, n = _divided_shape(dtype, dh, s, num_frames)
     if not (dtype == torch.bfloat16 and dh % 16 == 0 and dh <= 64
             and f <= TIME_FWD_MAX_F):
-        rows = 256 // cls_row_geometry(dtype, dh, s).group  # kThreads / G
+        rows = _grouped_rows(dtype, dh, s)
         return SimpleNamespace(form="grouped", rows=rows,
                                parts=-(-(s - 1) // rows), cols=None,
                                key_tiles=None, query_tiles=None,
@@ -415,13 +518,7 @@ def time_bwd_geometry(dtype: torch.dtype, dh: int, s: int,
     Pure, and the one place this geometry is decided: the CPU tests check
     it, and the C entry point launches with it as given, refusing any other
     (CUDA error 1, invalid argument)."""
-    if dtype not in _DTYPE_CODES:
-        raise TypeError(f"kernel takes float32 or bfloat16, got {dtype}")
-    if dh < 8 or dh % 8 or dh > 128:
-        raise ValueError(f"head dim {dh} must be a multiple of 8 and <= 128")
-    if num_frames < 1 or s < 2 or (s - 1) % num_frames:
-        raise ValueError(f"S={s} is not 1 + {num_frames} frames * N patches")
-    f, n = num_frames, (s - 1) // num_frames
+    f, n = _divided_shape(dtype, dh, s, num_frames)
     if dtype == torch.bfloat16 and dh % 16 == 0 and dh <= 64 \
             and f <= TIME_BWD_MAX_F:
         kt, qt = (f + 16) // 16, (f + 15) // 16
@@ -432,9 +529,7 @@ def time_bwd_geometry(dtype: torch.dtype, dh: int, s: int,
         return SimpleNamespace(form="tensor_cores", rows=cols * f, cols=cols,
                                parts=-(-n // cols), shared_bytes=shared,
                                key_tiles=kt, query_tiles=qt)
-    # kThreads (256) of csrc/attention_common.cuh, G lanes (8 elements each)
-    # a row; sm_part [2][kThreads / G][8 G] f32
-    rows = 256 // cls_row_geometry(dtype, dh, s).group
+    rows = _grouped_rows(dtype, dh, s)  # sm_part [2][kThreads / G][8 G] f32
     return SimpleNamespace(form="grouped", rows=rows, cols=None,
                            parts=-(-(s - 1) // rows),
                            shared_bytes=2 * 256 * 8 * 4, key_tiles=None,
@@ -444,22 +539,20 @@ def time_bwd_geometry(dtype: torch.dtype, dh: int, s: int,
 def attention_bwd_scratch(qkv: torch.Tensor, *, num_heads: int,
                           num_frames: int, axis: str) -> tuple:
     """The f32 scratch of one backward on `axis` ("space" or "time"):
-    `stats` [2, B, H, S] (each patch row's log-sum-exp and delta, which K4
-    and K5's grouped form pass between their launches) and `cls_part`
-    [B, H, parts, 2, Dh] (the blocks' shares of the CLS key's dk and dv).
-    Uninitialised: the backward fills what it uses. On the time axis a
-    meta qkv gives the shapes without building the kernels."""
+    `stats` [2, B, H, S] (each patch row's log-sum-exp and delta, which the
+    grouped forms of K4 and K5 pass between their launches) and `cls_part`
+    [B, H, parts, 2, Dh] (the blocks' shares of the CLS key's dk and dv;
+    parts from `space_bwd_geometry` or `time_bwd_geometry`). Uninitialised:
+    the backward fills what it uses. A meta qkv gives the shapes without a
+    card."""
     if qkv.device.type not in ("cuda", "meta"):
         raise ValueError(f"kernel scratch needs a CUDA qkv, got {qkv.device}")
     if qkv.dtype not in _DTYPE_CODES:
         raise TypeError(f"kernel takes float32 or bfloat16, got {qkv.dtype}")
     b, s, w3 = qkv.shape
     dh = w3 // (3 * num_heads)
-    if axis == "time":
-        parts = time_bwd_geometry(qkv.dtype, dh, s, num_frames).parts
-    else:
-        parts = load().attention_bwd_parts(_DTYPE_CODES[qkv.dtype], s, dh,
-                                           num_frames)
+    geometry = time_bwd_geometry if axis == "time" else space_bwd_geometry
+    parts = geometry(qkv.dtype, dh, s, num_frames).parts
     stats = torch.empty((2, b, num_heads, s), dtype=torch.float32,
                         device=qkv.device)
     cls_part = torch.empty((b, num_heads, parts, 2, dh), dtype=torch.float32,
@@ -467,20 +560,27 @@ def attention_bwd_scratch(qkv: torch.Tensor, *, num_heads: int,
     return stats, cls_part
 
 
-def _launch_bwd(name: str, qkv, g, dqkv, stats, cls_part, shape: tuple,
-                parts: int, *geometry, num_heads, num_frames, scale):
+def _launch_bwd(name: str, fn: str, tensors: tuple, shape: tuple, *geometry,
+                num_heads: int, num_frames: int, scale: float) -> None:
+    """Launches C function `fn` of K4 or K5 on the pointers of `tensors`
+    (qkv first), the shape and `geometry`, and counts it under `name`."""
+    b, s, dh = shape
+    qkv = tensors[0]
+    with torch.cuda.device(qkv.device):
+        stream = torch.cuda.current_stream(qkv.device).cuda_stream
+        code = getattr(load(), fn)(
+            *(t.data_ptr() for t in tensors), _DTYPE_CODES[qkv.dtype], b, s,
+            num_heads, dh, num_frames, float(scale), *geometry, stream)
+    _raise_on_error(name, code)
+    launch_counts[name] += 1
+
+
+def _check_bwd_scratch(qkv, stats, cls_part, shape: tuple, num_heads: int,
+                       parts: int) -> None:
     b, s, dh = shape
     _check_scratch("stats", stats, (2, b, num_heads, s), qkv.device)
     _check_scratch("cls_part", cls_part, (b, num_heads, parts, 2, dh),
                    qkv.device)
-    with torch.cuda.device(qkv.device):
-        stream = torch.cuda.current_stream(qkv.device).cuda_stream
-        code = getattr(load(), name)(
-            qkv.data_ptr(), g.data_ptr(), dqkv.data_ptr(), stats.data_ptr(),
-            cls_part.data_ptr(), _DTYPE_CODES[qkv.dtype], b, s, num_heads, dh,
-            num_frames, float(scale), *geometry, stream)
-    _raise_on_error(name, code)
-    launch_counts[name] += 1
 
 
 def space_attention_bwd(qkv: torch.Tensor, g: torch.Tensor,
@@ -490,13 +590,21 @@ def space_attention_bwd(qkv: torch.Tensor, g: torch.Tensor,
     """K4: backward of K1. From qkv [B, S, 3*H*Dh] and the cotangent
     g [B, S, H*Dh] of the output, writes rows 1..S-1 of dq, dk and dv into
     dqkv (the layout of qkv), and the scratch of `attention_bwd_scratch`.
-    Row 0 of dqkv is left to `cls_row_attention_bwd`."""
-    b, s, dh = _check_bwd(qkv, g, dqkv, num_heads, num_frames)
-    parts = load().attention_bwd_parts(_DTYPE_CODES[qkv.dtype], s, dh,
-                                       num_frames)
-    _launch_bwd("space_attention_bwd", qkv, g, dqkv, stats, cls_part,
-                (b, s, dh), parts, num_heads=num_heads,
-                num_frames=num_frames, scale=scale)
+    Row 0 of dqkv is left to `cls_row_attention_bwd`. Runs the form
+    `space_bwd_geometry` names: the frame form (one `__global__` launch,
+    which leaves `stats` unwritten; a frame's row of `cls_part`) or the two
+    grouped passes."""
+    shape = _check_bwd(qkv, g, dqkv, num_heads, num_frames)
+    geo = space_bwd_geometry(qkv.dtype, shape[2], shape[1], num_frames)
+    _check_bwd_scratch(qkv, stats, cls_part, shape, num_heads, geo.parts)
+    kw = dict(num_heads=num_heads, num_frames=num_frames, scale=scale)
+    if geo.form == "frame":
+        _launch_bwd("space_attention_bwd", "space_attention_bwd_frame",
+                    (qkv, g, dqkv, cls_part), shape, geo.parts,
+                    geo.shared_bytes, **kw)
+    else:
+        _launch_bwd("space_attention_bwd", "space_attention_bwd",
+                    (qkv, g, dqkv, stats, cls_part), shape, geo.parts, **kw)
 
 
 def time_attention_bwd(qkv: torch.Tensor, g: torch.Tensor,
@@ -506,13 +614,15 @@ def time_attention_bwd(qkv: torch.Tensor, g: torch.Tensor,
     """K5: backward of K2; arguments as `space_attention_bwd`. Runs the form
     `time_bwd_geometry` names: the tensor-core form (one `__global__`
     launch, which leaves `stats` unwritten) or the two grouped passes."""
-    b, s, dh = _check_bwd(qkv, g, dqkv, num_heads, num_frames)
-    geo = time_bwd_geometry(qkv.dtype, dh, s, num_frames)
+    shape = _check_bwd(qkv, g, dqkv, num_heads, num_frames)
+    geo = time_bwd_geometry(qkv.dtype, shape[2], shape[1], num_frames)
+    _check_bwd_scratch(qkv, stats, cls_part, shape, num_heads, geo.parts)
     tensor_cores = geo.form == "tensor_cores"
-    _launch_bwd("time_attention_bwd", qkv, g, dqkv, stats, cls_part,
-                (b, s, dh), geo.parts, int(tensor_cores), geo.cols or 0,
-                geo.parts, geo.shared_bytes if tensor_cores else 0,
-                num_heads=num_heads, num_frames=num_frames, scale=scale)
+    _launch_bwd("time_attention_bwd", "time_attention_bwd",
+                (qkv, g, dqkv, stats, cls_part), shape, int(tensor_cores),
+                geo.cols or 0, geo.parts,
+                geo.shared_bytes if tensor_cores else 0, num_heads=num_heads,
+                num_frames=num_frames, scale=scale)
 
 
 def cls_row_attention_bwd(qkv: torch.Tensor, g: torch.Tensor,

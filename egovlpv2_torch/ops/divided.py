@@ -37,7 +37,10 @@ partials of dq0 and the CLS query's share of every dk/dv row),
 `time_column_reference` (K2's tensor-core block: the exact softmax of a
 patch column, its numerator rounded before the product with V),
 `time_column_grad_reference` (K5's tensor-core block: both passes of a
-patch column, and the blocks' partials of the CLS key's dk/dv); nor those
+patch column, and the blocks' partials of the CLS key's dk/dv),
+`space_frame_reference` and `space_frame_grad_reference` (K1's and K4's
+frame blocks: the same for a frame, and each frame's dk/dv of the CLS
+key); nor those
 of what K10 and K11 keep between theirs: `row_lse_reference` (K10's
 log-sum-exp of each row, which K11 reads), `cls_row_partials_reference` and
 `merge_cls_partials_reference` (K10's split of the CLS row across the
@@ -161,27 +164,51 @@ def cls_run_grad_reference(qkv: torch.Tensor, g: torch.Tensor,
     return dq_parts, dkd, dvd
 
 
-def _columns(t: torch.Tensor, num_frames: int) -> torch.Tensor:
-    """[B, S, H, Dh] -> the patch columns [B, H, N, F, Dh]."""
+def _groups(t: torch.Tensor, num_frames: int, axis: str) -> torch.Tensor:
+    """[B, S, H, Dh] -> the patch rows by group, [B, H, G, L, Dh]: the
+    frames [B, H, F, N, Dh] (space) or the patch columns [B, H, N, F, Dh]
+    (time)."""
     b, s, h, dh = t.shape
     n = (s - 1) // num_frames
-    return t[:, 1:].reshape(b, num_frames, n, h, dh).permute(0, 3, 2, 1, 4)
+    x = t[:, 1:].reshape(b, num_frames, n, h, dh).permute(0, 3, 1, 2, 4)
+    return x if axis == "space" else x.transpose(2, 3)
 
 
-def _columns_with_cls(t: torch.Tensor, num_frames: int) -> torch.Tensor:
-    """The patch columns [B, H, N, F + 1, Dh] of `_columns` with the CLS
-    row in front of each."""
-    cols = _columns(t, num_frames)
-    b, h, n, _, dh = cols.shape
-    return torch.cat([t[:, 0][:, :, None, None].expand(b, h, n, 1, dh), cols],
+def _groups_with_cls(t: torch.Tensor, num_frames: int,
+                     axis: str) -> torch.Tensor:
+    """The groups [B, H, G, L + 1, Dh] of `_groups` with the CLS row in
+    front of each."""
+    grp = _groups(t, num_frames, axis)
+    b, h, g, _, dh = grp.shape
+    return torch.cat([t[:, 0][:, :, None, None].expand(b, h, g, 1, dh), grp],
                      dim=3)
 
 
-def _from_columns(t: torch.Tensor) -> torch.Tensor:
-    """The patch columns [B, H, N, F, Dh] back to rows 1..S-1, [B, S-1, H,
-    Dh] (row 1 + f * N + n)."""
-    b, h, n, f, dh = t.shape
-    return t.permute(0, 3, 2, 1, 4).reshape(b, f * n, h, dh)
+def _from_groups(t: torch.Tensor, axis: str) -> torch.Tensor:
+    """The groups [B, H, G, L, Dh] of `_groups` back to rows 1..S-1,
+    [B, S-1, H, Dh] (row 1 + f * N + n)."""
+    if axis == "time":
+        t = t.transpose(2, 3)
+    b, h, f, n, dh = t.shape
+    return t.permute(0, 2, 3, 1, 4).reshape(b, f * n, h, dh)
+
+
+def _block_attention(qkv: torch.Tensor, scale: float, num_frames: int,
+                     axis: str) -> torch.Tensor:
+    """Each group's queries over the CLS key and the group's keys, the
+    exact softmax in f32 with its numerator E = exp(scale Q K^T - row max)
+    rounded to qkv's dtype before E V, and that product divided by the f32
+    sum of E. qkv [B, S, 3, H, Dh] -> rows 1..S-1, [B, S-1, H, Dh] in qkv's
+    dtype."""
+    x = qkv.float()
+    q = _groups(x[:, :, 0], num_frames, axis)
+    k = _groups_with_cls(x[:, :, 1], num_frames, axis)
+    v = _groups_with_cls(x[:, :, 2], num_frames, axis)
+    logits = torch.einsum("bhgid,bhgjd->bhgij", q, k) * scale
+    e = torch.exp(logits - logits.amax(-1, keepdim=True))
+    out = torch.einsum("bhgij,bhgjd->bhgid", e.to(qkv.dtype).float(), v) \
+        / e.sum(-1, keepdim=True)
+    return _from_groups(out, axis).to(qkv.dtype)
 
 
 def time_column_reference(qkv: torch.Tensor, *, scale: float,
@@ -193,15 +220,46 @@ def time_column_reference(qkv: torch.Tensor, *, scale: float,
     the f32 sum of E, as the kernel computes it. qkv [B, S, 3, H, Dh] ->
     rows 1..S-1, [B, S-1, H, Dh] in qkv's dtype. Nothing on the card's path
     calls it."""
-    x = qkv.float()
-    q = _columns(x[:, :, 0], num_frames)
-    k = _columns_with_cls(x[:, :, 1], num_frames)
-    v = _columns_with_cls(x[:, :, 2], num_frames)
-    logits = torch.einsum("bhnid,bhnjd->bhnij", q, k) * scale
-    e = torch.exp(logits - logits.amax(-1, keepdim=True))
-    out = torch.einsum("bhnij,bhnjd->bhnid", e.to(qkv.dtype).float(), v) \
-        / e.sum(-1, keepdim=True)
-    return _from_columns(out).to(qkv.dtype)
+    return _block_attention(qkv, scale, num_frames, "time")
+
+
+def space_frame_reference(qkv: torch.Tensor, *, scale: float,
+                          num_frames: int) -> torch.Tensor:
+    """The plain version of K1's frame block: for each frame of each
+    (batch, head), its N queries over the CLS key and its N keys, computed
+    and rounded as `time_column_reference` does a patch column. qkv
+    [B, S, 3, H, Dh] -> rows 1..S-1, [B, S-1, H, Dh] in qkv's dtype.
+    Nothing on the card's path calls it."""
+    return _block_attention(qkv, scale, num_frames, "space")
+
+
+def _block_grad(qkv: torch.Tensor, g: torch.Tensor, scale: float,
+                num_frames: int, axis: str, round_dp: bool) -> tuple:
+    """Both passes of each group's block: P = softmax(scale Q K^T) over the
+    CLS key and the group's keys, dP = G V^T, delta = sum P dP and dS = P
+    (dP - delta) in f32, P and dS rounded to qkv's dtype before dQ = scale
+    dS K, dK = scale dS^T Q and dV = P^T G (`round_dp`: P and dP rounded
+    before delta too). Returns in f32 dqkv [B, S, 3, H, Dh] (rows 1..S-1,
+    row 0 zero) and each group's dk and dv of the CLS key, [B, H, G, 2,
+    Dh]."""
+    x, gf = qkv.float(), g.float()
+    q = _groups(x[:, :, 0], num_frames, axis)
+    k = _groups_with_cls(x[:, :, 1], num_frames, axis)
+    v = _groups_with_cls(x[:, :, 2], num_frames, axis)
+    go = _groups(gf, num_frames, axis)
+    p = torch.softmax(torch.einsum("bhgid,bhgjd->bhgij", q, k) * scale, -1)
+    dp = torch.einsum("bhgid,bhgjd->bhgij", go, v)
+    if round_dp:
+        p, dp = p.to(qkv.dtype).float(), dp.to(qkv.dtype).float()
+    ds = p * (dp - (p * dp).sum(-1, keepdim=True))
+    p, ds = p.to(qkv.dtype).float(), ds.to(qkv.dtype).float()
+    dq = scale * torch.einsum("bhgij,bhgjd->bhgid", ds, k)
+    dk = scale * torch.einsum("bhgij,bhgid->bhgjd", ds, q)
+    dv = torch.einsum("bhgij,bhgid->bhgjd", p, go)
+    dqkv = x.new_zeros(x.shape)
+    for c, t in enumerate((dq, dk[:, :, :, 1:], dv[:, :, :, 1:])):
+        dqkv[:, 1:, c] = _from_groups(t, axis)
+    return dqkv, torch.stack([dk[:, :, :, 0], dv[:, :, :, 0]], dim=3)
 
 
 def time_column_grad_reference(qkv: torch.Tensor, g: torch.Tensor, *,
@@ -220,22 +278,8 @@ def time_column_grad_reference(qkv: torch.Tensor, g: torch.Tensor, *,
         ceil(N / cols), the `cls_part` of `_kernels.time_bwd_geometry`).
     qkv [B, S, 3, H, Dh], g [B, S, H, Dh]. Nothing on the card's path calls
     it."""
-    f = num_frames
-    n = (qkv.shape[1] - 1) // f
-    x, gf = qkv.float(), g.float()
-    q, k, v, go = _columns(x[:, :, 0], f), _columns_with_cls(x[:, :, 1], f), \
-        _columns_with_cls(x[:, :, 2], f), _columns(gf, f)
-    p = torch.softmax(torch.einsum("bhnid,bhnjd->bhnij", q, k) * scale, -1)
-    dp = torch.einsum("bhnid,bhnjd->bhnij", go, v)
-    ds = p * (dp - (p * dp).sum(-1, keepdim=True))
-    p, ds = p.to(qkv.dtype).float(), ds.to(qkv.dtype).float()
-    dq = scale * torch.einsum("bhnij,bhnjd->bhnid", ds, k)
-    dk = scale * torch.einsum("bhnij,bhnid->bhnjd", ds, q)
-    dv = torch.einsum("bhnij,bhnid->bhnjd", p, go)
-    dqkv = x.new_zeros(x.shape)
-    for c, t in enumerate((dq, dk[:, :, :, 1:], dv[:, :, :, 1:])):
-        dqkv[:, 1:, c] = _from_columns(t)
-    cls = torch.stack([dk[:, :, :, 0], dv[:, :, :, 0]], dim=3)  # [B,H,N,2,Dh]
+    dqkv, cls = _block_grad(qkv, g, scale, num_frames, "time", False)
+    n = cls.shape[2]
     parts = []
     for c0 in range(0, n, cols):
         total = cls[:, :, c0]
@@ -243,6 +287,24 @@ def time_column_grad_reference(qkv: torch.Tensor, g: torch.Tensor, *,
             total = total + cls[:, :, c]
         parts.append(total)
     return dqkv, torch.stack(parts, dim=2)
+
+
+def space_frame_grad_reference(qkv: torch.Tensor, g: torch.Tensor, *,
+                               scale: float, num_frames: int) -> tuple:
+    """The plain version of K4's frame block: for each frame of each
+    (batch, head), its N queries over the CLS key and its N keys, with P =
+    softmax(scale Q K^T) and dP = G V^T rounded to qkv's dtype, delta = sum
+    P dP and dS = P (dP - delta) in f32, dS rounded before dQ = scale dS K,
+    dK = scale dS^T Q and dV = P^T G, as the kernel's query pass rounds them
+    (its key pass takes P into dS unrounded). Returns in f32
+      * dqkv [B, S, 3, H, Dh]: dq, dk and dv of rows 1..S-1 (the patch rows'
+        space attention alone; K6 adds the CLS query's share), row 0 zero;
+      * each frame's dk and dv of the CLS key, [B, H, F, 2, Dh]: the
+        `cls_part` of `_kernels.space_bwd_geometry`'s frame form (parts =
+        F), which K6 sums over the frames in order.
+    qkv [B, S, 3, H, Dh], g [B, S, H, Dh]. Nothing on the card's path calls
+    it."""
+    return _block_grad(qkv, g, scale, num_frames, "space", True)
 
 
 def live_mask(s: int, num_frames: int, axis: str,

@@ -45,7 +45,8 @@ from profile_torch_pretrain import K9_KERNELS, k9_launches  # noqa: E402
 
 CONFIG = "configs/eval_egomcq.json"
 BATCH = 4
-HAND_KERNELS = ("space_fwd_kernel", "time_fwd_kernel", "time_fwd_tc_kernel",
+HAND_KERNELS = ("space_fwd_kernel", "space_fwd_frame_kernel",
+                "time_fwd_kernel", "time_fwd_tc_kernel",
                 "cls_row_part_kernel",
                 "cls_row_merge_kernel")
 LN_KERNELS = ("layernorm_fwd_kernel",)

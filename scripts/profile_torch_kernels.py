@@ -1,22 +1,28 @@
-"""Device time a call of the divided-attention forward (K1, K2, K3) and of
-the LayerNorm backward (K8) at the shapes of `chip_smoke.py`'s phase 3, on
-one CUDA card.
+"""Device time a call of the divided-attention kernels (K1, K2, K3 forward;
+K4 and K6 after it backward) and of the LayerNorm backward (K8) at the
+shapes of `chip_smoke.py`'s phase 3, on one CUDA card.
 
-    python3 scripts/profile_torch_kernels.py [--calls 20]
+    python3 scripts/profile_torch_kernels.py [--calls 20] [--only attention]
 
-H=12, Dh=64, bf16, at (B, frames) = (20, 4), (20, 16), (16, 4), (8, 32),
-(64, 16), (16, 5) and (8, 4) (S = 1 + 196 frames), K1, K2 and K3 through their wrappers, each on one qkv: the mean device time a call
-from torch.profiler over --calls calls after 3 warm, summed over the call's
-kernels, with their names; for K2 also its bound (bytes: q, k, v read once,
-the output written once, as `chip_smoke.py` counts them) and one
-`scaled_dot_product_attention` call on the patch columns laid out for it.
-Then K8 at R x 768 for the paths' row counts, bf16 and f32, through its
-wrapper, walking input sets of 4x the L2 cache as phase 3 does, each
-launch's time beside one `F.layer_norm` backward (autograd) and its bound.
-It runs on any tree of the port: run the script of this tree from
-the root of each (parent, change, change, parent), and it measures that
-tree's kernels. The card's name and power limit (nvidia-smi) head the
-output.
+H=12, Dh=64, bf16. Forward at (B, frames) = (20, 4), (20, 16), (16, 4),
+(8, 32), (64, 16), (16, 5) and (8, 4) (S = 1 + 196 frames): K1, K2 and K3
+through their wrappers, each on one qkv: the mean device time a call from
+torch.profiler over --calls calls after 3 warm, summed over the call's
+kernels, with their names; beside K1 and K2 their bound (the larger of the
+bytes, q, k, v read once and the output written once, over 3.35 TB/s and
+the operations, two products a live (query, key) pair, over 989 TFLOP/s,
+as `chip_smoke.py` counts them) and one `scaled_dot_product_attention`
+call on the frames or patch columns laid out for it. Backward at (16, 4),
+(16, 16), (8, 32) and (8, 4): K4 through its wrapper, then K6 adding to
+the rows K4 wrote from K4's `cls_part` and K3's output and lse0 (as the
+autograd Function runs them), each with its bound (`chip_smoke.py`'s) and,
+for K4, the backward of one library call on the frames. Then K8 at R x 768
+for the paths' row counts, bf16 and f32, through its wrapper, walking input
+sets of 4x the L2 cache as phase 3 does, each launch's time beside one
+`F.layer_norm` backward (autograd) and its bound. It runs on any tree of
+the port: run the script of this tree from the root of each (parent,
+change, change, parent), and it measures that tree's kernels. The card's
+name and power limit (nvidia-smi) head the output.
 """
 
 import argparse
@@ -36,9 +42,29 @@ from egovlpv2_torch.ops import _kernels  # noqa: E402
 
 H, DH, N = 12, 64, 196
 FWD_CASES = ((20, 4), (20, 16), (16, 4), (8, 32), (64, 16), (16, 5), (8, 4))
+BWD_CASES = ((16, 4), (16, 16), (8, 32), (8, 4))
 LN_ROWS = (120, 240, 6280, 12560, 15696, 50184, 200768)
 L2_BYTES = 50e6
 PEAK_BYTES_S = 3.35e12  # NVIDIA H100 SXM data sheet
+PEAK_BF16 = 989e12  # dense tensor-core bf16, the same
+
+
+def bound(kind: str, b: int, frames: int) -> str:
+    """The least time of one bf16 call at H=12, Dh=64, S = 1 + 196 frames,
+    as `chip_smoke.py`'s `bound_ms` counts it: kind "space_fwd",
+    "time_fwd", "space_bwd" or "cls_row_bwd". Returns "<ms> ms (<by>)"."""
+    s = 1 + frames * N
+    head_rows = b * H * DH
+    if kind == "cls_row_bwd":
+        queries, keys, rows, products = 1, s, 1 + 2 * s + 1 + 1 + 2 * s, 5
+    else:
+        queries, keys = s - 1, (N if kind.startswith("space") else frames) + 1
+        rows, products = ((4 * s - 2, 2) if kind.endswith("_fwd")
+                          else (2 * queries + 2 * s + 3 * queries, 5))
+    t_bytes = rows * head_rows * 2 / PEAK_BYTES_S
+    t_flops = products * 2 * b * H * queries * keys * DH / PEAK_BF16
+    by = "bytes" if t_bytes >= t_flops else "operations"
+    return f"{max(t_bytes, t_flops) * 1e3:.4f} ms ({by})"
 
 
 def device_events(fn, calls: int) -> dict:
@@ -86,6 +112,23 @@ def _qkv(b: int, frames: int, dtype=torch.bfloat16):
     return torch.randn((b, s, 3, H, DH), generator=gen, device="cuda").to(dtype)
 
 
+def _frames_for_sdpa(qkv: torch.Tensor, frames: int) -> tuple:
+    """q [B, H, F, N, Dh] and k, v [B, H, F, N + 1, Dh] (the CLS key in
+    front of each frame), contiguous, for one library call."""
+    b, s = qkv.shape[:2]
+    q, k, v = qkv.permute(2, 0, 3, 1, 4).unbind(0)
+
+    def frame(t):
+        return t[:, :, 1:].reshape(b, H, frames, N, DH)
+
+    def with_cls(t):
+        return torch.cat([t[:, :, None, :1].expand(b, H, frames, 1, DH),
+                          frame(t)], dim=3)
+
+    return (frame(q).contiguous(), with_cls(k).contiguous(),
+            with_cls(v).contiguous())
+
+
 def _columns_for_sdpa(qkv: torch.Tensor, frames: int) -> tuple:
     """q [B, H, N, F, Dh] and k, v [B, H, N, F + 1, Dh] (the CLS key in
     front of each patch column), contiguous, for one library call."""
@@ -121,13 +164,57 @@ def attention(calls: int) -> None:
             events = device_events(fn, calls)
             line.append(f"{name} {sum(events.values()):.4f} ms "
                         f"[{_names(events)}]")
-        q, k, v = _columns_for_sdpa(qkv, frames)
-        lib = _ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=scale),
-                  calls)
-        bound = (4 * s - 2) * b * H * DH * 2 / PEAK_BYTES_S * 1e3
+        libs = []
+        for name, layout in (("K1", _frames_for_sdpa),
+                             ("K2", _columns_for_sdpa)):
+            q, k, v = layout(qkv, frames)
+            lib = _ms(lambda: F.scaled_dot_product_attention(q, k, v,
+                                                             scale=scale),
+                      calls)
+            libs.append(f"{name} library {lib:.4f} ms")
+            del q, k, v
         print(f"[attention] bf16 B={b} S={s} F={frames}: {'  '.join(line)}  "
-              f"K2 bound {bound:.4f} ms (bytes) library {lib:.4f} ms",
+              f"K1 bound {bound('space_fwd', b, frames)}  K2 bound "
+              f"{bound('time_fwd', b, frames)}  {'  '.join(libs)}",
               flush=True)
+
+
+def backward(calls: int) -> None:
+    scale = DH ** -0.5
+    for b, frames in BWD_CASES:
+        qkv = _qkv(b, frames)
+        s = qkv.shape[1]
+        flat = qkv.view(b, s, 3 * H * DH)
+        gen = torch.Generator(device="cuda").manual_seed(b * 100 + frames + 1)
+        g = torch.randn((b, s, H * DH), generator=gen, device="cuda").to(
+            qkv.dtype)
+        dqkv = torch.empty_like(flat)
+        out0 = torch.empty((b, s, H * DH), dtype=qkv.dtype, device="cuda")
+        lse0 = torch.empty((b, H), device="cuda")
+        _kernels.cls_row_attention_fwd(flat, out0, lse0, num_heads=H,
+                                       scale=scale)
+        stats, parts = _kernels.attention_bwd_scratch(
+            flat, num_heads=H, num_frames=frames, axis="space")
+        kw = dict(num_heads=H, num_frames=frames, scale=scale)
+        k4 = device_events(lambda: _kernels.space_attention_bwd(
+            flat, g, dqkv, stats, parts, **kw), calls)
+        k6 = device_events(lambda: _kernels.cls_row_attention_bwd(
+            flat, g, out0, lse0, dqkv, parts, num_heads=H, scale=scale), calls)
+        leaves = [t.detach().requires_grad_(True)
+                  for t in _frames_for_sdpa(qkv, frames)]
+        out = F.scaled_dot_product_attention(*leaves, scale=scale)
+        cot = g.view(b, s, H, DH).transpose(1, 2)[:, :, 1:].reshape(
+            b, H, frames, N, DH).contiguous()
+        lib = _ms(lambda: torch.autograd.grad(out, leaves, cot,
+                                              retain_graph=True), calls)
+        print(f"[backward] bf16 B={b} S={s} F={frames}: K4 "
+              f"{sum(k4.values()):.4f} ms [{_by_kernel(k4)}] bound "
+              f"{bound('space_bwd', b, frames)} library {lib:.4f} ms; K6 after "
+              f"it ({parts.shape[2]} cls_part rows a (b, h)) "
+              f"{sum(k6.values()):.4f} ms [{_names(k6)}] bound "
+              f"{bound('cls_row_bwd', b, frames)}", flush=True)
+        del leaves, out, cot, dqkv, stats, parts
+        torch.cuda.empty_cache()
 
 
 def _ln_sets(rows: int, d: int, dtype) -> list:
@@ -186,6 +273,9 @@ def layernorm(calls: int) -> None:
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--calls", type=int, default=20)
+    parser.add_argument("--only", nargs="+",
+                        choices=("attention", "backward", "layernorm"),
+                        default=("attention", "backward", "layernorm"))
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch_kernels: no CUDA device")
@@ -194,8 +284,9 @@ def main() -> None:
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     print(f"[device] {smi}; tree {os.getcwd()}", flush=True)
     _kernels.load()
-    attention(args.calls)
-    layernorm(args.calls)
+    for part in ("attention", "backward", "layernorm"):
+        if part in args.only:
+            globals()[part](args.calls)
 
 
 if __name__ == "__main__":

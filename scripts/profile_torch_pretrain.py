@@ -52,6 +52,7 @@ K9_KERNELS = ("fused_fwd_kernel", "fused_tf32_fwd_kernel",
 KINDS = (  # first match wins
     ("memcpy", ("memcpy",)),
     ("hand kernels, forward (K1/K2/K3)", ("space_fwd_kernel", "time_fwd_kernel",
+                                           "space_fwd_frame_kernel",
                                            "time_fwd_tc_kernel",
                                            "cls_row_part_kernel",
                                            "cls_row_merge_kernel")),
@@ -59,6 +60,7 @@ KINDS = (  # first match wins
         "general_fwd_", "general_bwd_")),  # the tiles, passes and merges
     ("hand kernels, backward (K4/K5/K6)", ("bwd_query_kernel",
                                             "bwd_key_kernel",
+                                            "space_bwd_frame_kernel",
                                             "time_bwd_kernel",
                                             "cls_row_bwd_part_kernel",
                                             "cls_row_bwd_merge_kernel")),

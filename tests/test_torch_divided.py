@@ -37,6 +37,17 @@ rounds it) is held to the same TPU kernels' forward, and its launch
 geometry (a pure function) is checked at every head dim and at the frame
 counts on both sides of each edge.
 
+K1 and K4, the bf16 space-axis forward and backward of the patch rows,
+take in their frame form a frame of one (batch, head) a block: the plain
+versions of their blocks (`space_frame_reference`, and
+`space_frame_grad_reference` with K6's plain version after it) are held to
+the TPU kernels they replace, the frame-block branch of the packed kernels
+(`_space_fb_fwd` / `_space_fb_bwd`, interpret mode); K4's per-frame split
+of the CLS key's dk/dv, summed over the frames with the CLS query's share,
+is held to the plain backward's row 0; the launch geometry of each (a pure
+function) is checked at the paths' shapes, at odd frame sizes, one frame
+and every head dim.
+
 K3 and K6, the bf16 kernels of the CLS row, split the CLS query's keys
 into runs of `cls_row_geometry`: K3 writes each run's partial and merges
 them into row 0 and its log-sum-exp lse0; K6 reads lse0 and the output's
@@ -65,6 +76,8 @@ from egovlpv2_torch.ops.divided import (cls_grad_partials_reference,
                                         merge_cls_partials_reference,
                                         merge_cls_run_partials_reference,
                                         row_lse_reference,
+                                        space_frame_grad_reference,
+                                        space_frame_reference,
                                         time_column_grad_reference,
                                         time_column_reference)
 
@@ -567,3 +580,218 @@ def test_time_fwd_geometry(dtype, frames):
             assert geo.rows == 256 // _kernels.cls_row_geometry(
                 dtype, dh, s).group
             assert (geo.cols, geo.key_tiles, geo.shared_bytes) == (None,) * 3
+
+
+# The TPU kernels K1 and K4 replace, f32, lane-packed heads: the frame-block
+# branch of `_packed_fwd_kernel` / `_packed_bwd_kernel` (`_space_fb_fwd` /
+# `_space_fb_bwd`), which the JAX package takes on the space axis at
+# S <= _PACKED_MAX_S. (B, F, N, H, Dh): odd frame sizes, one frame, and each
+# head dim the packed lanes take with its head count.
+SPACE_CASES = {
+    "f2_n20": (2, 2, 20, 2, 64),
+    "f3_n9_dh32": (1, 3, 9, 4, 32),
+    "f1_n33": (1, 1, 33, 2, 64),
+    "f2_n14_dh16": (1, 2, 14, 8, 16),
+}
+
+
+def _space_inputs(name, seed):
+    b, f, n, h, dh = SPACE_CASES[name]
+    s = 1 + f * n
+    assert jdiv._space_fb("space", s) and s <= jdiv._PACKED_MAX_S
+    assert jdiv._packed_heads(h, dh, s, 4, budget=jdiv._BWD_BUDGET) is not None
+    assert not jdiv._windowed("space", s)
+    rs = np.random.RandomState(seed)
+    qkv = rs.randn(b, s, 3, h, dh).astype(np.float32)
+    ct = rs.randn(b, s, h, dh).astype(np.float32)
+    return f, dh, s, dh ** -0.5, qkv, ct
+
+
+@pytest.mark.parametrize("name", list(SPACE_CASES))
+def test_space_frame_matches_the_tpu_kernels(name):
+    """The plain version of K1's frame block gives the TPU kernels' space
+    forward of the patch rows (`divided_attention`, interpret mode: the
+    frame-block branch) within 1e-5, f32 (sums in another order)."""
+    f, _, s, scale, qkv, _ = _space_inputs(name, 41)
+    with pltpu.force_tpu_interpret_mode():
+        ref = np.asarray(jdiv.divided_attention(
+            jnp.asarray(qkv), scale=scale, axis="space", num_frames=f,
+            impl="pallas"))
+    got = space_frame_reference(torch.from_numpy(qkv), scale=scale,
+                                num_frames=f)
+    assert got.shape == ref[:, 1:].shape and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), ref[:, 1:], rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("name", list(SPACE_CASES))
+def test_space_frame_grad_matches_the_tpu_kernels(name):
+    """The plain version of K4's frame block (dq, dk, dv of the patch rows
+    and each frame's dk/dv of the CLS key), then K6's plain version from
+    K3's, give the TPU kernels' backward (`jax.vjp` of `divided_attention`,
+    interpret mode: `_space_fb_bwd` and `_cls_dense_bwd_allh`) within 2e-5
+    of max |reference| (f32 sums in another order)."""
+    f, dh, s, scale, qkv, ct = _space_inputs(name, 43)
+    with pltpu.force_tpu_interpret_mode():
+        _, vjp = jax.vjp(lambda x: jdiv.divided_attention(
+            x, scale=scale, axis="space", num_frames=f, impl="pallas"),
+            jnp.asarray(qkv))
+        (ref,) = vjp(jnp.asarray(ct))
+    ref = np.asarray(ref)
+    x, g = torch.from_numpy(qkv), torch.from_numpy(ct)
+    dqkv, cls_part = space_frame_grad_reference(x, g, scale=scale,
+                                                num_frames=f)
+    b, h = qkv.shape[0], qkv.shape[3]
+    geo = _kernels.space_bwd_geometry(torch.bfloat16, dh, s, f)
+    assert geo.form == "frame" and geo.parts == f
+    assert cls_part.shape == (b, h, geo.parts, 2, dh)
+    out0, lse0 = merge_cls_run_partials_reference(
+        cls_run_partials_reference(x, scale=scale))
+    dq_parts, dkd, dvd = cls_run_grad_reference(x, g, out0, lse0, scale=scale)
+    got = dqkv.clone()
+    got[:, :, 1] += dkd
+    got[:, :, 2] += dvd
+    got[:, 0, 0] = scale * dq_parts.sum(2)
+    got[:, 0, 1:] += cls_part.sum(2).permute(0, 2, 1, 3)
+    np.testing.assert_allclose(got.numpy(), ref, rtol=0,
+                               atol=2e-5 * np.abs(ref).max())
+
+
+# (B, F, N, H, Dh): the paths' frame size at one and at four frames, odd N,
+# one patch, N = 207 (the last on the frame form: 13 key tiles) and each
+# head dim K4's frame form takes.
+SPLIT_CASES = [(2, 4, 196, 2, 64), (1, 1, 196, 3, 64), (2, 3, 7, 2, 16),
+               (1, 5, 1, 2, 32), (1, 2, 207, 1, 48), (2, 6, 33, 2, 64)]
+
+
+@pytest.mark.parametrize("case", SPLIT_CASES)
+def test_space_frame_cls_split_sums_to_row0(case):
+    """K4's frame form writes the CLS key's dk and dv as one row a frame
+    (`cls_part` [B, H, F, 2, Dh]): the plain version's rows summed over the
+    frames, plus the CLS query's share (K6's plain version from K3's),
+    give row 0 of dk and dv of `divided_attention_backward_reference`, and
+    its patch rows with K6's share give rows 1..S-1 of dq, dk and dv,
+    within 2e-5 of max |reference| of each (f32 sums in another order)."""
+    b, f, n, h, dh = case
+    s, scale = 1 + f * n, dh ** -0.5
+    rs = np.random.RandomState(47)
+    x = torch.from_numpy(rs.randn(b, s, 3, h, dh).astype(np.float32))
+    g = torch.from_numpy(rs.randn(b, s, h, dh).astype(np.float32))
+    dqkv, cls_part = space_frame_grad_reference(x, g, scale=scale,
+                                                num_frames=f)
+    assert cls_part.shape == (b, h, f, 2, dh)
+    assert _kernels.space_bwd_geometry(torch.bfloat16, dh, s, f).parts == f
+    assert not dqkv[:, 0].any()  # K4 leaves row 0 to K6
+    out0, lse0 = merge_cls_run_partials_reference(
+        cls_run_partials_reference(x, scale=scale))
+    _, dkd, dvd = cls_run_grad_reference(x, g, out0, lse0, scale=scale)
+    ref = divided_attention_backward_reference(x, g, scale=scale,
+                                               axis="space", num_frames=f)
+    row0 = cls_part.sum(2).permute(0, 2, 1, 3) \
+        + torch.stack([dkd[:, 0], dvd[:, 0]], dim=1)  # [B, 2, H, Dh]
+    for i in range(2):
+        want = ref[:, 0, 1 + i]
+        assert (row0[:, i] - want).abs().max() <= 2e-5 * want.abs().max()
+    got = dqkv[:, 1:].clone()
+    got[:, :, 1] += dkd[:, 1:]
+    got[:, :, 2] += dvd[:, 1:]
+    for i in range(3):
+        want = ref[:, 1:, i]
+        assert (got[:, :, i] - want).abs().max() <= 2e-5 * want.abs().max()
+
+
+# (S, frames): the paths' (pretrain, EgoMCQ 16f and MQ, fine-tune, QFVS),
+# odd N (33, 7), one frame, one patch a frame, N = 207 (the last frame the
+# frame forms take) and N = 208 (the first they do not).
+SPACE_GEOMETRY_CASES = [(785, 4), (3137, 16), (6273, 32), (981, 5),
+                        (1 + 3 * 33, 3), (1 + 5 * 7, 5), (197, 1), (7, 6),
+                        (1 + 2 * 207, 2), (1 + 2 * 208, 2)]
+
+
+def _grouped_covers(geo, s):
+    """A grouped form's blocks of `rows` patch rows cover S - 1 once."""
+    assert (geo.parts - 1) * geo.rows < s - 1 <= geo.parts * geo.rows
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s, frames", SPACE_GEOMETRY_CASES)
+def test_space_fwd_geometry(dtype, s, frames):
+    """At every head dim K1 takes (8 to 128 in steps of 8): the form (the
+    frame form for bf16 at a head dim that is a multiple of 16, where the
+    frame's N + 1 keys fit 13 16-row tiles, else the grouped form); a frame
+    block covers one frame, `parts` = F blocks a (b, h); its tiles hold the
+    N + 1 keys and N queries, and its shared memory, by the kernel's own
+    layout (K and V at 16 * key_tiles rows, a pitch of Dh + 8 bf16), fits
+    Hopper's 232,448 bytes; the grouped form's blocks cover every patch
+    row once."""
+    n = (s - 1) // frames
+    for dh in range(8, 129, 8):
+        geo = _kernels.space_fwd_geometry(dtype, dh, s, frames)
+        on = dtype == torch.bfloat16 and dh % 16 == 0 and n + 1 <= 208
+        assert geo.form == ("frame" if on else "grouped")
+        if on:
+            assert (geo.rows, geo.parts) == (n, frames)
+            kp, qp = 16 * geo.key_tiles, 16 * geo.query_tiles
+            assert kp - 16 < n + 1 <= kp and qp - 16 < n <= qp
+            assert geo.key_tiles <= _kernels.SPACE_MAX_KEY_TILES == 13
+            layout = 2 * 2 * kp * (dh + 8)
+            assert geo.shared_bytes == layout <= _kernels.SHARED_BYTES_MAX
+        else:
+            assert geo.rows == 256 // _kernels.cls_row_geometry(
+                dtype, dh, s).group
+            assert (geo.key_tiles, geo.shared_bytes) == (None, None)
+            _grouped_covers(geo, s)
+    assert _kernels.SHARED_BYTES_MAX == 232448
+    for bad in (4, 12, 136):
+        with pytest.raises(ValueError, match="head dim"):
+            _kernels.space_fwd_geometry(dtype, bad, s, frames)
+    with pytest.raises(ValueError, match="frames"):
+        _kernels.space_fwd_geometry(dtype, 64, s, s)  # S - 1 < F
+    with pytest.raises(TypeError):
+        _kernels.space_fwd_geometry(torch.float16, 64, s, frames)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s, frames", SPACE_GEOMETRY_CASES)
+def test_space_bwd_geometry(dtype, s, frames):
+    """At every head dim K4 takes (8 to 128 in steps of 8): the form (the
+    frame form, one launch, for bf16 at Dh 16, 32, 48 or 64 where the
+    frame's N + 1 keys fit 13 16-row tiles, else the grouped passes);
+    `parts` = F in the frame form, the parts axis of the `cls_part` that
+    `attention_bwd_scratch` allocates; a frame block's tiles hold the
+    N + 1 keys and N queries, and its shared memory, by the kernel's own
+    layout (K, V, Q and the cotangent at Dh bf16 a row, swizzled, or
+    Dh + 8 at Dh = 48, each query row's f32 log-sum-exp and delta), leaves
+    room for two blocks an SM
+    (SHARED_BYTES_TWO, within Hopper's 232,448 bytes); the grouped form's
+    blocks cover every patch row once."""
+    n = (s - 1) // frames
+    for dh in range(8, 129, 8):
+        geo = _kernels.space_bwd_geometry(dtype, dh, s, frames)
+        on = dtype == torch.bfloat16 and dh % 16 == 0 and dh <= 64 \
+            and n + 1 <= 208
+        assert geo.form == ("frame" if on else "grouped")
+        if on:
+            assert (geo.rows, geo.parts) == (n, frames)
+            kp, qp = 16 * geo.key_tiles, 16 * geo.query_tiles
+            assert kp - 16 < n + 1 <= kp and qp - 16 < n <= qp
+            ld = dh if dh in (16, 32, 64) else dh + 8  # swizzled or padded
+            layout = 2 * (2 * kp + 2 * qp) * ld + 2 * 4 * qp
+            assert geo.shared_bytes == layout <= _kernels.SHARED_BYTES_TWO
+        else:
+            assert geo.rows == 256 // _kernels.cls_row_geometry(
+                dtype, dh, s).group
+            assert geo.shared_bytes == 16384 and geo.key_tiles is None
+            _grouped_covers(geo, s)
+        qkv = torch.empty((2, s, 3 * 3 * dh), dtype=dtype, device="meta")
+        stats, cls_part = _kernels.attention_bwd_scratch(
+            qkv, num_heads=3, num_frames=frames, axis="space")
+        assert tuple(stats.shape) == (2, 2, 3, s)
+        assert tuple(cls_part.shape) == (2, 3, geo.parts, 2, dh)
+    assert _kernels.SHARED_BYTES_TWO < _kernels.SHARED_BYTES_MAX == 232448
+    for bad in (4, 12, 136):
+        with pytest.raises(ValueError, match="head dim"):
+            _kernels.space_bwd_geometry(dtype, bad, s, frames)
+    with pytest.raises(ValueError, match="frames"):
+        _kernels.space_bwd_geometry(dtype, 64, s, 0)
+    with pytest.raises(TypeError):
+        _kernels.space_bwd_geometry(torch.int8, 64, s, frames)

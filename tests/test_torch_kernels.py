@@ -68,6 +68,15 @@ CASES = [
     (1, 64, 2, 2, 64),
     (1, 20, 6, 2, 16),
     (1, 40, 5, 2, 48),
+    # K1's and K4's frame forms (bf16 space, a frame's N + 1 keys in at most
+    # 13 16-row tiles): N = 207 (the last frame on them: 13 key and query
+    # tiles), N = 208 (the first off: the grouped forms), one frame at the
+    # widest head dim K1's frame form takes (K4 takes Dh <= 64), and an odd
+    # frame at Dh = 16.
+    (1, 2, 207, 2, 64),
+    (1, 2, 208, 2, 32),
+    (1, 1, 197, 2, 128),
+    (2, 3, 33, 2, 16),
 ]
 
 
@@ -181,12 +190,21 @@ def test_backward_kernels_one_by_one(cuda, axis, dtype):
     assert max(errs) <= BWD_RTOL[dtype], errs
 
     out, lse0 = _cls_row_forward(flat, h, scale)
-    dqkv.zero_()
-    _kernels.cls_row_attention_bwd(flat, gflat, out, lse0, dqkv,
+    d_cls = torch.zeros_like(flat)
+    _kernels.cls_row_attention_bwd(flat, gflat, out, lse0, d_cls,
                                    torch.zeros_like(parts), num_heads=h,
                                    scale=scale)
     torch.cuda.synchronize()
     ref = divided_attention_backward_reference(qkv, g, rows="cls", **kw)
+    errs = _rel_errs(d_cls.view(b, s, 3, h, dh), ref)
+    assert max(errs) <= BWD_RTOL[dtype], errs
+
+    # K6 after K4/K5 on the rows they wrote, fed their `cls_part` (one row
+    # a frame from K4's frame form): the whole gradient.
+    _kernels.cls_row_attention_bwd(flat, gflat, out, lse0, dqkv, parts,
+                                   num_heads=h, scale=scale)
+    torch.cuda.synchronize()
+    ref = divided_attention_backward_reference(qkv, g, **kw)
     errs = _rel_errs(dqkv.view(b, s, 3, h, dh), ref)
     assert max(errs) <= BWD_RTOL[dtype], errs
 
@@ -230,6 +248,127 @@ def test_time_bwd_kernel_alone(cuda, frames):
         qkv, g, scale=scale, axis="time", num_frames=frames, rows="grouped")
     errs = _rel_errs(got, ref)
     assert max(errs) <= BWD_RTOL[torch.bfloat16], errs
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("frames", [1, 4, 16, 32])
+def test_space_bwd_kernel_alone(cuda, frames):
+    """K4 alone at the paths' frame size (N = 196, bf16, Dh=64): the frame
+    form `space_bwd_geometry` names, against the gradient of rows 1..S-1
+    (the CLS key's row from the summed partials), `cls_part` one row a
+    frame (parts = F), sequence row 0 left alone, two runs on one input the
+    same bits (dqkv and `cls_part`), and in the profiler's kernel names the
+    one launch of the frame form."""
+    b, n, h, dh = 2, 196, 3, 64
+    s, scale = 1 + frames * n, dh ** -0.5
+    qkv = _qkv(12, b, s, h, dh, torch.bfloat16, cuda)
+    g = _qkv(13, b, s, h, dh, torch.bfloat16, cuda)[:, :, 0].contiguous()
+    flat, gflat = qkv.view(b, s, -1), g.view(b, s, -1)
+    geo = _kernels.space_bwd_geometry(torch.bfloat16, dh, s, frames)
+    assert (geo.form, geo.parts) == ("frame", frames)
+    runs = []
+    for _ in range(2):
+        stats, parts = _kernels.attention_bwd_scratch(
+            flat, num_heads=h, num_frames=frames, axis="space")
+        assert parts.shape == (b, h, frames, 2, dh)
+        dqkv = torch.full_like(flat, float("nan"))
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            _kernels.space_attention_bwd(flat, gflat, dqkv, stats, parts,
+                                         num_heads=h, num_frames=frames,
+                                         scale=scale)
+            torch.cuda.synchronize()
+        runs.append((dqkv, parts))
+    names = [e.key for e in prof.key_averages() if e.self_device_time_total]
+    assert len(names) == 1 and "space_bwd_frame_kernel" in names[0], names
+    (dqkv, parts), (dqkv2, parts2) = runs
+    assert _same_bits(dqkv, dqkv2) and _same_bits(parts, parts2)
+    got = dqkv.view(b, s, 3, h, dh).clone()
+    assert torch.isnan(got[:, 0]).all()  # row 0 is K6's
+    got[:, 0, 0] = 0
+    got[:, 0, 1:] = parts.sum(2).permute(0, 2, 1, 3).to(torch.bfloat16)
+    ref = divided_attention_backward_reference(
+        qkv, g, scale=scale, axis="space", num_frames=frames, rows="grouped")
+    errs = _rel_errs(got, ref)
+    assert max(errs) <= BWD_RTOL[torch.bfloat16], errs
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("frames", [1, 4, 5, 16, 32])
+def test_space_fwd_kernel_alone(cuda, frames):
+    """K1 through its wrapper at the paths' frame size (N = 196, bf16,
+    Dh=64): against the plain version on the same values in f32, row 0
+    left alone, two runs on one input the same bits, and in the profiler's
+    kernel names the one launch of the frame form."""
+    b, n, h, dh = 2, 196, 3, 64
+    s, scale = 1 + frames * n, dh ** -0.5
+    qkv = _qkv(14, b, s, h, dh, torch.bfloat16, cuda)
+    flat = qkv.view(b, s, -1)
+    assert _kernels.space_fwd_geometry(torch.bfloat16, dh, s,
+                                       frames).form == "frame"
+    outs = []
+    for _ in range(2):
+        out = torch.full((b, s, h * dh), float("nan"), dtype=torch.bfloat16,
+                         device=cuda)
+        names = _profiled_names(lambda: _kernels.space_attention_fwd(
+            flat, out, num_heads=h, num_frames=frames, scale=scale))
+        outs.append(out)
+    assert len(names) == 1 and "space_fwd_frame_kernel" in names[0], names
+    assert _same_bits(outs[0], outs[1])
+    assert torch.isnan(outs[0][:, 0]).all()
+    ref = grouped_reference(qkv.float(), scale=scale, axis="space",
+                            num_frames=frames).reshape(b, s - 1, h * dh)
+    assert (outs[0][:, 1:].float() - ref).abs().max().item() \
+        <= TOL[torch.bfloat16]
+
+
+@pytest.mark.gpu
+def test_space_frame_forms_refuse_a_geometry_that_does_not_hold(cuda):
+    """The frame forms' C entry points launch `space_fwd_geometry`'s and
+    `space_bwd_geometry`'s geometry as given and refuse any other (CUDA
+    error 1): other blocks a (b, h), other shared memory, f32, a head dim
+    off the form, a frame of more than 208 keys; and the grouped entry
+    points refuse the frame geometry."""
+    b, n, h, dh, frames = 2, 20, 3, 64, 4
+    s = 1 + frames * n
+    flat = _qkv(15, b, s, h, dh, torch.bfloat16, cuda).view(b, s, -1)
+    g = torch.zeros((b, s, h * dh), dtype=torch.bfloat16, device=cuda)
+    out, dqkv = torch.empty_like(g), torch.empty_like(flat)
+    cls_part = torch.empty((b, h, frames, 2, dh), device=cuda)
+    stats = torch.empty((2, b, h, s), device=cuda)
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    fwd = _kernels.space_fwd_geometry(torch.bfloat16, dh, s, frames)
+    bwd = _kernels.space_bwd_geometry(torch.bfloat16, dh, s, frames)
+
+    def launch_fwd(parts, shared, dtype=1, d=dh, ss=s):
+        return _kernels.load().space_attention_fwd_frame(
+            flat.data_ptr(), out.data_ptr(), dtype, b, ss, h, d, frames,
+            0.125, parts, shared, stream)
+
+    def launch_bwd(parts, shared, dtype=1, d=dh, ss=s):
+        return _kernels.load().space_attention_bwd_frame(
+            flat.data_ptr(), g.data_ptr(), dqkv.data_ptr(),
+            cls_part.data_ptr(), dtype, b, ss, h, d, frames, 0.125, parts,
+            shared, stream)
+
+    assert launch_fwd(fwd.parts, fwd.shared_bytes) == 0
+    assert launch_bwd(bwd.parts, bwd.shared_bytes) == 0
+    torch.cuda.synchronize()
+    for launch, geo in ((launch_fwd, fwd), (launch_bwd, bwd)):
+        assert launch(geo.parts + 1, geo.shared_bytes) == 1
+        assert launch(geo.parts, geo.shared_bytes + 16) == 1
+        assert launch(geo.parts, geo.shared_bytes, dtype=0) == 1
+        assert launch(geo.parts, geo.shared_bytes, d=72) == 1
+        # N = 208: 14 key tiles
+        assert launch(frames, geo.shared_bytes, ss=1 + frames * 208) == 1
+    assert launch_bwd(bwd.parts, bwd.shared_bytes, d=80) == 1
+    assert _kernels.load().space_attention_fwd(
+        flat.data_ptr(), out.data_ptr(), 1, b, s, h, dh, frames, 0.125,
+        fwd.rows, fwd.parts, stream) == 1
+    assert _kernels.load().space_attention_bwd(
+        flat.data_ptr(), g.data_ptr(), dqkv.data_ptr(), stats.data_ptr(),
+        cls_part.data_ptr(), 1, b, s, h, dh, frames, 0.125, bwd.parts,
+        stream) == 1
 
 
 def _profiled_names(fn) -> list:
@@ -1210,8 +1349,9 @@ def test_kernel_wrappers_refuse_cpu_tensors_before_building():
                                                q5[:, :, 1], q5, scale=1.0,
                                                axis="time", num_frames=2)
     assert set(libs) == {"divided_attention.cu", "divided_attention_bwd.cu",
-                         "time_attention.cu", "layernorm.cu",
-                         "fused_attention.cu", "divided_attention_general.cu"}
+                         "space_attention.cu", "time_attention.cu",
+                         "layernorm.cu", "fused_attention.cu",
+                         "divided_attention_general.cu"}
     for lib in libs.values():
         assert lib.parent == _kernels.BUILD_DIR
         assert lib.parent.parts[-2:] == ("build", "egovlpv2_torch")
