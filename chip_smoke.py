@@ -37,9 +37,10 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
                 max |reference| of that tensor, the CLS row and the patch
                 rows each by its own maximum (a gradient's scale follows
                 the cotangent's, and the CLS key's dk/dv are many times a
-                patch key's; the kernels keep P, dP and dS in f32 and
-                round only the stores, the plain version rounds P and dS to
-                bf16; K6 rounds the dk/dv rows a second time when it adds
+                patch key's; the kernels keep P, dP, delta and dS in f32
+                and round P and dS to bf16 at most as the operands of the
+                products that take them, the plain version's autograd in
+                bf16 rounds P, dP and dS; K6 rounds the dk/dv rows a second time when it adds
                 to them); K6 is fed K3's output and lse0, as the autograd
                 Function runs it, twice on one input gives the same bits,
                 and is timed adding to the rows K4/K5 wrote. K5 twice on one
@@ -57,7 +58,13 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
                 `space_bwd_geometry` names (in bf16 the frame forms, one
                 `space_fwd_frame_kernel` / `space_bwd_frame_kernel` launch,
                 K4's `cls_part` one row a frame), and K6 after K4, fed its
-                `cls_part`, against the whole space-axis gradient.
+                `cls_part`, against the whole space-axis gradient. K4's
+                frame form is also held to the plain version of its frame
+                block (`space_frame_grad_reference`), which rounds as the
+                TPU kernel does: P, dP, delta and dS in f32, P rounded to
+                bf16 only before dV and dS only before dQ and dK; dq, dk,
+                dv of the patch rows and each frame's CLS-key dk, dv within
+                2e-2 of max |reference| of each.
                 K1's, K2's, K3's, K4's, K5's and K6's times before their
                 redesigns (K1_BEFORE_MS ... K6_BEFORE_MS) are printed beside
                 the new ones on the text line only.
@@ -224,7 +231,8 @@ from egovlpv2_torch.ops.divided import (cls_row_reference,
                                         divided_attention_backward_reference,
                                         divided_attention_reference,
                                         grouped_reference, live_mask,
-                                        row_lse_reference)
+                                        row_lse_reference,
+                                        space_frame_grad_reference)
 from egovlpv2_torch.tasks.egomcq import make_egomcq_eval_step
 from egovlpv2_torch.tasks.extract import FeatureExtractor, extract_nlq_features
 from egovlpv2_torch.tasks.orchestrators import run_egotaskqa
@@ -824,8 +832,8 @@ def phase_kernels() -> dict:
                         check += _check_time_bwd(flat, gflat, dqkv, parts, kw,
                                                  events)
                     else:
-                        check += _check_space_bwd(flat, gflat, dqkv, parts, kw,
-                                                  events)
+                        check += _check_space_bwd(qkv, g, flat, gflat, dqkv,
+                                                  parts, kw, events)
                         space_parts = parts
                     record(name, dtype, b, frames, err, check,
                            sum(events.values()), _time_ms(plain),
@@ -912,15 +920,34 @@ def _check_time_bwd(flat, gflat, dqkv, parts, kw, events) -> str:
     return f"; {form} form, bitwise equal twice"
 
 
-def _check_space_bwd(flat, gflat, dqkv, parts, kw, events) -> str:
+def _check_space_bwd(qkv, g, flat, gflat, dqkv, parts, kw, events) -> str:
     """K4 (from the call just made into `dqkv` and `parts`) a second time on
     the same input: the same bits in dqkv and in the CLS-key partials (no
     atomics); `events`, the profiled kernels of a call, are those of the
     form `space_bwd_geometry` names (the frame form one launch), and
-    `parts` has its parts: F in the frame form. Returns the check's text."""
+    `parts` has its parts: F in the frame form. The frame form is also held
+    to the plain version of its block, `space_frame_grad_reference` (P, dP,
+    delta and dS in f32; P rounded only before dV, dS only before dQ/dK):
+    dq, dk, dv of the patch rows and `cls_part`'s dk, dv each within
+    TOL of its max |reference|. Returns the check's text."""
     b, s = flat.shape[:2]
     frames = kw["num_frames"]
     geo = _kernels.space_bwd_geometry(flat.dtype, DH, s, frames)
+    twin = ""
+    if geo.form == "frame":
+        want, want_cls = space_frame_grad_reference(
+            qkv, g, scale=kw["scale"], num_frames=frames)
+        got = dqkv.view(b, s, 3, H, DH)[:, 1:].float()
+        errs = [((got[:, :, i] - want[:, 1:, i]).abs().max()
+                 / want[:, 1:, i].abs().max()).item() for i in range(3)]
+        errs += [((parts[:, :, :, i] - want_cls[:, :, :, i]).abs().max()
+                  / want_cls[:, :, :, i].abs().max()).item() for i in range(2)]
+        del want, want_cls, got
+        if not max(errs) <= TOL[flat.dtype]:
+            raise AssertionError(f"space_attention_bwd B={b} S={s}: relative "
+                                 f"error against its frame block's plain "
+                                 f"version {errs} > {TOL[flat.dtype]}")
+        twin = f"; frame block's plain version rel {max(errs):.2e}"
     if parts.shape[2] != geo.parts or (geo.form == "frame"
                                        and geo.parts != frames):
         raise AssertionError(f"space_attention_bwd B={b} S={s}: cls_part has "
@@ -939,7 +966,7 @@ def _check_space_bwd(flat, gflat, dqkv, parts, kw, events) -> str:
                    SPACE_BWD_KERNELS[geo.form], events)
     return (f"; {geo.form} form ({len(SPACE_BWD_KERNELS[geo.form])} launch"
             f"{'es' if geo.form == 'grouped' else ''}, {geo.parts} parts), "
-            f"bitwise equal twice")
+            f"bitwise equal twice{twin}")
 
 
 def _check_space_fwd(flat, out, kw, events) -> str:

@@ -39,19 +39,20 @@
 //   at a time with an online softmax in f32 (the CLS key is live in every
 //   row, so the first step's max is finite); the numerator rounded to bf16
 //   as the A operand of P V, the output divided by the f32 sum and stored.
-//   K4 (6 warps, two blocks an SM at Dh = 64): Q, K, V and dO (the
+//   K4 (6 warps, two blocks an SM): Q, K, V and dO (the
 //   cotangent) of the frame, 16-byte chunks XOR swizzled without padding
 //   (106 KB at Dh = 64; Dh = 48 padded), K and Q in a first group, V and dO
 //   in a second.
 //     Phase A, query tiles: S = Q K^T over all keys in registers, its exact
-//     log-sum-exp and P = softmax(S), kept as bf16; dP = dO V^T, rounded to
-//     bf16 as the plain version's autograd rounds it; delta = sum P dP in
-//     f32; dS = P (dP - delta), rounded, as the A operand of dQ = scale dS
-//     K, stored. Each row's log-sum-exp and delta stay in shared memory.
+//     log-sum-exp and P = softmax(S), kept in f32; dP = dO V^T in f32 a key
+//     tile at a time, twice (no room for it beside P): first delta = sum P
+//     dP, then dS = P (dP - delta), rounded to bf16 as the A operand of dQ =
+//     scale dS K, stored. Each row's log-sum-exp and delta stay in shared
+//     memory. P, dP, delta and dS are the TPU kernel's, in f32; it rounds
+//     only P before dV and dS before dQ and dK.
 //     Phase B, key tiles: S^T = K Q^T and dP^T = V dO^T again, 16 queries a
-//     step, P from the shared log-sum-exp in f32 for dS (as the reference's
-//     softmax backward takes it), rounded as the A operand of dV = P^T dO;
-//     dK = scale dS^T Q. Key rows 1..N are stored; key row 0, the
+//     step, P from the shared log-sum-exp and dS in f32, each rounded as the
+//     A operand of dV = P^T dO and dK = scale dS^T Q. Key rows 1..N are stored; key row 0, the
 //     CLS key, goes out in f32 as this frame's row of `cls_part` [B, H, F,
 //     2, Dh], which K6 sums over the frames in order.
 //   So the scores are computed twice, not three times, and qkv and dO leave
@@ -102,10 +103,6 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-__device__ __forceinline__ float2 unpack_bf16(uint32_t u) {
-  return __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&u));
-}
-
 // 2^x on the MUFU alone (ex2.approx.ftz: about 2 ulp; a result under
 // 2^-126 flushed to zero, a weight of nothing beside the row's largest,
 // which is 1). 5-7% faster than exp2f in both kernels on an H100.
@@ -113,10 +110,6 @@ __device__ __forceinline__ float exp2_approx(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
   return y;
-}
-
-__device__ __forceinline__ float round_bf16(float x) {
-  return __bfloat162float(__float2bfloat16(x));
 }
 
 __device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
@@ -429,9 +422,32 @@ __global__ void __launch_bounds__(32 * kFwdWarps, fwd_min_blocks<DH>())
   }
 }
 
-// K4. grid (H, F, B), 32 kBwdWarps threads, bwd_shared_bytes.
+// dP = dO V^T over one 16-key tile, in f32: `ga` the A fragments of the
+// query tile's dO, `sv` the tile's first V row.
+template <class L, int DH>
+__device__ __forceinline__ void dp_tile(float (&dp)[2][4],
+                                        const uint32_t (&ga)[DH / 16][4],
+                                        const __nv_bfloat16* sv,
+                                        const LaneOffsets<L, DH>& lo) {
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    dp[j][0] = dp[j][1] = dp[j][2] = dp[j][3] = 0.f;
+  }
+#pragma unroll
+  for (int kk = 0; kk < DH / 16; ++kk) {
+    uint32_t vb[4];
+    ldsm4<false>(vb, sv + lo.cols[kk]);
+    mma_bf16(dp[0], ga[kk], vb[0], vb[1]);
+    mma_bf16(dp[1], ga[kk], vb[2], vb[3]);
+  }
+}
+
+// K4. grid (H, F, B), 32 kBwdWarps threads, bwd_shared_bytes. Two blocks
+// an SM cap a thread at 168 registers: at Dh = 64 nvcc spills 108 bytes of
+// the f32 P and dP, and K4 runs 1.5x faster than with the 214 registers it
+// takes uncapped (one block an SM; PERF.md section 6, PR 16).
 template <int DH>
-__global__ void __launch_bounds__(32 * kBwdWarps)
+__global__ void __launch_bounds__(32 * kBwdWarps, 2)
     space_bwd_frame_kernel(const __nv_bfloat16* __restrict__ qkv,
                            const __nv_bfloat16* __restrict__ gout,
                            __nv_bfloat16* __restrict__ dqkv,
@@ -477,13 +493,12 @@ __global__ void __launch_bounds__(32 * kBwdWarps)
       cp_async_wait_but_last();
       __syncthreads();
     }
-    uint32_t pp[2 * KT][2];  // P in bf16: rows g, g + 8 of n-tile nt
+    float p[2 * KT][4];  // P in f32: rows g, g + 8 of n-tile nt
     float lse_lo = 0.f, lse_hi = 0.f;
     if (live) {
-      float s[2 * KT][4];
 #pragma unroll
       for (int nt = 0; nt < 2 * KT; ++nt) {
-        s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
+        p[nt][0] = p[nt][1] = p[nt][2] = p[nt][3] = 0.f;
       }
 #pragma unroll
       for (int kk = 0; kk < DH / 16; ++kk) {
@@ -494,8 +509,8 @@ __global__ void __launch_bounds__(32 * kBwdWarps)
           if (np < kt) {
             uint32_t kb[4];
             ldsm4<false>(kb, sK + np * 16 * LD + lo.cols[kk]);
-            mma_bf16(s[2 * np], qa, kb[0], kb[1]);
-            mma_bf16(s[2 * np + 1], qa, kb[2], kb[3]);
+            mma_bf16(p[2 * np], qa, kb[0], kb[1]);
+            mma_bf16(p[2 * np + 1], qa, kb[2], kb[3]);
           }
         }
       }
@@ -505,10 +520,10 @@ __global__ void __launch_bounds__(32 * kBwdWarps)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const bool valid = nt * 8 + 2 * t + (e & 1) <= N;
-          s[nt][e] = valid ? s[nt][e] * sl2 : -INFINITY;
+          p[nt][e] = valid ? p[nt][e] * sl2 : -INFINITY;
         }
-        m_lo = fmaxf(m_lo, fmaxf(s[nt][0], s[nt][1]));
-        m_hi = fmaxf(m_hi, fmaxf(s[nt][2], s[nt][3]));
+        m_lo = fmaxf(m_lo, fmaxf(p[nt][0], p[nt][1]));
+        m_hi = fmaxf(m_hi, fmaxf(p[nt][2], p[nt][3]));
       }
 #pragma unroll
       for (int off = 1; off < 4; off <<= 1) {
@@ -519,12 +534,12 @@ __global__ void __launch_bounds__(32 * kBwdWarps)
 #pragma unroll
       for (int nt = 0; nt < 2 * KT; ++nt) {
         if (nt < 2 * kt) {
-          s[nt][0] = exp2_approx(s[nt][0] - m_lo);
-          s[nt][1] = exp2_approx(s[nt][1] - m_lo);
-          s[nt][2] = exp2_approx(s[nt][2] - m_hi);
-          s[nt][3] = exp2_approx(s[nt][3] - m_hi);
-          l_lo += s[nt][0] + s[nt][1];
-          l_hi += s[nt][2] + s[nt][3];
+          p[nt][0] = exp2_approx(p[nt][0] - m_lo);
+          p[nt][1] = exp2_approx(p[nt][1] - m_lo);
+          p[nt][2] = exp2_approx(p[nt][2] - m_hi);
+          p[nt][3] = exp2_approx(p[nt][3] - m_hi);
+          l_lo += p[nt][0] + p[nt][1];
+          l_hi += p[nt][2] + p[nt][3];
         }
       }
 #pragma unroll
@@ -537,10 +552,10 @@ __global__ void __launch_bounds__(32 * kBwdWarps)
       const float inv_lo = 1.f / l_lo, inv_hi = 1.f / l_hi;
 #pragma unroll
       for (int nt = 0; nt < 2 * KT; ++nt) {
-        pp[nt][0] = nt < 2 * kt ? pack_bf16(s[nt][0] * inv_lo, s[nt][1] * inv_lo)
-                                : 0u;
-        pp[nt][1] = nt < 2 * kt ? pack_bf16(s[nt][2] * inv_hi, s[nt][3] * inv_hi)
-                                : 0u;
+        p[nt][0] = nt < 2 * kt ? p[nt][0] * inv_lo : 0.f;
+        p[nt][1] = nt < 2 * kt ? p[nt][1] * inv_lo : 0.f;
+        p[nt][2] = nt < 2 * kt ? p[nt][2] * inv_hi : 0.f;
+        p[nt][3] = nt < 2 * kt ? p[nt][3] * inv_hi : 0.f;
       }
     }
     if (it == 0) {  // V and dO have landed
@@ -553,31 +568,20 @@ __global__ void __launch_bounds__(32 * kBwdWarps)
       for (int kk = 0; kk < DH / 16; ++kk) {
         ldsm4<false>(ga[kk], sG + m0 * LD + lo.rows[kk]);
       }
-      // dP = dO V^T, rounded to bf16; delta = sum P dP.
-      uint32_t dpp[2 * KT][2];
+      // dP = dO V^T in f32, a key tile at a time: twice, since the tile
+      // holds P's 208 scores in f32 and has no room for dP's beside them.
+      // First delta = sum P dP, then dS = P (dP - delta).
       float d_lo = 0.f, d_hi = 0.f;
 #pragma unroll
       for (int np = 0; np < KT; ++np) {
-        dpp[2 * np][0] = dpp[2 * np][1] = dpp[2 * np + 1][0] =
-            dpp[2 * np + 1][1] = 0u;
         if (np < kt) {
-          float dp[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
-#pragma unroll
-          for (int kk = 0; kk < DH / 16; ++kk) {
-            uint32_t vb[4];
-            ldsm4<false>(vb, sV + np * 16 * LD + lo.cols[kk]);
-            mma_bf16(dp[0], ga[kk], vb[0], vb[1]);
-            mma_bf16(dp[1], ga[kk], vb[2], vb[3]);
-          }
+          float dp[2][4];
+          dp_tile<L, DH>(dp, ga, sV + np * 16 * LD, lo);
 #pragma unroll
           for (int j = 0; j < 2; ++j) {
             const int nt = 2 * np + j;
-            dpp[nt][0] = pack_bf16(dp[j][0], dp[j][1]);
-            dpp[nt][1] = pack_bf16(dp[j][2], dp[j][3]);
-            const float2 p0 = unpack_bf16(pp[nt][0]), p1 = unpack_bf16(pp[nt][1]);
-            const float2 r0 = unpack_bf16(dpp[nt][0]), r1 = unpack_bf16(dpp[nt][1]);
-            d_lo += p0.x * r0.x + p0.y * r0.y;
-            d_hi += p1.x * r1.x + p1.y * r1.y;
+            d_lo += p[nt][0] * dp[j][0] + p[nt][1] * dp[j][1];
+            d_hi += p[nt][2] * dp[j][2] + p[nt][3] * dp[j][3];
           }
         }
       }
@@ -586,8 +590,8 @@ __global__ void __launch_bounds__(32 * kBwdWarps)
         d_lo += __shfl_xor_sync(0xffffffffu, d_lo, off);
         d_hi += __shfl_xor_sync(0xffffffffu, d_hi, off);
       }
-      // dQ = dS K: dS's C fragments are the A fragments of the keys'
-      // 16-wide steps; K read transposed.
+      // dQ = dS K: dS's C fragments, rounded, are the A fragments of the
+      // keys' 16-wide steps; K read transposed.
       float dq[DH / 8][4];
 #pragma unroll
       for (int nd = 0; nd < DH / 8; ++nd) {
@@ -596,14 +600,16 @@ __global__ void __launch_bounds__(32 * kBwdWarps)
 #pragma unroll
       for (int kc = 0; kc < KT; ++kc) {
         if (kc < kt) {
+          float dp[2][4];
+          dp_tile<L, DH>(dp, ga, sV + kc * 16 * LD, lo);
           uint32_t a[4];
 #pragma unroll
           for (int j = 0; j < 2; ++j) {
             const int nt = 2 * kc + j;
-            const float2 p0 = unpack_bf16(pp[nt][0]), p1 = unpack_bf16(pp[nt][1]);
-            const float2 r0 = unpack_bf16(dpp[nt][0]), r1 = unpack_bf16(dpp[nt][1]);
-            a[2 * j] = pack_bf16(p0.x * (r0.x - d_lo), p0.y * (r0.y - d_lo));
-            a[2 * j + 1] = pack_bf16(p1.x * (r1.x - d_hi), p1.y * (r1.y - d_hi));
+            a[2 * j] = pack_bf16(p[nt][0] * (dp[j][0] - d_lo),
+                                 p[nt][1] * (dp[j][1] - d_lo));
+            a[2 * j + 1] = pack_bf16(p[nt][2] * (dp[j][2] - d_hi),
+                                     p[nt][3] * (dp[j][3] - d_hi));
           }
 #pragma unroll
           for (int d0 = 0; d0 < DH; d0 += 16) {
@@ -679,7 +685,7 @@ __global__ void __launch_bounds__(32 * kBwdWarps)
           const float p =
               exp2_approx(st[nt][e] * sl2 - ((e & 1) ? ls.y : ls.x));
           st[nt][e] = p;
-          dt[nt][e] = p * (round_bf16(dt[nt][e]) - ((e & 1) ? dl.y : dl.x));
+          dt[nt][e] = p * (dt[nt][e] - ((e & 1) ? dl.y : dl.x));
         }
       }
       // dV += P^T dO, dK += dS^T Q: the C fragments (keys x queries) are the

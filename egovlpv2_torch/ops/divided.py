@@ -293,10 +293,10 @@ def space_frame_grad_reference(qkv: torch.Tensor, g: torch.Tensor, *,
                                scale: float, num_frames: int) -> tuple:
     """The plain version of K4's frame block: for each frame of each
     (batch, head), its N queries over the CLS key and its N keys, with P =
-    softmax(scale Q K^T) and dP = G V^T rounded to qkv's dtype, delta = sum
-    P dP and dS = P (dP - delta) in f32, dS rounded before dQ = scale dS K,
-    dK = scale dS^T Q and dV = P^T G, as the kernel's query pass rounds them
-    (its key pass takes P into dS unrounded). Returns in f32
+    softmax(scale Q K^T), dP = G V^T, delta = sum P dP and dS = P (dP -
+    delta) in f32, P rounded to qkv's dtype only before dV = P^T G and dS
+    only before dQ = scale dS K and dK = scale dS^T Q, as the TPU kernel's
+    frame-block backward and both passes of K4 round them. Returns in f32
       * dqkv [B, S, 3, H, Dh]: dq, dk and dv of rows 1..S-1 (the patch rows'
         space attention alone; K6 adds the CLS query's share), row 0 zero;
       * each frame's dk and dv of the CLS key, [B, H, F, 2, Dh]: the
@@ -304,7 +304,7 @@ def space_frame_grad_reference(qkv: torch.Tensor, g: torch.Tensor, *,
         F), which K6 sums over the frames in order.
     qkv [B, S, 3, H, Dh], g [B, S, H, Dh]. Nothing on the card's path calls
     it."""
-    return _block_grad(qkv, g, scale, num_frames, "space", True)
+    return _block_grad(qkv, g, scale, num_frames, "space", False)
 
 
 def live_mask(s: int, num_frames: int, axis: str,

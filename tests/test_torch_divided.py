@@ -66,7 +66,8 @@ from jax.experimental.pallas import tpu as pltpu
 
 from egovlpv2_tpu.ops import divided as jdiv
 from egovlpv2_torch.ops import _kernels
-from egovlpv2_torch.ops.divided import (cls_grad_partials_reference,
+from egovlpv2_torch.ops.divided import (_block_grad,
+                                        cls_grad_partials_reference,
                                         cls_row_partials_reference,
                                         cls_run_grad_reference,
                                         cls_run_partials_reference,
@@ -697,6 +698,65 @@ def test_space_frame_cls_split_sums_to_row0(case):
     for i in range(3):
         want = ref[:, 1:, i]
         assert (got[:, :, i] - want).abs().max() <= 2e-5 * want.abs().max()
+
+
+@pytest.mark.parametrize("case", [c for c in SPLIT_CASES if c[4] == 64])
+def test_space_frame_grad_rounds_as_the_tpu_kernels_in_bf16(case,
+                                                            monkeypatch):
+    """In bf16, the TPU kernels' space backward (`_space_fb_bwd`, interpret
+    mode) takes P and dP in f32 through delta and dS, and rounds P only
+    before dV and dS only before dQ/dK. The plain version of K4's frame
+    block does the same (`_block_grad(..., round_dp=False)`), and with K6's
+    plain version after it gives that backward within 1e-2 of max
+    |reference| in each of dq, dk and dv (both in bf16, a unit in the last
+    place is 3.9e-3 of it); rounding P and dP to bf16 before delta
+    (`round_dp=True`) is no closer. The errors at the frame shapes of
+    `SPLIT_CASES` with Dh 64 (max |error| / max |reference|, the worst of
+    dq, dk, dv): unrounded 2.9e-3-4.2e-3 against rounded 6.0e-3-9.5e-3."""
+    b, f, n, h, dh = case
+    s, scale = 1 + f * n, dh ** -0.5
+    rs = np.random.RandomState(53)
+    x = torch.from_numpy(rs.randn(b, s, 3, h, dh).astype(np.float32)
+                         ).bfloat16()
+    g = torch.from_numpy(rs.randn(b, s, h, dh).astype(np.float32)
+                         ).bfloat16()
+    if jdiv._packed_heads(h, dh, s, 2, budget=jdiv._BWD_BUDGET) is None:
+        # three heads cannot be lane-packed: the per-head kernels take the
+        # same frame-block branch once the window applies
+        monkeypatch.setattr(jdiv, "_SPACE_WINDOW_MIN_S", 16)
+        assert jdiv._windowed("space", s)
+    else:
+        assert jdiv._space_fb("space", s) and s <= jdiv._PACKED_MAX_S
+    with pltpu.force_tpu_interpret_mode():
+        _, vjp = jax.vjp(lambda v: jdiv.divided_attention(
+            v, scale=scale, axis="space", num_frames=f, impl="pallas"),
+            jnp.asarray(x.float().numpy(), jnp.bfloat16))
+        (ref,) = vjp(jnp.asarray(g.float().numpy(), jnp.bfloat16))
+    ref = np.asarray(ref.astype(jnp.float32))
+    out0, lse0 = merge_cls_run_partials_reference(
+        cls_run_partials_reference(x.float(), scale=scale))
+    dq_parts, dkd, dvd = cls_run_grad_reference(x.float(), g.float(), out0,
+                                                lse0, scale=scale)
+    errs = {}
+    for round_dp in (False, True):
+        dqkv, cls_part = _block_grad(x, g, scale, f, "space", round_dp)
+        got = dqkv.clone()
+        got[:, :, 1] += dkd
+        got[:, :, 2] += dvd
+        got[:, 0, 0] = scale * dq_parts.sum(2)
+        got[:, 0, 1:] += cls_part.sum(2).permute(0, 2, 1, 3)
+        # in qkv's dtype, as the kernels write it
+        got = got.bfloat16().float().numpy()
+        errs[round_dp] = max(
+            np.abs(got[:, :, i] - ref[:, :, i]).max()
+            / np.abs(ref[:, :, i]).max() for i in range(3))
+    assert errs[False] <= 1e-2, errs
+    assert errs[False] <= errs[True], errs
+    # the port's plain twin of K4 is the unrounded form
+    dqkv, cls_part = space_frame_grad_reference(x, g, scale=scale,
+                                                num_frames=f)
+    want, want_cls = _block_grad(x, g, scale, f, "space", False)
+    assert torch.equal(dqkv, want) and torch.equal(cls_part, want_cls)
 
 
 # (S, frames): the paths' (pretrain, EgoMCQ 16f and MQ, fine-tune, QFVS),

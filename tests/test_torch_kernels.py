@@ -28,7 +28,9 @@ from egovlpv2_torch.ops.divided import (cls_row_reference,
                                         divided_attention_reference,
                                         grouped_kernels_take,
                                         grouped_reference,
-                                        row_lse_reference)
+                                        row_lse_reference,
+                                        space_frame_grad_reference,
+                                        space_frame_reference)
 
 torch.set_num_threads(2)
 
@@ -320,6 +322,56 @@ def test_space_fwd_kernel_alone(cuda, frames):
                             num_frames=frames).reshape(b, s - 1, h * dh)
     assert (outs[0][:, 1:].float() - ref).abs().max().item() \
         <= TOL[torch.bfloat16]
+
+
+# (B, F, N, H, Dh) for K1 and K4 against the plain versions of their frame
+# blocks: the paths' frame at one, four and 32 frames, an odd frame, the
+# last frame on the forms (N = 207) and each head dim K4 takes.
+SPACE_TWIN_CASES = [(2, 4, 196, 3, 64), (1, 1, 196, 2, 64),
+                    (1, 32, 196, 2, 64), (2, 3, 33, 2, 16),
+                    (1, 2, 207, 2, 48), (1, 5, 50, 2, 32)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", SPACE_TWIN_CASES)
+def test_space_frame_forms_match_their_plain_twins(cuda, case):
+    """K1 and K4 in their frame forms (bf16) against the plain versions of
+    their frame blocks on the same values: K1 against
+    `space_frame_reference` within 2e-2, the largest abs error (its
+    numerator rounded as K1 rounds it, the output rounded to bf16); K4
+    against `space_frame_grad_reference` (P, dP, delta and dS in f32, P
+    rounded only before dV and dS only before dQ/dK, as the TPU kernel
+    rounds them), dq, dk and dv of the patch rows and each frame's dk/dv of
+    the CLS key in `cls_part`, each within 2e-2 of its max |reference|."""
+    b, f, n, h, dh = case
+    s, scale = 1 + f * n, dh ** -0.5
+    qkv = _qkv(15, b, s, h, dh, torch.bfloat16, cuda)
+    g = _qkv(16, b, s, h, dh, torch.bfloat16, cuda)[:, :, 0].contiguous()
+    flat, gflat = qkv.view(b, s, -1), g.view(b, s, -1)
+    kw = dict(num_heads=h, num_frames=f, scale=scale)
+    assert _kernels.space_fwd_geometry(torch.bfloat16, dh, s, f).form \
+        == "frame"
+    assert _kernels.space_bwd_geometry(torch.bfloat16, dh, s, f).form \
+        == "frame"
+    out = torch.full((b, s, h * dh), float("nan"), dtype=torch.bfloat16,
+                     device=cuda)
+    _kernels.space_attention_fwd(flat, out, **kw)
+    ref = space_frame_reference(qkv, scale=scale, num_frames=f)
+    assert (out[:, 1:].float() - ref.float().reshape(b, s - 1, -1)
+            ).abs().max().item() <= TOL[torch.bfloat16]
+    stats, parts = _kernels.attention_bwd_scratch(flat, num_heads=h,
+                                                  num_frames=f, axis="space")
+    dqkv = torch.full_like(flat, float("nan"))
+    _kernels.space_attention_bwd(flat, gflat, dqkv, stats, parts, **kw)
+    torch.cuda.synchronize()
+    want, want_cls = space_frame_grad_reference(qkv, g, scale=scale,
+                                                num_frames=f)
+    got = dqkv.view(b, s, 3, h, dh)[:, 1:].float()
+    errs = [((got[:, :, i] - want[:, 1:, i]).abs().max()
+             / want[:, 1:, i].abs().max()).item() for i in range(3)]
+    errs += [((parts[:, :, :, i] - want_cls[:, :, :, i]).abs().max()
+              / want_cls[:, :, :, i].abs().max()).item() for i in range(2)]
+    assert max(errs) <= BWD_RTOL[torch.bfloat16], errs
 
 
 @pytest.mark.gpu
