@@ -8,7 +8,7 @@ Run from the root of a checkout on a machine with one card:
 Phases, each printing its own lines; any failure raises and exits non-zero:
   1. device   — CUDA present; the card's name and power limit (nvidia-smi);
                 TF32 off for matmul and cuDNN.
-  2. build    — nvcc builds the six sources of csrc/ into
+  2. build    — nvcc builds the seven sources of csrc/ into
                 build/egovlpv2_torch/, one compiler a source, side by side.
   3. kernels  — each kernel against its plain PyTorch version on the card,
                 bf16 and f32, with its time, the plain version's, one
@@ -196,14 +196,38 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
                 `many_queries_tf32` (the fused i2t, again under remat) and
                 nothing else, the evaluation 6 `many_queries_tf32` and 18
                 `few_queries_tf32` (12 text self-attentions, 6 t2i) a
-                batch; step ms, clips/s, peak memory.
+                batch; step ms, clips/s, peak memory. A training step is
+                timed from its next() on the batch iterator
+                (`cli._train_loop`), so the synthetic batch's host RNG
+                counts in it.
+  6. feed     — the batch feed of the commands on files, at full width,
+                bf16, weights from a seed (`feed_runs`): pretrain b16 4f
+                over the port's DataLoader (4 worker threads) on
+                `SyntheticVideoTextDataset` (the card's machine has no
+                OpenCV for the EgoClip files), and the 32-frame fine-tune
+                cycling three numpy batches made once; each through
+                `device_prefetch` with the card's put (`DevicePut`) at
+                depth 0 (inline) and 2, from the same seed: 2 warm steps, 8
+                timed (the wall clock a step printed beside the card's name
+                and power limit), 2 under torch.profiler (the batch copies'
+                device time, pinned memory and stream, which must run no
+                kernel of the step, their time inside the device's busy
+                periods, pinned allocations in the window). The losses at the
+                two depths agree within FEED_LOSS_RTOL, and each prefetched
+                batch equals its synchronous copy bit for bit.
 Then one JSON line of the kernels and, last, the result line.
 """
 
+import argparse
+import contextlib
 import dataclasses
 import gc
+import gzip
+import io
+import itertools
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -217,7 +241,9 @@ from torch.profiler import ProfilerActivity, profile
 
 from egovlpv2_torch import cli
 from egovlpv2_torch.core.config import load_train_config
-from egovlpv2_torch.data.loader import default_collate
+from egovlpv2_torch.data.datasets import SyntheticVideoTextDataset
+from egovlpv2_torch.data.loader import (DataLoader, default_collate,
+                                        device_prefetch, device_put)
 from egovlpv2_torch.downstream.taskqa import (make_qa_model,
                                               synthetic_qa_items)
 from egovlpv2_torch.models.egovlp import EgoVLPv2
@@ -236,9 +262,10 @@ from egovlpv2_torch.ops.divided import (cls_row_reference,
 from egovlpv2_torch.tasks.egomcq import make_egomcq_eval_step
 from egovlpv2_torch.tasks.extract import FeatureExtractor, extract_nlq_features
 from egovlpv2_torch.tasks.orchestrators import run_egotaskqa
-from egovlpv2_torch.tasks.pretrain import synthetic_batch
+from egovlpv2_torch.tasks.pretrain import build_pretrain, synthetic_batch
 from egovlpv2_torch.tasks.qfvs_extract import QFVSExtractor
-from egovlpv2_torch.tasks.retrieval import dual_loss_fn
+from egovlpv2_torch.tasks.retrieval import (build_dual, dual_loss_fn,
+                                            synthetic_dual_batch)
 from egovlpv2_torch.train import step as train_step_module
 from egovlpv2_torch.weights import random_init_, training_init_
 
@@ -481,6 +508,21 @@ FINETUNE_RUNS = (("ft_charades_32f", "model.remat=false", 5),
 # training, which is the plain path.
 FINETUNE_KERNELS = tuple(k for k in BF16_PATH_KERNELS
                          if k != "fused_attention_fwd")
+# The feed phase: 2 warm steps, 8 timed, then 2 under the profiler, at
+# each prefetch depth (0: the put inline; 2: from device_prefetch's feeder
+# thread), from the same seed.
+FEED_WARM, FEED_TIMED, FEED_PROFILED = 2, 8, 2
+FEED_DEPTHS = (0, 2)
+# The losses of a step at the two depths: the same batches and weights, and
+# the step's kernels give the same bits twice, but the backward of
+# PyTorch's embedding and index ops sums with atomics in a run-dependent
+# order, so the parameters, and later losses, may move in their last bits.
+FEED_LOSS_RTOL = 1e-3
+FEED_COPY_BYTES = 1 << 20  # a host-to-device copy of a batch's arrays
+# Kernels at most this far apart make one busy period of the device: a
+# host-bound step launches a kernel every few tens of µs; a compute stream
+# that waits on a copy idles for the copy's milliseconds.
+FEED_BUSY_GAP_US = 500.0
 EXTRACT_CONFIG = "configs/extract_mq.json"
 EXTRACT_FRAMES = 2048  # 128 windows of 16 frames: two inner batches of 64
 NLQ_QUERIES = ("where did I put the scissors", "what did I pour in the bowl")
@@ -1747,7 +1789,8 @@ def phase_pretrain() -> dict:
     steps_ms = [s * 1e3 for s in res["step_seconds"]]
     warm = float(np.median(steps_ms[2:]))  # the first two carry warm-up
     print(f"[5 slices] pretrain b16 4f bf16: {PRETRAIN_STEPS} steps, last "
-          f"{rows[-1]} | step ms {[round(x, 1) for x in steps_ms]}, median of "
+          f"{rows[-1]} | step ms (from next(): the synthetic batch's host "
+          f"RNG included) {[round(x, 1) for x in steps_ms]}, median of "
           f"the last {PRETRAIN_STEPS - 2} {warm:.1f} ms = "
           f"{res['clips_per_step'] / warm * 1e3:.2f} clips/s | launches a "
           f"step {per_step} | K8 launches a step by rows "
@@ -1799,7 +1842,8 @@ def phase_finetune() -> dict:
         print(f"[5 slices] {label} b{cfg.global_batch_size} {v.num_frames}f "
               f"S={v.seq_len} {cfg.model.compute_dtype} {remat_set}: {steps} "
               f"steps, losses {[round(r['loss_total'], 4) for r in rows]} | step "
-              f"ms {[round(x, 1) for x in steps_ms]}, "
+              f"ms (from next(): the synthetic batch's host RNG included) "
+              f"{[round(x, 1) for x in steps_ms]}, "
               f"{'median of the last ' + str(steps - 2) if steps > 2 else 'the last'}"
               f" {warm:.1f} ms = {res['clips_per_step'] / warm * 1e3:.2f} "
               f"clips/s | launches a step {per_step} | K8 launches a step by "
@@ -2019,6 +2063,206 @@ def phase_taskqa() -> dict:
     return counts
 
 
+def _overlap_us(events: list, spans: list, bridge_us: float = 0.0) -> float:
+    """The µs of `events` (trace events with ts and dur) that lie inside
+    the union of `spans` ((start, end) pairs), gaps of up to `bridge_us`
+    between spans counted as inside."""
+    merged = []
+    for lo, hi in sorted(spans):
+        if merged and lo <= merged[-1][1] + bridge_us:
+            merged[-1][1] = max(merged[-1][1], hi)
+        else:
+            merged.append([lo, hi])
+    return sum(max(0.0, min(e["ts"] + e["dur"], b) - max(e["ts"], a))
+               for e in events for a, b in merged)
+
+
+def _copies_and_overlap(trace_path: str) -> dict:
+    """From a torch.profiler trace (chrome JSON): the host-to-device copies
+    of at least FEED_COPY_BYTES (a batch's arrays) with their device ms,
+    bytes, kinds and streams; the streams the kernels ran on; how many ms
+    of those copies lie inside the device's busy periods (kernels at most
+    FEED_BUSY_GAP_US apart: the copy runs while the step's work does) and
+    how many under a running kernel (less where the host is the bound: its
+    small kernels leave the card idle between launches); and the calls
+    that allocate or free pinned host memory (they synchronise the
+    device)."""
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    copies = [e for e in events if e.get("cat") == "gpu_memcpy"
+              and "HtoD" in e.get("name", "")
+              and e.get("args", {}).get("bytes", 0) >= FEED_COPY_BYTES]
+    compute = {e["args"]["stream"] for e in kernels}
+    spans = [(e["ts"], e["ts"] + e["dur"]) for e in kernels]
+    host = {}
+    for e in events:
+        if e.get("name") in ("cudaHostAlloc", "cudaMallocHost",
+                             "cudaFreeHost", "cudaHostRegister"):
+            host[e["name"]] = host.get(e["name"], 0) + 1
+    return {"copies": len(copies),
+            "copy_ms": sum(e["dur"] for e in copies) / 1e3,
+            "copy_mb": sum(e["args"]["bytes"] for e in copies) / 1e6,
+            "copy_streams": sorted({e["args"]["stream"] for e in copies}),
+            "copy_kinds": sorted({e["name"] for e in copies}),
+            "kernel_streams": sorted(compute),
+            "in_busy_ms": _overlap_us(copies, spans, FEED_BUSY_GAP_US) / 1e3,
+            "under_kernels_ms": _overlap_us(copies, spans) / 1e3,
+            "pinned_alloc_calls": host}
+
+
+def _feed_run(label: str, build, source, depth: int,
+              trace_dir: str = None) -> dict:
+    """One run of the feed phase: `build()` -> a fresh seeded train step,
+    `source()` -> an iterator of numpy batches, fed through
+    `device_prefetch` with the card's put at `depth`: FEED_WARM +
+    FEED_TIMED steps through `cli._train_loop` (each timed from its
+    `next()` to the end of its device work), then FEED_PROFILED steps under
+    torch.profiler (its chrome trace kept gzipped in `trace_dir`, if
+    given). Returns the losses, the timed steps' seconds and the profile's
+    copies."""
+    train_step = build()
+    batches = device_prefetch(source(), device_put("cuda"), depth)
+    args = argparse.Namespace(epochs=1, log_every=1)
+    with contextlib.redirect_stdout(io.StringIO()):  # a JSON line a step
+        logged, seconds = cli._train_loop(
+            args, torch.device("cuda"), train_step,
+            lambda _: itertools.islice(batches, FEED_WARM + FEED_TIMED))
+    with tempfile.TemporaryDirectory() as tmp:
+        trace = os.path.join(tmp, "feed.json")
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for batch in itertools.islice(batches, FEED_PROFILED):
+                train_step(batch)
+            torch.cuda.synchronize()
+        prof.export_chrome_trace(trace)
+        copies = _copies_and_overlap(trace)
+        if trace_dir:
+            os.makedirs(trace_dir, exist_ok=True)
+            with open(trace, "rb") as f, gzip.open(os.path.join(
+                    trace_dir, f"feed_{label}_d{depth}.json.gz"), "wb") as g:
+                shutil.copyfileobj(f, g)
+    batches.close()
+    if len(logged) != FEED_WARM + FEED_TIMED:
+        raise AssertionError(f"feed {label} depth {depth}: {len(logged)} "
+                             f"steps")
+    losses = [{k: v for k, v in r.items() if k.startswith("loss")}
+              for r in logged]
+    if not all(np.isfinite(v) for r in losses for v in r.values()):
+        raise AssertionError(f"feed {label} depth {depth}: losses {losses}")
+    if not copies["copies"] or set(copies["copy_streams"]) \
+            & set(copies["kernel_streams"]) \
+            or any("Pinned" not in k for k in copies["copy_kinds"]):
+        raise AssertionError(f"feed {label} depth {depth}: the batch copies "
+                             f"should come from pinned memory on a stream "
+                             f"that runs no kernel of the step: {copies}")
+    return {"losses": losses, "seconds": seconds[FEED_WARM:],
+            "copies": copies}
+
+
+def _check_prefetched(label: str, numpy_batches: list) -> int:
+    """Each batch that `device_prefetch` hands over at depth 2 equals its
+    numpy batch copied synchronously (`torch.from_numpy(...).cuda()`, token
+    ids and labels int64), bit for bit and in its dtype. Returns the
+    batches checked."""
+    n = 0
+    for want, got in zip(numpy_batches, device_prefetch(
+            iter(numpy_batches), device_put("cuda"), 2)):
+        for key, value in want.items():
+            ref = torch.from_numpy(np.ascontiguousarray(value)).cuda()
+            if key.startswith("text_") and key != "text_mask":
+                ref = ref.long()
+            if got[key].dtype != ref.dtype or not torch.equal(got[key], ref):
+                raise AssertionError(f"feed {label}: prefetched {key} of "
+                                     f"batch {n} differs from its copy")
+        n += 1
+    if n != len(numpy_batches):
+        raise AssertionError(f"feed {label}: {n} of {len(numpy_batches)} "
+                             f"batches handed over")
+    return n
+
+
+def feed_runs() -> list:
+    """The runs of the feed phase, full width, bf16, weights from a seed, as
+    (label, build() -> a fresh train step, source() -> an iterator of numpy
+    batches, a few of those batches): pretrain b16 4f over the port's
+    DataLoader (4 worker threads) on `SyntheticVideoTextDataset`, and the
+    32-frame Charades-Ego fine-tune (configs/ft_charades.json, B=8, S=6273)
+    cycling three `synthetic_dual_batch` batches made once, so that the
+    host's RNG (about 40 M floats a batch) is not what gets timed."""
+    n_steps = FEED_WARM + FEED_TIMED + FEED_PROFILED
+    pre_cfg = load_train_config(None, PRETRAIN_SETS)
+    pre_b = pre_cfg.global_batch_size
+    # batches to spare, so that the feeder at depth 2 still copies in the
+    # profiled steps
+    dataset = SyntheticVideoTextDataset(pre_cfg,
+                                        length=(n_steps + 4) * pre_b)
+
+    def pretrain_source():
+        return DataLoader(dataset, pre_b, num_workers=4).epoch(0)
+
+    ft_cfg = cli.dual_config(load_train_config(
+        FINETUNE_CONFIG, FINETUNE_SETS + ["model.remat=false"]), "charades")
+    tok = Tokenizer("roberta-base", max_len=ft_cfg.max_text_len,
+                    vocab_cap=ft_cfg.model.text.vocab_size)
+    rng = np.random.default_rng(0)
+    ft_batches = [synthetic_dual_batch(ft_cfg, ft_cfg.global_batch_size, rng,
+                                       tok) for _ in range(3)]
+    return [
+        ("pretrain_b16_4f", lambda: build_pretrain(pre_cfg, "cuda")[3],
+         pretrain_source, list(itertools.islice(pretrain_source(), 3))),
+        ("ft_charades_32f", lambda: build_dual(ft_cfg, "cuda")[3],
+         lambda: itertools.cycle(ft_batches), ft_batches),
+    ]
+
+
+def phase_feed(smi: str) -> None:
+    """The pinned side-stream batch feed on the training paths (`feed_runs`),
+    each at depth 0 and 2 from the same seed. Prints the wall clock a step,
+    the device time and streams of the host-to-device copies and their
+    share inside the steps, and checks that prefetching changes no
+    value."""
+    for label, build, source, sample in feed_runs():
+        t0 = time.perf_counter()
+        by_depth = {}
+        for depth in FEED_DEPTHS:
+            by_depth[depth] = _feed_run(label, build, source, depth)
+            _free()
+        a, b = (by_depth[d]["losses"] for d in FEED_DEPTHS)
+        worst = max(abs(x[k] - y[k]) / max(abs(y[k]), 1e-30)
+                    for x, y in zip(a, b) for k in x)
+        if not worst <= FEED_LOSS_RTOL:
+            raise AssertionError(f"feed {label}: the losses at depths "
+                                 f"{FEED_DEPTHS} differ by {worst:.3e} "
+                                 f"(relative) > {FEED_LOSS_RTOL}: {a} {b}")
+        checked = _check_prefetched(label, sample)
+        for depth, r in by_depth.items():
+            ms = [x * 1e3 for x in r["seconds"]]
+            c = r["copies"]
+            print(f"[6 feed] {label} depth {depth} ({smi}): wall clock a "
+                  f"step over {len(ms)} timed, median {np.median(ms):.2f} ms, "
+                  f"mean {np.mean(ms):.2f} ms, {[round(x, 1) for x in ms]} | "
+                  f"profiled {FEED_PROFILED} steps: {c['copies']} host-to-"
+                  f"device copies of >= 1 MiB, {c['copy_mb']:.1f} MB, device "
+                  f"{c['copy_ms']:.3f} ms ({c['copy_kinds']}) on streams "
+                  f"{c['copy_streams']}, kernels on streams "
+                  f"{c['kernel_streams']}; of the copies {c['in_busy_ms']:.3f}"
+                  f" ms inside the device's busy periods, "
+                  f"{c['under_kernels_ms']:.3f} ms under a running kernel; "
+                  f"pinned host allocations and "
+                  f"frees {c['pinned_alloc_calls'] or 'none'}", flush=True)
+        same = a == b
+        print(f"[6 feed] {label}: losses at depths {FEED_DEPTHS} "
+              f"{'bit for bit equal' if same else f'within {worst:.3e}'} "
+              f"(tol {FEED_LOSS_RTOL:.0e} relative) over "
+              f"{FEED_WARM + FEED_TIMED} steps, first step "
+              f"{a[0]}; {checked} prefetched batches bit for bit equal to "
+              f"their synchronous copies; {time.perf_counter() - t0:.1f} s",
+              flush=True)
+        del by_depth
+        _free()
+
+
 def main() -> None:
     smi = phase_device()
     phase_build()
@@ -2031,6 +2275,7 @@ def main() -> None:
     by_path.update(phase_finetune())
     by_path.update(phase_extract())
     by_path["taskqa"] = phase_taskqa()
+    phase_feed(smi)
     for path in ("egomcq_16f", "egomcq_4f", "egomcq_16f_1q", "pretrain"):
         if not by_path[path]["fused_attention_fwd"]:
             raise AssertionError(f"{path}: K9 was not launched")

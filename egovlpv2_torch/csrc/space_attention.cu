@@ -445,7 +445,7 @@ __device__ __forceinline__ void dp_tile(float (&dp)[2][4],
 // K4. grid (H, F, B), 32 kBwdWarps threads, bwd_shared_bytes. Two blocks
 // an SM cap a thread at 168 registers: at Dh = 64 nvcc spills 108 bytes of
 // the f32 P and dP, and K4 runs 1.5x faster than with the 214 registers it
-// takes uncapped (one block an SM; PERF.md section 6, PR 16).
+// takes uncapped (one block an SM; PERF.md section 6).
 template <int DH>
 __global__ void __launch_bounds__(32 * kBwdWarps, 2)
     space_bwd_frame_kernel(const __nv_bfloat16* __restrict__ qkv,

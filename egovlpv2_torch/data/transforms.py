@@ -1,7 +1,6 @@
 """Video transforms (host-side numpy + cv2), channels-last: the port's copy
-of `egovlpv2_tpu/data/transforms.py`. The normalisation is numpy's: the
-JAX package's optional C++ kernel (`native/`, `data/native.py`) is not
-bound here (ROADMAP.md A7).
+of `egovlpv2_tpu/data/transforms.py`. The normalisation takes the C++
+kernel of `native/` (`data/native.py`) where it is built, else numpy's.
 
 Capability-parity target: `EgoVLPv2/data_loader/transforms.py:42-70`:
   train: RandomResizedCrop(224, scale=(0.5, 1.0)) + HFlip(0.5) + Normalize
@@ -25,6 +24,8 @@ from egovlpv2_torch.core.config import NORM_STATS
 
 IMAGENET_MEAN = np.array(NORM_STATS["imagenet"][0], np.float32)
 IMAGENET_STD = np.array(NORM_STATS["imagenet"][1], np.float32)
+EPIC_MEAN = np.array(NORM_STATS["epic"][0], np.float32)
+EPIC_STD = np.array(NORM_STATS["epic"][1], np.float32)
 
 
 def _resize_clip(clip: np.ndarray, out_hw: Tuple[int, int]) -> np.ndarray:
@@ -110,8 +111,19 @@ def normalize(clip: np.ndarray, mean: np.ndarray, std: np.ndarray) -> np.ndarray
 
 def _normalize_out(clip: np.ndarray, mean: np.ndarray,
                    std: np.ndarray) -> np.ndarray:
-    """Contiguous-float32 normalize for the transform tails; inputs are
+    """Contiguous-float32 normalize for the transform tails; the C++
+    in-place kernel where it is built (the numpy broadcast allocates two
+    temporaries). A view of caller data is copied first, so inputs are
     never mutated."""
+    from egovlpv2_torch.data import native
+
+    if native.available():
+        if (clip.dtype != np.float32 or not clip.flags.c_contiguous
+                or not clip.flags.owndata or clip.base is not None):
+            clip = np.ascontiguousarray(clip, np.float32)
+            if clip.base is not None:  # still a view (already contiguous)
+                clip = clip.copy()
+        return native.normalize_inplace(clip, mean, std)
     return np.ascontiguousarray(normalize(clip, mean, std), np.float32)
 
 
@@ -133,6 +145,20 @@ def train_transform(
     if not normalize:
         return clip
     return _normalize_out(clip, mean, std)
+
+
+def train_transform_uint8(
+    clip01: np.ndarray,
+    rng: np.random.Generator,
+    size: int = 224,
+    scale: Tuple[float, float] = (0.5, 1.0),
+) -> np.ndarray:
+    """The geometric train pipeline only, quantized back to uint8 ([0, 1]
+    regime): the model normalizes on the device (`uint8_norm` in
+    VideoEncoderConfig), so the host ships 4x fewer bytes a batch."""
+    clip = train_transform(clip01, rng, size=size, scale=scale,
+                           normalize=False)
+    return np.round(np.clip(clip, 0.0, 1.0) * 255.0).astype(np.uint8)
 
 
 def eval_transform(

@@ -17,6 +17,7 @@ import torch
 
 from egovlpv2_torch.metrics.retrieval import egomcq_accuracy
 from egovlpv2_torch.models.egovlp import EgoVLPv2, sim_matrix_batch
+from egovlpv2_torch.train.step import batch_to_device
 
 
 def make_egomcq_eval_step(model: EgoVLPv2, with_vtm: bool = True
@@ -24,16 +25,18 @@ def make_egomcq_eval_step(model: EgoVLPv2, with_vtm: bool = True
     """Returns step(video5, ids, mask) -> {'vtc': [B, 5], 'vtm': [B, 5]}.
 
     video5: [B, 5, F, H, W, C] (float32, or uint8 for on-device
-    normalisation); ids/mask: [B, L]. Numpy arrays or tensors on any
-    device: the step copies them to the model's device, so its time
-    includes the input transfer."""
+    normalisation); ids/mask: [B, L]. Numpy arrays or CPU tensors: the
+    step copies them to the model's device (`train/step.py::
+    batch_to_device`: on a card from pinned memory on a copy stream, which
+    the step's stream waits for), so its time includes the input
+    transfer."""
     device = next(model.parameters()).device
 
     @torch.inference_mode()
     def step(video5, ids, mask):
-        video5 = torch.as_tensor(video5).to(device)
-        ids = torch.as_tensor(ids).to(device).long()
-        mask = torch.as_tensor(mask).to(device)
+        t = batch_to_device({"video5": video5, "ids": ids, "mask": mask},
+                            device)
+        video5, ids, mask = t["video5"], t["ids"].long(), t["mask"]
         b, n_opts = video5.shape[:2]
         flat_video = video5.reshape((b * n_opts,) + tuple(video5.shape[2:]))
         t_emb = model.compute_text(ids, mask)

@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from egovlpv2_torch.core.config import NORM_STATS
+from egovlpv2_torch.data.loader import device_put
 from egovlpv2_torch.models.egovlp import EgoVLPv2
 
 
@@ -59,7 +60,8 @@ def pad_to_inner_batches(arrays: Sequence[np.ndarray], inner_batch: int
 class InnerBatchRunner:
     """Runs `fn(*tensors) -> tensor` over inner batches of host arrays on
     `device`, without gradients. On CUDA: the arrays of inner batch i + 1
-    are pinned and copied on a side stream while inner batch i computes,
+    are pinned and copied on the device's copy stream (`data/loader.py::
+    DevicePut`) while inner batch i computes,
     and the result of inner batch i - 1 is read from its pinned buffer once
     inner batch i has been launched.
 
@@ -70,22 +72,8 @@ class InnerBatchRunner:
     def __init__(self, device: torch.device):
         self.device = torch.device(device)
         self.cuda = self.device.type == "cuda"
-        self.copy_stream = torch.cuda.Stream(self.device) if self.cuda else None
+        self.put = device_put(self.device)
         self.log: List[Tuple[tuple, float]] = []
-
-    def _stage(self, arrays):
-        tensors = [torch.from_numpy(np.ascontiguousarray(a)) for a in arrays]
-        if not self.cuda:
-            return [t.to(self.device) for t in tensors], None
-        main = torch.cuda.current_stream(self.device)
-        with torch.cuda.stream(self.copy_stream):
-            staged = [t.pin_memory().to(self.device, non_blocking=True)
-                      for t in tensors]
-            ready = torch.cuda.Event()
-            ready.record(self.copy_stream)
-        for t in staged:  # allocated on the side stream, read on the main one
-            t.record_stream(main)
-        return staged, ready
 
     def _collect(self, pending, clock: list) -> np.ndarray:
         host, done, shape = pending
@@ -101,12 +89,9 @@ class InnerBatchRunner:
             ) -> np.ndarray:
         outs, pending = [], None
         clock = [time.perf_counter()]
-        staged = self._stage(chunks[0])
+        staged = self.put(dict(enumerate(chunks[0])))
         for i, chunk in enumerate(chunks):
-            tensors, ready = staged
-            if ready is not None:
-                torch.cuda.current_stream(self.device).wait_event(ready)
-            res = fn(*tensors).float()
+            res = fn(*staged.wait().values()).float()
             if self.cuda:
                 host = torch.empty(res.shape, dtype=res.dtype, pin_memory=True)
                 host.copy_(res, non_blocking=True)
@@ -114,7 +99,8 @@ class InnerBatchRunner:
                 done.record()
             else:
                 host, done = res, None
-            staged = self._stage(chunks[i + 1]) if i + 1 < len(chunks) else None
+            if i + 1 < len(chunks):
+                staged = self.put(dict(enumerate(chunks[i + 1])))
             if not self.cuda:  # nothing runs behind the host: no lag
                 outs.append(self._collect((host, done, tuple(chunk[0].shape)),
                                           clock))

@@ -30,7 +30,7 @@ from egovlpv2_torch.metrics.retrieval import charades_map, mir_metrics
 from egovlpv2_torch.models.egovlp import EgoVLPv2, sim_matrix
 from egovlpv2_torch.objectives.losses import max_margin_loss, norm_softmax_loss
 from egovlpv2_torch.train.optimizer import make_optimizer
-from egovlpv2_torch.train.step import make_train_step
+from egovlpv2_torch.train.step import batch_to_device, make_train_step
 from egovlpv2_torch.weights import training_init_
 
 
@@ -170,11 +170,12 @@ def make_encoders(model: EgoVLPv2):
         return run
 
     def encode_text(ids, mask):
-        return model.compute_text(torch.as_tensor(ids).to(device).long(),
-                                  torch.as_tensor(mask).to(device))
+        t = batch_to_device({"ids": ids, "mask": mask}, device)
+        return model.compute_text(t["ids"].long(), t["mask"])
 
     def encode_video(video):
-        return model.compute_video(torch.as_tensor(video).to(device))
+        return model.compute_video(
+            batch_to_device({"video": video}, device)["video"])
 
     return evaluated(encode_text), evaluated(encode_video)
 

@@ -25,11 +25,11 @@ from __future__ import annotations
 import functools
 from typing import Callable, Dict, Optional, Tuple
 
-import numpy as np
 import torch
 from torch import nn
 
 from egovlpv2_torch.core.config import TrainConfig
+from egovlpv2_torch.data.loader import DeviceBatch, device_put
 from egovlpv2_torch.models.dropout import checkpoint_region
 from egovlpv2_torch.models.egovlp import EgoVLPv2, sim_matrix
 from egovlpv2_torch.objectives.itm_mining import mine_itm_indices
@@ -102,16 +102,16 @@ def pretrain_loss_fn(model: EgoVLPv2, batch: Dict[str, torch.Tensor],
     return loss * loss_scale, metrics
 
 
-def batch_to_device(batch: Dict[str, np.ndarray],
-                    device: torch.device) -> Dict[str, torch.Tensor]:
-    """numpy (or tensor) batch -> tensors on `device`; token ids and labels
-    as int64, as torch's embedding and gather take them."""
-    out = {}
-    for key, value in batch.items():
-        t = torch.as_tensor(value).to(device)
-        out[key] = t.long() if key.startswith("text_") and key != "text_mask" \
-            else t
-    return out
+def batch_to_device(batch, device: torch.device) -> Dict[str, torch.Tensor]:
+    """A numpy (or tensor) batch as tensors on `device`, ready for the
+    calling thread's current stream: token ids and labels as int64, as
+    torch's embedding and gather take them. A `DeviceBatch` (from
+    `data/loader.py::device_prefetch`) is taken as it is; any other batch
+    goes through the device's one `DevicePut` (on a card, pinned memory and
+    the put's copy stream)."""
+    if not isinstance(batch, DeviceBatch):
+        batch = device_put(device)(batch)
+    return batch.wait()
 
 
 def make_train_step(model: EgoVLPv2, cfg: TrainConfig,

@@ -13,12 +13,12 @@ For each frame count, at the full width of configs/eval_egomcq.json
   2. profile — one more step of the same model under torch.profiler, after
                one warm step. Prints the device time of its kernels by kind,
                the number of device events, and the time of the input copy
-               alone (host clock around the copy and a synchronize, median
-               of 3: the profiler does not always record a pageable copy's
-               duration). The device's busy share is (kernel time + copy
-               time) over the median warm step of part 1; one stream, so
-               nothing overlaps. The profiler's op table goes to
-               <out>/prof_<F>f.txt.
+               alone (host clock around the step's put, `data/loader.py::
+               DevicePut`: pinning and the copy on its stream, then a
+               synchronize; median of 3). The device's busy share is
+               (kernel time + copy time) over the median warm step of part
+               1; the step waits for its copy, so nothing overlaps. The
+               profiler's op table goes to <out>/prof_<F>f.txt.
 
 The card's name and power limit (nvidia-smi) head the output.
 """
@@ -38,6 +38,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from egovlpv2_torch import cli  # noqa: E402
 from egovlpv2_torch.core.config import load_train_config  # noqa: E402
+from egovlpv2_torch.data.loader import device_put  # noqa: E402
 from egovlpv2_torch.models.egovlp import EgoVLPv2  # noqa: E402
 from egovlpv2_torch.tasks.egomcq import make_egomcq_eval_step  # noqa: E402
 from egovlpv2_torch.weights import random_init_  # noqa: E402
@@ -84,11 +85,11 @@ def time_steps(frames: int, steps: int) -> float:
 
 
 def _copy_ms(*arrays) -> float:
+    put = device_put("cuda")
     times = []
     for _ in range(3):
         t0 = time.perf_counter()
-        for a in arrays:
-            torch.as_tensor(a).to("cuda")
+        put(dict(enumerate(arrays))).wait()
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
     return statistics.median(times)

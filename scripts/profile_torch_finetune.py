@@ -9,11 +9,16 @@ ITM/MLM heads), `configs/ft_charades.json` (32 frames at 224, S = 6273,
 bf16, NormSoftmax at 0.05, 30 text tokens), synthetic batches, weights from
 the config's seed; `model.remat` off unless --remat:
 
-  1. timing  — `egovlpv2_torch.cli ft-charades --synthetic` for --steps
-               steps. Each step is timed from the host's numpy batch to the
-               end of its device work (forward, backward, AdamW), the input
-               copy included. Prints every step, the median of the warm ones
-               (all but the first two), clips/s and the peak device memory.
+  1. timing  — the step of `egovlpv2_torch.cli ft-charades --synthetic`
+               for --steps steps, through the CLI's `_train_loop`, over
+               three synthetic batches made before the run and taken in turn
+               (`profile_torch_pretrain.timed_steps`: the CLI makes a batch
+               a step, 40 M normal floats at 32 frames, whose host RNG would
+               count). Each step is timed from its numpy batch to the end of
+               its device work (forward, backward, AdamW), the input copy
+               (the inline put) included. Prints every step, the median of
+               the warm ones (all but the first two), clips/s and the peak
+               device memory.
   2. profile — one more step of a fresh trainer under torch.profiler, after
                two warm steps: device time by kind, device events and the
                busy share, as `profile_torch_pretrain.py` prints them. The
@@ -25,7 +30,6 @@ The card's name and power limit (nvidia-smi) head the output.
 import argparse
 import gc
 import os
-import statistics
 import subprocess
 import sys
 
@@ -36,19 +40,14 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from egovlpv2_torch import cli  # noqa: E402
+from egovlpv2_torch.core.config import load_train_config  # noqa: E402
 from egovlpv2_torch.data.tokenizer import Tokenizer  # noqa: E402
 from egovlpv2_torch.tasks.retrieval import (build_dual,  # noqa: E402
                                             synthetic_dual_batch)
-from profile_torch_pretrain import profile_train_step  # noqa: E402
+from profile_torch_pretrain import (profile_train_step,  # noqa: E402
+                                    timed_steps)
 
 CONFIG = "configs/ft_charades.json"
-
-
-def _args(batch: int, frames: int, remat: bool, steps: int) -> list:
-    return ["ft-charades", "--synthetic", "--device", "cuda", "--config",
-            CONFIG, "--steps_per_epoch", str(steps), "--set",
-            f"global_batch_size={batch}", f"model.video.num_frames={frames}",
-            f"model.remat={'true' if remat else 'false'}"]
 
 
 def main(argv=None) -> None:
@@ -67,25 +66,24 @@ def main(argv=None) -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    torch.cuda.reset_peak_memory_stats()
-    res = cli.main(_args(args.batch, args.frames, args.remat, args.steps))
-    ms = [s * 1e3 for s in res["step_seconds"]]
-    warm = statistics.median(ms[2:])
-    print(f"[timing] steps {[round(x, 2) for x in ms]} ms | median of "
-          f"{len(ms) - 2} warm {warm:.2f} ms | "
-          f"{res['clips_per_step'] / warm * 1e3:.2f} clips/s | peak memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
-    cfg = res["config"]
-    del res  # the first trainer's memory goes before the second is built
+    cfg = cli.dual_config(load_train_config(CONFIG, [
+        f"global_batch_size={args.batch}",
+        f"model.video.num_frames={args.frames}",
+        f"model.remat={'true' if args.remat else 'false'}"]), "charades")
+    tok = Tokenizer("roberta-base", max_len=cfg.max_text_len,
+                    vocab_cap=cfg.model.text.vocab_size)
+    rng = np.random.default_rng(0)
+    batches = [synthetic_dual_batch(cfg, args.batch, rng, tok)
+               for _ in range(3)]
+    _, _, _, step = build_dual(cfg, device="cuda")
+    warm = timed_steps(step, batches, args.steps)
+    del step  # the first trainer's memory goes before the second is built
     gc.collect()
     torch.cuda.empty_cache()
 
     _, _, _, step = build_dual(cfg, device="cuda")
-    tok = Tokenizer("roberta-base", max_len=cfg.max_text_len,
-                    vocab_cap=cfg.model.text.vocab_size)
-    data = synthetic_dual_batch(cfg, args.batch, np.random.default_rng(0), tok)
-    profile_train_step(step, data, os.path.join(args.out, "prof_finetune.txt"),
-                       warm)
+    profile_train_step(step, batches[0],
+                       os.path.join(args.out, "prof_finetune.txt"), warm)
 
 
 if __name__ == "__main__":

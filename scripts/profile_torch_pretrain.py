@@ -7,9 +7,13 @@ At full width (TimeSformer-B/16 + RoBERTa-base, 6 fused blocks each, ITM
 and MLM heads, projection 4096), 4 frames at 224, 15 text tokens, bf16, no
 rematerialisation, synthetic batches, weights from the config's seed:
 
-  1. timing  — `egovlpv2_torch.cli pretrain --synthetic` for --steps steps.
-               Each step is timed from the host's numpy batch to the end of
-               its device work (forward, backward, AdamW), the input copy
+  1. timing  — the step of `egovlpv2_torch.cli pretrain --synthetic` for
+               --steps steps, through the CLI's `_train_loop`, over three
+               synthetic batches made before the run and taken in turn (the
+               CLI makes a batch a step, whose host RNG would count: a step
+               is timed from its next() on the batch iterator). So each step
+               is timed from its numpy batch to the end of its device work
+               (forward, backward, AdamW), the input copy (the inline put)
                included. Prints every step, the median of the warm ones (all
                but the first two), clips/s and the peak device memory.
   2. profile — one more step of a fresh trainer under torch.profiler, after
@@ -25,6 +29,7 @@ The card's name and power limit (nvidia-smi) head the output.
 """
 
 import argparse
+import itertools
 import os
 import re
 import statistics
@@ -104,18 +109,33 @@ def k9_launches(table) -> str:
     return "; ".join(sorted(parts)) or "none"
 
 
-def time_steps(batch: int, steps: int) -> float:
-    """Prints the steps' times; returns the median of the warm ones, ms."""
+def timed_steps(step, batches: list, steps: int) -> float:
+    """`steps` steps of `step` through the CLI's `_train_loop` over
+    `batches` taken in turn; prints every step's time, the median of the
+    warm ones (all but the first two), clips/s and the peak device memory,
+    and returns that median, ms."""
     torch.cuda.reset_peak_memory_stats()
-    res = cli.main(["pretrain", "--synthetic", "--device", "cuda",
-                    "--steps_per_epoch", str(steps), "--set", *_sets(batch)])
-    ms = [s * 1e3 for s in res["step_seconds"]]
+    args = argparse.Namespace(epochs=1, log_every=steps + 1)  # no lines
+    _, seconds = cli._train_loop(
+        args, torch.device("cuda"), step,
+        lambda _: itertools.islice(itertools.cycle(batches), steps))
+    ms = [s * 1e3 for s in seconds]
     warm = statistics.median(ms[2:])
+    clips = len(next(iter(batches[0].values())))
     print(f"[timing] steps {[round(x, 2) for x in ms]} ms | median of "
-          f"{len(ms) - 2} warm {warm:.2f} ms | "
-          f"{res['clips_per_step'] / warm * 1e3:.2f} clips/s | peak memory "
+          f"{len(ms) - 2} warm {warm:.2f} ms | {clips / warm * 1e3:.2f} "
+          f"clips/s | peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
     return warm
+
+
+def time_steps(batch: int, steps: int) -> float:
+    """Times the pretrain step; returns the median of the warm ones, ms."""
+    cfg = load_train_config(None, _sets(batch))
+    _, _, _, step = build_pretrain(cfg, device="cuda")
+    rng = np.random.default_rng(cfg.seed)
+    return timed_steps(step, [synthetic_batch(cfg, batch, rng)
+                              for _ in range(3)], steps)
 
 
 def profile_step(batch: int, out_dir: str, warm_ms: float) -> None:

@@ -4,6 +4,8 @@ state_dict under the reference's names goes through both importers and must
 give the same tensors, the same report and the same EgoMCQ scores; the
 `--ckpt` flag of the port's commands end to end."""
 
+import argparse
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -220,8 +222,9 @@ def test_cli_egomcq_ckpt_end_to_end(tmp_path, capsys):
                                                    num_frames=2)
     assert len(report["imported"]) == 213
     model.load_state_dict(tsd, strict=True)
-    batch = next(cli._synthetic_egomcq_batches(
-        cli.load_train_config(None, CFG_OVERRIDES), "roberta-base", 2, 1)(0))
+    batch = next(cli._make_egomcq_batches(
+        argparse.Namespace(meta=None, val_batches=1),
+        cli.load_train_config(None, CFG_OVERRIDES), "roberta-base", 2)(0))
     ref = ttask.make_egomcq_eval_step(model.eval())(
         batch["video5"], batch["ids"], batch["mask"])
     for key in ("vtc", "vtm"):

@@ -185,8 +185,8 @@ def test_synthetic_egomcq_batches_match(monkeypatch):
     args = argparse.Namespace(val_batches=2, meta=None, val_meta=None)
     ref = jcli._make_egomcq_batches(args, jcli.load_train_config(None, sets),
                                     "roberta-base", batch_size=3)
-    got = tcli._synthetic_egomcq_batches(
-        tconfig.load_train_config(None, sets), "roberta-base", 3, 2)
+    got = tcli._make_egomcq_batches(
+        args, tconfig.load_train_config(None, sets), "roberta-base", 3)
     for epoch in (0, 1):
         a, b = list(ref(epoch)), list(got(epoch))
         assert len(a) == len(b) == 2

@@ -262,9 +262,14 @@ def test_cli_extract_synthetic_on_cpu(tmp_path, capsys):
 
 
 def test_cli_extract_refuses_what_is_not_ported(tmp_path):
+    """A checkpoint directory (one saved by training, ROADMAP.md A8) is
+    refused; so are a --videos glob that matches no file and a call with
+    neither --videos nor --synthetic."""
     base = ["extract", "--device", "cpu", "--out", str(tmp_path)]
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A7"):
-        cli.main(base + ["--videos", "clips/*.mp4"])
+    with pytest.raises(NotImplementedError, match="ROADMAP.md A8"):
+        cli.main(base + ["--synthetic", "4", "--ckpt", str(tmp_path)])
+    with pytest.raises(FileNotFoundError, match="no videos match"):
+        cli.main(base + ["--videos", str(tmp_path / "clips" / "*.mp4")])
     with pytest.raises(ValueError, match="--synthetic"):
         cli.main(base)
     if not torch.cuda.is_available():

@@ -391,12 +391,14 @@ def test_cli_pretrain_refuses_what_is_not_ported():
     base = ["pretrain", "--device", "cpu"]
     for extra, what in ((["--synthetic", "--save_dir", "out"], "checkpoints"),
                         (["--synthetic", "--resume"], "checkpoints"),
-                        ([], "data readers")):
+                        (["--synthetic", "--val_meta", "egomcq.json"],
+                         "training loop")):
         with pytest.raises(NotImplementedError, match="ROADMAP") as err:
             cli.main(base + extra)
         assert what in str(err.value)
-    with pytest.raises(NotImplementedError, match="data readers"):
-        cli.main(["egomcq", "--device", "cpu", "--meta", "egomcq.json"])
+    # files or synthetic batches, never a silent fallback
+    with pytest.raises(ValueError, match="--meta"):
+        cli.main(base)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             cli.main(["pretrain", "--synthetic", "--device", "cuda"])

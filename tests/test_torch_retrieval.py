@@ -469,14 +469,14 @@ def test_cli_dual_finetune_refuses_what_is_not_ported(tmp_path):
         for extra, what in ((["--synthetic", "--ckpt", str(tmp_path)], "checkpoints"),
                             (["--synthetic", "--save_dir", "out"], "checkpoints"),
                             (["--synthetic", "--resume"], "checkpoints"),
-                            ([], "data readers"),
-                            (["--meta", "meta"], "data readers"),
-                            (["--synthetic", "--val_meta", "meta"], "data readers"),
-                            (["--synthetic", "--device_norm"], "data readers"),
+                            (["--synthetic", "--init_val"], "training loop"),
                             (["--synthetic", "--visualize"], "visualizer")):
             with pytest.raises(NotImplementedError, match="ROADMAP") as err:
                 cli.main(base + extra)
             assert what in str(err.value)
+        # files or synthetic batches, never a silent fallback
+        with pytest.raises(ValueError, match="--meta"):
+            cli.main(base)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             cli.main(["ft-charades", "--synthetic", "--device", "cuda"])

@@ -338,11 +338,14 @@ def test_sampling_and_readers_match_jax(tmp_path):
 
 
 def test_transforms_match_jax(monkeypatch):
-    """Array for array, the JAX package on its numpy normalisation (its
-    optional C++ kernel multiplies by 1/std: last-bit differences)."""
+    """Array for array, both packages on their numpy normalisation (their
+    optional C++ kernel multiplies by 1/std: last-bit differences from
+    numpy's; `tests/test_torch_data.py` holds the two on that kernel)."""
+    from egovlpv2_torch.data import native as tnative
     from egovlpv2_tpu.data import native
 
     monkeypatch.setattr(native, "available", lambda: False)
+    monkeypatch.setattr(tnative, "available", lambda: False)
     clip = np.random.RandomState(0).rand(3, 48, 64, 3).astype(np.float32)
     for seed in range(3):
         got = ttransforms.train_transform(clip, np.random.default_rng(seed), size=32)
@@ -381,9 +384,11 @@ def test_collate_and_loader_match_jax():
 
 
 def test_egotaskqa_dataset_matches_jax(tmp_path, monkeypatch):
+    from egovlpv2_torch.data import native as tnative
     from egovlpv2_tpu.data import native
 
     monkeypatch.setattr(native, "available", lambda: False)
+    monkeypatch.setattr(tnative, "available", lambda: False)
     _videos(tmp_path)
     qa = tmp_path / "qa.json"
     qa.write_text(json.dumps([
