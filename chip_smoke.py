@@ -215,6 +215,30 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
                 periods, pinned allocations in the window). The losses at the
                 two depths agree within FEED_LOSS_RTOL, and each prefetched
                 batch equals its synchronous copy bit for bit.
+  7. loop     — the training loop of `egovlpv2_torch.cli pretrain`
+                (`cli._fit`) at full width, pretrain b16 4f bf16 from the
+                seed, in a temporary directory outside the checkout, with a
+                synthetic EgoMCQ validation (VTC and VTM, one batch of 4
+                questions) after each epoch and `--monitor
+                max:vtc/Inter-video`: run C, two epochs of two steps
+                without a save; run A, one epoch with `--init_val`, saved
+                (config.json, progress.json at epoch 0, monitor.json,
+                best_step.json); run B, two epochs with `--resume` from A,
+                which logs "resumed from step 2 (epoch 1)" and "restored
+                monitor", and whose losses of steps 3-4 and validation
+                after epoch 1 (its accuracies and its raw VTC/VTM scores,
+                which must be finite) must be run C's bit for bit (the
+                first value that differs is printed); then `egomcq --ckpt <A/B's
+                ckpt/>`, whose model must hold the best step's parameters
+                exactly. The steps launch K1-K9, each validation K1-K3, K7
+                and K9 (counted apart: `launches_by_path` "pretrain_val"),
+                egomcq the same five. Printed beside the card's name and
+                power limit: the checkpoint's bytes, each save's and
+                restore's ms, the validation's ms a batch (its eval
+                steps alone, and the whole validation with the synthetic
+                batch's host draw), the phase's seconds. No file may be left under the checkout or in the
+                temporary directory, and no pinned host memory held (PyTorch's
+                host allocator holds none once its cache is emptied).
 Then one JSON line of the kernels and, last, the result line.
 """
 
@@ -523,6 +547,12 @@ FEED_COPY_BYTES = 1 << 20  # a host-to-device copy of a batch's arrays
 # host-bound step launches a kernel every few tens of µs; a compute stream
 # that waits on a copy idles for the copy's milliseconds.
 FEED_BUSY_GAP_US = 500.0
+# The loop phase: pretrain at PRETRAIN_SETS, two epochs of LOOP_STEPS steps
+# and a synthetic EgoMCQ validation of LOOP_VAL_BATCHES batches (4
+# questions, 20 clips each) after each, the monitor on one of its scores.
+LOOP_STEPS, LOOP_VAL_BATCHES = 2, 1
+LOOP_MONITOR = "max:vtc/Inter-video"
+LOOP_VAL_KERNELS = tuple(k for k in BF16_PATH_KERNELS if k.endswith("_fwd"))
 EXTRACT_CONFIG = "configs/extract_mq.json"
 EXTRACT_FRAMES = 2048  # 128 windows of 16 frames: two inner batches of 64
 NLQ_QUERIES = ("where did I put the scissors", "what did I pour in the bowl")
@@ -2263,6 +2293,219 @@ def phase_feed(smi: str) -> None:
         _free()
 
 
+def _checkout_files() -> set:
+    """Every file under the checkout but the built kernels and git's."""
+    skip = ("./build", "./.git")
+    return {os.path.join(root, name) for root, dirs, files in os.walk(".")
+            if not root.startswith(skip) for name in files}
+
+
+def _pinned_in_use() -> dict:
+    """The pinned host memory that PyTorch's caching host allocator still
+    holds once its cache is emptied: the blocks handed out and not given
+    back. (Its `active_*` counts keep blocks that emptying the cache has
+    released, so they are not read.)"""
+    torch.cuda.synchronize()
+    empty = getattr(torch.accelerator, "empty_host_cache", None)
+    (empty or torch._C._host_emptyCache)()
+    return {k: v for k, v in torch.cuda.host_memory_stats().items()
+            if k in ("allocated_bytes.current", "allocations.current")}
+
+
+@contextlib.contextmanager
+def _validation_launches():
+    """Counts the kernel launches of every EgoMCQ validation inside a
+    training run apart from the steps': yields a dict that holds them
+    once the block has run."""
+    from egovlpv2_torch.tasks import egomcq as egomcq_task
+
+    plain, counts = egomcq_task.evaluate_egomcq, dict.fromkeys(KERNELS, 0)
+
+    def counted(step, batches):
+        before = dict(_kernels.launch_counts)
+        try:
+            return plain(step, batches)
+        finally:
+            for k in counts:
+                counts[k] += _kernels.launch_counts[k] - before[k]
+
+    egomcq_task.evaluate_egomcq = counted
+    try:
+        yield counts
+    finally:
+        egomcq_task.evaluate_egomcq = plain
+
+
+def _read_json(path: str):
+    with open(path) as f:
+        return json.load(f)
+
+
+def _ms(times: dict) -> dict:
+    return {k: [round(x * 1e3, 1) for x in v] for k, v in times.items()}
+
+
+def _first_difference(want: list, got: list):
+    """The first (where, want, got) at which two lists of dicts of floats
+    are not the same bits, or None."""
+    if len(want) != len(got):
+        return ("length", len(want), len(got))
+    for i, (a, b) in enumerate(zip(want, got)):
+        for k in sorted(set(a) | set(b)):
+            if k != "step_ms" and a.get(k) != b.get(k):
+                return (f"row {i} {k}", a.get(k), b.get(k))
+    return None
+
+
+def phase_loop(smi: str) -> dict:
+    """The training loop of `cli pretrain` at full width (pretrain b16 4f
+    bf16, weights from the seed), in a temporary directory outside the
+    checkout, with a synthetic EgoMCQ validation (VTC and VTM) after each
+    epoch and the monitor on. Run C: two epochs of two steps, uninterrupted.
+    Run A: one epoch with --init_val, saved. Run B: two epochs with
+    --resume, from A's save. B's losses of steps 3-4 and its validation
+    after epoch 1 (the accuracies, and the raw VTC/VTM scores, finite)
+    must be C's bits. Then `egomcq --ckpt` on A/B's
+    checkpoints must run with the best step's parameters exactly. Returns
+    the launch counts of C's validations."""
+    t_phase = time.perf_counter()
+    files_before, pinned_before = _checkout_files(), _pinned_in_use()
+    base = ["pretrain", "--synthetic", "--device", "cuda", "--steps_per_epoch",
+            str(LOOP_STEPS), "--val_synthetic", "--val_batches",
+            str(LOOP_VAL_BATCHES), "--monitor", LOOP_MONITOR, "--set",
+            *PRETRAIN_SETS]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_loop_") as tmp:
+        save, ckpt_dir = os.path.join(tmp, "run"), os.path.join(tmp, "run",
+                                                                 "ckpt")
+        _reset_counts()
+        with _validation_launches() as val_counts:
+            whole = cli.main(base + ["--epochs", "2"])
+        steps = 2 * LOOP_STEPS
+        step_counts = {k: _kernels.launch_counts[k] - val_counts[k]
+                       for k in KERNELS}
+        if any(step_counts[k] < steps for k in BF16_PATH_KERNELS) \
+                or any(step_counts[k] for k in GENERAL_KERNELS):
+            raise AssertionError(f"loop: the steps' launches {step_counts}")
+        if not all(val_counts[k] for k in LOOP_VAL_KERNELS):
+            raise AssertionError(f"loop: the validation's launches "
+                                 f"{val_counts}")
+        whole_rows, whole_val = whole["logged"], whole["val"]
+        whole_scores = whole["val_scores"]
+        val_seconds = whole["val_seconds"]
+        val_step_seconds = [s for one in whole["val_step_seconds"]
+                            for s in one]
+        del whole
+        _free()
+        cut = cli.main(base + ["--epochs", "1", "--save_dir", save,
+                               "--ckpt_every", "1000", "--init_val"])
+        size = os.path.getsize(os.path.join(ckpt_dir, f"step_{LOOP_STEPS}.pt"))
+        written = sorted(os.listdir(ckpt_dir))
+        progress = _read_json(os.path.join(ckpt_dir, "progress.json"))
+        if progress["epoch"] != 0 or not {"monitor.json", "best_step.json"} \
+                <= set(written) or not os.path.exists(
+                    os.path.join(save, "config.json")):
+            raise AssertionError(f"loop: run A saved {written}, progress "
+                                 f"{progress}")
+        cut_saves = cut["save_seconds"]
+        del cut
+        _free()
+        free_gb = shutil.disk_usage(tmp).free / 1e9
+        resumed = cli.main(base + ["--epochs", "2", "--save_dir", save,
+                                   "--resume"])
+        with open(os.path.join(save, "info.log")) as f:
+            log_text = f.read()
+        for line in (f"resumed from step {LOOP_STEPS} (epoch 1)",
+                     "restored monitor"):
+            if line not in log_text:
+                raise AssertionError(f"loop: run B did not log {line!r}")
+        for what, want, got in (("losses", whole_rows[LOOP_STEPS:],
+                                 resumed["logged"]),
+                                ("validation", whole_val[1:], resumed["val"])):
+            diff = _first_difference(want, got)
+            if diff is not None:
+                raise AssertionError(f"loop: run B's {what} after the resume "
+                                     f"differ from run C's at {diff[0]}: C "
+                                     f"{diff[1]!r}, B {diff[2]!r}")
+        # the raw VTC/VTM scores of each validation, finite, and B's after
+        # epoch 1 the same bits as C's: the accuracies of 4 questions alone
+        # would hold for almost any model state
+        for run, scores in (("C", whole_scores),
+                            ("B", resumed["val_scores"])):
+            for i, one in enumerate(scores):
+                if set(one) != {"vtc", "vtm"} or not all(
+                        v.shape == (4 * LOOP_VAL_BATCHES, 5)
+                        and np.isfinite(v).all() for v in one.values()):
+                    raise AssertionError(
+                        f"loop: run {run}'s validation {i} scores "
+                        f"{ {k: v.tolist() for k, v in one.items()} }")
+        for k in ("vtc", "vtm"):
+            want, got = whole_scores[1][k], resumed["val_scores"][0][k]
+            if want.dtype != got.dtype or want.tobytes() != got.tobytes():
+                first = int(np.flatnonzero(want.ravel() != got.ravel())[0])
+                raise AssertionError(
+                    f"loop: run B's {k} scores after the resume differ from "
+                    f"run C's at flat index {first}: C "
+                    f"{want.ravel()[first]!r}, B {got.ravel()[first]!r}")
+        times = {"save A": cut_saves, "save B": resumed["save_seconds"],
+                 "restore B": resumed["restore_seconds"],
+                 "validation a batch, C": [s / LOOP_VAL_BATCHES
+                                           for s in val_seconds],
+                 "eval step, C": val_step_seconds}
+        del resumed
+        _free()
+        best = _read_json(os.path.join(ckpt_dir, "best_step.json"))["step"]
+        _reset_counts()
+        mcq = cli.main(["egomcq", "--device", "cuda", "--ckpt", ckpt_dir,
+                        "--val_batches", "1", "--set", *PRETRAIN_SETS])
+        mcq_counts = dict(_kernels.launch_counts)
+        saved = torch.load(os.path.join(ckpt_dir, f"step_{best}.pt"),
+                           map_location="cpu", weights_only=True)["model"]
+        got = mcq["model"].state_dict()
+        if set(got) != set(saved) or not all(
+                torch.equal(got[k].cpu(), v) for k, v in saved.items()):
+            raise AssertionError(f"loop: egomcq --ckpt did not run with the "
+                                 f"parameters of step {best}")
+        if not all(mcq_counts[k] for k in LOOP_VAL_KERNELS):
+            raise AssertionError(f"loop: egomcq --ckpt launches {mcq_counts}")
+        times["restore egomcq"] = [mcq["ckpt_seconds"]]
+        del mcq, saved, got
+        _free()
+    files_after, pinned_after = _checkout_files(), _pinned_in_use()
+    if os.path.exists(tmp) or files_after != files_before:
+        raise AssertionError(f"loop: files left behind: "
+                             f"{sorted(files_after - files_before)} {tmp}")
+    if pinned_after != pinned_before:
+        raise AssertionError(f"loop: pinned host memory left in use: "
+                             f"{pinned_before} -> {pinned_after}")
+    head, ms = f"[7 loop] ({smi})", _ms(times)
+    print(f"{head} pretrain b16 4f bf16, {LOOP_STEPS} steps an epoch, a "
+          f"validation of {LOOP_VAL_BATCHES} x 4 questions (VTC and VTM) "
+          f"after each: run B (resumed at step {LOOP_STEPS}) equals run C "
+          f"bit for bit in the losses of steps {LOOP_STEPS + 1}-{steps} "
+          f"({[r['loss_total'] for r in whole_rows[LOOP_STEPS:]]}) and the "
+          f"validation after epoch 1 ({whole_val[1]}; its VTC scores "
+          f"{whole_scores[1]['vtc'].tolist()}, VTM "
+          f"{whole_scores[1]['vtm'].tolist()}); egomcq --ckpt ran "
+          f"with the parameters of step {best} exactly", flush=True)
+    print(f"{head} checkpoint {size} bytes ({size / 2**30:.3f} GiB), "
+          f"{free_gb:.1f} GB free beside it", flush=True)
+    print(f"{head} save ms: run A {ms['save A']}, run B {ms['save B']}; "
+          f"restore ms: run B's --resume {ms['restore B']}, egomcq --ckpt "
+          f"{ms['restore egomcq']}", flush=True)
+    print(f"{head} validation ms a batch, run C: its eval steps alone "
+          f"(from the host batch to the end of its device work, the input "
+          f"copy included) {ms['eval step, C']}; the whole validation a "
+          f"batch (the synthetic batch's host RNG included) "
+          f"{ms['validation a batch, C']}", flush=True)
+    print(f"{head} launches a step "
+          f"{ {k: v / steps for k, v in step_counts.items()} }, run C's "
+          f"{len(whole_val)} validations {val_counts}, egomcq --ckpt "
+          f"{mcq_counts}; no file left, pinned host memory held "
+          f"{pinned_after} as before", flush=True)
+    print(f"{head} {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return val_counts
+
+
 def main() -> None:
     smi = phase_device()
     phase_build()
@@ -2276,6 +2519,7 @@ def main() -> None:
     by_path.update(phase_extract())
     by_path["taskqa"] = phase_taskqa()
     phase_feed(smi)
+    by_path["pretrain_val"] = phase_loop(smi)
     for path in ("egomcq_16f", "egomcq_4f", "egomcq_16f_1q", "pretrain"):
         if not by_path[path]["fused_attention_fwd"]:
             raise AssertionError(f"{path}: K9 was not launched")
@@ -2292,7 +2536,9 @@ def main() -> None:
     # their grouped forms two (a query pass, then a key pass); K3, K6 and
     # the LayerNorm backward two (a pass, then the merge or sum of the
     # blocks' partials); K10 two and K11 three.
-    steps = {"pretrain": PRETRAIN_STEPS, "taskqa": TASKQA_STEPS}
+    # pretrain_val: the validation batches of the loop phase's run C
+    steps = {"pretrain": PRETRAIN_STEPS, "taskqa": TASKQA_STEPS,
+             "pretrain_val": 2 * LOOP_VAL_BATCHES}
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": KERNELS[k][0],
          "replaces": KERNELS[k][1],

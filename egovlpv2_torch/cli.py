@@ -9,21 +9,31 @@ Subcommands:
              copied to the device from a feeder thread while step N runs)
              or on synthetic batches (--synthetic). Prints one JSON line a
              logged step with the loss parts and the step's milliseconds.
+             After each epoch an EgoMCQ validation (--val_meta/--val_data
+             files, or --val_synthetic with --val_batches; --val_vtc_only),
+             once before training too with --init_val (with --epochs 0 an
+             evaluation alone); --monitor 'max:key' or 'min:key' over the
+             epoch's metrics marks the best step and, with --early_stop N,
+             stops after N epochs without a better one.
 
-    python -m egovlpv2_torch.cli pretrain --device cuda \
-        --config configs/pretrain_egoclip.json --meta egoclip.csv \
-        --data videos/ --device_norm --num_workers 8
-    python -m egovlpv2_torch.cli pretrain --synthetic --device cuda \
-        --config configs/pretrain_egoclip.json --steps_per_epoch 8 \
-        --set global_batch_size=16 model.remat=false path_remat=false
+    python -m egovlpv2_torch.cli pretrain --device cuda \\
+        --config configs/pretrain_egoclip.json --meta egoclip.csv \\
+        --data videos/ --device_norm --num_workers 8 --save_dir run/ \\
+        --val_meta egomcq.json --val_data videos/ \\
+        --monitor max:ensemble/Inter-video
+    python -m egovlpv2_torch.cli pretrain --synthetic --device cuda \\
+        --config configs/pretrain_egoclip.json --steps_per_epoch 8 \\
+        --val_synthetic --set global_batch_size=16 model.remat=false \\
+        path_remat=false
 
   egomcq   — EgoMCQ zero-shot validation, on egomcq.json and its videos
              (--meta, --data, --device_norm, --num_workers) or on synthetic
              batches. The flags are those of the JAX CLI's `egomcq`,
              without the JAX multi-host ones, plus --device.
 
-    python -m egovlpv2_torch.cli egomcq --config configs/eval_egomcq.json \
-        --device cuda --meta egomcq.json --data videos/ --device_norm
+    python -m egovlpv2_torch.cli egomcq --config configs/eval_egomcq.json \\
+        --device cuda --meta egomcq.json --data videos/ --device_norm \\
+        [--ckpt run/ckpt]
 
   ft-charades, ft-epic — the dual-encoder fine-tunes (Charades-Ego with
              NormSoftmax, EK-100 MIR with AdaptiveMaxMargin and per-row
@@ -33,13 +43,16 @@ Subcommands:
              --device_norm, --num_workers; batches prefetched as in
              pretrain) with a validation after each epoch (--val_meta,
              --val_data, --val_batch_size, --classes for Charades-Ego,
-             --sliding_window_stride), or on synthetic batches
+             --sliding_window_stride; once before training too with
+             --init_val; --visualize writes EK-100's retrievals as HTML
+             pages under save_dir/web), or on synthetic batches
              (--synthetic). Prints one JSON line a logged step with the
              loss and the step's milliseconds, and one a validation.
 
-    python -m egovlpv2_torch.cli ft-charades --device cuda \
-        --config configs/ft_charades.json --meta meta/ --data videos/ \
-        --val_meta meta/ --classes classes.txt --device_norm
+    python -m egovlpv2_torch.cli ft-charades --device cuda \\
+        --config configs/ft_charades.json --meta meta/ --data videos/ \\
+        --val_meta meta/ --classes classes.txt --device_norm \\
+        --save_dir ft/ --ckpt run/ckpt
 
   extract  — EgoMQ-style dense window features: one [N_windows,
              projection_dim] .npy/.pt a clip, from uint8 frames normalised
@@ -50,7 +63,7 @@ Subcommands:
              clip, `synthetic`). Prints the shape and the milliseconds of
              every inner batch.
 
-    python -m egovlpv2_torch.cli extract --config configs/extract_mq.json \
+    python -m egovlpv2_torch.cli extract --config configs/extract_mq.json \\
         --device cuda --videos 'clips/*.mp4' --out feats/ [--ckpt published.pth]
 
   taskqa   — EgoTaskQA: the fused backbone + QA head fine-tuned on QA json
@@ -61,22 +74,27 @@ Subcommands:
              checkpoints every epoch, `--resume` continues from the latest,
              `--test_only` evaluates it. The float32 path runs with TF32 off.
 
-    python -m egovlpv2_torch.cli taskqa --device cuda --qa_train train.json \
-        --qa_val val.json --videos videos/ --answer_set answer_set.txt \
+    python -m egovlpv2_torch.cli taskqa --device cuda --qa_train train.json \\
+        --qa_val val.json --videos videos/ --answer_set answer_set.txt \\
         --reasoning_types all_reasoning_types.txt --save_dir qa_ckpt
 
-`--ckpt <file.pth>` (egomcq, extract, pretrain, the fine-tunes, taskqa) imports a
-checkpoint under the reference's names (`train/checkpoint_import.py`), the
-temporal embedding inflated to the config's frame count.
+Checkpoints of pretrain and the fine-tunes (`train/checkpoint.py`):
+`--save_dir` writes the resolved config.json, info.log, stats.txt (a JSON
+line a logged step and a validation) and ckpt/: a checkpoint after each
+epoch, one every --ckpt_every steps (pretrain), and one on SIGTERM, after
+the step in flight, before the command returns. `--resume` goes on after
+the last finished epoch saved there, from its parameters, AdamW moments,
+scheduler, dropout generator, step and monitor: after an epoch's save the
+resumed run is the one that did not stop, bit for bit; after a SIGTERM it
+replays the unfinished epoch. A step's time counts neither a save nor a
+validation.
 
-Not ported yet, and refused with a NotImplementedError that names the
-ROADMAP item (every flag of the JAX CLI's parsers parses, but the
-multi-host ones, which wait for ROADMAP.md A9): checkpoints of pretrain
-and the fine-tunes (`--ckpt <directory>`, `--save_dir`, `--resume`,
-`--ckpt_every`: A8); the training loop's validation and monitor
-(`--val_meta`, `--val_data`, `--val_synthetic`, `--val_batches` of
-pretrain, `--val_vtc_only`, `--monitor`, `--early_stop`, `--init_val`:
-A10a); the retrieval visualizer (`--visualize`: A10).
+`--ckpt` (egomcq, extract, pretrain, the fine-tunes, taskqa) takes a
+`<file.pth>` under the reference's names (`train/checkpoint_import.py`,
+the temporal embedding inflated to the config's frame count) or the ckpt/
+directory of a run of this program (its best step where the monitor
+marked one, else its latest; a model with fewer heads takes the
+parameters it has). The multi-host flags of the JAX CLI are not taken.
 
 Without a checkpoint every parameter is drawn from a torch.Generator seeded
 with the config's `seed` (`weights.random_init_` for egomcq and extract,
@@ -93,6 +111,7 @@ import itertools
 import json
 import os
 import time
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
@@ -100,6 +119,8 @@ import torch
 from egovlpv2_torch.core.config import load_train_config
 from egovlpv2_torch.data.loader import device_prefetch, device_put
 from egovlpv2_torch.data.tokenizer import Tokenizer
+from egovlpv2_torch.parallel.distributed import is_main_process
+from egovlpv2_torch.utils.logging import setup_logging
 
 
 def _device(name: str) -> torch.device:
@@ -110,23 +131,6 @@ def _device(name: str) -> torch.device:
     return device
 
 
-_A8 = ("checkpoint save and resume of pretrain and the fine-tunes, which "
-       "are not ported yet (ROADMAP.md A8, checkpoints)")
-_A10A = ("the training loop's validation, monitor and early stop, which are "
-         "not ported yet (ROADMAP.md A10a, the training loop)")
-# Flags of the JAX CLI that the port parses and refuses when given: the
-# command -> {flag: (store_true?, what it needs)}.
-_NOT_PORTED = {
-    "pretrain": {"--val_meta": (False, _A10A), "--val_data": (False, _A10A),
-                 "--ckpt_every": (False, _A8),
-                 "--val_synthetic": (True, _A10A),
-                 "--val_batches": (False, _A10A),
-                 "--val_vtc_only": (True, _A10A), "--monitor": (False, _A10A),
-                 "--early_stop": (False, _A10A), "--init_val": (True, _A10A)},
-    "ft": {"--init_val": (True, _A10A)},
-}
-
-
 def _add_data(parser) -> None:
     """The data flags of the JAX CLI's `_add_common`."""
     parser.add_argument("--meta", default=None)
@@ -134,41 +138,96 @@ def _add_data(parser) -> None:
     parser.add_argument("--num_workers", type=int, default=4)
 
 
-def _add_not_ported(parser, command: str) -> None:
-    for flag, (switch, _) in _NOT_PORTED[command].items():
-        if switch:
-            parser.add_argument(flag, action="store_true",
-                                help="not ported yet: raises")
-        else:
-            parser.add_argument(flag, default=None,
-                                help="not ported yet: raises")
-    parser.set_defaults(not_ported=command)
-
-
-def _refuse_not_ported(args) -> None:
-    """Raises NotImplementedError for the first not-ported flag given."""
-    for flag, (_, needs) in _NOT_PORTED[args.not_ported].items():
-        if getattr(args, flag.lstrip("-")) not in (None, False):
-            raise NotImplementedError(f"{flag} needs {needs}")
-
-
-def _checkpoint_file(ckpt_path):
-    """`--ckpt` as given, once it is known to be no directory: a directory
-    is a checkpoint saved by training, which is not ported."""
-    if ckpt_path and os.path.isdir(ckpt_path):
-        raise NotImplementedError(
-            f"--ckpt {ckpt_path} is a directory: checkpoints saved by "
-            "training (train/checkpoint.py) are not ported yet (ROADMAP.md "
-            "A8, checkpoints); pass a reference .pth file")
-    return ckpt_path
-
-
-def _load_checkpoint(model, cfg, ckpt_path) -> None:
-    """Overlay the reference-named checkpoint file `ckpt_path` onto
-    `model`, in place (the JAX CLI's `_load_params`); None leaves the
-    seeded parameters."""
-    if not ckpt_path:
+def _save_resolved_config(cfg, save_dir: Optional[str]) -> None:
+    """The resolved config as `save_dir/config.json`, from the main process
+    (the reference's ConfigParser writes it for every run with a save
+    directory, parse_config.py:62-89)."""
+    if not save_dir or not is_main_process():
         return
+    os.makedirs(save_dir, exist_ok=True)
+    with open(os.path.join(save_dir, "config.json"), "w") as f:
+        json.dump(dataclasses.asdict(cfg), f, indent=2)
+
+
+class Monitor:
+    """The best of one epoch metric and the early stop
+    (base_trainer.py:284-292,366-388): spec 'max:key' or 'min:key'."""
+
+    def __init__(self, spec: str, early_stop: int = 0):
+        mode, _, key = spec.partition(":")
+        if mode not in ("min", "max") or not key:
+            raise ValueError(f"monitor spec must be 'min:key' or 'max:key', "
+                             f"got {spec!r}")
+        self.mode, self.key = mode, key
+        self.early_stop = early_stop
+        self.best: Optional[float] = None
+        self.not_improved = 0
+
+    def update(self, metrics: Dict[str, float]) -> bool:
+        """True when this is a new best; a missing key does not improve."""
+        val = metrics.get(self.key)
+        if val is None:
+            self.not_improved += 1
+            return False
+        improved = (
+            self.best is None
+            or (self.mode == "max" and val > self.best)
+            or (self.mode == "min" and val < self.best)
+        )
+        if improved:
+            self.best = val
+            self.not_improved = 0
+        else:
+            self.not_improved += 1
+        return improved
+
+    @property
+    def should_stop(self) -> bool:
+        return self.early_stop > 0 and self.not_improved >= self.early_stop
+
+    def state_dict(self) -> Dict[str, Any]:
+        return {"mode": self.mode, "key": self.key, "best": self.best,
+                "not_improved": self.not_improved}
+
+    def load_state_dict(self, state: Dict[str, Any]) -> bool:
+        """Takes the best value and the count saved beside a checkpoint
+        (the reference keeps monitor_best in every .pth,
+        base_trainer.py:412-436); False, and nothing taken, when the saved
+        state monitored another metric."""
+        if state.get("mode") != self.mode or state.get("key") != self.key:
+            return False
+        self.best = state.get("best")
+        self.not_improved = int(state.get("not_improved", 0))
+        return True
+
+
+def _checked_ckpt(path):
+    """`--ckpt` as given, once a directory is known to hold a checkpoint of
+    a training run: checked before a model is built."""
+    from egovlpv2_torch.train.checkpoint import CheckpointManager
+
+    if path and os.path.isdir(path) and \
+            CheckpointManager(path).latest_step() is None:
+        raise FileNotFoundError(f"no checkpoint found under {path}")
+    return path
+
+
+# A fine-tune sets up its own projections (small, at its own width): from
+# a run with other projections they keep their seeded values.
+_OWN_HEADS = ("txt_proj.", "vid_proj.")
+
+
+def _load_checkpoint(model, cfg, ckpt_path) -> Optional[float]:
+    """Overlay `--ckpt` onto `model`, in place (the JAX CLI's
+    `_load_params`): a directory saved by a training run of this program,
+    or a reference-named checkpoint file; None leaves the seeded
+    parameters. Returns the seconds it took, or None."""
+    if not ckpt_path:
+        return None
+    t0 = time.perf_counter()
+    if os.path.isdir(ckpt_path):
+        _restore_params(model, ckpt_path)
+        return time.perf_counter() - t0
     from egovlpv2_torch.train.checkpoint_import import (
         import_reference_checkpoint, load_torch_state_dict)
 
@@ -178,20 +237,54 @@ def _load_checkpoint(model, cfg, ckpt_path) -> None:
     model.load_state_dict(state_dict, strict=True)
     print(f"imported {len(report['imported'])} tensors from {ckpt_path} "
           f"({len(report['skipped'])} skipped)")
+    return time.perf_counter() - t0
 
 
-def _make_egomcq_batches(args, cfg, tokenizer_name: str, batch_size: int):
+def _restore_params(model, directory: str) -> None:
+    """The parameters of the best (else the latest) checkpoint under
+    `directory`, which holds one (`_checked_ckpt`), into `model`. Those the
+    model lacks (the ITM and MLM heads
+    of a pretrain run, in a dual model) are left out and named; one the
+    model has and the checkpoint lacks, or holds at another shape, raises,
+    but for a fine-tune's own projections (`_OWN_HEADS`), which keep their
+    seeded values."""
+    from egovlpv2_torch.train.checkpoint import CheckpointManager
+
+    params = CheckpointManager(directory).restore_params()
+    own = model.state_dict()
+    kept = sorted(k for k, v in own.items() if k.startswith(_OWN_HEADS)
+                  and (k not in params or params[k].shape != v.shape))
+    lacking = sorted(k for k in own if k not in params and k not in kept)
+    if lacking:
+        raise KeyError(f"the checkpoint under {directory} lacks {len(lacking)}"
+                       f" parameters of the model: {lacking[:5]}")
+    model.load_state_dict({k: own[k] if k in kept else params[k]
+                           for k in own}, strict=True)
+    left_out = sorted(set(params) - set(own))
+    print(f"restored {len(own) - len(kept)} tensors from {directory} "
+          f"({len(left_out)} left out: {_names(left_out)}; {len(kept)} of "
+          f"the model's own projections kept: {_names(kept)})")
+
+
+def _names(keys) -> str:
+    """The top-level modules of parameter names, for a report."""
+    return ", ".join(sorted({k.split(".")[0] for k in keys})) or "none"
+
+
+def _make_egomcq_batches(args, cfg, tokenizer_name: str, batch_size: int,
+                         meta=None, data=None):
     """callable(epoch) -> iterator of EgoMCQ batches (video5/ids/mask/
-    answer/type): from egomcq.json and its videos (--meta, --data) through
-    the threaded loader, else the JAX CLI's synthetic draws."""
+    answer/type): from egomcq.json and its videos (`meta`, `data`) through
+    the threaded loader, else the JAX CLI's synthetic draws (--val_batches
+    of them)."""
     tok = Tokenizer(tokenizer_name, max_len=cfg.max_text_len,
                     vocab_cap=cfg.model.text.vocab_size)
     v = cfg.model.video
-    if args.meta:
+    if meta:
         from egovlpv2_torch.data.datasets import EgoMCQDataset
         from egovlpv2_torch.data.loader import DataLoader
 
-        ds = EgoMCQDataset(args.meta, args.data, num_frames=v.num_frames,
+        ds = EgoMCQDataset(meta, data, num_frames=v.num_frames,
                            input_res=v.img_size, loading="lax",
                            device_norm=args.device_norm)
 
@@ -238,25 +331,31 @@ def _recorded(step, device: torch.device, record: list):
     return run
 
 
+def _record_scores(record: list) -> dict:
+    """The scores of a `_recorded` step's batches, concatenated by key."""
+    return {k: np.concatenate([out[k] for _, out in record])
+            for k in (record[0][1] if record else ())}
+
+
 def cmd_egomcq(args) -> dict:
     from egovlpv2_torch.models.egovlp import EgoVLPv2
     from egovlpv2_torch.tasks.egomcq import evaluate_egomcq, make_egomcq_eval_step
     from egovlpv2_torch.weights import random_init_
 
     device = _device(args.device)
-    ckpt = _checkpoint_file(args.ckpt)
+    ckpt = _checked_ckpt(args.ckpt)
     cfg = load_train_config(args.config, args.set)
     model = EgoVLPv2(cfg.model, device=device).eval()
     random_init_(model, torch.Generator().manual_seed(cfg.seed))
-    _load_checkpoint(model, cfg, ckpt)
-    batches = _make_egomcq_batches(args, cfg, args.tokenizer, args.batch_size)
+    ckpt_seconds = _load_checkpoint(model, cfg, ckpt)
+    batches = _make_egomcq_batches(args, cfg, args.tokenizer, args.batch_size,
+                                   args.meta, args.data)
     record = []
     step = _recorded(make_egomcq_eval_step(model, with_vtm=not args.vtc_only),
                      device, record)
     metrics = evaluate_egomcq(step, batches(0))
     seconds = [sec for sec, _ in record]
-    scores = {k: np.concatenate([out[k] for _, out in record])
-              for k in record[0][1]}
+    scores = _record_scores(record)
     print(json.dumps({k: round(v, 4) for k, v in metrics.items()}))
     clips = args.batch_size * 5
     print(json.dumps({"device": str(device), "steps": len(seconds),
@@ -266,7 +365,8 @@ def cmd_egomcq(args) -> dict:
         with open(args.out, "w") as f:
             json.dump(metrics, f, indent=2)
     return {"metrics": metrics, "scores": scores, "step_seconds": seconds,
-            "clips_per_step": clips}
+            "clips_per_step": clips, "model": model,
+            "ckpt_seconds": ckpt_seconds}
 
 
 def cmd_extract(args) -> dict:
@@ -276,7 +376,7 @@ def cmd_extract(args) -> dict:
     from egovlpv2_torch.weights import random_init_
 
     device = _device(args.device)
-    ckpt = _checkpoint_file(args.ckpt)
+    ckpt = _checked_ckpt(args.ckpt)
     if bool(args.videos) == bool(args.synthetic):
         raise ValueError("extract needs one of --videos <glob> and "
                          "--synthetic <n_frames>")
@@ -336,18 +436,17 @@ def _extract_clips(args, cfg):
 def cmd_pretrain(args) -> dict:
     from egovlpv2_torch.tasks.pretrain import build_pretrain, synthetic_batch
 
-    _refuse_not_ported(args)
     device = _device(args.device)
-    ckpt = _checkpoint_file(args.ckpt)
-    if args.save_dir or args.resume:
-        raise NotImplementedError(
-            "checkpoint save and resume are not ported yet (ROADMAP.md A8, "
-            "checkpoints); run without --save_dir and --resume")
+    ckpt = _checked_ckpt(args.ckpt)
     if not args.synthetic and not args.meta:
         raise ValueError("pretrain needs --meta (EgoClip files) or "
                          "--synthetic")
+    log = setup_logging(args.save_dir if is_main_process() else None)
     cfg = load_train_config(args.config, args.set)
-    model, _, _, train_step = build_pretrain(cfg, device=device)
+    _save_resolved_config(cfg, args.save_dir)
+    monitor = Monitor(args.monitor, args.early_stop) if args.monitor else None
+    trainer = build_pretrain(cfg, device=device)
+    model = trainer[0]
     _load_checkpoint(model, cfg, ckpt)
     # the epoch cap in loader samples (trainer_egoclip.py:108 breaks once
     # (batch_idx+1)*batch_sum exceeds it): scene negatives double the
@@ -373,9 +472,174 @@ def cmd_pretrain(args) -> dict:
             return device_prefetch(
                 itertools.islice(loader.epoch(epoch), steps_cap), put)
 
-    logged, seconds = _train_loop(args, device, train_step, batches)
-    return {"model": model, "logged": logged, "step_seconds": seconds,
-            "clips_per_step": cfg.global_batch_size}
+    run = _fit(args, device, log, cfg, trainer, batches,
+               validate=_egomcq_validation(args, cfg, model),
+               monitor=monitor, ckpt_every=args.ckpt_every, val_digits=3)
+    return {"model": model, "clips_per_step": cfg.global_batch_size, **run}
+
+
+def _egomcq_validation(args, cfg, model):
+    """validate(epoch) -> (EgoMCQ metrics of `model` on `val_batches(epoch)`
+    (trainer_egoclip.py:194-195), the `_recorded` record of its eval
+    steps): from --val_meta / --val_data, or --val_synthetic; None without
+    either. The step runs the model in `eval()`, so dropout draws nothing
+    from the training run's generator, and puts `train()` back."""
+    if not (args.val_meta or args.val_synthetic):
+        return None
+    from egovlpv2_torch.tasks.egomcq import (evaluate_egomcq,
+                                             make_egomcq_eval_step)
+
+    # never --meta: pretrain's --meta names EgoClip's files
+    val_batches = _make_egomcq_batches(args, cfg, args.tokenizer, 4,
+                                       args.val_meta,
+                                       args.val_data or args.data)
+    eval_step = make_egomcq_eval_step(model, with_vtm=not args.val_vtc_only)
+    device = next(model.parameters()).device
+
+    def validate(epoch):
+        record = []
+        metrics = evaluate_egomcq(_recorded(eval_step, device, record),
+                                  val_batches(epoch))
+        return metrics, record
+
+    return validate
+
+
+def _fit(args, device, log, cfg, trainer, batches, validate=None,
+         monitor=None, ckpt_every=0, val_digits=4) -> dict:
+    """The epochs of `pretrain` and the fine-tunes around `_train_loop`, in
+    the JAX CLI's order (`cmd_pretrain` and `_run_dual_ft`,
+    egovlpv2_tpu/cli.py:237-446,501-696). `trainer` is (model, optimizer,
+    scheduler, train_step).
+
+    With --save_dir: stats.txt and ckpt/, a save after each epoch (with the
+    epoch's metrics, the best pointer and the monitor's state), every
+    `ckpt_every` steps where it is not 0, and after the step in flight when
+    SIGTERM arrives (then marked as the epoch before, which a resumed run
+    replays). --resume restores the latest save and goes on after its
+    epoch. `validate(epoch)` runs after each epoch, and with --init_val
+    once before the first as `validate(-1)`, which returns its metrics and
+    the `_recorded` record of its eval steps (empty where it has none);
+    `monitor` reads the epoch's metrics, the last step's and the
+    validation's. Returns the logged rows, the steps' seconds, each
+    validation's metrics, scores and eval steps' seconds, the seconds of
+    each save, restore and validation, and whether SIGTERM ended the
+    run."""
+    from egovlpv2_torch.parallel.distributed import PreemptionGuard, barrier
+    from egovlpv2_torch.train.checkpoint import (CheckpointManager,
+                                                 load_train_state_,
+                                                 train_state)
+    from egovlpv2_torch.utils.logging import StatsWriter, Throughput
+
+    model, optimizer, scheduler, train_step = trainer
+    parts = (model, optimizer, scheduler, train_step.generator)
+    stats = (StatsWriter(args.save_dir)
+             if args.save_dir and is_main_process() else None)
+    ckpt = (CheckpointManager(os.path.join(args.save_dir, "ckpt"))
+            if args.save_dir else None)
+    out = {"val": [], "val_scores": [], "val_step_seconds": [],
+           "save_seconds": [], "restore_seconds": [], "val_seconds": [],
+           "preempted": False}
+
+    def timed(key, fn, *fn_args):
+        t0 = time.perf_counter()
+        result = fn(*fn_args)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        out[key].append(time.perf_counter() - t0)
+        return result
+
+    def save(step, **kw):
+        timed("save_seconds",
+              lambda: ckpt.save(step, train_state(*parts, step), **kw))
+
+    start_epoch = step = 0
+    if ckpt and args.resume and ckpt.latest_step() is not None:
+        step = timed("restore_seconds",
+                     lambda: load_train_state_(ckpt.restore(), *parts))
+        # go on after the last finished epoch (base_trainer.py:438-495
+        # resumes at checkpoint_epoch + 1)
+        last = ckpt.last_epoch()
+        start_epoch = last + 1 if last is not None else 0
+        log.info("resumed from step %d (epoch %d)", step, start_epoch)
+        if monitor:
+            state = ckpt.monitor_state()
+            if state and monitor.load_state_dict(state):
+                log.info("restored monitor: best %s=%s (%d stale)",
+                         monitor.key, monitor.best, monitor.not_improved)
+
+    def run_val(epoch, step):
+        val, record = timed("val_seconds", validate, epoch)
+        out["val"].append(val)
+        out["val_scores"].append(_record_scores(record))
+        out["val_step_seconds"].append([sec for sec, _ in record])
+        shown = {k: round(v, val_digits) for k, v in val.items()}
+        if epoch < 0:
+            log.info("init val: %s", shown)
+        else:
+            log.info("epoch %d val: %s", epoch, shown)
+        if stats:
+            stats.write(step, {f"val_{k}": v for k, v in val.items()})
+        print(json.dumps({"epoch": epoch, **{
+            f"val_{k}": float(v) for k, v in val.items()}}), flush=True)
+        return val
+
+    tp = Throughput(cfg.global_batch_size)
+
+    def after_step(epoch, step, metrics):
+        rates = tp.tick()
+        if step % args.log_every == 0:
+            full = {**metrics, **rates}
+            log.info("step %d: %s", step,
+                     {k: round(v, 4) for k, v in full.items()})
+            if stats:
+                stats.write(step, full)
+        if ckpt and ckpt_every and step % ckpt_every == 0:
+            save(step)
+        if not guard.preempted:
+            return False
+        if ckpt and ckpt.latest_step() != step:
+            # this epoch is unfinished: a resumed run replays it
+            save(step, epoch=epoch - 1)
+        log.info("preempted (SIGTERM): saved at step %d, exiting", step)
+        out["preempted"] = True
+        return True
+
+    def after_epoch(epoch, step, metrics):
+        epoch_metrics = dict(metrics)
+        if validate is not None:
+            epoch_metrics.update(run_val(epoch, step))
+        is_best = monitor.update(epoch_metrics) if monitor else False
+        if ckpt:
+            save(step, metrics=epoch_metrics, is_best=is_best, epoch=epoch)
+            if monitor:
+                ckpt.save_monitor(monitor.state_dict())
+        if monitor and monitor.should_stop:
+            log.info("early stop at epoch %d (no improvement in %d epochs, "
+                     "best %s=%.4f)", epoch, monitor.not_improved,
+                     monitor.key, monitor.best)
+            return True
+        return False
+
+    # SIGTERM sets a flag that the loop polls after each step, and saves
+    # from there; the handler is put back on every way out
+    guard = PreemptionGuard()
+    try:
+        barrier("train_start")
+        # validate once before any training (base_trainer.py:86; with
+        # --epochs 0 the reference's eval-mode configs)
+        if args.init_val and validate is not None and start_epoch == 0:
+            run_val(-1, step)
+        logged, seconds = _train_loop(
+            args, device, train_step, batches, after_step=after_step,
+            after_epoch=after_epoch, start_epoch=start_epoch, step=step)
+    finally:
+        guard.restore()
+        if stats:
+            stats.close()
+    if not out["preempted"]:
+        log.info("done at step %d", step + len(seconds))
+    return {"logged": logged, "step_seconds": seconds, **out}
 
 
 def _egoclip_loader(args, cfg, loader_batch: int):
@@ -407,40 +671,46 @@ def _egoclip_loader(args, cfg, loader_batch: int):
     return loaders[0] if len(loaders) == 1 else RoundRobinLoader(loaders)
 
 
-def _train_loop(args, device, train_step, batches,
-                after_epoch=None) -> tuple:
-    """The epochs of `pretrain` and the fine-tunes over `batches(epoch)`:
-    every step is timed on the host's clock from its `next()` on the batch
-    iterator (so a wait on the loader or on the feeder of `device_prefetch`
-    counts in it) to the end of its device work, and every `--log_every`-th
-    prints one JSON line; `after_epoch(epoch)` runs after each epoch.
-    Returns (logged rows, step seconds)."""
+def _train_loop(args, device, train_step, batches, after_step=None,
+                after_epoch=None, start_epoch=0, step=0) -> tuple:
+    """The epochs `start_epoch` to `args.epochs - 1` over `batches(epoch)`,
+    counting steps on from `step`: every step is timed on the host's clock
+    from its `next()` on the batch iterator (so a wait on the loader or on
+    the feeder of `device_prefetch` counts in it) to the end of its device
+    work, and every `--log_every`-th prints one JSON line. Then
+    `after_step(epoch, step, metrics)` runs, and after each epoch
+    `after_epoch(epoch, step, metrics)`, with the metrics of the last step
+    as floats; either ends the loop by returning True. Neither counts in a
+    step's time. Returns (logged rows, step seconds)."""
     logged, seconds = [], []
-    step = 0
-    for epoch in range(args.epochs):
+    for epoch in range(start_epoch, args.epochs):
         it = iter(batches(epoch))
+        metrics = {}
         try:
             while True:
                 t0 = time.perf_counter()
                 batch = next(it, None)
                 if batch is None:
                     break
-                metrics = train_step(batch)
+                out = train_step(batch)
                 if device.type == "cuda":
                     torch.cuda.synchronize(device)
                 seconds.append(time.perf_counter() - t0)
                 step += 1
+                metrics = {k: float(v) for k, v in out.items()}
                 if step % args.log_every == 0:
-                    row = {"epoch": epoch, "step": step,
-                           **{k: float(v) for k, v in metrics.items()},
+                    row = {"epoch": epoch, "step": step, **metrics,
                            "step_ms": round(seconds[-1] * 1e3, 3)}
                     logged.append(row)
                     print(json.dumps(row), flush=True)
+                if after_step is not None and after_step(epoch, step,
+                                                         metrics):
+                    return logged, seconds
         finally:
             if hasattr(it, "close"):  # stops a feeder that runs ahead
                 it.close()
-        if after_epoch is not None:
-            after_epoch(epoch)
+        if after_epoch is not None and after_epoch(epoch, step, metrics):
+            break
     return logged, seconds
 
 
@@ -473,24 +743,18 @@ def cmd_dual_ft(args) -> dict:
     when --val_meta is given."""
     from egovlpv2_torch.tasks.retrieval import build_dual, synthetic_dual_batch
 
-    _refuse_not_ported(args)
     device = _device(args.device)
-    ckpt = _checkpoint_file(args.ckpt)
-    if args.save_dir or args.resume:
-        raise NotImplementedError(
-            "checkpoint save and resume are not ported yet (ROADMAP.md A8, "
-            "checkpoints); run without --save_dir and --resume")
-    if args.visualize:
-        raise NotImplementedError(
-            "the retrieval visualizer (--visualize) is not ported yet "
-            "(ROADMAP.md A10, the rest of the CLI)")
+    ckpt = _checked_ckpt(args.ckpt)
     if not args.synthetic and not args.meta:
         raise ValueError(f"{args.cmd} needs --meta (the dataset's files) or "
                          "--synthetic")
+    log = setup_logging(args.save_dir if is_main_process() else None)
     epic = args.dataset == "epic"
     cfg = dual_config(load_train_config(args.config, args.set), args.dataset,
                       args.device_norm)
-    model, _, _, train_step = build_dual(cfg, device=device)
+    _save_resolved_config(cfg, args.save_dir)
+    trainer = build_dual(cfg, device=device)
+    model = trainer[0]
     _load_checkpoint(model, cfg, ckpt)
     tok = Tokenizer(args.tokenizer, max_len=cfg.max_text_len,
                     vocab_cap=cfg.model.text.vocab_size)
@@ -510,20 +774,10 @@ def cmd_dual_ft(args) -> dict:
             # batch N+1 is copied from a feeder thread while step N runs
             return device_prefetch(loader.epoch(epoch), put)
 
-    run_val = _make_dual_val(args, cfg, model, tok)
-    val = []
-
-    def validate(epoch):
-        metrics = run_val()
-        val.append(metrics)
-        print(json.dumps({"epoch": epoch, **{
-            f"val_{k}": float(v) for k, v in metrics.items()}}), flush=True)
-
-    logged, seconds = _train_loop(args, device, train_step, batches,
-                                  after_epoch=validate if run_val else None)
-    return {"model": model, "config": cfg, "logged": logged,
-            "step_seconds": seconds, "clips_per_step": cfg.global_batch_size,
-            "val": val}
+    run = _fit(args, device, log, cfg, trainer, batches,
+               validate=_make_dual_val(args, cfg, model, tok))
+    return {"model": model, "config": cfg,
+            "clips_per_step": cfg.global_batch_size, **run}
 
 
 def _dual_loader(args, cfg, tok):
@@ -552,12 +806,14 @@ def _dual_loader(args, cfg, tok):
 
 
 def _make_dual_val(args, cfg, model, tok):
-    """run_val() -> metrics after each epoch of a dual fine-tune, or None
-    without --val_meta: EK-100 MIR's official mAP/nDCG over the test split
-    and its relevancy pickle (trainer_epic.py:200-306), or Charades-Ego's
-    mAP of the 157 class prompts of --classes over the val split
-    (trainer_charades.py:216-274); both take --sliding_window_stride
-    (base_dataset.py:82-106)."""
+    """validate(epoch) -> (metrics of a dual fine-tune, an empty record of
+    eval steps), or None without --val_meta: EK-100 MIR's official
+    mAP/nDCG over the test split and its relevancy pickle
+    (trainer_epic.py:200-306), or Charades-Ego's mAP of the 157 class
+    prompts of --classes over the val split (trainer_charades.py:216-274);
+    both take --sliding_window_stride (base_dataset.py:82-106). With
+    --visualize and --save_dir, each EK-100 validation also writes a page
+    of its retrievals under save_dir/web (trainer_epic.py:293-298)."""
     if not args.val_meta:
         return None
     from egovlpv2_torch.data.datasets import (CharadesEgoDataset,
@@ -594,16 +850,35 @@ def _make_dual_val(args, cfg, model, tok):
         else:
             video_ids = None
 
+        on_sim = None
+        texts_seen = []
+        if args.visualize and args.save_dir:
+            from egovlpv2_torch.utils.visualizer import RetrievalVisualizer
+
+            viz = RetrievalVisualizer(os.path.join(args.save_dir, "web"))
+            pages = itertools.count()
+
+            def on_sim(sim_tv, idx):
+                # the loader's one producer thread runs `post` in batch
+                # order, so texts_seen lines up with the similarity's rows
+                n = min(len(texts_seen), sim_tv.shape[0])
+                viz.write_epoch(next(pages), texts_seen[:n], sim_tv[:n],
+                                gt_indices=list(range(n)))
+
         def post(batch):
+            if on_sim is not None:
+                texts_seen.extend(batch["text"])
             batch.update(tok(batch.pop("text")))
             return batch
 
-        def run_val():
+        def run_val(epoch):
             loader = DataLoader(ds, args.val_batch_size, post_fn=post,
                                 drop_last=False, num_workers=args.num_workers)
+            texts_seen.clear()
             return evaluate_mir(model, loader.epoch(0), relevancy,
                                 video_ids=video_ids,
-                                sentence_video_ids=sentence_video_ids)
+                                sentence_video_ids=sentence_video_ids,
+                                on_sim=on_sim), []
 
         return run_val
 
@@ -617,11 +892,11 @@ def _make_dual_val(args, cfg, model, tok):
     with open(args.classes) as f:  # 157 class prompts, one per line
         enc = tok([line.strip() for line in f if line.strip()])
 
-    def run_val():
+    def run_val(epoch):
         loader = DataLoader(ds, args.val_batch_size, drop_last=False,
                             num_workers=args.num_workers)
         return evaluate_charades(model, loader.epoch(0), enc["text_ids"],
-                                 enc["text_mask"])
+                                 enc["text_mask"]), []
 
     return run_val
 
@@ -663,7 +938,7 @@ def cmd_taskqa(args) -> dict:
     from egovlpv2_torch.weights import training_init_
 
     device = _device(args.device)
-    ckpt = _checkpoint_file(args.ckpt)
+    ckpt = _checked_ckpt(args.ckpt)
     cfg = load_train_config(args.config, args.set)
     with open(args.answer_set) as f:  # output_dim == len(answers)
         num_answers = len([line for line in f if line.strip()])
@@ -705,30 +980,47 @@ def cmd_taskqa(args) -> dict:
             "clips_per_step": args.batch_size}
 
 
-def main(argv=None):
+def _parser() -> argparse.ArgumentParser:
+    """The commands and their flags: those of the JAX CLI's parsers but the
+    multi-host ones, with the same defaults, and --device."""
     parser = argparse.ArgumentParser("egovlpv2-torch")
     sub = parser.add_subparsers(dest="cmd", required=True)
 
     p = sub.add_parser("pretrain")
     p.add_argument("--config", default=None)
     p.add_argument("--set", nargs="*", default=[], help="dotted.key=value")
-    p.add_argument("--synthetic", action="store_true")
-    p.add_argument("--epochs", type=int, default=1)
-    p.add_argument("--steps_per_epoch", type=int, default=10)
-    p.add_argument("--log_every", type=int, default=1)
-    p.add_argument("--ckpt", default=None, help="reference .pth to import")
-    p.add_argument("--save_dir", default=None, help="not ported yet: raises")
-    p.add_argument("--resume", action="store_true",
-                   help="not ported yet: raises")
     p.add_argument("--tokenizer", default="roberta-base")
     _add_data(p)
+    p.add_argument("--save_dir", default=None)
+    p.add_argument("--synthetic", action="store_true")
     p.add_argument("--device_norm", action="store_true",
                    help="ship uint8 frames and normalize on the device "
                         "(4x fewer host-to-device bytes a batch)")
     p.add_argument("--neg_param", type=int, default=60,
                    help="scene-negative window seconds; 0 disables")
+    p.add_argument("--epochs", type=int, default=1)
+    p.add_argument("--steps_per_epoch", type=int, default=10)
+    p.add_argument("--log_every", type=int, default=1)
+    p.add_argument("--ckpt_every", type=int, default=1000)
+    p.add_argument("--resume", action="store_true",
+                   help="go on from the latest checkpoint in save_dir/ckpt")
+    p.add_argument("--val_meta", default=None,
+                   help="egomcq.json for the per-epoch validation")
+    p.add_argument("--val_data", default=None)
+    p.add_argument("--val_synthetic", action="store_true")
+    p.add_argument("--val_batches", type=int, default=2)
+    p.add_argument("--val_vtc_only", action="store_true")
+    p.add_argument("--monitor", default="",
+                   help="'max:key' or 'min:key' over the epoch metrics, "
+                        "e.g. max:ensemble/Inter-video or min:loss_total")
+    p.add_argument("--early_stop", type=int, default=0,
+                   help="stop after N epochs without improvement (0: off)")
+    p.add_argument("--init_val", action="store_true",
+                   help="validate once before training (base_trainer.py:86;"
+                        " with --epochs 0 the reference's eval mode)")
+    p.add_argument("--ckpt", default=None,
+                   help="reference .pth to import, or a ckpt/ directory")
     p.add_argument("--device", default="cuda", help="cuda, cuda:<i> or cpu")
-    _add_not_ported(p, "pretrain")
     p.set_defaults(fn=cmd_pretrain)
 
     e = sub.add_parser("egomcq")
@@ -736,7 +1028,8 @@ def main(argv=None):
     e.add_argument("--set", nargs="*", default=[], help="dotted.key=value")
     e.add_argument("--tokenizer", default="roberta-base")
     _add_data(e)
-    e.add_argument("--ckpt", default=None, help="reference .pth to import")
+    e.add_argument("--ckpt", default=None,
+                   help="reference .pth to import, or a ckpt/ directory")
     e.add_argument("--batch_size", type=int, default=4)
     e.add_argument("--val_batches", type=int, default=2,
                    help="synthetic-mode batch count")
@@ -750,7 +1043,8 @@ def main(argv=None):
     x = sub.add_parser("extract")
     x.add_argument("--config", default=None)
     x.add_argument("--set", nargs="*", default=[], help="dotted.key=value")
-    x.add_argument("--ckpt", default=None, help="reference .pth to import")
+    x.add_argument("--ckpt", default=None,
+                   help="reference .pth to import, or a ckpt/ directory")
     x.add_argument("--videos", default=None, help="glob of video files")
     x.add_argument("--synthetic", type=int, default=None, metavar="N_FRAMES",
                    help="seeded uint8 frames in place of --videos, one clip")
@@ -766,14 +1060,15 @@ def main(argv=None):
         f.add_argument("--set", nargs="*", default=[], help="dotted.key=value")
         f.add_argument("--tokenizer", default="roberta-base")
         _add_data(f)
+        f.add_argument("--ckpt", default=None,
+                       help="reference .pth to import, or a ckpt/ directory")
+        f.add_argument("--save_dir", default=None)
         f.add_argument("--synthetic", action="store_true")
         f.add_argument("--device_norm", action="store_true",
                        help="ship uint8 frames and normalize on the device")
         f.add_argument("--epochs", type=int, default=1)
         f.add_argument("--steps_per_epoch", type=int, default=4)
         f.add_argument("--log_every", type=int, default=1)
-        f.add_argument("--ckpt", default=None,
-                       help="reference .pth to import")
         f.add_argument("--val_meta", default=None,
                        help="epic: test csv + relevancy meta dir; charades: "
                             "meta dir with metadata_val.csv")
@@ -783,14 +1078,17 @@ def main(argv=None):
                        help="charades: 157 class prompts, one per line")
         f.add_argument("--sliding_window_stride", type=int, default=-1,
                        help="test-time window expansion stride (-1 = off)")
-        f.add_argument("--save_dir", default=None,
-                       help="not ported yet: raises")
-        for flag in ("--resume", "--visualize"):
-            f.add_argument(flag, action="store_true",
-                           help="not ported yet: raises")
+        f.add_argument("--resume", action="store_true",
+                       help="go on from the latest checkpoint in "
+                            "save_dir/ckpt")
+        f.add_argument("--visualize", action="store_true",
+                       help="write each EK-100 validation's retrievals as "
+                            "an HTML page under save_dir/web")
+        f.add_argument("--init_val", action="store_true",
+                       help="validate once before training (with --epochs "
+                            "0, an evaluation alone)")
         f.add_argument("--device", default="cuda",
                        help="cuda, cuda:<i> or cpu")
-        _add_not_ported(f, "ft")
         f.set_defaults(fn=cmd_dual_ft, dataset=dataset)
 
     t = sub.add_parser("taskqa", help="EgoTaskQA: QA fine-tune + accuracy")
@@ -805,7 +1103,8 @@ def main(argv=None):
     t.add_argument("--reasoning_types", default=None,
                    help="all_reasoning_types.txt")
     t.add_argument("--ckpt", default=None,
-                   help="pretrained backbone: a reference .pth to import")
+                   help="pretrained backbone: a reference .pth to import, "
+                        "or a ckpt/ directory")
     t.add_argument("--save_dir", default=None)
     t.add_argument("--resume", action="store_true")
     t.add_argument("--test_only", action="store_true")
@@ -815,8 +1114,11 @@ def main(argv=None):
     t.add_argument("--metrics_out", default=None)
     t.add_argument("--device", default="cuda", help="cuda, cuda:<i> or cpu")
     t.set_defaults(fn=cmd_taskqa)
+    return parser
 
-    args = parser.parse_args(argv)
+
+def main(argv=None):
+    args = _parser().parse_args(argv)
     return args.fn(args)
 
 

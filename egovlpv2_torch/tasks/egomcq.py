@@ -25,7 +25,8 @@ def make_egomcq_eval_step(model: EgoVLPv2, with_vtm: bool = True
     """Returns step(video5, ids, mask) -> {'vtc': [B, 5], 'vtm': [B, 5]}.
 
     video5: [B, 5, F, H, W, C] (float32, or uint8 for on-device
-    normalisation); ids/mask: [B, L]. Numpy arrays or CPU tensors: the
+    normalisation); ids/mask: [B, L]. The model runs in `eval()` mode,
+    which is put back after the call. Numpy arrays or CPU tensors: the
     step copies them to the model's device (`train/step.py::
     batch_to_device`: on a card from pinned memory on a copy stream, which
     the step's stream waits for), so its time includes the input
@@ -34,6 +35,16 @@ def make_egomcq_eval_step(model: EgoVLPv2, with_vtm: bool = True
 
     @torch.inference_mode()
     def step(video5, ids, mask):
+        # in eval(): in train() dropout would act and draw from the
+        # training run's generator; the model's mode is put back
+        was_training = model.training
+        model.eval()
+        try:
+            return scores(video5, ids, mask)
+        finally:
+            model.train(was_training)
+
+    def scores(video5, ids, mask):
         t = batch_to_device({"video5": video5, "ids": ids, "mask": mask},
                             device)
         video5, ids, mask = t["video5"], t["ids"].long(), t["mask"]

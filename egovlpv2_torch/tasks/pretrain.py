@@ -93,7 +93,8 @@ def build_pretrain(cfg: TrainConfig, device="cuda", loss_scale: float = 1.0):
 
     The parameters are `weights.training_init_` from a CPU generator
     seeded with `cfg.seed`; dropout and the ITM mining draw from a
-    generator on `device` seeded with `cfg.seed + 1`."""
+    generator on `device` seeded with `cfg.seed + 1`, which the step keeps
+    as `train_step.generator`."""
     device = torch.device(device)
     model = EgoVLPv2(cfg.model, device=device)
     training_init_(model, torch.Generator().manual_seed(cfg.seed))

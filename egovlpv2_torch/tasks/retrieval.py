@@ -67,7 +67,8 @@ def make_dual_train_step(model: EgoVLPv2, cfg: TrainConfig,
 
 def build_dual(cfg: TrainConfig, device="cuda"):
     """Returns (model, optimizer, scheduler, train_step) on `device`, seeded
-    as `tasks.pretrain.build_pretrain` seeds them. A dual model has no ITM
+    as `tasks.pretrain.build_pretrain` seeds them (the dropout generator is
+    `train_step.generator`). A dual model has no ITM
     or MLM head and no fused-path norm; its towers keep the fusion
     parameters, which the loss does not reach."""
     device = torch.device(device)

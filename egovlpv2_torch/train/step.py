@@ -124,7 +124,8 @@ def make_train_step(model: EgoVLPv2, cfg: TrainConfig,
     `model`. Metrics are detached tensors on the model's device (no
     synchronisation here); `grad_norm` joins them when
     `cfg.log_grad_norm`. `loss_fn(model, batch)` returns (loss, metrics);
-    the default is `pretrain_loss_fn` with `generator` and `loss_scale`."""
+    the default is `pretrain_loss_fn` with `generator` and `loss_scale`.
+    The step keeps `generator` as its attribute `generator`."""
     if loss_fn is None:
         loss_fn = functools.partial(pretrain_loss_fn, generator=generator,
                                     cfg=cfg, loss_scale=loss_scale)
@@ -155,4 +156,7 @@ def make_train_step(model: EgoVLPv2, cfg: TrainConfig,
         scheduler.step()
         return {k: v.detach() for k, v in metrics.items()}
 
+    # the generator is part of a run's state (`train/checkpoint.py::
+    # train_state`): a resumed run must draw what the first would have
+    step.generator = generator
     return step

@@ -1,23 +1,54 @@
 """The port's command line against the JAX CLI's on what they share: the
 epoch cap of `pretrain` (`max_samples_per_epoch`), the default steps of the
-fine-tunes, and every flag of the JAX parsers (but the multi-host ones),
-which parses and, where the port does not implement it yet, raises the
-NotImplementedError that names its ROADMAP item."""
+fine-tunes, and every flag of the JAX parsers of the training commands (but
+the multi-host ones), which the port's parser takes with the JAX parser's
+default and value."""
 
+import argparse
 import json
+from unittest import mock
 
 import pytest
 import torch
 
+from egovlpv2_tpu import cli as jcli
 from egovlpv2_torch import cli
 from tests.test_cli import TINY
 
 torch.set_num_threads(2)
 
-NOT_PORTED = [(command, flag) for command, flags in cli._NOT_PORTED.items()
-              for flag in flags]
-BASE = {"pretrain": ["pretrain", "--synthetic"], "egomcq": ["egomcq"],
-        "ft": ["ft-charades", "--synthetic"]}
+MULTI_HOST = {"--multihost", "--coordinator", "--num_processes",
+              "--process_id"}
+
+
+class _Parsed(Exception):
+    pass
+
+
+def _jax_parser() -> argparse.ArgumentParser:
+    """The parser `egovlpv2_tpu.cli.main` builds, caught as it parses."""
+    caught = []
+
+    def catch(parser, *args, **kwargs):
+        caught.append(parser)
+        raise _Parsed
+
+    with mock.patch.object(argparse.ArgumentParser, "parse_args", catch):
+        with pytest.raises(_Parsed):
+            jcli.main([])
+    return caught[0]
+
+
+def _subparsers(parser) -> dict:
+    return parser._subparsers._group_actions[0].choices
+
+
+JAX_PARSER = _jax_parser()
+JAX_FLAGS = [(command, action.option_strings[-1])
+             for command in ("pretrain", "ft-charades", "ft-epic")
+             for action in _subparsers(JAX_PARSER)[command]._actions
+             if action.option_strings and action.dest != "help"
+             and action.option_strings[-1] not in MULTI_HOST]
 
 
 @pytest.fixture()
@@ -52,11 +83,26 @@ def test_finetune_runs_four_steps_an_epoch_by_default(tiny_config, monkeypatch):
     assert [r["step"] for r in res["logged"]] == [1, 2, 3, 4]
 
 
-@pytest.mark.parametrize("command, flag", NOT_PORTED)
-def test_not_ported_flags_parse_then_name_their_item(command, flag):
-    switch, needs = cli._NOT_PORTED[command][flag]
-    item = needs.split("ROADMAP.md ")[1].split(",")[0]
-    args = BASE[command] + ["--device", "cpu", flag] + ([] if switch else ["1"])
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md {item}") as err:
-        cli.main(args)
-    assert str(err.value).startswith(flag)
+def test_the_training_commands_take_every_flag_of_the_jax_parsers():
+    assert len(JAX_FLAGS) == 65  # 23 of pretrain, 21 of each fine-tune
+
+
+@pytest.mark.parametrize("command, flag", JAX_FLAGS)
+def test_jax_flag_parses_alike(command, flag):
+    """The port's parser takes the flag, with the JAX parser's default and,
+    given a value, the same value; it names no ROADMAP item any more."""
+    action = next(a for a in _subparsers(JAX_PARSER)[command]._actions
+                  if flag in a.option_strings)
+    if action.nargs == 0:
+        argv = [flag]
+    elif action.nargs == "*":
+        argv = [flag, "model.remat=true", "seed=3"]
+    else:
+        argv = [flag, {int: "3", float: "0.5"}.get(action.type, "x")]
+    port = cli._parser()
+    for extra in ([], argv):
+        got = vars(port.parse_args([command, *extra]))
+        want = vars(JAX_PARSER.parse_args([command, *extra]))
+        assert got[action.dest] == want[action.dest], extra
+    assert "ROADMAP" not in (port._subparsers._group_actions[0]
+                             .choices[command].format_help())

@@ -3,8 +3,8 @@ tiny widths of the JAX CLI's tests, from videos, frames and metadata written
 here: `pretrain --meta` (one file and a comma list, scene negatives, with
 and without `--device_norm`), `egomcq --meta`, `ft-charades --meta` and
 `ft-epic --meta` with their validations, and `extract --videos`. They
-mirror `tests/test_cli.py` (without `--save_dir`, which waits for ROADMAP.md
-A8) and hold one pretrain step from generated mp4s to the JAX step: the
+mirror `tests/test_cli.py` (its `--save_dir` runs are ported in
+`tests/test_torch_training_loop.py`) and hold one pretrain step from generated mp4s to the JAX step: the
 same collated batch through both packages' pipelines, the same weights,
 the losses within 1e-4 in f32."""
 

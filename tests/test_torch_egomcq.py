@@ -74,8 +74,9 @@ def test_cli_egomcq_runs_on_cpu():
 
 
 def test_cli_refuses_what_it_cannot_do(tmp_path):
-    # a directory is a checkpoint saved by training; a .pth file imports
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # a directory is read as a training run's checkpoints, and this one
+    # holds none; a .pth file imports
+    with pytest.raises(FileNotFoundError, match="no checkpoint found under"):
         cli.main(["egomcq", "--device", "cpu", "--ckpt", str(tmp_path)])
     if torch.cuda.is_available():
         pytest.skip("the CUDA refusal needs a machine without CUDA")

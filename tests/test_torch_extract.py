@@ -262,11 +262,11 @@ def test_cli_extract_synthetic_on_cpu(tmp_path, capsys):
 
 
 def test_cli_extract_refuses_what_is_not_ported(tmp_path):
-    """A checkpoint directory (one saved by training, ROADMAP.md A8) is
-    refused; so are a --videos glob that matches no file and a call with
-    neither --videos nor --synthetic."""
+    """A --ckpt directory holding no checkpoint of a training run raises
+    FileNotFoundError; so do a --videos glob that matches no file, and a
+    call with neither --videos nor --synthetic raises ValueError."""
     base = ["extract", "--device", "cpu", "--out", str(tmp_path)]
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A8"):
+    with pytest.raises(FileNotFoundError, match="no checkpoint found under"):
         cli.main(base + ["--synthetic", "4", "--ckpt", str(tmp_path)])
     with pytest.raises(FileNotFoundError, match="no videos match"):
         cli.main(base + ["--videos", str(tmp_path / "clips" / "*.mp4")])

@@ -7,6 +7,8 @@ rematerialisation, dropout under them, the refusals, and the `pretrain`
 command."""
 
 import dataclasses
+import json
+import os
 
 import numpy as np
 import pytest
@@ -28,6 +30,7 @@ from egovlpv2_torch.tasks import pretrain as tpretrain
 from egovlpv2_torch.train import optimizer as topt
 from egovlpv2_torch.train import step as tstep
 from egovlpv2_torch.weights import state_dict_from_flax
+from tests.test_cli import TINY
 from torch_parity import perturb
 
 torch.set_num_threads(2)
@@ -387,15 +390,28 @@ def test_cli_pretrain_runs_on_cpu(capsys):
     assert sum(changed) > 0.8 * len(changed)
 
 
-def test_cli_pretrain_refuses_what_is_not_ported():
+def test_cli_pretrain_refuses_what_is_not_ported(tmp_path):
+    """pretrain refuses none of its flags any more: --save_dir writes the
+    run's files, --resume without a checkpoint starts from step 0, and
+    --val_meta reads an EgoMCQ file, which must be there. It refuses a
+    run with neither files nor --synthetic, and a card that is not
+    there."""
+    config = tmp_path / "tiny.json"
+    config.write_text(json.dumps(TINY))
     base = ["pretrain", "--device", "cpu"]
-    for extra, what in ((["--synthetic", "--save_dir", "out"], "checkpoints"),
-                        (["--synthetic", "--resume"], "checkpoints"),
-                        (["--synthetic", "--val_meta", "egomcq.json"],
-                         "training loop")):
-        with pytest.raises(NotImplementedError, match="ROADMAP") as err:
-            cli.main(base + extra)
-        assert what in str(err.value)
+    tiny = ["--synthetic", "--config", str(config), "--steps_per_epoch", "1",
+            "--set", "global_batch_size=2"]
+    save = tmp_path / "out"
+    for extra in (["--save_dir", str(save)],
+                  ["--save_dir", str(tmp_path / "fresh"), "--resume"]):
+        res = cli.main(base + tiny + extra)
+        assert [r["step"] for r in res["logged"]] == [1]
+        assert res["restore_seconds"] == [] and len(res["save_seconds"]) == 1
+    assert {"config.json", "info.log", "stats.txt", "ckpt"} <= set(
+        os.listdir(save))
+    assert (save / "ckpt" / "step_1.pt").exists()
+    with pytest.raises(FileNotFoundError, match="egomcq.json"):
+        cli.main(base + tiny + ["--val_meta", str(tmp_path / "egomcq.json")])
     # files or synthetic batches, never a silent fallback
     with pytest.raises(ValueError, match="--meta"):
         cli.main(base)

@@ -8,6 +8,7 @@ own machinery: per-block rematerialisation, the milestone schedule and the
 
 import dataclasses
 import json
+import os
 
 import numpy as np
 import pytest
@@ -463,17 +464,28 @@ def test_synthetic_dual_batch_matches_the_jax_cli_draws(monkeypatch):
 
 
 def test_cli_dual_finetune_refuses_what_is_not_ported(tmp_path):
+    """The fine-tunes refuse none of their flags any more: a --ckpt
+    directory without a checkpoint raises FileNotFoundError, --save_dir
+    writes the run's files, --resume goes on from them, --init_val without
+    --val_meta has nothing to validate, and --visualize writes pages only
+    for an EK-100 validation with a save directory. They refuse a run with
+    neither files nor --synthetic, and a card that is not there."""
     for command in ("ft-charades", "ft-epic"):
         base = [command, "--device", "cpu"]
-        # a checkpoint directory is one saved by training; a .pth imports
-        for extra, what in ((["--synthetic", "--ckpt", str(tmp_path)], "checkpoints"),
-                            (["--synthetic", "--save_dir", "out"], "checkpoints"),
-                            (["--synthetic", "--resume"], "checkpoints"),
-                            (["--synthetic", "--init_val"], "training loop"),
-                            (["--synthetic", "--visualize"], "visualizer")):
-            with pytest.raises(NotImplementedError, match="ROADMAP") as err:
-                cli.main(base + extra)
-            assert what in str(err.value)
+        tiny = ["--synthetic", "--steps_per_epoch", "1", "--set",
+                *TINY_SETS]
+        with pytest.raises(FileNotFoundError, match="no checkpoint found"):
+            cli.main(base + tiny + ["--ckpt", str(tmp_path)])
+        save = tmp_path / command
+        res = cli.main(base + tiny + ["--save_dir", str(save), "--init_val",
+                                      "--visualize"])
+        assert [r["step"] for r in res["logged"]] == [1] and res["val"] == []
+        assert {"config.json", "info.log", "stats.txt", "ckpt"} <= set(
+            os.listdir(save))
+        assert not (save / "web").exists()
+        res = cli.main(base + tiny + ["--save_dir", str(save), "--resume",
+                                      "--epochs", "2"])
+        assert [r["step"] for r in res["logged"]] == [2]
         # files or synthetic batches, never a silent fallback
         with pytest.raises(ValueError, match="--meta"):
             cli.main(base)

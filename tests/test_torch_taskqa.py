@@ -501,5 +501,5 @@ def test_cli_taskqa_testonly_without_ckpt_raises(tiny_config, tmp_path,
         cli.main(common + ["--save_dir", str(tmp_path / "empty"), "--test_only"])
     with pytest.raises(ValueError, match="save_dir"):
         cli.main(common + ["--test_only"])
-    with pytest.raises(NotImplementedError, match="A8"):
+    with pytest.raises(FileNotFoundError, match="no checkpoint found under"):
         cli.main(common + ["--ckpt", str(tmp_path)])
