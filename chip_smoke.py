@@ -73,7 +73,11 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
                 200,768 x 768 (an MQ or NLQ inner batch), 15,696 x 768 (a
                 QFVS one), 240 x 768 (text rows), 301 x 776, and 120 x 768
                 and 6,280 x 768 (the f32 EgoTaskQA step's text and video
-                rows), eps 1e-5 and 1e-12,
+                rows), eps 1e-5 and 1e-12, and in f32 at eps 1e-6 (flax's)
+                at the downstream heads' 8,192 x 128 and 480 x 128 (VSLNet's
+                video and query rows at batch 32) and 4,000 x 768 (the QFVS
+                scorer's 20 x 200 shots), whose times go into the JSON line
+                under "heads",
                 against `layernorm_reference` and
                 `layernorm_backward_reference`: y and dx within 2e-2 (bf16:
                 one rounding step where the f32 values differ in their last
@@ -239,6 +243,27 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
                 batch's host draw), the phase's seconds. No file may be left under the checkout or in the
                 temporary directory, and no pinned host memory held (PyTorch's
                 host allocator holds none once its cache is emptied).
+  8. heads    — the downstream heads through their commands at the
+                published widths, float32 with TF32 off, on seeded files
+                written to a temporary directory outside the checkout in the
+                formats the readers take (Ego4D moments jsons, ego4d.json and
+                [T, 4096] clip features; NLQ jsons, [W, 768] window features
+                and [15, 768] query tokens; QFVS oracle summaries, dense
+                per-shot tags, Tags.mat and P0<v>.npz shot features):
+                `cli mq-anno` then `cli mq` (VSGN, T=928, 5 levels, 110
+                classes + background, batch 16, 2 epochs of 2 steps, 2
+                windows inferred; its four output files written; no hand
+                kernel launched), `cli nlq` (VSLNet, batch 32, max_pos_len
+                256, 2 epochs) and `cli qfvs` (the scorer over 20 x 200
+                shots, d_model 768, 2 epochs over 2 videos, 1 held out):
+                every metric finite, and K8's launches a training step by
+                row count as the models have them (VSLNet 6 at 480 rows and
+                20 at 8,192, the scorer 12 at 4,000), K7 launched, no other
+                kernel. Printed beside the card's name and power limit: each
+                head's step ms and median warm step, peak device memory,
+                inference ms a window / query / item, the host's proposal
+                and NMS ms a window (MQ), and the phase's seconds. No file
+                may be left and no pinned host memory held, as in phase 7.
 Then one JSON line of the kernels and, last, the result line.
 """
 
@@ -258,6 +283,7 @@ import tempfile
 import time
 
 import numpy as np
+import scipy.io as scipy_io
 import torch
 from torch.autograd import DeviceType
 from torch.nn import functional as F
@@ -352,6 +378,14 @@ LN_MAIN_CASE = (torch.bfloat16, 16 * 785, 768)
 LN_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-5}
 LN_SUM_TOL = 1e-3
 LN_EPS = (1e-5, 1e-12)
+# The downstream heads' LayerNorms, f32 at flax's eps 1e-6: VSLNet's video
+# rows (32 x 256) and query rows (32 x 15) at D = 128, the QFVS scorer's
+# rows (20 segments x 200 shots) at D = 768; their times go into the JSON
+# line too, under "heads"
+HEAD_LN_CASES = ((32 * 256, 128), (32 * 15, 128), (20 * 200, 768))
+HEAD_LN_EPS = (1e-6,)
+LN_RUNS = (((torch.bfloat16, torch.float32), LN_CASES, LN_EPS),
+           ((torch.float32,), HEAD_LN_CASES, HEAD_LN_EPS))
 # Fused attention: (label, B, H, Sq, Sk, Dh, layout, masked). Layout "packed":
 # k and v are slices of one [B, Sk, 2, H, Dh] projection (i2t); "heads": each
 # of q, k, v is a transposed view of its own [B, S, H*Dh] projection. Masked
@@ -561,6 +595,29 @@ QFVS_CONCEPTS, QFVS_ORACLE = ("cup", "street"), "cup and street"
 # EgoTaskQA: TrainConfig defaults (4 frames at 224, S=785, f32, 15 tokens),
 # batch 8, seeded in-memory items over a synthetic answer set
 TASKQA_STEPS, TASKQA_BATCH, TASKQA_ANSWERS, TASKQA_VAL_BATCHES = 5, 8, 100, 2
+# The downstream heads (phase 8), at their published widths, on seeded files
+# in the formats the readers take. EgoMQ: VSGN at T=928, 4096-d features, 5
+# levels, 110 moment classes + background, batch 16; 32 training clips (2
+# steps an epoch, 2 epochs) and 2 validation clips, each one window (the
+# validation's loader drops a partial batch, so with 2 clips it has none,
+# as the JAX orchestrator's: the best parameters stay the initial ones).
+MQ_TRAIN_CLIPS, MQ_VAL_CLIPS, MQ_CLASSES, MQ_BATCH = 32, 2, 110, 16
+MQ_FPS = 1.875  # the MQ features' rate: 16-frame windows of 30 fps video
+# EgoNLQ: VSLNet at dim 128, max_pos_len 256, 768-d features, batch 32; 64
+# training queries (2 steps an epoch, 2 epochs), 4 validation ones, 15
+# query tokens. Each training step runs 26 LayerNorms forward and
+# backward: 6 on the query rows (the feature encoder's), 20 on the video
+# rows (6 of the feature encoder's, 12 of the predictor's, start and end).
+NLQ_TRAIN, NLQ_VAL, NLQ_BATCH, NLQ_TOKENS = 64, 4, 32, 15
+NLQ_LN_ROWS = {NLQ_BATCH * NLQ_TOKENS: 6, NLQ_BATCH * 256: 20}
+# QFVS: the scorer at d_model 768 over 20 segments x 200 shots; 2 training
+# videos with 2 concept pairs each (4 steps an epoch, 2 epochs), 1 held
+# out; a step runs the scorer 3 times, 4 LayerNorms each, on 4,000 rows.
+QFVS_SEGMENTS, QFVS_SHOTS, QFVS_PAIRS = 20, 200, (("Car", "Tree"),
+                                                  ("Cupglass", "Sky"))
+QFVS_LN_ROWS = {QFVS_SEGMENTS * QFVS_SHOTS: 12}
+HEAD_EPOCHS = 2
+HEAD_LN_KERNELS = ("layernorm_fwd", "layernorm_bwd")
 QA_TYPES = ("descriptive", "predictive", "explanatory", "counterfactual")
 
 
@@ -1122,124 +1179,130 @@ def _check_cls_row_fwd(qkv, flat, out, lse0) -> str:
 
 
 def phase_layernorm(results: dict) -> None:
-    """K7 and K8 against their plain versions at LN_CASES; the times of
-    LN_MAIN_CASE go into `results`."""
+    """K7 and K8 against their plain versions at LN_CASES (eps LN_EPS) and
+    at HEAD_LN_CASES (f32, eps 1e-6); the times of LN_MAIN_CASE go into
+    `results`, those of the heads' cases under "heads"."""
     gen = torch.Generator(device="cuda").manual_seed(1)
 
     def rel(got, ref):
         ref = ref.float()
         return ((got.float() - ref).abs().max() / ref.abs().max().clamp_min(1e-30)).item()
 
-    for dtype in (torch.bfloat16, torch.float32):
-        for rows, d in LN_CASES:
-            e = torch.finfo(dtype).bits // 8
-            n_sets = int(min(8, max(1, -(-4 * L2_BYTES // (3 * rows * d * e)))))
-            sets = []
-            for _ in range(n_sets):
-                # an offset mean: E[x^2] - E[x]^2 is then not a two-pass variance
-                x = (torch.randn((rows, d), generator=gen, device="cuda") * 0.7
-                     + 1.5).to(dtype)
-                g = torch.randn((rows, d), generator=gen, device="cuda").to(dtype)
-                sets.append((x, g, torch.empty_like(x), torch.empty_like(x)))
-            scale = 1 + 0.2 * torch.randn(d, generator=gen, device="cuda")
-            bias = 0.2 * torch.randn(d, generator=gen, device="cuda")
-            dscale, dbias = torch.empty_like(scale), torch.empty_like(scale)
-            partials = _kernels.layernorm_bwd_scratch(sets[0][0])
-            x, g, y, dx = sets[0]
-            errs = {"layernorm_fwd": 0.0, "layernorm_bwd": 0.0}
-            checks = {}
-            for eps in LN_EPS:
-                y.fill_(float("nan"))
-                dx.fill_(float("nan"))
-                dscale.fill_(float("nan"))
-                dbias.fill_(float("nan"))
-                _kernels.layernorm_fwd(x, scale, bias, y, eps=eps)
-                _kernels.layernorm_bwd(x, scale, g, dx, dscale, dbias, partials,
-                                       eps=eps)
-                torch.cuda.synchronize()
-                ref_y = ln.layernorm_reference(x, scale, bias, eps=eps)
-                ref_dx, ref_ds, ref_db = ln.layernorm_backward_reference(
-                    x, scale, g, eps)
-                for t in (y, dx, dscale, dbias):
-                    if not torch.isfinite(t).all():
-                        raise AssertionError(f"layernorm {dtype} {rows}x{d} eps "
-                                             f"{eps}: non-finite output")
-                r_y, r_dx = rel(y, ref_y), rel(dx, ref_dx)
-                r_ds, r_db = rel(dscale, ref_ds), rel(dbias, ref_db)
-                if not (max(r_y, r_dx) <= LN_TOL[dtype]
-                        and max(r_ds, r_db) <= LN_SUM_TOL):
-                    raise AssertionError(
-                        f"layernorm {dtype} {rows}x{d} eps {eps}: relative "
-                        f"error y {r_y}, dx {r_dx} > {LN_TOL[dtype]} or dscale "
-                        f"{r_ds}, dbias {r_db} > {LN_SUM_TOL}")
-                errs["layernorm_fwd"] = max(
-                    errs["layernorm_fwd"], (y.float() - ref_y.float()).abs().max().item())
-                errs["layernorm_bwd"] = max(
-                    errs["layernorm_bwd"], (dx.float() - ref_dx.float()).abs().max().item())
-                checks[eps] = (f"rel y {r_y:.2e}", f"rel dx {r_dx:.2e} dscale "
-                               f"{r_ds:.2e} dbias {r_db:.2e}")
+    for dtype, (rows, d), epses in ((dt, case, epses)
+                                    for dtypes, cases, epses in LN_RUNS
+                                    for dt in dtypes for case in cases):
+        e = torch.finfo(dtype).bits // 8
+        n_sets = int(min(8, max(1, -(-4 * L2_BYTES // (3 * rows * d * e)))))
+        sets = []
+        for _ in range(n_sets):
+            # an offset mean: E[x^2] - E[x]^2 is then not a two-pass variance
+            x = (torch.randn((rows, d), generator=gen, device="cuda") * 0.7
+                 + 1.5).to(dtype)
+            g = torch.randn((rows, d), generator=gen, device="cuda").to(dtype)
+            sets.append((x, g, torch.empty_like(x), torch.empty_like(x)))
+        scale = 1 + 0.2 * torch.randn(d, generator=gen, device="cuda")
+        bias = 0.2 * torch.randn(d, generator=gen, device="cuda")
+        dscale, dbias = torch.empty_like(scale), torch.empty_like(scale)
+        partials = _kernels.layernorm_bwd_scratch(sets[0][0])
+        x, g, y, dx = sets[0]
+        errs = {"layernorm_fwd": 0.0, "layernorm_bwd": 0.0}
+        checks = {}
+        for eps in epses:
+            y.fill_(float("nan"))
+            dx.fill_(float("nan"))
+            dscale.fill_(float("nan"))
+            dbias.fill_(float("nan"))
+            _kernels.layernorm_fwd(x, scale, bias, y, eps=eps)
+            _kernels.layernorm_bwd(x, scale, g, dx, dscale, dbias, partials,
+                                   eps=eps)
+            torch.cuda.synchronize()
+            ref_y = ln.layernorm_reference(x, scale, bias, eps=eps)
+            ref_dx, ref_ds, ref_db = ln.layernorm_backward_reference(
+                x, scale, g, eps)
+            for t in (y, dx, dscale, dbias):
+                if not torch.isfinite(t).all():
+                    raise AssertionError(f"layernorm {dtype} {rows}x{d} eps "
+                                         f"{eps}: non-finite output")
+            r_y, r_dx = rel(y, ref_y), rel(dx, ref_dx)
+            r_ds, r_db = rel(dscale, ref_ds), rel(dbias, ref_db)
+            if not (max(r_y, r_dx) <= LN_TOL[dtype]
+                    and max(r_ds, r_db) <= LN_SUM_TOL):
+                raise AssertionError(
+                    f"layernorm {dtype} {rows}x{d} eps {eps}: relative "
+                    f"error y {r_y}, dx {r_dx} > {LN_TOL[dtype]} or dscale "
+                    f"{r_ds}, dbias {r_db} > {LN_SUM_TOL}")
+            errs["layernorm_fwd"] = max(
+                errs["layernorm_fwd"], (y.float() - ref_y.float()).abs().max().item())
+            errs["layernorm_bwd"] = max(
+                errs["layernorm_bwd"], (dx.float() - ref_dx.float()).abs().max().item())
+            checks[eps] = (f"rel y {r_y:.2e}", f"rel dx {r_dx:.2e} dscale "
+                           f"{r_ds:.2e} dbias {r_db:.2e}")
 
-            eps = LN_EPS[0]
-            turn = {"i": 0}
+        eps = epses[0]
+        turn = {"i": 0}
 
-            def next_set():
-                turn["i"] += 1
-                return sets[turn["i"] % n_sets]
+        def next_set():
+            turn["i"] += 1
+            return sets[turn["i"] % n_sets]
 
-            # the library call takes its parameters in x's dtype
-            w, b = scale.to(dtype), bias.to(dtype)
-            graphs = []
-            for x_, g_, _, _ in sets:
-                leaves = [t.detach().requires_grad_(True) for t in (x_, w, b)]
-                graphs.append((F.layer_norm(leaves[0], (d,), leaves[1], leaves[2],
-                                            eps), leaves, g_))
+        # the library call takes its parameters in x's dtype
+        w, b = scale.to(dtype), bias.to(dtype)
+        graphs = []
+        for x_, g_, _, _ in sets:
+            leaves = [t.detach().requires_grad_(True) for t in (x_, w, b)]
+            graphs.append((F.layer_norm(leaves[0], (d,), leaves[1], leaves[2],
+                                        eps), leaves, g_))
 
-            def kernel_fwd():
-                x_, _, y_, _ = next_set()
-                _kernels.layernorm_fwd(x_, scale, bias, y_, eps=eps)
+        def kernel_fwd():
+            x_, _, y_, _ = next_set()
+            _kernels.layernorm_fwd(x_, scale, bias, y_, eps=eps)
 
-            def kernel_bwd():
-                x_, g_, _, dx_ = next_set()
-                _kernels.layernorm_bwd(x_, scale, g_, dx_, dscale, dbias, partials,
-                                       eps=eps)
+        def kernel_bwd():
+            x_, g_, _, dx_ = next_set()
+            _kernels.layernorm_bwd(x_, scale, g_, dx_, dscale, dbias, partials,
+                                   eps=eps)
 
-            def plain_bwd():
-                x_, g_, _, _ = next_set()
-                ln.layernorm_backward_reference(x_, scale, g_, eps)
+        def plain_bwd():
+            x_, g_, _, _ = next_set()
+            ln.layernorm_backward_reference(x_, scale, g_, eps)
 
-            def library_bwd():
-                out, leaves, g_ = graphs[(turn["i"] + 1) % n_sets]
-                turn["i"] += 1
-                torch.autograd.grad(out, leaves, g_, retain_graph=True)
+        def library_bwd():
+            out, leaves, g_ = graphs[(turn["i"] + 1) % n_sets]
+            turn["i"] += 1
+            torch.autograd.grad(out, leaves, g_, retain_graph=True)
 
-            runs = {
-                "layernorm_fwd": (
-                    kernel_fwd,
-                    lambda: ln.layernorm_reference(next_set()[0], scale, bias, eps=eps),
-                    lambda: F.layer_norm(next_set()[0], (d,), w, b, eps)),
-                "layernorm_bwd": (kernel_bwd, plain_bwd, library_bwd),
-            }
-            for i, (name, (kernel, plain, library)) in enumerate(runs.items()):
-                events = _device_events(kernel)
-                ms, plain_ms, lib_ms = sum(events.values()), _time_ms(plain), _time_ms(library)
-                least, by = ln_bound_ms(name, dtype, rows, d)
-                tag = f"{str(dtype).split('.')[-1]} R={rows} D={d}"
-                check = "; ".join(f"eps {k:g}: {v[i]}" for k, v in checks.items())
-                if name == "layernorm_bwd":
-                    check += _check_layernorm_bwd(x, scale, g, partials, eps,
-                                                  events)
-                print(f"[3 kernels] {name:22s} {tag:24s} err={errs[name]:.3e} "
-                      f"({check}; tol {LN_TOL[dtype]:.0e}, sums {LN_SUM_TOL:.0e})  "
-                      f"kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  library "
-                      f"{lib_ms:.4f} ms  bound {least:.4f} ms ({by})  "
-                      f"[{n_sets} input sets]", flush=True)
-                r = results[name]
-                r["max_abs_err"] = max(r["max_abs_err"], errs[name])
-                if (dtype, rows, d) == LN_MAIN_CASE:
-                    r.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                             bound_ms=least, bound_by=by, shape=tag)
-            del sets, graphs
-            torch.cuda.empty_cache()
+        runs = {
+            "layernorm_fwd": (
+                kernel_fwd,
+                lambda: ln.layernorm_reference(next_set()[0], scale, bias, eps=eps),
+                lambda: F.layer_norm(next_set()[0], (d,), w, b, eps)),
+            "layernorm_bwd": (kernel_bwd, plain_bwd, library_bwd),
+        }
+        for i, (name, (kernel, plain, library)) in enumerate(runs.items()):
+            events = _device_events(kernel)
+            ms, plain_ms, lib_ms = sum(events.values()), _time_ms(plain), _time_ms(library)
+            least, by = ln_bound_ms(name, dtype, rows, d)
+            tag = f"{str(dtype).split('.')[-1]} R={rows} D={d}"
+            check = "; ".join(f"eps {k:g}: {v[i]}" for k, v in checks.items())
+            if name == "layernorm_bwd":
+                check += _check_layernorm_bwd(x, scale, g, partials, eps,
+                                              events)
+            print(f"[3 kernels] {name:22s} {tag:24s} err={errs[name]:.3e} "
+                  f"({check}; tol {LN_TOL[dtype]:.0e}, sums {LN_SUM_TOL:.0e})  "
+                  f"kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  library "
+                  f"{lib_ms:.4f} ms  bound {least:.4f} ms ({by})  "
+                  f"[{n_sets} input sets]", flush=True)
+            r = results[name]
+            r["max_abs_err"] = max(r["max_abs_err"], errs[name])
+            if (dtype, rows, d) == LN_MAIN_CASE:
+                r.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                         bound_ms=least, bound_by=by, shape=tag)
+            if (rows, d) in HEAD_LN_CASES:
+                r.setdefault("heads", {})[f"R={rows} D={d} eps {eps:g}"] = \
+                    dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                         bound_ms=least, bound_by=by, max_abs_err=errs[name])
+        del sets, graphs
+        torch.cuda.empty_cache()
 
 
 def _check_layernorm_bwd(x, scale, g, partials, eps, events) -> str:
@@ -2506,6 +2569,270 @@ def phase_loop(smi: str) -> dict:
     return val_counts
 
 
+def _write_mq_files(root: str, rng: np.random.Generator) -> tuple:
+    """Ego4D moments jsons (train, val), ego4d.json and [T, 4096] float32
+    clip features: MQ_TRAIN_CLIPS + MQ_VAL_CLIPS clips of 200 to 928
+    feature frames, 2 to 6 primary moments each, the labels round robin
+    over MQ_CLASSES. Returns the paths of the two moments files and the
+    info file."""
+    videos = {"train": [], "val": []}
+    info = []
+    n = 0
+    for split, clips in (("train", MQ_TRAIN_CLIPS), ("val", MQ_VAL_CLIPS)):
+        for i in range(clips):
+            clip = f"{split}_clip_{i:03d}"
+            frames = int(rng.integers(200, 929))
+            np.save(os.path.join(root, "features", clip + ".npy"),
+                    rng.standard_normal((frames, 4096), dtype=np.float32))
+            duration = frames / MQ_FPS
+            labels = []
+            for _ in range(int(rng.integers(2, 7))):
+                start = float(rng.uniform(0, 0.8 * duration))
+                labels.append({
+                    "label": f"class_{n % MQ_CLASSES:03d}", "primary": True,
+                    "start_time": start,
+                    "end_time": min(duration, start + float(
+                        rng.uniform(2, 0.2 * duration)))})
+                n += 1
+            videos[split].append({
+                "video_uid": f"video_{clip}", "split": split,
+                "clips": [{"clip_uid": clip, "video_start_sec": 0.0,
+                           "video_end_sec": duration,
+                           "annotations": [{"labels": labels}]}]})
+            info.append({"video_uid": f"video_{clip}",
+                         "duration_sec": duration})
+    paths = []
+    for split in ("train", "val"):
+        paths.append(os.path.join(root, f"moments_{split}.json"))
+        with open(paths[-1], "w") as f:
+            json.dump({"videos": videos[split]}, f)
+    paths.append(os.path.join(root, "ego4d.json"))
+    with open(paths[-1], "w") as f:
+        json.dump({"videos": info}, f)
+    return tuple(paths)
+
+
+def _write_nlq_files(root: str, rng: np.random.Generator) -> tuple:
+    """Ego4D NLQ jsons (train, val) of one query a clip, its fused window
+    features [W, 768] (W 128 to 300: longer ones are cut at max_pos_len)
+    and raw query tokens [15, 768], as `extract_nlq_features` writes them.
+    Returns the two json paths."""
+    paths = []
+    for split, queries in (("train", NLQ_TRAIN), ("val", NLQ_VAL)):
+        videos = []
+        for i in range(queries):
+            clip, ann = f"{split}_clip_{i:03d}", f"ann_{i:03d}"
+            windows = int(rng.integers(128, 301))
+            key = os.path.join(root, "features", f"{clip}_{ann}_0")
+            np.save(key + ".npy", rng.standard_normal((windows, 768),
+                                                      dtype=np.float32))
+            np.save(key + "_query.npy",
+                    rng.standard_normal((NLQ_TOKENS, 768), dtype=np.float32))
+            duration = windows * 16 / 30.0
+            start = float(rng.uniform(0, 0.8 * duration))
+            videos.append({"video_uid": f"video_{clip}", "clips": [{
+                "clip_uid": clip, "video_start_sec": 0.0,
+                "video_end_sec": duration, "annotations": [{
+                    "annotation_uid": ann, "language_queries": [{
+                        "query": f"where did I put object {i}",
+                        "clip_start_sec": start,
+                        "clip_end_sec": min(duration, start + float(
+                            rng.uniform(1, 0.2 * duration)))}]}]}]})
+        paths.append(os.path.join(root, f"nlq_{split}.json"))
+        with open(paths[-1], "w") as f:
+            json.dump({"videos": videos}, f)
+    return tuple(paths)
+
+
+def _write_qfvs_files(root: str, rng: np.random.Generator) -> None:
+    """For videos 1-3: QFVS_PAIRS oracle summaries (1-indexed shots, about
+    2% of them), dense per-shot tags (one line a shot, concept names), the
+    packed shot features P0<v>.npz (20 x 200 x 768 for each of concept1,
+    concept2 and oracle; segments of 100 to 200 shots) and one Tags.mat of
+    the videos' per-shot concept matrices."""
+    concepts = sorted({c for pair in QFVS_PAIRS for c in pair} | {"Street"})
+    tags = np.empty((3, 1), object)
+    for vid in (1, 2, 3):
+        seg_len = rng.integers(100, QFVS_SHOTS + 1, QFVS_SEGMENTS)
+        shots = int(seg_len.sum())
+        shot_tags = rng.random((shots, len(concepts))) < 0.2
+        tags[vid - 1, 0] = shot_tags.astype(np.uint8)
+        for sub in ("oracle", "tags"):
+            os.makedirs(os.path.join(root, sub, f"P0{vid}"), exist_ok=True)
+        with open(os.path.join(root, "tags", f"P0{vid}", f"P0{vid}.txt"),
+                  "w") as f:
+            for row in shot_tags:
+                f.write(",".join(c for c, t in zip(concepts, row) if t) + "\n")
+        for c1, c2 in QFVS_PAIRS:
+            picked = np.sort(rng.choice(shots, max(shots // 50, 1),
+                                        replace=False)) + 1
+            with open(os.path.join(root, "oracle", f"P0{vid}",
+                                   f"{c1}_{c2}_oracle.txt"), "w") as f:
+                f.write("".join(f"{s}\n" for s in picked))
+        shape = (QFVS_SEGMENTS, QFVS_SHOTS, 768)
+        np.savez(os.path.join(root, "features", f"P0{vid}.npz"),
+                 seg_len=seg_len.astype(np.int32),
+                 **{k: rng.standard_normal(shape, dtype=np.float32)
+                    for k in ("feat_concept1", "feat_concept2",
+                              "feat_oracle")})
+    scipy_io.savemat(os.path.join(root, "Tags.mat"), {"Tags": tags})
+
+
+def _median_ms(seconds: list, skip: int = 0) -> float:
+    return round(float(np.median(seconds[skip:])) * 1e3, 3)
+
+
+def _head_run(what: str, argv: list, kernels_expected: tuple,
+              rows_expected: dict, steps: int) -> tuple:
+    """`cli.main(argv)` on the card with the counts set to 0 and the peak
+    memory reset: every metric finite, the hand kernels launched only
+    those of `kernels_expected`, K8's launches by row count
+    `rows_expected` a step. Returns (its result, its counts, peak GiB)."""
+    _free()
+    _reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    res = cli.main(argv)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    counts = dict(_kernels.launch_counts)
+    rows = dict(_kernels.layernorm_bwd_rows)
+    metrics = res["metrics"]
+    if not metrics or not all(np.isfinite(v) for v in metrics.values()):
+        raise AssertionError(f"{what}: metrics {metrics}")
+    if len(res["timings"]["step"]) != steps:
+        raise AssertionError(f"{what}: {len(res['timings']['step'])} steps, "
+                             f"not {steps}")
+    stray = {k: v for k, v in counts.items()
+             if v and k not in kernels_expected}
+    missing = [k for k in kernels_expected if not counts[k]]
+    want_rows = {r: n * steps for r, n in rows_expected.items()}
+    if stray or missing or rows != want_rows:
+        raise AssertionError(f"{what}: launches {counts}, K8 by rows {rows} "
+                             f"(expected {want_rows})")
+    return res, counts, peak
+
+
+def phase_heads(smi: str) -> dict:
+    """The downstream heads through their commands at the published widths,
+    float32 with TF32 off, on seeded files written to a temporary directory
+    outside the checkout: `cli mq-anno` then `cli mq` (VSGN, no hand
+    kernel), `cli nlq` (VSLNet) and `cli qfvs` (the summary scorer), whose
+    LayerNorms run K7 and K8 on every training step. Returns the launch
+    counts of each run."""
+    t_phase = time.perf_counter()
+    files_before, pinned_before = _checkout_files(), _pinned_in_use()
+    rng = np.random.default_rng(8)
+    by_path, lines = {}, []
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_heads_") as tmp:
+        os.makedirs(os.path.join(tmp, "features"))
+        t0 = time.perf_counter()
+        moments_train, moments_val, info = _write_mq_files(tmp, rng)
+        nlq_train, nlq_val = _write_nlq_files(tmp, rng)
+        _write_qfvs_files(tmp, rng)
+        write_s = time.perf_counter() - t0
+        feats = os.path.join(tmp, "features")
+
+        anno = os.path.join(tmp, "clip_annotations.json")
+        counts = cli.main(["mq-anno", "--moments",
+                           f"{moments_train},{moments_val}", "--info", info,
+                           "--features", feats, "--out", anno])
+        if counts != {"train": MQ_TRAIN_CLIPS, "val": MQ_VAL_CLIPS}:
+            raise AssertionError(f"mq-anno: {counts}")
+        out = os.path.join(tmp, "mq_out")
+        steps = HEAD_EPOCHS * MQ_TRAIN_CLIPS // MQ_BATCH
+        res, by_path["mq_vsgn_b16_t928"], peak = _head_run(
+            "mq", ["mq", "--device", "cuda", "--anno", anno, "--features",
+                   feats, "--out", out, "--epochs", str(HEAD_EPOCHS),
+                   "--batch_size", str(MQ_BATCH)], (), {}, steps)
+        with open(os.path.join(out, "moment_classes.json")) as f:
+            classes = json.load(f)
+        written = sorted(os.listdir(out))
+        if len(classes) != MQ_CLASSES + 1 or written != [
+                "detections_postNMS.json", "moment_classes.json",
+                "retreival_postNMS.json", "submission.json"]:
+            raise AssertionError(f"mq: {len(classes)} classes, wrote "
+                                 f"{written}")
+        with open(os.path.join(out, "submission.json")) as f:
+            submission = json.load(f)
+        n_det = sum(len(v) for v in submission["detect_results"].values())
+        t = res["timings"]
+        if len(t["infer"]) != MQ_VAL_CLIPS or not n_det:
+            raise AssertionError(f"mq: {len(t['infer'])} windows inferred, "
+                                 f"{n_det} detections")
+        lines.append(
+            f"mq_vsgn_b16_t928 (VSGN T=928 in 4096, hidden 256, 5 levels, "
+            f"{MQ_CLASSES} classes + background, batch {MQ_BATCH}): step ms "
+            f"{_ms({'s': t['step']})['s']}, median warm "
+            f"{_median_ms(t['step'], 1)}; peak {peak:.2f} GiB; inference ms "
+            f"a window {_ms({'s': t['infer']})['s']}; proposals + NMS on "
+            f"the host ms a window {_ms({'s': t['proposals']})['s']} "
+            f"({n_det} detections); mAP_avg "
+            f"{res['metrics']['mAP_avg']:.4f}; no hand kernel launched")
+        del res
+        _free()
+
+        steps = HEAD_EPOCHS * NLQ_TRAIN // NLQ_BATCH
+        res, by_path["nlq_vslnet_b32"], peak = _head_run(
+            "nlq", ["nlq", "--device", "cuda", "--train_anno", nlq_train,
+                    "--val_anno", nlq_val, "--features", feats, "--epochs",
+                    str(HEAD_EPOCHS), "--batch_size", str(NLQ_BATCH)],
+            HEAD_LN_KERNELS, NLQ_LN_ROWS, steps)
+        t = res["timings"]
+        if len(t["infer"]) != NLQ_VAL:
+            raise AssertionError(f"nlq: {len(t['infer'])} queries inferred")
+        lines.append(
+            f"nlq_vslnet_b32 (VSLNet dim 128, 8 heads, max_pos_len 256, "
+            f"768-d features, batch {NLQ_BATCH}): step ms "
+            f"{_ms({'s': t['step']})['s']}, median warm "
+            f"{_median_ms(t['step'], 1)}; peak {peak:.2f} GiB; inference ms "
+            f"a query {_ms({'s': t['infer']})['s']}; metrics {res['metrics']};"
+            f" K7 {by_path['nlq_vslnet_b32']['layernorm_fwd']}, K8 "
+            f"{by_path['nlq_vslnet_b32']['layernorm_bwd']} launches, K8 a "
+            f"step by rows {NLQ_LN_ROWS}")
+        del res
+        _free()
+
+        steps = HEAD_EPOCHS * 2 * len(QFVS_PAIRS)
+        res, by_path["qfvs_scorer_20x200"], peak = _head_run(
+            "qfvs", ["qfvs", "--device", "cuda", "--oracle",
+                     os.path.join(tmp, "oracle"), "--tags",
+                     os.path.join(tmp, "tags"), "--tags_mat",
+                     os.path.join(tmp, "Tags.mat"), "--features", feats,
+                     "--train_videos", "1,2", "--test_video", "3",
+                     "--epochs", str(HEAD_EPOCHS)],
+            HEAD_LN_KERNELS, QFVS_LN_ROWS, steps)
+        t = res["timings"]
+        if len(t["infer"]) != len(QFVS_PAIRS):
+            raise AssertionError(f"qfvs: {len(t['infer'])} items scored")
+        lines.append(
+            f"qfvs_scorer_20x200 (d_model 768, 2 heads, 2 layers, "
+            f"{QFVS_SEGMENTS} x {QFVS_SHOTS} shots): step ms "
+            f"{_ms({'s': t['step']})['s']}, median warm "
+            f"{_median_ms(t['step'], 1)}; peak {peak:.2f} GiB; inference ms "
+            f"an item {_ms({'s': t['infer']})['s']}; F1 "
+            f"{res['metrics']['F1']:.3f}; K7 "
+            f"{by_path['qfvs_scorer_20x200']['layernorm_fwd']}, K8 "
+            f"{by_path['qfvs_scorer_20x200']['layernorm_bwd']} launches, K8 "
+            f"a step by rows {QFVS_LN_ROWS}")
+        del res
+        _free()
+    files_after, pinned_after = _checkout_files(), _pinned_in_use()
+    if os.path.exists(tmp) or files_after != files_before:
+        raise AssertionError(f"heads: files left behind: "
+                             f"{sorted(files_after - files_before)} {tmp}")
+    if pinned_after != pinned_before:
+        raise AssertionError(f"heads: pinned host memory left in use: "
+                             f"{pinned_before} -> {pinned_after}")
+    head = f"[8 heads] ({smi})"
+    for line in lines:
+        print(f"{head} {line}", flush=True)
+    print(f"{head} seeded files written in {write_s:.1f} s; LayerNorm "
+          f"inputs copied {dict(ln.contiguous_copies)}; no file left, pinned "
+          f"host memory held {pinned_after} as before; "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    return by_path
+
+
 def main() -> None:
     smi = phase_device()
     phase_build()
@@ -2520,6 +2847,7 @@ def main() -> None:
     by_path["taskqa"] = phase_taskqa()
     phase_feed(smi)
     by_path["pretrain_val"] = phase_loop(smi)
+    by_path.update(phase_heads(smi))
     for path in ("egomcq_16f", "egomcq_4f", "egomcq_16f_1q", "pretrain"):
         if not by_path[path]["fused_attention_fwd"]:
             raise AssertionError(f"{path}: K9 was not launched")
@@ -2538,7 +2866,10 @@ def main() -> None:
     # blocks' partials); K10 two and K11 three.
     # pretrain_val: the validation batches of the loop phase's run C
     steps = {"pretrain": PRETRAIN_STEPS, "taskqa": TASKQA_STEPS,
-             "pretrain_val": 2 * LOOP_VAL_BATCHES}
+             "pretrain_val": 2 * LOOP_VAL_BATCHES,
+             "mq_vsgn_b16_t928": HEAD_EPOCHS * MQ_TRAIN_CLIPS // MQ_BATCH,
+             "nlq_vslnet_b32": HEAD_EPOCHS * NLQ_TRAIN // NLQ_BATCH,
+             "qfvs_scorer_20x200": HEAD_EPOCHS * 2 * len(QFVS_PAIRS)}
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": KERNELS[k][0],
          "replaces": KERNELS[k][1],

@@ -78,6 +78,30 @@ Subcommands:
         --qa_val val.json --videos videos/ --answer_set answer_set.txt \\
         --reasoning_types all_reasoning_types.txt --save_dir qa_ckpt
 
+  mq, mq-anno, nlq, qfvs — the downstream heads on extracted features, as
+             the JAX CLI's: `mq-anno` converts the official Ego4D moments
+             jsons into the clip table that `mq` reads; `mq` trains VSGN,
+             keeps the epoch of least validation loss, infers proposals and
+             prints detection mAP and retrieval recall (and writes
+             detections_postNMS.json, retreival_postNMS.json and
+             submission.json under --out); `nlq` trains VSLNet on
+             <clip>_<ann>_<q>.npy features and prints R@k and mIoU; `qfvs`
+             trains the summary scorer on P0<v>.npz shot features and
+             prints the held-out video's F1. Each prints its metrics as one
+             JSON line (also into --metrics_out). The heads are float32 and
+             run with TF32 off; VSLNet's and the scorer's LayerNorms run
+             the LayerNorm kernels on the card.
+
+    python -m egovlpv2_torch.cli mq-anno --moments moments_train.json,\
+        moments_val.json --info ego4d.json --features feats/ --out anno.json
+    python -m egovlpv2_torch.cli mq --device cuda --anno anno.json \
+        --features feats/ --out mq_out/
+    python -m egovlpv2_torch.cli nlq --device cuda --train_anno \
+        nlq_train.json --val_anno nlq_val.json --features nlq_feats/
+    python -m egovlpv2_torch.cli qfvs --device cuda --oracle Oracle_Summaries \
+        --tags Dense_per_shot_tags --tags_mat Tags.mat --features qfvs_feats/ \
+        --train_videos 1,2,3 --test_video 4
+
 Checkpoints of pretrain and the fine-tunes (`train/checkpoint.py`):
 `--save_dir` writes the resolved config.json, info.log, stats.txt (a JSON
 line a logged step and a validation) and ckpt/: a checkpoint after each
@@ -98,8 +122,10 @@ parameters it has). The multi-host flags of the JAX CLI are not taken.
 
 Without a checkpoint every parameter is drawn from a torch.Generator seeded
 with the config's `seed` (`weights.random_init_` for egomcq and extract,
-`weights.training_init_` for pretrain and the fine-tunes). `--device cuda` on a machine
-without CUDA raises; it never carries on on the CPU.
+`weights.training_init_` for pretrain and the fine-tunes); the heads' from
+flax's default initialisers with seed 0 (`weights.flax_init_`), as the JAX
+commands draw them. `--device cuda` on a machine without CUDA raises; it
+never carries on on the CPU.
 """
 
 from __future__ import annotations
@@ -980,6 +1006,102 @@ def cmd_taskqa(args) -> dict:
             "clips_per_step": args.batch_size}
 
 
+def cmd_mq(args) -> dict:
+    """EgoMQ: VSGN on extracted features -> proposals -> detection mAP
+    (EgoMQ/Train.py:24-65 + Infer/Eval scripts as one entry)."""
+    from egovlpv2_torch.tasks.orchestrators import run_egomq
+
+    device, timings = _device(args.device), {}
+    metrics = run_egomq(
+        args.anno, args.features, args.out, epochs=args.epochs,
+        batch_size=args.batch_size, lr=args.lr, step_size=args.step_size,
+        gamma=args.gamma, temporal_scale=args.temporal_scale,
+        input_feat_dim=args.input_feat_dim, num_levels=args.num_levels,
+        window_stride=args.window_stride, use_vss=args.use_vss,
+        device=device, timings=timings)
+    _emit_metrics(metrics, args.metrics_out)
+    return {"metrics": metrics, "timings": timings}
+
+
+def cmd_mq_anno(args) -> dict:
+    """Official Ego4D moments jsons -> the clip-annotation table `mq`
+    consumes (EgoMQ/Convert_annotations.py)."""
+    from egovlpv2_torch.downstream.mq_data import write_clip_annotations
+
+    counts = write_clip_annotations(args.out, args.moments.split(","),
+                                    args.info, feature_dir=args.features)
+    print(json.dumps(counts))
+    return counts
+
+
+def cmd_nlq(args) -> dict:
+    """EgoNLQ: official nlq json + extracted per-query features -> VSLNet ->
+    R@k/mIoU (EgoNLQ/main.py:197-330)."""
+    from egovlpv2_torch.downstream.nlq_data import (attach_feature_indices,
+                                                    load_nlq_annotations)
+    from egovlpv2_torch.tasks.orchestrators import run_egonlq
+
+    device = _device(args.device)
+    train_rec = load_nlq_annotations(args.train_anno)
+    val_rec = load_nlq_annotations(args.val_anno)
+    # window counts come from the extracted feature dumps
+    # (<clip>_<ann>_<qidx>.npy written by tasks/extract.extract_nlq_features)
+    nw: Dict[str, int] = {}
+    for r in train_rec + val_rec:
+        if r["clip_uid"] in nw:
+            continue
+        p = os.path.join(
+            args.features,
+            f"{r['clip_uid']}_{r['annotation_uid']}_{r['query_idx']}.npy")
+        if os.path.exists(p):
+            nw[r["clip_uid"]] = int(np.load(p, mmap_mode="r").shape[0])
+    train_meta = attach_feature_indices(train_rec, nw)
+    val_meta = attach_feature_indices(val_rec, nw)
+    gt = {(r["clip_uid"], r["annotation_uid"], r["query_idx"]):
+          (r["s_time"], r["e_time"]) for r in val_meta if "s_time" in r}
+    timings = {}
+    metrics = run_egonlq(
+        train_meta, val_meta, args.features, gt, epochs=args.epochs,
+        batch_size=args.batch_size, lr=args.lr, max_pos_len=args.max_pos_len,
+        video_feature_dim=args.video_feature_dim, device=device,
+        timings=timings)
+    _emit_metrics(metrics, args.metrics_out)
+    return {"metrics": metrics, "timings": timings}
+
+
+def cmd_qfvs(args) -> dict:
+    """QFVS: packed shot features + oracle summaries -> summary scorer ->
+    leave-one-out bipartite F1 (QFVS/main.py:37-54)."""
+    from egovlpv2_torch.downstream.qfvs_data import (QFVSDataset,
+                                                     load_videos_tag)
+    from egovlpv2_torch.tasks.orchestrators import run_qfvs
+
+    device = _device(args.device)
+    train_ids = [int(x) for x in args.train_videos.split(",")]
+    test_id = int(args.test_video)
+    feats = {}
+    for vid in train_ids + [test_id]:
+        with np.load(os.path.join(args.features, f"P0{vid}.npz")) as z:
+            feats[str(vid)] = {k: z[k] for k in (
+                "seg_len", "feat_concept1", "feat_concept2", "feat_oracle")}
+
+    def dataset(ids):
+        return QFVSDataset(args.oracle, args.tags, ids, feats,
+                           max_segment_num=args.max_segments,
+                           max_frame_num=args.max_shots)
+
+    test_ds = dataset([test_id])
+    test_items = [test_ds[i] for i in range(len(test_ds))]
+    shots_tag = load_videos_tag(args.tags_mat)[test_id - 1]
+    timings = {}
+    metrics = run_qfvs(dataset(train_ids), test_items, shots_tag,
+                       epochs=args.epochs, lr=args.lr,
+                       top_percent=args.top_percent, device=device,
+                       timings=timings)
+    _emit_metrics(metrics, args.metrics_out)
+    return {"metrics": metrics, "timings": timings}
+
+
 def _parser() -> argparse.ArgumentParser:
     """The commands and their flags: those of the JAX CLI's parsers but the
     multi-host ones, with the same defaults, and --device."""
@@ -1114,6 +1236,69 @@ def _parser() -> argparse.ArgumentParser:
     t.add_argument("--metrics_out", default=None)
     t.add_argument("--device", default="cuda", help="cuda, cuda:<i> or cpu")
     t.set_defaults(fn=cmd_taskqa)
+
+    m = sub.add_parser("mq", help="EgoMQ: train VSGN + infer + detection mAP")
+    m.add_argument("--anno", required=True, help="clip annotation json")
+    m.add_argument("--features", required=True, help="extracted feature dir")
+    m.add_argument("--out", required=True, help="work/output dir")
+    m.add_argument("--epochs", type=int, default=10)
+    m.add_argument("--batch_size", type=int, default=16)
+    m.add_argument("--lr", type=float, default=1e-4)
+    m.add_argument("--step_size", type=int, default=10)
+    m.add_argument("--gamma", type=float, default=0.5)
+    m.add_argument("--temporal_scale", type=int, default=928)
+    m.add_argument("--input_feat_dim", type=int, default=4096)
+    m.add_argument("--num_levels", type=int, default=5)
+    m.add_argument("--window_stride", type=int, default=None)
+    m.add_argument("--use_vss", action="store_true",
+                   help="self-stitch short training clips (the model's "
+                        "graph always takes VSS neighbours)")
+    m.add_argument("--metrics_out", default=None)
+    m.add_argument("--device", default="cuda", help="cuda, cuda:<i> or cpu")
+    m.set_defaults(fn=cmd_mq)
+
+    ma = sub.add_parser(
+        "mq-anno",
+        help="convert official Ego4D moments jsons to clip annotations")
+    ma.add_argument("--moments", required=True,
+                    help="comma-separated moments_{train,val,test}.json")
+    ma.add_argument("--info", required=True,
+                    help="ego4d.json video metadata (duration_sec)")
+    ma.add_argument("--features", default=None,
+                    help="feature dir: skip videos without dumps, record fps")
+    ma.add_argument("--out", required=True, help="output clip-annotation json")
+    ma.set_defaults(fn=cmd_mq_anno)
+
+    n = sub.add_parser("nlq", help="EgoNLQ: train VSLNet + official metrics")
+    n.add_argument("--train_anno", required=True, help="official nlq_train.json")
+    n.add_argument("--val_anno", required=True, help="official nlq_val.json")
+    n.add_argument("--features", required=True,
+                   help="dir of <clip>_<ann>_<qidx>.npy + *_query.npy dumps")
+    n.add_argument("--epochs", type=int, default=10)
+    n.add_argument("--batch_size", type=int, default=32)
+    n.add_argument("--lr", type=float, default=1e-3)
+    n.add_argument("--max_pos_len", type=int, default=256)
+    n.add_argument("--video_feature_dim", type=int, default=768)
+    n.add_argument("--metrics_out", default=None)
+    n.add_argument("--device", default="cuda", help="cuda, cuda:<i> or cpu")
+    n.set_defaults(fn=cmd_nlq)
+
+    q = sub.add_parser("qfvs", help="QFVS: summary scorer + bipartite F1")
+    q.add_argument("--oracle", required=True, help="Oracle_Summaries root")
+    q.add_argument("--tags", required=True, help="Dense_per_shot_tags root")
+    q.add_argument("--tags_mat", required=True, help="Tags.mat path")
+    q.add_argument("--features", required=True,
+                   help="dir of P0<v>.npz packed shot features")
+    q.add_argument("--train_videos", required=True, help="e.g. 1,2,3")
+    q.add_argument("--test_video", required=True)
+    q.add_argument("--epochs", type=int, default=5)
+    q.add_argument("--lr", type=float, default=1e-4)
+    q.add_argument("--top_percent", type=float, default=0.02)
+    q.add_argument("--max_segments", type=int, default=20)
+    q.add_argument("--max_shots", type=int, default=200)
+    q.add_argument("--metrics_out", default=None)
+    q.add_argument("--device", default="cuda", help="cuda, cuda:<i> or cpu")
+    q.set_defaults(fn=cmd_qfvs)
     return parser
 
 

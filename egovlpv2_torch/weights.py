@@ -8,9 +8,16 @@ name ending in `_<i>` (`blocks_0`, `layer_3`) becomes a list entry
 
   flax Dense `kernel` [in, out]      <-> torch `weight` [out, in]
   flax patch `kernel` [p, p, C, D]   <-> torch `weight`, the same HWIO array
-  flax LayerNorm `scale`             <-> torch `weight`
+  flax Conv `kernel` [k, in, out]    <-> torch Conv1d `weight` [out, in, k]
+    (a depthwise [k, 1, dim] <-> [dim, 1, k], groups=dim)
+  flax ConvTranspose `kernel` [k, in, out] <-> torch ConvTranspose1d
+    `weight` [in, out, k] with the taps reversed (flax does not flip its
+    kernel); VSGN's decoder, `dec_<i>`, is the package's one
+  flax LayerNorm / GroupNorm `scale` <-> torch `weight`
   flax Embed `embedding`             <-> torch `weight` of a `*_embeddings`
-  any other leaf (`bias`, `cls_token`, `alpha_i2t`, ...) keeps its name.
+                                         or `*_embedding`
+  any other leaf (`bias`, `cls_token`, `alpha_i2t`, `w4C`, ...) keeps its
+  name and layout.
 
 The bridge carries any tree shaped like the parameters: a flax tree of
 gradients goes through `state_dict_from_flax` into the port's names and
@@ -38,6 +45,8 @@ from torch import nn
 from egovlpv2_torch.ops.layernorm import LayerNorm
 
 _LIST_ENTRY = re.compile(r"^(.*)_(\d+)$")
+# The torch names of ConvTranspose weights: VSGN's decoder `xGPN.dec.<i>`.
+_CONV_TRANSPOSE = re.compile(r"(^|\.)dec\.\d+\.weight$")
 _INIT_STD = 0.02  # std of `random_init_`'s normal draws
 
 
@@ -60,6 +69,10 @@ def state_dict_from_flax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
             leaf = "weight"
             if arr.ndim == 2:
                 arr = arr.T
+            elif arr.ndim == 3:
+                name = ".".join(names + [leaf])
+                arr = arr.transpose(1, 2, 0)[..., ::-1] \
+                    if _CONV_TRANSPOSE.search(name) else arr.transpose(2, 1, 0)
         elif leaf in ("scale", "embedding"):
             leaf = "weight"
         out[".".join(names + [leaf])] = torch.from_numpy(
@@ -79,7 +92,7 @@ def flax_path(name: str, ndim: int) -> Tuple[str, ...]:
     if leaf == "weight":
         if ndim == 1:
             leaf = "scale"
-        elif mods[-1].endswith("embeddings"):
+        elif mods[-1].endswith(("embeddings", "embedding")):
             leaf = "embedding"
         else:
             leaf = "kernel"
@@ -95,6 +108,9 @@ def flax_from_state_dict(state_dict: Mapping[str, torch.Tensor]
         *mods, leaf = flax_path(name, arr.ndim)
         if leaf == "kernel" and arr.ndim == 2:
             arr = arr.T
+        elif leaf == "kernel" and arr.ndim == 3:
+            arr = arr[..., ::-1].transpose(2, 0, 1) \
+                if _CONV_TRANSPOSE.search(name) else arr.transpose(2, 1, 0)
         node = tree
         for m in mods:
             node = node.setdefault(m, {})
@@ -185,4 +201,45 @@ def training_init_(model: nn.Module, generator: torch.Generator) -> nn.Module:
             value = _trunc_normal(p.shape, math.sqrt(1.0 / fan_in)
                                   / 0.87962566103423978, generator)
         p.copy_(value)
+    return model
+
+
+@torch.no_grad()
+def flax_init_(model: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Fill every parameter of a downstream head (VSGN, VSLNet, the QFVS
+    scorer) as flax's default initialisers do (their distributions, not
+    their draws), in place, by the module that holds it:
+
+      Linear and Conv1d weights lecun-normal (truncated normal, variance
+      1 / fan_in; fan_in = in / groups * taps); a ConvTranspose1d weight
+      [in, out, k] the same with fan_in = in * taps; biases 0; Embedding
+      normal with variance 1 / features; LayerNorm and GroupNorm scales 1;
+      any other parameter (VSLNet's `w4C`, `w4Q`, `w4mlu`, `pool_weight`)
+      xavier-uniform over its flax shape, fan_in = shape[-2] and fan_out =
+      shape[-1] times the product of the leading axes.
+    Draws are made on the CPU, so a seed gives the same parameters on every
+    device."""
+    for module in model.modules():
+        for leaf, p in module.named_parameters(recurse=False):
+            shape = p.shape
+            if leaf == "bias":
+                value = torch.zeros(shape)
+            elif isinstance(module, nn.Embedding):
+                value = torch.randn(shape, generator=generator) \
+                    / math.sqrt(shape[1])
+            elif p.dim() == 1:  # a LayerNorm or GroupNorm scale
+                value = torch.ones(shape)
+            elif isinstance(module, (nn.Linear, nn.Conv1d, nn.ConvTranspose1d)):
+                if isinstance(module, nn.ConvTranspose1d):
+                    fan_in = shape[0] * shape[2]
+                else:
+                    fan_in = math.prod(shape[1:])
+                value = _trunc_normal(shape, math.sqrt(1.0 / fan_in)
+                                      / 0.87962566103423978, generator)
+            else:
+                receptive = math.prod(shape[:-2])
+                fan_in, fan_out = shape[-2] * receptive, shape[-1] * receptive
+                limit = math.sqrt(6.0 / (fan_in + fan_out))
+                value = (torch.rand(shape, generator=generator) * 2 - 1) * limit
+            p.copy_(value)
     return model

@@ -839,7 +839,23 @@ def test_layernorm_kernels_match_plain(cuda, case, dtype, eps):
     """K7 and K8 through the autograd Function against the plain forward
     and the plain backward, twice: the backward has no atomics, so its
     results repeat bit for bit."""
-    r, d = case
+    _check_layernorm(cuda, *case, dtype, eps)
+
+
+# The downstream heads' LayerNorms, f32 at flax's eps: VSLNet's video rows
+# (batch 32 x 256) and query rows (32 x 15) at D = 128, the QFVS scorer's
+# rows (20 segments x 200 shots) at D = 768.
+HEAD_LN_CASES = ((32 * 256, 128), (32 * 15, 128), (20 * 200, 768))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", HEAD_LN_CASES)
+def test_layernorm_kernels_at_the_heads_shapes(cuda, case):
+    """The same at the heads' shapes, float32, eps 1e-6."""
+    _check_layernorm(cuda, *case, torch.float32, 1e-6)
+
+
+def _check_layernorm(cuda, r, d, dtype, eps):
     x, g, scale, bias = _ln_inputs(r, d, dtype, cuda)
     before = dict(_kernels.launch_counts)
     runs = []
@@ -1448,6 +1464,7 @@ def test_port_imports_no_jax():
         "import profile_torch_finetune, profile_torch_extract\n"
         "import profile_torch_flash, profile_torch_taskqa\n"
         "import profile_torch_cls_row, profile_torch_kernels\n"
+        "import profile_torch_heads\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'egovlpv2_tpu'))\n"
         "assert not bad, bad\n"
