@@ -264,6 +264,27 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
                 inference ms a window / query / item, the host's proposal
                 and NMS ms a window (MQ), and the phase's seconds. No file
                 may be left and no pinned host memory held, as in phase 7.
+  9. multiprocess — `egovlpv2_torch.cli pretrain --synthetic --device cuda`
+                at phase 5's settings (b16 4f bf16, full width) for
+                DIST_STEPS steps under a process group of world size 1 over
+                NCCL, started by the port's own flags (`--coordinator
+                localhost:<free port> --num_processes 1 --process_id 0`) in
+                a child process with a time limit: its step gathers the
+                embeddings, the unfused video tokens, the ITM logits and
+                the MLM sums, and averages the gradients, over NCCL. The
+                first loss (the forward before any update) must equal phase
+                5's first, bit for bit, and the next within DIST_LOSS_RTOL
+                (the embedding backward sums with atomics); K1-K9 launched
+                every step ("pretrain_dist" in `launches_by_path`).
+                Printed beside the card's name and power limit: the median
+                of steps 3 on with the group and, over the same steps,
+                phase 5's without it; the device time a step of the
+                gradient mean and of the forward gathers (CUDA events
+                around each call); the peak of device memory with the group
+                and phase 5's without it. Then two ranks asked
+                for on the one card: both must exit non-zero with the
+                refusal of `parallel/distributed.py` ("two ranks on one
+                device") within REFUSE_TIMEOUT seconds.
 Then one JSON line of the kernels and, last, the result line.
 """
 
@@ -299,6 +320,7 @@ from egovlpv2_torch.downstream.taskqa import (make_qa_model,
 from egovlpv2_torch.models.egovlp import EgoVLPv2
 from egovlpv2_torch.objectives.itm_mining import ITMIndices
 from egovlpv2_torch.objectives.losses import cross_entropy_loss
+from egovlpv2_torch.parallel.mp_worker import free_port, run_ranks
 from egovlpv2_torch.data.tokenizer import Tokenizer
 from egovlpv2_torch.ops import _kernels, flash
 from egovlpv2_torch.ops import layernorm as ln
@@ -558,6 +580,16 @@ PRETRAIN_STEPS = 6
 PRETRAIN_SETS = ["model.compute_dtype=bfloat16", "model.remat=false",
                  "path_remat=false", "optim.max_steps=1000",
                  "global_batch_size=16"]
+# The multiprocess phase: pretrain at PRETRAIN_SETS under a group of one
+# over NCCL, in a child process, as many steps as phase 5 so that both
+# warm medians take steps 3 on; its later steps against phase 5's within
+# DIST_LOSS_RTOL (the embedding backward sums with atomics, as phase 6's
+# FEED_LOSS_RTOL says); the refusal of two ranks on the card within
+# REFUSE_TIMEOUT seconds.
+DIST_STEPS = PRETRAIN_STEPS
+DIST_LOSS_RTOL = 1e-3
+DIST_TIMEOUT = 300
+REFUSE_TIMEOUT = 120
 FINETUNE_CONFIG = "configs/ft_charades.json"
 FINETUNE_SETS = ["global_batch_size=8", "optim.max_steps=1000"]
 FINETUNE_RUNS = (("ft_charades_32f", "model.remat=false", 5),
@@ -1895,9 +1927,10 @@ def phase_pretrain() -> dict:
     if moved < n_params // 2:
         raise AssertionError(f"pretrain: only {moved}/{n_params} parameters "
                              "changed")
+    single = {"rows": rows, "step_ms": steps_ms, "peak": peak}
     del res
     _free()
-    return counts
+    return counts, single
 
 
 def phase_finetune() -> dict:
@@ -2833,6 +2866,149 @@ def phase_heads(smi: str) -> dict:
     return by_path
 
 
+# One rank of phase 9: the command line's pretrain, its launches counted
+# from 0 in this process, with TF32 off as phase 1 sets it; the device time
+# of the step's gradient mean and of its forward gathers between CUDA
+# events around each call, and the peak of device memory.
+_DIST_CHILD = """
+import json, sys
+import torch
+from egovlpv2_torch import cli
+from egovlpv2_torch.ops import _kernels
+from egovlpv2_torch.train import step
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+events = {"sync_gradients": [], "all_gather": []}
+
+def timed(name):
+    fn = getattr(step, name)
+
+    def call(*args, **kwargs):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in "se")
+        start.record()
+        out = fn(*args, **kwargs)
+        end.record()
+        events[name].append((start, end))
+        return out
+    setattr(step, name, call)
+
+for name in events:
+    timed(name)
+_kernels.reset_launch_counts()
+res = cli.main(sys.argv[2:])
+torch.cuda.synchronize()
+with open(sys.argv[1], "w") as f:
+    json.dump({"logged": res["logged"], "step_seconds": res["step_seconds"],
+               "counts": dict(_kernels.launch_counts),
+               "peak": torch.cuda.max_memory_allocated(),
+               "ms": {name: [s.elapsed_time(e) for s, e in pairs]
+                      for name, pairs in events.items()}}, f)
+"""
+
+
+def _child_env() -> dict:
+    """The environment of a phase-9 child: this one's, without a launcher's
+    LOCAL_RANK (each child names its card through the flags)."""
+    env = {k: v for k, v in os.environ.items() if k != "LOCAL_RANK"}
+    env["PYTHONPATH"] = os.getcwd() + os.pathsep + env.get("PYTHONPATH", "")
+    return env
+
+
+def phase_dist(smi: str, single: dict) -> dict:
+    """`cli pretrain` under NCCL at world size 1, against phase 5's run
+    without a group (`single`: its logged rows and step ms); then two
+    ranks on one card refused. Returns the launches of the run."""
+    t0 = time.perf_counter()
+    argv = ["pretrain", "--synthetic", "--device", "cuda", "--steps_per_epoch",
+            str(DIST_STEPS), "--set", *PRETRAIN_SETS, "--coordinator",
+            f"localhost:{free_port()}", "--num_processes", "1",
+            "--process_id", "0"]
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "dist.json")
+        codes, logs = run_ranks([[sys.executable, "-c", _DIST_CHILD, out,
+                                  *argv]], DIST_TIMEOUT, env=_child_env())
+        if codes != [0]:
+            raise AssertionError(f"pretrain under NCCL ended with {codes}:\n"
+                                 f"{logs[0][-6000:]}")
+        with open(out) as f:
+            res = json.load(f)
+    topo = next((line for line in logs[0].splitlines()
+                 if line.startswith("# multihost:")), "")
+    if not topo.startswith("# multihost: process 0/1") or "nccl" not in topo:
+        raise AssertionError(f"no NCCL group of one: {topo!r}")
+    rows = res["logged"]
+    if len(rows) != DIST_STEPS:
+        raise AssertionError(f"pretrain under NCCL logged {len(rows)} steps")
+    keys = [k for k in rows[0] if k.startswith("loss_")]
+    first = {k: rows[0][k] for k in keys}
+    want = {k: single["rows"][0][k] for k in keys}
+    if first != want:
+        raise AssertionError(f"first loss under NCCL {first} is not the one "
+                             f"without a group {want}")
+    for got, ref in zip(rows[1:], single["rows"][1:]):
+        for k in keys:
+            if not abs(got[k] - ref[k]) <= DIST_LOSS_RTOL * abs(ref[k]):
+                raise AssertionError(f"step {got['step']} {k}: {got[k]} under "
+                                     f"NCCL, {ref[k]} without a group")
+    counts = res["counts"]
+    per_step = {k: counts.get(k, 0) / DIST_STEPS for k in KERNELS}
+    if not all(per_step[k] >= 1 and per_step[k] == int(per_step[k])
+               for k in BF16_PATH_KERNELS) \
+            or any(per_step[k] for k in GENERAL_KERNELS):
+        raise AssertionError(f"pretrain under NCCL: launches a step "
+                             f"{per_step}")
+    group_ms = [s * 1e3 for s in res["step_seconds"]]
+    # the first two steps carry warm-up, in both runs
+    warm, warm_single = (float(np.median(ms[2:]))
+                         for ms in (group_ms, single["step_ms"]))
+    sync_ms = res["ms"]["sync_gradients"]
+    gathers = res["ms"]["all_gather"]
+    if len(sync_ms) != DIST_STEPS or len(gathers) % DIST_STEPS:
+        raise AssertionError(f"{len(sync_ms)} gradient means and "
+                             f"{len(gathers)} gathers in {DIST_STEPS} steps")
+    per = len(gathers) // DIST_STEPS
+    gather_ms = [sum(gathers[i * per:(i + 1) * per])
+                 for i in range(DIST_STEPS)]
+    run_s = time.perf_counter() - t0
+
+    # two ranks on the one card: refused on both, before any collective
+    t1 = time.perf_counter()
+    port = free_port()
+    codes, logs = run_ranks(
+        [[sys.executable, "-m", "egovlpv2_torch.cli", "pretrain",
+          "--synthetic", "--device", "cuda", "--coordinator",
+          f"localhost:{port}", "--num_processes", "2", "--process_id",
+          str(i)] for i in range(2)], REFUSE_TIMEOUT, env=_child_env())
+    refuse_s = time.perf_counter() - t1
+    refused = ["two ranks on one device: ranks [0, 1]" in log for log in logs]
+    if any(code <= 0 for code in codes) or not all(refused):
+        raise AssertionError(f"two ranks on one card: exit codes {codes} "
+                             f"(negative: killed at {REFUSE_TIMEOUT} s), "
+                             f"refusal seen {refused}:\n"
+                             + "\n---\n".join(log[-3000:] for log in logs))
+    reason = next(line for line in logs[0].splitlines()
+                  if "two ranks on one device" in line)
+    print(f"[9 multiprocess] pretrain b16 4f bf16 under {topo[2:]}: "
+          f"{DIST_STEPS} steps, losses {[r['loss_total'] for r in rows]} "
+          f"(first bit for bit the run without a group, "
+          f"{single['rows'][0]['loss_total']}; then within "
+          f"{DIST_LOSS_RTOL} of {[r['loss_total'] for r in single['rows'][1:DIST_STEPS]]})"
+          f" | step ms with the group {[round(x, 1) for x in group_ms]}, "
+          f"without (phase 5) {[round(x, 1) for x in single['step_ms']]}"
+          f", median of steps 3-{DIST_STEPS} {warm:.1f} ms with against "
+          f"{warm_single:.1f} ms without | device ms a step (CUDA events): "
+          f"the gradient mean {[round(x, 2) for x in sync_ms]}, median of "
+          f"steps 3-{DIST_STEPS} {float(np.median(sync_ms[2:])):.2f}; the "
+          f"{per} forward gathers {[round(x, 2) for x in gather_ms]}, median "
+          f"{float(np.median(gather_ms[2:])):.2f} | peak memory "
+          f"{res['peak'] / 2**30:.2f} GiB with against "
+          f"{single['peak'] / 2**30:.2f} GiB without | launches a step "
+          f"{per_step} | run {run_s:.1f} s | two ranks "
+          f"on one card refused in {refuse_s:.1f} s, exit codes {codes}: "
+          f"{reason.strip()} | {smi}", flush=True)
+    return {k: counts.get(k, 0) for k in KERNELS}
+
+
 def main() -> None:
     smi = phase_device()
     phase_build()
@@ -2841,14 +3017,16 @@ def main() -> None:
     phase_tiny_qa()
     phase_tiny_extract()
     by_path = phase_egomcq()
-    by_path["pretrain"] = phase_pretrain()
+    by_path["pretrain"], single = phase_pretrain()
     by_path.update(phase_finetune())
     by_path.update(phase_extract())
     by_path["taskqa"] = phase_taskqa()
     phase_feed(smi)
     by_path["pretrain_val"] = phase_loop(smi)
     by_path.update(phase_heads(smi))
-    for path in ("egomcq_16f", "egomcq_4f", "egomcq_16f_1q", "pretrain"):
+    by_path["pretrain_dist"] = phase_dist(smi, single)
+    for path in ("egomcq_16f", "egomcq_4f", "egomcq_16f_1q", "pretrain",
+                 "pretrain_dist"):
         if not by_path[path]["fused_attention_fwd"]:
             raise AssertionError(f"{path}: K9 was not launched")
     bad = sorted(m for m in sys.modules
@@ -2867,6 +3045,7 @@ def main() -> None:
     # pretrain_val: the validation batches of the loop phase's run C
     steps = {"pretrain": PRETRAIN_STEPS, "taskqa": TASKQA_STEPS,
              "pretrain_val": 2 * LOOP_VAL_BATCHES,
+             "pretrain_dist": DIST_STEPS,
              "mq_vsgn_b16_t928": HEAD_EPOCHS * MQ_TRAIN_CLIPS // MQ_BATCH,
              "nlq_vslnet_b32": HEAD_EPOCHS * NLQ_TRAIN // NLQ_BATCH,
              "qfvs_scorer_20x200": HEAD_EPOCHS * 2 * len(QFVS_PAIRS)}

@@ -29,7 +29,7 @@ Subcommands:
   egomcq   — EgoMCQ zero-shot validation, on egomcq.json and its videos
              (--meta, --data, --device_norm, --num_workers) or on synthetic
              batches. The flags are those of the JAX CLI's `egomcq`,
-             without the JAX multi-host ones, plus --device.
+             plus --device.
 
     python -m egovlpv2_torch.cli egomcq --config configs/eval_egomcq.json \\
         --device cuda --meta egomcq.json --data videos/ --device_norm \\
@@ -118,7 +118,29 @@ validation.
 the temporal embedding inflated to the config's frame count) or the ckpt/
 directory of a run of this program (its best step where the monitor
 marked one, else its latest; a model with fewer heads takes the
-parameters it has). The multi-host flags of the JAX CLI are not taken.
+parameters it has).
+
+Over N processes, one device each (`parallel/`): every command takes
+--coordinator host:port of process 0 (or a tcp:// or file:// URL) with
+--num_processes N and --process_id i, or --multihost alone under a launcher
+that sets RANK, WORLD_SIZE, MASTER_ADDR, MASTER_PORT and LOCAL_RANK
+(torchrun). The group starts before any device is touched, over NCCL on
+`cuda:<LOCAL_RANK>` (else the --device index) and over gloo with --device
+cpu; two ranks on one card are refused. pretrain and the fine-tunes train
+data parallel: each rank feeds its contiguous rows of the global batch
+(the seeded synthetic batch's, or its `HostShardSampler` share of the
+files), every rank computes the loss of the global batch and the gradients
+are averaged, so the run equals one process over the global batch; a
+SIGTERM to any rank stops them all after one step, rank 0 saves, every
+rank reads a --resume checkpoint, and each rank runs the whole validation.
+The other commands have no data-parallel form: the group ends, rank 0
+runs them alone and the other ranks return. Files come from rank 0 alone.
+
+    torchrun --nproc_per_node 8 -m egovlpv2_torch.cli pretrain --multihost \
+        --device cuda --config configs/pretrain_egoclip.json --meta a.csv \
+        --data videos/ --save_dir run/
+    python -m egovlpv2_torch.cli ft-charades --synthetic --device cpu \
+        --coordinator localhost:29500 --num_processes 2 --process_id 0
 
 Without a checkpoint every parameter is drawn from a torch.Generator seeded
 with the config's `seed` (`weights.random_init_` for egomcq and extract,
@@ -145,7 +167,11 @@ import torch
 from egovlpv2_torch.core.config import load_train_config
 from egovlpv2_torch.data.loader import device_prefetch, device_put
 from egovlpv2_torch.data.tokenizer import Tokenizer
-from egovlpv2_torch.parallel.distributed import is_main_process
+from egovlpv2_torch.parallel.distributed import (barrier,
+                                                 initialize_multihost,
+                                                 is_main_process, rank,
+                                                 shutdown, world_size)
+from egovlpv2_torch.parallel.mesh import local_batch_size, local_rows
 from egovlpv2_torch.utils.logging import setup_logging
 
 
@@ -155,6 +181,21 @@ def _device(name: str) -> torch.device:
         raise RuntimeError("--device cuda was asked for, but CUDA is not "
                            "available")
     return device
+
+
+def _add_multihost(parser) -> None:
+    """The multi-host flags of the JAX CLI's `_add_common`, with its
+    defaults: one process a device over `torch.distributed`."""
+    parser.add_argument("--multihost", action="store_true",
+                        help="start torch.distributed before touching a "
+                             "device, from the launcher's RANK, WORLD_SIZE,"
+                             " MASTER_ADDR, MASTER_PORT and LOCAL_RANK "
+                             "(torchrun)")
+    parser.add_argument("--coordinator", default=None,
+                        help="host:port of process 0, or a tcp:// or "
+                             "file:// rendezvous URL (implies --multihost)")
+    parser.add_argument("--num_processes", type=int, default=None)
+    parser.add_argument("--process_id", type=int, default=None)
 
 
 def _add_data(parser) -> None:
@@ -477,20 +518,23 @@ def cmd_pretrain(args) -> dict:
     # the epoch cap in loader samples (trainer_egoclip.py:108 breaks once
     # (batch_idx+1)*batch_sum exceeds it): scene negatives double the
     # device batch, but the cap counts loader rows
-    samples_per_step = cfg.global_batch_size // (
-        2 if not args.synthetic and args.neg_param else 1)
+    pairs = 2 if not args.synthetic and args.neg_param else 1
+    samples_per_step = cfg.global_batch_size // pairs
     steps_cap = (max(1, cfg.max_samples_per_epoch // samples_per_step)
                  if cfg.max_samples_per_epoch else None)
     if args.synthetic:
-        # one put a batch, inline in the step, as the JAX CLI's
+        # one put a batch, inline in the step, as the JAX CLI's; every rank
+        # draws the global batch from the same seed and keeps its rows
         def batches(epoch):
             for i in range(min(args.steps_per_epoch,
                                steps_cap or args.steps_per_epoch)):
-                yield synthetic_batch(
+                yield local_rows(synthetic_batch(
                     cfg, cfg.global_batch_size,
-                    np.random.default_rng(epoch * 100003 + i))
+                    np.random.default_rng(epoch * 100003 + i)),
+                    cfg.global_batch_size)
     else:
-        loader = _egoclip_loader(args, cfg, samples_per_step)
+        loader = _egoclip_loader(
+            args, cfg, local_batch_size(cfg.global_batch_size) // pairs)
         put = device_put(device)
 
         def batches(epoch):
@@ -550,8 +594,14 @@ def _fit(args, device, log, cfg, trainer, batches, validate=None,
     validation's. Returns the logged rows, the steps' seconds, each
     validation's metrics, scores and eval steps' seconds, the seconds of
     each save, restore and validation, and whether SIGTERM ended the
-    run."""
-    from egovlpv2_torch.parallel.distributed import PreemptionGuard, barrier
+    run.
+
+    Under a process group every rank runs this: a save gathers the ranks'
+    dropout generators to rank 0, which writes, and the ranks meet after
+    it; every rank restores from the one file; the ranks agree after each
+    step whether SIGTERM reached any of them."""
+    from egovlpv2_torch.parallel.collectives import any_rank
+    from egovlpv2_torch.parallel.distributed import PreemptionGuard
     from egovlpv2_torch.train.checkpoint import (CheckpointManager,
                                                  load_train_state_,
                                                  train_state)
@@ -559,8 +609,9 @@ def _fit(args, device, log, cfg, trainer, batches, validate=None,
 
     model, optimizer, scheduler, train_step = trainer
     parts = (model, optimizer, scheduler, train_step.generator)
-    stats = (StatsWriter(args.save_dir)
-             if args.save_dir and is_main_process() else None)
+    mining = train_step.mining_generator
+    main = is_main_process()
+    stats = StatsWriter(args.save_dir) if args.save_dir and main else None
     ckpt = (CheckpointManager(os.path.join(args.save_dir, "ckpt"))
             if args.save_dir else None)
     out = {"val": [], "val_scores": [], "val_step_seconds": [],
@@ -575,14 +626,23 @@ def _fit(args, device, log, cfg, trainer, batches, validate=None,
         out[key].append(time.perf_counter() - t0)
         return result
 
+    saved = {"step": None}
+
     def save(step, **kw):
-        timed("save_seconds",
-              lambda: ckpt.save(step, train_state(*parts, step), **kw))
+        def write():
+            state = train_state(*parts, step, mining)
+            if main:
+                ckpt.save(step, state, **kw)
+            barrier("ckpt_saved")
+
+        timed("save_seconds", write)
+        saved["step"] = step
 
     start_epoch = step = 0
     if ckpt and args.resume and ckpt.latest_step() is not None:
         step = timed("restore_seconds",
-                     lambda: load_train_state_(ckpt.restore(), *parts))
+                     lambda: load_train_state_(ckpt.restore(), *parts,
+                                               mining))
         # go on after the last finished epoch (base_trainer.py:438-495
         # resumes at checkpoint_epoch + 1)
         last = ckpt.last_epoch()
@@ -622,9 +682,10 @@ def _fit(args, device, log, cfg, trainer, batches, validate=None,
                 stats.write(step, full)
         if ckpt and ckpt_every and step % ckpt_every == 0:
             save(step)
-        if not guard.preempted:
+        # every rank stops at this step if any rank was signalled
+        if not any_rank(guard.preempted):
             return False
-        if ckpt and ckpt.latest_step() != step:
+        if ckpt and saved["step"] != step:
             # this epoch is unfinished: a resumed run replays it
             save(step, epoch=epoch - 1)
         log.info("preempted (SIGTERM): saved at step %d, exiting", step)
@@ -638,7 +699,7 @@ def _fit(args, device, log, cfg, trainer, batches, validate=None,
         is_best = monitor.update(epoch_metrics) if monitor else False
         if ckpt:
             save(step, metrics=epoch_metrics, is_best=is_best, epoch=epoch)
-            if monitor:
+            if monitor and main:
                 ckpt.save_monitor(monitor.state_dict())
         if monitor and monitor.should_stop:
             log.info("early stop at epoch %d (no improvement in %d epochs, "
@@ -672,8 +733,8 @@ def _egoclip_loader(args, cfg, loader_batch: int):
     """The EgoClip files of `pretrain` (--meta, comma-separated metadata
     files, round robin across them a step as BaseMultiDataLoader,
     base_data_loader.py:142) through the threaded loader: `loader_batch`
-    rows a batch (scene negatives then double it), tokenized and MLM-masked
-    by `pretrain_post_fn`."""
+    rows a batch (scene negatives then double it; this rank's share of the
+    global batch), tokenized and MLM-masked by `pretrain_post_fn`."""
     from egovlpv2_torch.data.datasets import EgoClipDataset
     from egovlpv2_torch.data.loader import (DataLoader, HostShardSampler,
                                             RoundRobinLoader,
@@ -689,7 +750,8 @@ def _egoclip_loader(args, cfg, loader_batch: int):
                             neg_param=args.neg_param,
                             device_norm=args.device_norm)
         return DataLoader(ds, loader_batch,
-                          sampler=HostShardSampler(len(ds), seed=cfg.seed),
+                          sampler=HostShardSampler(len(ds), world_size(),
+                                                   rank(), seed=cfg.seed),
                           num_workers=args.num_workers,
                           post_fn=pretrain_post_fn(tok, cfg.mlm_prob))
 
@@ -786,12 +848,14 @@ def cmd_dual_ft(args) -> dict:
                     vocab_cap=cfg.model.text.vocab_size)
 
     if args.synthetic:
-        # one put a batch, inline in the step, as the JAX CLI's
+        # one put a batch, inline in the step, as the JAX CLI's; every rank
+        # draws the global batch from the same seed and keeps its rows
         def batches(epoch):
             rng = np.random.default_rng(epoch)
             for _ in range(args.steps_per_epoch):
-                yield synthetic_dual_batch(cfg, cfg.global_batch_size, rng,
-                                           tok, relevancy=epic)
+                yield local_rows(synthetic_dual_batch(
+                    cfg, cfg.global_batch_size, rng, tok, relevancy=epic),
+                    cfg.global_batch_size)
     else:
         loader = _dual_loader(args, cfg, tok)
         put = device_put(device)
@@ -810,7 +874,8 @@ def _dual_loader(args, cfg, tok):
     """The training files of a dual fine-tune through the threaded loader,
     tokenized: Charades-Ego videos and metadata_train.csv, or EK-100 frame
     directories and EPIC_100_retrieval_train.csv (with the caption
-    relevancy, where its pickle is there)."""
+    relevancy, where its pickle is there); this rank's share of each
+    global batch."""
     from egovlpv2_torch.data.datasets import (CharadesEgoDataset,
                                               EpicKitchensMIRDataset)
     from egovlpv2_torch.data.loader import DataLoader, HostShardSampler
@@ -826,8 +891,9 @@ def _dual_loader(args, cfg, tok):
         batch.update(tok(batch.pop("text")))
         return batch
 
-    return DataLoader(ds, cfg.global_batch_size,
-                      sampler=HostShardSampler(len(ds), seed=cfg.seed),
+    return DataLoader(ds, local_batch_size(cfg.global_batch_size),
+                      sampler=HostShardSampler(len(ds), world_size(), rank(),
+                                               seed=cfg.seed),
                       num_workers=args.num_workers, post_fn=post)
 
 
@@ -1103,8 +1169,9 @@ def cmd_qfvs(args) -> dict:
 
 
 def _parser() -> argparse.ArgumentParser:
-    """The commands and their flags: those of the JAX CLI's parsers but the
-    multi-host ones, with the same defaults, and --device."""
+    """The commands and their flags: those of the JAX CLI's parsers, with
+    the same defaults, and --device; every command takes the multi-host
+    flags."""
     parser = argparse.ArgumentParser("egovlpv2-torch")
     sub = parser.add_subparsers(dest="cmd", required=True)
 
@@ -1299,12 +1366,42 @@ def _parser() -> argparse.ArgumentParser:
     q.add_argument("--metrics_out", default=None)
     q.add_argument("--device", default="cuda", help="cuda, cuda:<i> or cpu")
     q.set_defaults(fn=cmd_qfvs)
+    for command in sub.choices.values():
+        _add_multihost(command)
     return parser
+
+
+# the commands that train data parallel over a process group
+_DATA_PARALLEL = (cmd_pretrain, cmd_dual_ft)
 
 
 def main(argv=None):
     args = _parser().parse_args(argv)
-    return args.fn(args)
+    if not (args.multihost or args.coordinator):
+        return args.fn(args)
+    # before any command touches a device
+    topo = initialize_multihost(args.coordinator, args.num_processes,
+                                args.process_id,
+                                device=getattr(args, "device", "cpu"))
+    if hasattr(args, "device"):
+        args.device = str(topo["device"])
+    print(f"# multihost: process {topo['process_index']}/"
+          f"{topo['process_count']}, {topo['local_devices']} local / "
+          f"{topo['global_devices']} global devices ({topo['device']}, "
+          f"{topo['backend']})",
+          flush=True)
+    if args.fn not in _DATA_PARALLEL:
+        # rank 0 runs it alone, after the group has ended: no step or save
+        # of it starts a collective that the other ranks would not join
+        barrier("start")
+        shutdown()
+        return args.fn(args) if topo["process_index"] == 0 else None
+    try:
+        out = args.fn(args)
+        barrier("exit")
+        return out
+    finally:
+        shutdown()
 
 
 if __name__ == "__main__":

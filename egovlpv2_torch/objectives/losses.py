@@ -75,6 +75,14 @@ def max_margin_loss(sim: torch.Tensor, margin: float = 0.2,
 
 def masked_lm_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     """Mean CE over positions with label != -100 (model.py:414-418)."""
+    total, count = masked_lm_sums(logits, labels)
+    return total / torch.clamp(count, min=1)
+
+
+def masked_lm_sums(logits: torch.Tensor, labels: torch.Tensor
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(the CE summed over positions with label != -100, their count): the
+    parts of `masked_lm_loss` that sum over the ranks of a process group."""
     vocab = logits.shape[-1]
     logits = logits.reshape(-1, vocab).float()
     labels = labels.reshape(-1).long()
@@ -83,7 +91,7 @@ def masked_lm_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     lse = torch.logsumexp(logits, dim=-1)
     tgt = torch.gather(logits, 1, safe[:, None])[:, 0]
     ce = (lse - tgt) * valid
-    return ce.sum() / torch.clamp(valid.sum(), min=1)
+    return ce.sum(), valid.sum()
 
 
 def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:

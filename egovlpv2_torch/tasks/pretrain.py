@@ -20,6 +20,7 @@ from egovlpv2_torch.core.config import (FusionConfig, ModelConfig,
                                         TrainConfig, VideoEncoderConfig)
 from egovlpv2_torch.data.mlm import mask_tokens
 from egovlpv2_torch.models.egovlp import EgoVLPv2
+from egovlpv2_torch.parallel.mesh import train_generators
 from egovlpv2_torch.train.optimizer import make_optimizer
 from egovlpv2_torch.train.step import make_train_step
 from egovlpv2_torch.weights import training_init_
@@ -92,14 +93,16 @@ def build_pretrain(cfg: TrainConfig, device="cuda", loss_scale: float = 1.0):
     """Returns (model, optimizer, scheduler, train_step) on `device`.
 
     The parameters are `weights.training_init_` from a CPU generator
-    seeded with `cfg.seed`; dropout and the ITM mining draw from a
-    generator on `device` seeded with `cfg.seed + 1`, which the step keeps
-    as `train_step.generator`."""
+    seeded with `cfg.seed`, the same on every rank; dropout and the ITM
+    mining draw from a generator on `device` seeded with `cfg.seed + 1`,
+    which the step keeps as `train_step.generator` (over W > 1 ranks two,
+    `parallel.mesh.train_generators`: the mining one is
+    `train_step.mining_generator`)."""
     device = torch.device(device)
     model = EgoVLPv2(cfg.model, device=device)
     training_init_(model, torch.Generator().manual_seed(cfg.seed))
     optimizer, scheduler = make_optimizer(cfg.optim, model)
-    generator = torch.Generator(device=device).manual_seed(cfg.seed + 1)
+    generator, mining = train_generators(device, cfg.seed + 1)
     step = make_train_step(model, cfg, optimizer, scheduler, generator,
-                           loss_scale=loss_scale)
+                           loss_scale=loss_scale, mining_generator=mining)
     return model, optimizer, scheduler, step

@@ -29,6 +29,8 @@ from egovlpv2_torch.core.config import TrainConfig
 from egovlpv2_torch.metrics.retrieval import charades_map, mir_metrics
 from egovlpv2_torch.models.egovlp import EgoVLPv2, sim_matrix
 from egovlpv2_torch.objectives.losses import max_margin_loss, norm_softmax_loss
+from egovlpv2_torch.parallel.collectives import all_gather
+from egovlpv2_torch.parallel.mesh import train_generators
 from egovlpv2_torch.train.optimizer import make_optimizer
 from egovlpv2_torch.train.step import batch_to_device, make_train_step
 from egovlpv2_torch.weights import training_init_
@@ -37,18 +39,20 @@ from egovlpv2_torch.weights import training_init_
 def dual_loss_fn(model: EgoVLPv2, batch: Dict[str, torch.Tensor], *,
                  cfg: TrainConfig
                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Returns (loss, metrics). `batch` holds tensors on the model's device:
-    video, text_ids, text_mask and, for AdaptiveMaxMargin, the per-row
-    `relevancy` weights [B]. Dropout follows the model's `train()` /
-    `eval()` mode and draws from the generator given to
+    """Returns (loss, metrics) of the global batch. `batch` holds this
+    rank's rows, tensors on the model's device: video, text_ids, text_mask
+    and, for AdaptiveMaxMargin, the per-row `relevancy` weights [B]; over
+    W > 1 ranks the loss takes every rank's embeddings and weights
+    (`parallel.collectives.all_gather`). Dropout follows the model's
+    `train()` / `eval()` mode and draws from the generator given to
     `model.set_generator`."""
     lcfg = cfg.loss
-    t = model.compute_text(batch["text_ids"], batch["text_mask"])
-    v = model.compute_video(batch["video"])
+    t = all_gather(model.compute_text(batch["text_ids"], batch["text_mask"]))
+    v = all_gather(model.compute_video(batch["video"]))
     sim = sim_matrix(t, v)
     if lcfg.type == "AdaptiveMaxMargin":
         loss = max_margin_loss(sim, margin=lcfg.margin,
-                               weight=batch["relevancy"].float())
+                               weight=all_gather(batch["relevancy"].float()))
     elif lcfg.type == "MaxMargin":
         loss = max_margin_loss(sim, margin=lcfg.margin)
     else:  # NormSoftmax (Charades)
@@ -75,7 +79,7 @@ def build_dual(cfg: TrainConfig, device="cuda"):
     model = EgoVLPv2(cfg.model, device=device)
     training_init_(model, torch.Generator().manual_seed(cfg.seed))
     optimizer, scheduler = make_optimizer(cfg.optim, model)
-    generator = torch.Generator(device=device).manual_seed(cfg.seed + 1)
+    generator, _ = train_generators(device, cfg.seed + 1)
     step = make_dual_train_step(model, cfg, optimizer, scheduler, generator)
     return model, optimizer, scheduler, step
 

@@ -14,8 +14,13 @@ imports jax.
 `train_state` / `load_train_state_` give the state of a run as one
 dictionary: the model's parameters, the optimizer's state (AdamW's
 moments and step counts), the scheduler's, the dropout generator's, and
-the step. Restoring it and stepping on gives the run that never stopped,
-bit for bit. Only files this program wrote are read (`weights_only`).
+the step. Over W > 1 data-parallel ranks (`parallel/`) every rank calls
+both: rank 0 holds the state, with every rank's dropout generator
+(`rank_generators`) and the ITM mining generator that the ranks share
+(`mining_generator`), and each rank takes its own back; a state resumes
+only on as many ranks as saved it. Restoring it and stepping on gives the
+run that never stopped, bit for bit. Only files this program wrote are
+read (`weights_only`).
 """
 
 from __future__ import annotations
@@ -27,29 +32,57 @@ from typing import Any, Dict, List, Optional
 
 import torch
 
+from egovlpv2_torch.parallel.collectives import all_gather_object
+from egovlpv2_torch.parallel.distributed import (is_main_process, rank,
+                                                 world_size)
+
 _STEP_FILE = re.compile(r"^step_(\d+)\.pt$")
 
 
 def train_state(model: torch.nn.Module, optimizer, scheduler,
-                generator: Optional[torch.Generator], step: int) -> dict:
-    """The state of a training run, on the CPU."""
-    return {
+                generator: Optional[torch.Generator], step: int,
+                mining_generator: Optional[torch.Generator] = None
+                ) -> Optional[dict]:
+    """The state of a training run, on the CPU. Over W > 1 ranks every rank
+    calls it and rank 0 gets the state, with each rank's `generator` and
+    the shared `mining_generator`; the other ranks get None."""
+    gens = (all_gather_object(generator.get_state())
+            if world_size() > 1 else None)
+    if not is_main_process():
+        return None
+    state = {
         "model": {k: v.detach().cpu() for k, v in model.state_dict().items()},
         "optimizer": optimizer.state_dict(),
         "scheduler": scheduler.state_dict(),
         "generator": None if generator is None else generator.get_state(),
         "step": int(step),
     }
+    if gens is not None:
+        state["rank_generators"] = gens
+        state["mining_generator"] = (None if mining_generator is None
+                                     else mining_generator.get_state())
+    return state
 
 
 def load_train_state_(state: dict, model: torch.nn.Module, optimizer,
-                      scheduler, generator: Optional[torch.Generator]) -> int:
+                      scheduler, generator: Optional[torch.Generator],
+                      mining_generator: Optional[torch.Generator] = None
+                      ) -> int:
     """Puts `state` (from `train_state`) back into the run's objects, in
-    place; returns its step."""
+    place, this rank's generator from `rank_generators`; returns its step.
+    A state saved by W ranks resumes on W."""
+    saved = len(state.get("rank_generators") or [None])
+    if saved != world_size():
+        raise ValueError(f"the checkpoint was saved by {saved} processes; "
+                         f"this run has {world_size()}")
     model.load_state_dict(state["model"], strict=True)
     optimizer.load_state_dict(state["optimizer"])
     scheduler.load_state_dict(state["scheduler"])
-    if generator is not None and state["generator"] is not None:
+    if saved > 1:
+        generator.set_state(state["rank_generators"][rank()])
+        if state["mining_generator"] is not None:
+            mining_generator.set_state(state["mining_generator"])
+    elif generator is not None and state["generator"] is not None:
         generator.set_state(state["generator"])
     return int(state["step"])
 

@@ -11,6 +11,14 @@ and `trainer/trainer_egoclip.py:91-200`).
     are cast to the compute dtype by the modules (no autocast); softmax
     and the losses are float32.
 
+Over W > 1 processes (`parallel/`) every rank computes the one loss of
+the global batch, as GSPMD does for the JAX step: EgoNCE on the gathered
+embeddings and verb/noun vectors, ITM mined on the global similarity by a
+generator that draws the same on every rank (each rank runs the fused pass
+on its rows of the mined batch and the logits are gathered), MLM as the
+global masked-token mean; `make_train_step` averages the gradients over
+the ranks. Without a process group the gathers are the identity.
+
 `path_remat` wraps each objective path in one
 `torch.utils.checkpoint.checkpoint(..., use_reentrant=False)` region, under
 the JAX package's condition (`path_remat and not model.remat`). With
@@ -34,20 +42,26 @@ from egovlpv2_torch.models.dropout import checkpoint_region
 from egovlpv2_torch.models.egovlp import EgoVLPv2, sim_matrix
 from egovlpv2_torch.objectives.itm_mining import mine_itm_indices
 from egovlpv2_torch.objectives.losses import (egonce_loss, itm_loss,
-                                              masked_lm_loss,
+                                              masked_lm_sums,
                                               norm_softmax_loss)
+from egovlpv2_torch.parallel.collectives import (all_gather, all_reduce_sum,
+                                                 sync_gradients)
+from egovlpv2_torch.parallel.distributed import rank
 
 
 def pretrain_loss_fn(model: EgoVLPv2, batch: Dict[str, torch.Tensor],
                      generator: Optional[torch.Generator], *, cfg: TrainConfig,
                      loss_scale: float = 1.0,
-                     path_remat: Optional[bool] = None
+                     path_remat: Optional[bool] = None,
+                     mining_generator: Optional[torch.Generator] = None
                      ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Returns (loss * loss_scale, metrics). `batch` holds tensors on the
-    model's device (the keys of `tasks.pretrain.synthetic_batch`);
-    `generator` draws the ITM mining (the dropout masks come from the one
-    given to `model.set_generator`, as a rule the same). Dropout follows
-    the model's `train()` / `eval()` mode."""
+    """Returns (loss * loss_scale, metrics) of the global batch. `batch`
+    holds this rank's rows, tensors on the model's device (the keys of
+    `tasks.pretrain.synthetic_batch`); `generator` is the one given to
+    `model.set_generator` (the dropout masks, replayed by the checkpoint
+    regions), and draws the ITM mining too unless `mining_generator` is
+    given, as it must be over W > 1 ranks. Dropout follows the model's
+    `train()` / `eval()` mode."""
     lcfg = cfg.loss
     if path_remat is None:
         path_remat = cfg.path_remat
@@ -62,13 +76,16 @@ def pretrain_loss_fn(model: EgoVLPv2, batch: Dict[str, torch.Tensor],
     tokens = model.patchify(batch["video"])
     metrics = {}
 
-    # ---- EgoNCE (dual towers over the whole batch) ----
-    t_emb = bound(model.compute_text)(ids, mask)
-    v_emb = bound(lambda tok: model.compute_video(None, tok))(tokens)
+    # ---- EgoNCE (dual towers, over the global batch) ----
+    t_emb = all_gather(bound(model.compute_text)(ids, mask))
+    v_emb = all_gather(bound(lambda tok: model.compute_video(None, tok))(
+        tokens))
     sim = sim_matrix(t_emb, v_emb)
     if lcfg.type == "EgoNCE":
-        sim_v = sim_matrix(batch["verb_vec"], batch["verb_vec"])
-        sim_n = sim_matrix(batch["noun_vec"], batch["noun_vec"])
+        verb, noun = all_gather(batch["verb_vec"]), all_gather(
+            batch["noun_vec"])
+        sim_v = sim_matrix(verb, verb)
+        sim_n = sim_matrix(noun, noun)
         loss_nce, mask_bool, temp = egonce_loss(
             sim, sim_v, sim_n, lcfg.temperature, lcfg.noun, lcfg.verb)
     else:
@@ -86,14 +103,25 @@ def pretrain_loss_fn(model: EgoVLPv2, batch: Dict[str, torch.Tensor],
     if "MLM" in cfg.tasks:
         mlm_logits = bound(model.mlm_forward_from_video)(
             v_un, batch["text_mlm_ids"], mask)
-        loss_mlm = masked_lm_loss(mlm_logits, batch["text_mlm_labels"])
+        # the global masked-token mean: every rank's sum over every count
+        total, count = masked_lm_sums(mlm_logits, batch["text_mlm_labels"])
+        loss_mlm = all_reduce_sum(total) / torch.clamp(all_reduce_sum(count),
+                                                       min=1)
         loss = loss + lcfg.mlm_weight * loss_mlm
         metrics["loss_mlm"] = loss_mlm
 
     if "ITM" in cfg.tasks:
-        idx = mine_itm_indices(generator, sim.detach(), mask_bool, temp)
-        itm_logits = bound(model.itm_forward_from_video)(
-            v_un[idx.video_idx], ids[idx.text_idx], mask[idx.text_idx])
+        idx = mine_itm_indices(
+            generator if mining_generator is None else mining_generator,
+            sim.detach(), mask_bool, temp)
+        # this rank's rows of the global mined batch, from every rank's
+        # tokens; a mined row's gradient goes back to the rank that owns it
+        lo = rank() * ids.shape[0]
+        rows = slice(lo, lo + ids.shape[0])
+        vid, txt = idx.video_idx[rows], idx.text_idx[rows]
+        ids_all, mask_all = all_gather(ids), all_gather(mask)
+        itm_logits = all_gather(bound(model.itm_forward_from_video)(
+            all_gather(v_un)[vid], ids_all[txt], mask_all[txt]))
         loss_itm = itm_loss(itm_logits, idx.labels)
         loss = loss + lcfg.itm_weight * loss_itm
         metrics["loss_itm"] = loss_itm
@@ -118,17 +146,20 @@ def make_train_step(model: EgoVLPv2, cfg: TrainConfig,
                     optimizer: torch.optim.Optimizer, scheduler,
                     generator: Optional[torch.Generator] = None,
                     loss_scale: float = 1.0,
-                    loss_fn: Optional[Callable] = None):
-    """Returns step(batch) -> metrics: forward, backward, the optional
-    gradient clip, one AdamW update and one scheduler step, in place on
-    `model`. Metrics are detached tensors on the model's device (no
-    synchronisation here); `grad_norm` joins them when
-    `cfg.log_grad_norm`. `loss_fn(model, batch)` returns (loss, metrics);
-    the default is `pretrain_loss_fn` with `generator` and `loss_scale`.
-    The step keeps `generator` as its attribute `generator`."""
+                    loss_fn: Optional[Callable] = None,
+                    mining_generator: Optional[torch.Generator] = None):
+    """Returns step(batch) -> metrics: forward, backward, the mean of the
+    gradients over the ranks of a process group, the optional gradient
+    clip, one AdamW update and one scheduler step, in place on `model`.
+    Metrics are detached tensors on the model's device (no synchronisation
+    here); `grad_norm` joins them when `cfg.log_grad_norm`. `loss_fn(model,
+    batch)` returns (loss, metrics); the default is `pretrain_loss_fn` with
+    `generator`, `mining_generator` and `loss_scale`. The step keeps
+    `generator` and `mining_generator` as its attributes of those names."""
     if loss_fn is None:
         loss_fn = functools.partial(pretrain_loss_fn, generator=generator,
-                                    cfg=cfg, loss_scale=loss_scale)
+                                    cfg=cfg, loss_scale=loss_scale,
+                                    mining_generator=mining_generator)
     device = next(model.parameters()).device
     params = [p for p in model.parameters() if p.requires_grad]
     model.set_generator(generator)
@@ -144,6 +175,8 @@ def make_train_step(model: EgoVLPv2, cfg: TrainConfig,
         for p in params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
+        # the clip and the norm see the global gradient
+        sync_gradients(params)
         if cfg.optim.grad_clip is not None:
             norm = nn.utils.clip_grad_norm_(params, cfg.optim.grad_clip)
         elif cfg.log_grad_norm:
@@ -159,4 +192,5 @@ def make_train_step(model: EgoVLPv2, cfg: TrainConfig,
     # the generator is part of a run's state (`train/checkpoint.py::
     # train_state`): a resumed run must draw what the first would have
     step.generator = generator
+    step.mining_generator = mining_generator
     return step

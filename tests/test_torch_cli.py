@@ -1,8 +1,8 @@
 """The port's command line against the JAX CLI's on what they share: the
 epoch cap of `pretrain` (`max_samples_per_epoch`), the default steps of the
 fine-tunes, every flag of the JAX parsers of the training commands and of
-the downstream heads' `mq`, `mq-anno`, `nlq` and `qfvs` (but the
-multi-host ones), which the port's parser takes with the JAX parser's
+the downstream heads' `mq`, `mq-anno`, `nlq` and `qfvs`, the multi-host
+ones among them, which the port's parser takes with the JAX parser's
 default and value; and the four heads' commands on the CPU on files
 written here, as `tests/test_cli_downstream.py` runs the JAX ones."""
 
@@ -20,10 +20,6 @@ from egovlpv2_torch import cli
 from tests.test_cli import TINY
 
 torch.set_num_threads(2)
-
-MULTI_HOST = {"--multihost", "--coordinator", "--num_processes",
-              "--process_id"}
-
 
 class _Parsed(Exception):
     pass
@@ -53,8 +49,7 @@ COMMANDS = ("pretrain", "ft-charades", "ft-epic", "mq", "mq-anno", "nlq",
 JAX_FLAGS = [(command, action.option_strings[-1])
              for command in COMMANDS
              for action in _subparsers(JAX_PARSER)[command]._actions
-             if action.option_strings and action.dest != "help"
-             and action.option_strings[-1] not in MULTI_HOST]
+             if action.option_strings and action.dest != "help"]
 
 
 @pytest.fixture()
@@ -90,8 +85,9 @@ def test_finetune_runs_four_steps_an_epoch_by_default(tiny_config, monkeypatch):
 
 
 def test_the_training_commands_take_every_flag_of_the_jax_parsers():
-    # 23 of pretrain, 21 of each fine-tune; mq 14, mq-anno 4, nlq 9, qfvs 12
-    assert len(JAX_FLAGS) == 104
+    # 27 of pretrain, 25 of each fine-tune (the four multi-host flags
+    # among them); mq 14, mq-anno 4, nlq 9, qfvs 12
+    assert len(JAX_FLAGS) == 116
 
 
 @pytest.mark.parametrize("command, flag", JAX_FLAGS)

@@ -1468,10 +1468,13 @@ def test_port_imports_no_jax():
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'egovlpv2_tpu'))\n"
         "assert not bad, bad\n"
-        "print(len([k for k in sys.modules if k.startswith('egovlpv2_torch')]))\n"
+        "print(' '.join(k for k in sys.modules if k.startswith('egovlpv2_torch')))\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
                           text=True, timeout=240,
                           cwd=Path(__file__).resolve().parents[1])
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip()) >= 35
+    modules = set(proc.stdout.split())
+    assert len(modules) >= 35
+    assert {"egovlpv2_torch.parallel.mesh", "egovlpv2_torch.parallel.mp_worker",
+            "egovlpv2_torch.parallel.collectives"} <= modules
