@@ -71,9 +71,10 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
                 LayerNorm K7 forward and K8 backward at R x D = 12,560 x
                 768 (the pretrain step's), 50,184 x 768 (the fine-tune's),
                 200,768 x 768 (an MQ or NLQ inner batch), 15,696 x 768 (a
-                QFVS one), 240 x 768 (text rows), 301 x 776, and 120 x 768
+                QFVS one), 240 x 768 (text rows), 301 x 776, 120 x 768
                 and 6,280 x 768 (the f32 EgoTaskQA step's text and video
-                rows), eps 1e-5 and 1e-12, and in f32 at eps 1e-6 (flax's)
+                rows) and 62,740 x 768 (EgoMCQ 16f's video rows), eps 1e-5
+                and 1e-12, and in f32 at eps 1e-6 (flax's)
                 at the downstream heads' 8,192 x 128 and 480 x 128 (VSLNet's
                 video and query rows at batch 32) and 4,000 x 768 (the QFVS
                 scorer's 20 x 200 shots), whose times go into the JSON line
@@ -86,9 +87,14 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
                 |reference| (f32 sums over the rows in another order); the
                 times are taken over input sets that together exceed the
                 L2 cache. Library: `F.layer_norm` and its autograd backward.
-                K8 twice on one input gives the same bits, and its profiled
-                kernels are its two launches (the pass over the rows, the
-                sum of the blocks' partials).
+                K7 and K8 each twice on one input give the same bits, and
+                their profiled kernels are K7's one launch (a block a
+                group of rows, at `layernorm_fwd_geometry`'s pieces a
+                thread) and K8's two (the pass over the rows, the sum of
+                the blocks' partials).
+                Beside K7's device time: a CUDA-event window's time and the
+                host's a call of its wrapper, and its time before scale
+                and bias were loaded with the row (K7_BEFORE_MS).
                 Fused attention K9, H=12, Dh=64, against
                 `flash_attention_reference` on strided views as the models
                 hand them over (q a transposed view of a [B, S, H*Dh]
@@ -109,7 +115,9 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
                 self-attention at B=8, L=15 (f32 splits the t2i keys into
                 four runs there); every call prints the form
                 `flash_fwd_geometry` names (the few-query calls with their
-                run and splits), the profiled kernels of a call must be
+                run and splits, the bf16 i2t's ring form with its rows a
+                block, splits and ring, and its time before the ring form,
+                K9_I2T_BEFORE_MS), the profiled kernels of a call must be
                 the ones it names (the split kernel, and the merge where
                 there is more than one split), and two calls on one input
                 must give the same bits; max abs
@@ -395,7 +403,9 @@ MAIN_CASE = (torch.bfloat16, 16, 4)  # the pretrain step's: the JSON line's time
 LN_CASES = ((16 * 785, 768), (8 * 6273, 768), (64 * 3137, 768),
             (16 * 981, 768), (240, 768), (301, 776),
             # the f32 EgoTaskQA step's text and video rows
-            (120, 768), (8 * 785, 768))
+            (120, 768), (8 * 785, 768),
+            # EgoMCQ 16f's video rows (20 clips)
+            (20 * 3137, 768))
 LN_MAIN_CASE = (torch.bfloat16, 16 * 785, 768)
 LN_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-5}
 LN_SUM_TOL = 1e-3
@@ -451,7 +461,8 @@ FLASH_TASKQA_CASES = ((torch.float32, "i2t", 8, 785, 15),
 FLASH_TOL = {torch.bfloat16: 4e-3, torch.float32: 1e-4}
 # K9's kernels by form, as the profiler names them
 FLASH_KERNELS = {"few_queries": ("fused_split_kernel", "fused_merge_kernel"),
-                 "many_queries": ("fused_fwd_kernel",),
+                 "many_queries": ("fused_ring_kernel",),
+                 "many_queries_chunked": ("fused_fwd_kernel",),
                  "few_queries_tf32": ("fused_tf32_split_kernel",
                                       "fused_merge_kernel"),
                  "many_queries_tf32": ("fused_tf32_fwd_kernel",)}
@@ -545,6 +556,21 @@ K4_BEFORE_MS = {
     (torch.bfloat16, 8, 4): 0.2701, (torch.bfloat16, 8, 32): 2.0068,
     (torch.bfloat16, 16, 4): 0.5219, (torch.bfloat16, 16, 16): 1.9965,
 }
+# K9's bf16 i2t (over 15 keys) before its ring form (the chunked form, 64
+# query rows a block), ms, keyed by (B, Sq), and K7's before scale and bias
+# were loaded with the row (after its sums), keyed by (dtype, rows, D): PERF.md
+# section 6's table (H100 80GB HBM3, 700 W), printed beside this run's
+# times.
+K9_I2T_BEFORE_MS = {(16, 785): 0.0309, (20, 3137): 0.1254,
+                    (64, 3137): 0.3805, (16, 981): 0.0374}
+K7_BEFORE_MS = {(torch.bfloat16, 16 * 785, 768): 0.0171,
+                (torch.bfloat16, 240, 768): 0.0025,
+                (torch.bfloat16, 8 * 6273, 768): 0.0570,
+                (torch.bfloat16, 64 * 3137, 768): 0.2172,
+                (torch.bfloat16, 16 * 981, 768): 0.0205,
+                (torch.float32, 32 * 256, 128): 0.0050,
+                (torch.float32, 32 * 15, 128): 0.0017,
+                (torch.float32, 20 * 200, 768): 0.0098}
 # name -> (what changed, its time before, by (dtype, B, frames))
 BEFORE_MS = {"cls_row_attention_fwd": ("the key runs", K3_BEFORE_MS),
              "cls_row_attention_bwd": ("the key runs", K6_BEFORE_MS),
@@ -1319,6 +1345,9 @@ def phase_layernorm(results: dict) -> None:
             if name == "layernorm_bwd":
                 check += _check_layernorm_bwd(x, scale, g, partials, eps,
                                               events)
+            else:
+                check += _check_layernorm_fwd(x, scale, bias, eps, events,
+                                              kernel)
             print(f"[3 kernels] {name:22s} {tag:24s} err={errs[name]:.3e} "
                   f"({check}; tol {LN_TOL[dtype]:.0e}, sums {LN_SUM_TOL:.0e})  "
                   f"kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  library "
@@ -1335,6 +1364,31 @@ def phase_layernorm(results: dict) -> None:
                          bound_ms=least, bound_by=by, max_abs_err=errs[name])
         del sets, graphs
         torch.cuda.empty_cache()
+
+
+def _check_layernorm_fwd(x, scale, bias, eps, events, kernel) -> str:
+    """K7 twice on one input: the same bits; `events`, the profiled kernels
+    of a call, are its one launch; then the host's time a call of the
+    wrapper (`kernel`) beside an event window, and its time before its
+    redesign where PERF.md has one. Returns the check's text."""
+    rows, d = x.shape
+    runs = []
+    for _ in range(2):
+        runs.append(torch.full_like(x, float("nan")))
+        _kernels.layernorm_fwd(x, scale, bias, runs[-1], eps=eps)
+    torch.cuda.synchronize()
+    if not _same_bits(*runs):
+        raise AssertionError(f"layernorm_fwd R={rows} D={d}: two runs on one "
+                             f"input differ")
+    _check_kernels("layernorm_fwd", rows, d, "one-launch",
+                   ("layernorm_fwd_kernel",), events)
+    geo = _kernels.layernorm_fwd_geometry(x.dtype, rows, d)
+    window_ms, host_ms = _window_ms(kernel)
+    before = K7_BEFORE_MS.get((x.dtype, rows, d))
+    before = "" if before is None else f", before its redesign {before:.4f} ms"
+    return (f"; {geo.slots} pieces a thread, bitwise equal twice; an event "
+            f"window {window_ms:.4f} ms and the host {host_ms:.4f} ms a "
+            f"call{before}")
 
 
 def _check_layernorm_bwd(x, scale, g, partials, eps, events) -> str:
@@ -1406,6 +1460,13 @@ def _check_flash_launches(q, k, got, events, kernel) -> str:
     if not _same_bits(got, again):
         raise AssertionError(f"fused_attention_fwd B={b} Sq={sq} Sk={sk}: two "
                              f"runs on one input differ")
+    if geo.form == "many_queries":
+        before = K9_I2T_BEFORE_MS.get((b, sq)) if q.dtype == torch.bfloat16 \
+            and sk == 15 else None
+        before = "" if before is None else \
+            f", before the ring form {before:.4f} ms"
+        return (f"; {geo.form}, {geo.run} rows a block, {geo.splits} splits, "
+                f"{geo.stages} stages, bitwise equal twice{before}")
     if not geo.form.startswith("few_queries"):
         return f"; {geo.form}, bitwise equal twice"
     return (f"; {geo.form}, run {geo.run}, {geo.splits} splits, {geo.stages} "
@@ -1860,7 +1921,8 @@ def phase_egomcq() -> dict:
               f"{step_s * 1e3:.1f} ms (one sample: the last of steps "
               f"{steps_ms} ms, input copy included) | "
               f"{res['clips_per_step'] / step_s:.2f} clips/s | scores "
-              f"{shapes} finite={finite} | launches {counts} | LayerNorm inputs "
+              f"{shapes} finite={finite} | launches {counts}, K7 by rows "
+              f"{_k7_rows()} | LayerNorm inputs "
               f"copied to make them contiguous {ln.contiguous_copies}, K9 "
               f"inputs {flash.contiguous_copies}", flush=True)
         _no_flash_copies(f"egomcq {label}")
@@ -1879,11 +1941,17 @@ def phase_egomcq() -> dict:
     return by_path
 
 
-def _ln_rows_a_step(steps: int) -> dict:
+def _ln_rows_a_step(steps: int, counts=None) -> dict:
     """K8's launches a step since the last reset, by the rows of x (a
-    training path runs the LayerNorm backward in its steps alone)."""
-    return {rows: n / steps for rows, n in
-            sorted(_kernels.layernorm_bwd_rows.items())}
+    training path runs the LayerNorm backward in its steps alone), or those
+    of `counts` (`_kernels.layernorm_fwd_rows`: K7's)."""
+    counts = _kernels.layernorm_bwd_rows if counts is None else counts
+    return {rows: n / steps for rows, n in sorted(counts.items())}
+
+
+def _k7_rows() -> dict:
+    """K7's launches since the last reset, by the rows of x."""
+    return dict(sorted(_kernels.layernorm_fwd_rows.items()))
 
 
 def phase_pretrain() -> dict:
@@ -1918,7 +1986,9 @@ def phase_pretrain() -> dict:
           f"RNG included) {[round(x, 1) for x in steps_ms]}, median of "
           f"the last {PRETRAIN_STEPS - 2} {warm:.1f} ms = "
           f"{res['clips_per_step'] / warm * 1e3:.2f} clips/s | launches a "
-          f"step {per_step} | K8 launches a step by rows "
+          f"step {per_step} | K7 launches a step by rows "
+          f"{_ln_rows_a_step(PRETRAIN_STEPS, _kernels.layernorm_fwd_rows)} | "
+          f"K8 launches a step by rows "
           f"{_ln_rows_a_step(PRETRAIN_STEPS)} | LayerNorm inputs copied to "
           f"make them contiguous {ln.contiguous_copies}, K9 inputs "
           f"{flash.contiguous_copies} | parameters changed {moved}/{n_params} | "
@@ -1972,7 +2042,9 @@ def phase_finetune() -> dict:
               f"{[round(x, 1) for x in steps_ms]}, "
               f"{'median of the last ' + str(steps - 2) if steps > 2 else 'the last'}"
               f" {warm:.1f} ms = {res['clips_per_step'] / warm * 1e3:.2f} "
-              f"clips/s | launches a step {per_step} | K8 launches a step by "
+              f"clips/s | launches a step {per_step} | K7 launches a step by "
+              f"rows {_ln_rows_a_step(steps, _kernels.layernorm_fwd_rows)} | "
+              f"K8 launches a step by "
               f"rows {_ln_rows_a_step(steps)} | LayerNorm inputs copied "
               f"to make them contiguous {ln.contiguous_copies} | parameters "
               f"changed {moved}/{n_params} | peak memory {peak / 2**30:.2f} GiB",
@@ -2024,8 +2096,8 @@ def phase_extract() -> dict:
         print(f"[5 slices] extract mq {v.num_frames}f S={v.seq_len} "
               f"{cfg.model.compute_dtype}: {EXTRACT_FRAMES} uint8 frames -> "
               f"features {feats.shape} ok={ok} | "
-              f"{_batch_ms(res['inner_batches'])} | launches {counts}",
-              flush=True)
+              f"{_batch_ms(res['inner_batches'])} | launches {counts}, K7 by "
+              f"rows {_k7_rows()}", flush=True)
         if not ok or len(res["inner_batches"]) != 2:
             raise AssertionError("extract mq: bad features or inner batches")
         _check_extract("extract mq", counts, fused=False)
@@ -2064,7 +2136,8 @@ def phase_extract() -> dict:
                                  "fused features")
         print(f"[5 slices] extract nlq: {len(NLQ_QUERIES)} queries x {n_win} "
               f"windows -> {shapes} | {_batch_ms(ex.batch_log)} | launches "
-              f"{counts} | K9 inputs copied {flash.contiguous_copies}",
+              f"{counts}, K7 by rows {_k7_rows()} | K9 inputs copied "
+              f"{flash.contiguous_copies}",
               flush=True)
         _check_extract("extract nlq", counts, fused=True)
         by_path["extract_nlq"] = counts
@@ -2156,7 +2229,8 @@ def phase_taskqa() -> dict:
           f" | launches in all (steps and evaluation) "
           f"{ {k: n for k, n in counts.items() if n} } | K9 by form a step "
           f"{ {k: n for k, n in step_forms[-1].items() if n} }, in the "
-          f"evaluation { {k: n for k, n in eval_forms.items() if n} } | K8 "
+          f"evaluation { {k: n for k, n in eval_forms.items() if n} } | K7 "
+          f"launches in all by rows {_k7_rows()} | K8 "
           f"launches a step by rows {_ln_rows_a_step(TASKQA_STEPS)} | "
           f"evaluation {metrics} | peak memory {peak / 2**30:.2f} GiB",
           flush=True)

@@ -1334,7 +1334,8 @@ def _parser() -> argparse.ArgumentParser:
     ma.add_argument("--features", default=None,
                     help="feature dir: skip videos without dumps, record fps")
     ma.add_argument("--out", required=True, help="output clip-annotation json")
-    ma.set_defaults(fn=cmd_mq_anno)
+    # it touches no card: a group it starts runs gloo on the host
+    ma.set_defaults(fn=cmd_mq_anno, device="cpu")
 
     n = sub.add_parser("nlq", help="EgoNLQ: train VSLNet + official metrics")
     n.add_argument("--train_anno", required=True, help="official nlq_train.json")
@@ -1382,7 +1383,7 @@ def main(argv=None):
     # before any command touches a device
     topo = initialize_multihost(args.coordinator, args.num_processes,
                                 args.process_id,
-                                device=getattr(args, "device", "cpu"))
+                                device=getattr(args, "device", "cuda"))
     if hasattr(args, "device"):
         args.device = str(topo["device"])
     print(f"# multihost: process {topo['process_index']}/"

@@ -38,15 +38,19 @@
 //     bound by the launch.
 // In float32 the bytes double and the operations stay: at the EgoTaskQA
 // shapes (B=8, Sq or Sk 785 over 15) 38.6 MB, 11.7 us, for 145 M FMAs.
-// Four forms, the one that `flash_fwd_geometry` (ops/_kernels.py) names;
+// Five forms, the one that `flash_fwd_geometry` (ops/_kernels.py) names;
 // the entry point refuses any other:
 //   * few queries (bf16, Dh 32, 64 or 128, Sq <= 32: t2i and text
 //     self-attention): mma::fused_split_kernel, the keys of a (batch, head)
 //     split over blocks and staged with cp.async, then
 //     fused_merge_kernel where there is more than one split; described
 //     there;
-//   * many queries (bf16, Dh 32, 64 or 128, Sq > 32: i2t):
-//     mma::fused_fwd_kernel, described there;
+//   * many queries (bf16, Dh 32, 64 or 128, Sq > 32: i2t) over at most 64
+//     keys: mma::fused_ring_kernel, a block a (batch, head) and a run of
+//     its rows, K and V staged once, the rows streamed through a ring of
+//     slabs a warp; described there. Over more keys, or where
+//     `flash_fwd_geometry` keeps it, mma::fused_fwd_kernel, the chunked
+//     walk of 64 rows a block;
 //   * float32 at any head dim up to 128, and bf16 at any other (a bf16 row
 //     is widened to f32 as it is staged), the same two structures in
 //     3xTF32 on the tensor cores: few queries
@@ -141,8 +145,10 @@ __device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
 
-// Many queries (i2t). Bound: bytes; on the tensor cores a (row, key) pair
-// costs a few issue slots, so the loads bound it. Design, after the tensor-core K1 of divided_attention.cu: a
+// Many queries over any number of keys, chunked (i2t before the ring form;
+// now the many-query form above kRingKeys keys). Bound: bytes; on the
+// tensor cores a (row, key) pair costs a few issue slots, so the loads
+// bound it. Design, after the tensor-core K1 of divided_attention.cu: a
 // block of 4 warps owns 64 query rows, 16 a warp, Q held in registers as
 // mma A fragments, and walks the Sk keys of its (batch, head) in chunks of
 // 64 staged in shared memory (K row-major, V transposed, rows padded by 8
@@ -395,6 +401,224 @@ __device__ __forceinline__ void p_fragments(const float (&s)[NT][4], int kc,
   split_bf16(s[2 * kc][2], s[2 * kc][3], hi[1], lo[1]);
   split_bf16(s[2 * kc + 1][0], s[2 * kc + 1][1], hi[2], lo[2]);
   split_bf16(s[2 * kc + 1][2], s[2 * kc + 1][3], hi[3], lo[3]);
+}
+
+// The ring form's keys: at most kRingKeys, one chunk; its slabs of query
+// rows, kRingSlab a warp at a time, kRingStages of them in a warp's ring
+// (one in flight while one is multiplied: 3 and 4 were no faster on an
+// H100, PERF.md).
+constexpr int kRingKeys = 64;
+constexpr int kRingSlab = 16;
+constexpr int kRingStages = 2;
+
+// Key tiles of 16 the ring form is compiled for at Sk keys: 1, 2 or 4.
+inline int ring_key_tiles(int Sk) { return Sk <= 16 ? 1 : Sk <= 32 ? 2 : 4; }
+
+// The ring form's shared memory: K and V of 16 x key_tiles keys at a pitch
+// of dh + kPad bf16, each warp's ring of kRingStages slabs at the same pitch,
+// then the bias row (f32).
+inline int ring_shared_bytes(int dh, int key_tiles) {
+  const int ld = dh + kPad, keys = 16 * key_tiles;
+  return 2 * (2 * keys + kWarps * kRingStages * kRingSlab) * ld + 4 * keys;
+}
+
+// Many queries over at most kRingKeys keys (i2t: Sq = 785..6273 over
+// Sk = 15..30), the twin of `_attention_kernel` there. Bound: bytes, q read
+// and the output written once (617 MB at B=64, Sq=3137: 0.18 ms at
+// 3.35 TB/s); a (row, key) pair costs a few tensor-core issue slots. So the
+// design keeps loads in flight and pays nothing again for each tile of rows:
+//   * a block owns one (batch, head) and a run of `rows` of its query rows
+//     (`flash_fwd_geometry`: the grid (H, splits, B), heads fastest, so
+//     that the blocks of the heads of a run read neighbouring slices of the
+//     same rows of a [B, S, H * Dh] projection). It stages the K and V rows
+//     of its (batch, head) once by cp.async (KT tiles of 16 keys, zero past
+//     Sk) and the bias row times log2 e (-inf past Sk), then synchronises
+//     once;
+//   * each warp then walks its slabs of 16 query rows (the run's slabs
+//     warp, warp + 4, ...) on its own through a ring of kRingStages stages
+//     of its own: the next slab's 16-byte cp.async in flight while one is
+//     multiplied, its A fragments read by ldmatrix. No block barrier after
+//     the staging;
+//   * the keys are one chunk, so the softmax is one pass: the logits, their
+//     maximum, exp2, the sum; no rescale. The arithmetic and its order are
+//     fused_fwd_kernel's at one chunk (the same mma products in the same
+//     order, P as hi + lo bf16 terms), so the two give the same bits;
+//   * the output leaves through the slab's own stage: the warp writes its
+//     16 bf16 rows there and stores them as whole 16-byte pieces of rows.
+template <int DH, int KT>
+__global__ void __launch_bounds__(kWarps * 32)
+    fused_ring_kernel(const __nv_bfloat16* __restrict__ q,
+                      const __nv_bfloat16* __restrict__ k,
+                      const __nv_bfloat16* __restrict__ v,
+                      const float* __restrict__ bias,
+                      __nv_bfloat16* __restrict__ out, int H, int Sq, int Sk,
+                      int rows, int splits, Strides qs, Strides ks,
+                      Strides vs, Strides os, int64_t bias_b, int64_t bias_h,
+                      float scale) {
+  constexpr int S = kRingStages;
+  static_assert(S >= 2, "a slab in flight while one is multiplied");
+  constexpr int LD = DH + kPad;
+  constexpr int kKeysP = 16 * KT;            // key rows staged
+  constexpr int kSlab = kRingSlab * LD;      // bf16 of a stage
+  constexpr int kPieces = kRingSlab * DH / 8 / 32;  // 16-byte pieces a lane
+  extern __shared__ __align__(16) unsigned char smem[];
+  __nv_bfloat16* sK = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* sV = sK + kKeysP * LD;
+  __nv_bfloat16* ring = sV + kKeysP * LD;  // [kWarps][S][kRingSlab][LD]
+  float* sbias = reinterpret_cast<float*>(ring + kWarps * S * kSlab);
+
+  const int h = blockIdx.x % H;
+  const int split = (blockIdx.x / H) % splits;
+  const int b = blockIdx.x / H / splits;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3;  // mma fragment row / column pair
+  const int r_begin = split * rows, r_end = min(Sq, r_begin + rows);
+  const int n16 = (Sk + 15) / 16 * 16;    // key rows staged: whole mma tiles
+
+  const __nv_bfloat16* kbase = k + b * ks.b + h * ks.h;
+  const __nv_bfloat16* vbase = v + b * vs.b + h * vs.h;
+  for (int i = threadIdx.x; i < n16 * (DH / 8); i += kWarps * 32) {
+    const int j = i / (DH / 8), d8 = (i % (DH / 8)) * 8;
+    const bool live = j < Sk;
+    cp_async16(sK + j * LD + d8, live ? kbase + j * ks.s + d8 : kbase, live);
+    cp_async16(sV + j * LD + d8, live ? vbase + j * vs.s + d8 : vbase, live);
+  }
+  cp_async_commit();
+  const float* bp = bias ? bias + b * bias_b + h * bias_h : nullptr;
+  if (threadIdx.x < kKeysP) {
+    const int j = threadIdx.x;
+    sbias[j] = j < Sk ? (bp ? __ldg(bp + j) * kLog2e : 0.f) : -INFINITY;
+  }
+
+  // This warp's slabs i = 0, 1, ...: the run's slab warp + i * kWarps, into
+  // stage i % S, as 16-byte pieces, zero past the run's last row.
+  const int slabs = (r_end - r_begin + kRingSlab - 1) / kRingSlab;
+  const int mine = slabs > warp ? (slabs - warp + kWarps - 1) / kWarps : 0;
+  __nv_bfloat16* wring = ring + warp * S * kSlab;
+  const __nv_bfloat16* qbase = q + b * qs.b + h * qs.h;
+  __nv_bfloat16* obase = out + b * os.b + h * os.h;
+  auto load = [&](int i) {
+    __nv_bfloat16* st = wring + (i % S) * kSlab;
+    const int r0 = r_begin + (warp + i * kWarps) * kRingSlab;
+#pragma unroll
+    for (int p = 0; p < kPieces; ++p) {
+      const int piece = lane + 32 * p;
+      const int r = piece / (DH / 8), d8 = (piece % (DH / 8)) * 8;
+      const bool live = r0 + r < r_end;
+      cp_async16(st + r * LD + d8,
+                 live ? qbase + (int64_t)(r0 + r) * qs.s + d8 : qbase, live);
+    }
+  };
+#pragma unroll
+  for (int i = 0; i < S - 1; ++i) {
+    if (i < mine) load(i);
+    cp_async_commit();  // one group a slab, empty past the last
+  }
+  cp_async_wait<S - 1>();  // the K/V group, committed first, is in
+  __syncthreads();         // everyone's K, V and bias are
+
+  const float sl2 = scale * kLog2e;
+  for (int i = 0; i < mine; ++i) {
+    cp_async_wait<S - 2>();  // this lane's pieces of slab i are in
+    __syncwarp();            // and every lane's; slab i - 1's stage is free
+    if (i + S - 1 < mine) load(i + S - 1);
+    cp_async_commit();
+    __nv_bfloat16* st = wring + (i % S) * kSlab;
+    uint32_t qa[DH / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < DH / 16; ++kk) {
+      ldsm4<false>(qa[kk], st + rows16(LD, 0, kk * 16, lane));
+    }
+    float s[2 * KT][4];
+#pragma unroll
+    for (int np = 0; np < KT; ++np) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[2 * np][e] = s[2 * np + 1][e] = 0.f;
+      if (np * 16 < n16) {
+#pragma unroll
+        for (int kk = 0; kk < DH / 16; ++kk) {
+          uint32_t kb[4];
+          ldsm4<false>(kb, sK + cols16(LD, np * 16, kk * 16, lane));
+          mma_bf16(s[2 * np], qa[kk], kb[0], kb[1]);
+          mma_bf16(s[2 * np + 1], qa[kk], kb[2], kb[3]);
+        }
+      }
+    }
+    float mx_lo = -INFINITY, mx_hi = -INFINITY;
+#pragma unroll
+    for (int nt = 0; nt < 2 * KT; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        // -inf past the last key, and in the tiles not multiplied
+        const int col = nt * 8 + 2 * t + (e & 1);
+        s[nt][e] = nt * 8 < n16 ? fmaf(s[nt][e], sl2, sbias[col]) : -INFINITY;
+      }
+      mx_lo = fmaxf(mx_lo, fmaxf(s[nt][0], s[nt][1]));
+      mx_hi = fmaxf(mx_hi, fmaxf(s[nt][2], s[nt][3]));
+    }
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, off));
+      mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, off));
+    }
+    // Key 0 is a real key (a masked one carries -1e9, not -inf): the maxima
+    // are finite.
+    float l_lo = 0.f, l_hi = 0.f;
+#pragma unroll
+    for (int nt = 0; nt < 2 * KT; ++nt) {
+      s[nt][0] = exp2f(s[nt][0] - mx_lo);
+      s[nt][1] = exp2f(s[nt][1] - mx_lo);
+      s[nt][2] = exp2f(s[nt][2] - mx_hi);
+      s[nt][3] = exp2f(s[nt][3] - mx_hi);
+      l_lo += s[nt][0] + s[nt][1];
+      l_hi += s[nt][2] + s[nt][3];
+    }
+    float o[DH / 8][4];
+#pragma unroll
+    for (int nd = 0; nd < DH / 8; ++nd) o[nd][0] = o[nd][1] = o[nd][2] = o[nd][3] = 0.f;
+#pragma unroll
+    for (int kc = 0; kc < KT; ++kc) {
+      if (kc * 16 >= n16) continue;
+      uint32_t hi[4], lo[4];
+      p_fragments<2 * KT>(s, kc, hi, lo);
+#pragma unroll
+      for (int d0 = 0; d0 < DH; d0 += 16) {
+        uint32_t vb[4];
+        ldsm4<true>(vb, sV + rows16(LD, kc * 16, d0, lane));
+        mma_bf16(o[d0 / 8], lo, vb[0], vb[1]);
+        mma_bf16(o[d0 / 8], hi, vb[0], vb[1]);
+        mma_bf16(o[d0 / 8 + 1], lo, vb[2], vb[3]);
+        mma_bf16(o[d0 / 8 + 1], hi, vb[2], vb[3]);
+      }
+    }
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      l_lo += __shfl_xor_sync(0xffffffffu, l_lo, off);
+      l_hi += __shfl_xor_sync(0xffffffffu, l_hi, off);
+    }
+    const float inv_lo = 1.f / l_lo, inv_hi = 1.f / l_hi;
+    __syncwarp();  // every lane's reads of the stage are done
+#pragma unroll
+    for (int nd = 0; nd < DH / 8; ++nd) {
+      __nv_bfloat16* r = st + g * LD + nd * 8 + 2 * t;
+      *reinterpret_cast<uint32_t*>(r) =
+          pack_bf16(o[nd][0] * inv_lo, o[nd][1] * inv_lo);
+      *reinterpret_cast<uint32_t*>(r + 8 * LD) =
+          pack_bf16(o[nd][2] * inv_hi, o[nd][3] * inv_hi);
+    }
+    __syncwarp();
+    const int r0 = r_begin + (warp + i * kWarps) * kRingSlab;
+#pragma unroll
+    for (int p = 0; p < kPieces; ++p) {
+      const int piece = lane + 32 * p;
+      const int r = piece / (DH / 8), d8 = (piece % (DH / 8)) * 8;
+      if (r0 + r < r_end) {
+        *reinterpret_cast<uint4*>(obase + (int64_t)(r0 + r) * os.s + d8) =
+            *reinterpret_cast<const uint4*>(st + r * LD + d8);
+      }
+    }
+  }
+  cp_async_wait<0>();  // the empty groups past the last slab
 }
 
 // Keys staged a chunk: kSplitKeys, fewer (whole 16-row tiles) where Sk
@@ -1162,7 +1386,45 @@ __global__ void __launch_bounds__(kBlock)
 }  // namespace tf32
 
 
-// Many query rows (i2t): 64 rows a block, 16 a warp.
+// Many query rows over at most kRingKeys keys (i2t): the ring form at the
+// geometry given, `rows` query rows a block, `splits` blocks a (batch,
+// head).
+template <int DH, int KT>
+int launch_ring_at(const void* q, const void* k, const void* v,
+                   const float* bias, void* out, int B, int H, int Sq, int Sk,
+                   int rows, int splits, Strides qs, Strides ks, Strides vs,
+                   Strides os, int64_t bias_b, int64_t bias_h, float scale,
+                   int shared_bytes, cudaStream_t stream) {
+  auto kernel = mma::fused_ring_kernel<DH, KT>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, shared_bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<(unsigned)((int64_t)splits * H * B), mma::kWarps * 32,
+           shared_bytes, stream>>>(
+      static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), bias,
+      static_cast<__nv_bfloat16*>(out), H, Sq, Sk, rows, splits, qs, ks, vs,
+      os, bias_b, bias_h, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int DH>
+int launch_ring(const void* q, const void* k, const void* v,
+                const float* bias, void* out, int B, int H, int Sq, int Sk,
+                int rows, int splits, Strides qs, Strides ks, Strides vs,
+                Strides os, int64_t bias_b, int64_t bias_h, float scale,
+                int shared_bytes, cudaStream_t stream) {
+  const int kt = mma::ring_key_tiles(Sk);
+  auto launch = kt == 1   ? launch_ring_at<DH, 1>
+                : kt == 2 ? launch_ring_at<DH, 2>
+                          : launch_ring_at<DH, 4>;
+  return launch(q, k, v, bias, out, B, H, Sq, Sk, rows, splits, qs, ks, vs,
+                os, bias_b, bias_h, scale, shared_bytes, stream);
+}
+
+// Many query rows over any number of keys, in chunks (i2t before the ring
+// form; the form above kRingKeys keys): 64 rows a block, 16 a warp.
 template <int DH>
 int launch_many(const void* q, const void* k, const void* v,
                 const float* bias, void* out, int B, int H, int Sq, int Sk,
@@ -1319,12 +1581,15 @@ extern "C" {
 // that the head dim is contiguous and at most 128, and, where the head dim
 // is a multiple of 8, that every pointer and stride keeps 16-byte
 // alignment. The geometry is `flash_fwd_geometry`'s (ops/_kernels.py):
-// `form` 1 (many queries) or 2 (few queries) in bf16, 3 (many queries) or
-// 4 (few queries) in 3xTF32; for the few-query forms
-// `run` keys a block, `splits` = ceil(Sk / run) blocks a (batch, head),
-// `row_tiles` of 16 query rows, a ring of `stages` chunks and `partials`
-// (f32 [B, H, splits, Sq, Dh + 2], null at one split); `shared_bytes` of
-// dynamic shared memory (0 for form 1). It is launched as given; a form
+// `form` 1 (many queries, the ring form: Sk <= 64), 5 (many queries,
+// chunked) or 2 (few queries) in bf16, 3 (many queries) or 4 (few queries)
+// in 3xTF32; for the few-query forms `run` keys a block, `splits` =
+// ceil(Sk / run) blocks a (batch, head), `row_tiles` of 16 query rows, a
+// ring of `stages` chunks and `partials` (f32 [B, H, splits, Sq, Dh + 2],
+// null at one split and in the many-query forms); for the ring form `run` query rows a block (a
+// multiple of 16), `splits` = ceil(Sq / run) blocks a (batch, head), a
+// ring of `stages` (kRingStages) slabs a warp, `row_tiles` 0; `shared_bytes` of
+// dynamic shared memory (0 for form 5). It is launched as given; a form
 // other than the one the dtype, Dh and Sq call for, or a geometry that does
 // not hold together, is refused (CUDA error 1, invalid argument).
 int fused_attention_fwd(const void* q, const void* k, const void* v,
@@ -1344,13 +1609,39 @@ int fused_attention_fwd(const void* q, const void* k, const void* v,
   const bool tensor_cores = dtype == 1 && (Dh == 32 || Dh == 64 || Dh == 128);
   const bool few = Sq <= mma::kFewRows;
   const int expected = tensor_cores ? (few ? 2 : 1) : (few ? 4 : 3);
-  if (form != expected) return static_cast<int>(bad);
+  // Many queries in bf16 take the ring form (1) over at most kRingKeys
+  // keys, or the chunked form (5) at any Sk.
+  if (form != expected &&
+      !(expected == 1 && form == 5)) {
+    return static_cast<int>(bad);
+  }
   const Strides qs{q_b, q_h, q_s}, ks{k_b, k_h, k_s}, vs{v_b, v_h, v_s},
       os{o_b, o_h, o_s};
   const float* bias_f = static_cast<const float*>(bias);
   float* part = static_cast<float*>(partials);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (form == 1) {
+    if (Sk > mma::kRingKeys || run < mma::kRingSlab ||
+        run % mma::kRingSlab || splits != (Sq + run - 1) / run ||
+        (int64_t)splits * H * B > 0x7fffffffLL || row_tiles != 0 ||
+        stages != mma::kRingStages || part != nullptr ||
+        shared_bytes != mma::ring_shared_bytes(Dh, mma::ring_key_tiles(Sk))) {
+      return static_cast<int>(bad);
+    }
+#define EGOVLP_RING(DH)                                                       \
+  return launch_ring<DH>(q, k, v, bias_f, out, B, H, Sq, Sk, run, splits,    \
+                         qs, ks, vs, os, bias_b, bias_h, scale,              \
+                         shared_bytes, s)
+    if (Dh == 32) EGOVLP_RING(32);
+    if (Dh == 64) EGOVLP_RING(64);
+    EGOVLP_RING(128);
+#undef EGOVLP_RING
+  }
+  if (form == 5) {
+    if (splits != 1 || run != 0 || row_tiles != 0 || stages != 0 ||
+        shared_bytes != 0 || part != nullptr) {
+      return static_cast<int>(bad);
+    }
 #define EGOVLP_MANY(DH)                                                       \
   return launch_many<DH>(q, k, v, bias_f, out, B, H, Sq, Sk, qs, ks, vs, os, \
                          bias_b, bias_h, scale, s)

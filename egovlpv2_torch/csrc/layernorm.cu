@@ -154,15 +154,23 @@ __device__ __forceinline__ float row_rstd(float s, float ss, float inv_d,
   return rsqrtf(var + eps);
 }
 
-// K7. One row a group; a block takes kRows rows.
-template <typename T, int TPR>
+// K7. Bound: bytes (2 R D b). A group of TPR threads takes one row, a
+// block kRows rows, a block for every group of rows. Each thread loads its
+// columns of scale and bias (SLOTS 16-byte pieces of the row a thread, 48
+// floats a lane at D = 768) in the same round trip as its pieces of the row,
+// where it loaded them after the row's sums before: one wait on memory a
+// row instead of two. A walk of a few blocks an SM, each group holding
+// scale and bias in registers over its rows with the next row's loads in
+// flight, lost to this on an H100 at every row count of the paths
+// (PERF.md).
+template <typename T, int TPR, int SLOTS>
 __global__ void __launch_bounds__(Shape<TPR>::kThreads)
 layernorm_fwd_kernel(const T* __restrict__ x, const float* __restrict__ scale,
                      const float* __restrict__ bias, T* __restrict__ y,
                      int rows, int d, float eps) {
   using P = Piece<T>;
+  using Raw = typename P::Raw;
   constexpr int kVec = P::kVec;
-  constexpr int kSlots = kHeld / kVec;
   __shared__ float2 red[Shape<TPR>::kThreads / 32];
   const int lane = threadIdx.x % TPR;
   const int64_t row =
@@ -170,14 +178,23 @@ layernorm_fwd_kernel(const T* __restrict__ x, const float* __restrict__ scale,
   const bool live = row < rows;
   const int nv = d / kVec;
 
-  typename P::Raw raw[kSlots];
-  float s = 0.f, ss = 0.f;
+  Raw raw[SLOTS];
+  float sc[SLOTS][kVec], bi[SLOTS][kVec];
 #pragma unroll
-  for (int c = 0; c < kSlots; ++c) {
+  for (int c = 0; c < SLOTS; ++c) {
     const int v = lane + c * TPR;
     raw[c] = P::zero();
     if (live && v < nv) {
-      raw[c] = *(reinterpret_cast<const typename P::Raw*>(x + row * d) + v);
+      raw[c] = *(reinterpret_cast<const Raw*>(x + row * d) + v);
+      load_params<kVec>(scale + v * kVec, sc[c]);
+      load_params<kVec>(bias + v * kVec, bi[c]);
+    }
+  }
+  float s = 0.f, ss = 0.f;
+#pragma unroll
+  for (int c = 0; c < SLOTS; ++c) {
+    const int v = lane + c * TPR;
+    if (live && v < nv) {
       float f[kVec];
       P::unpack(raw[c], f);
 #pragma unroll
@@ -190,20 +207,17 @@ layernorm_fwd_kernel(const T* __restrict__ x, const float* __restrict__ scale,
   group_sum2<TPR>(s, ss, red);
   float mean;
   const float rstd = row_rstd(s, ss, 1.f / (float)d, eps, mean);
-
 #pragma unroll
-  for (int c = 0; c < kSlots; ++c) {
+  for (int c = 0; c < SLOTS; ++c) {
     const int v = lane + c * TPR;
     if (live && v < nv) {
-      float f[kVec], sc[kVec], bi[kVec];
+      float f[kVec];
       P::unpack(raw[c], f);
-      load_params<kVec>(scale + v * kVec, sc);
-      load_params<kVec>(bias + v * kVec, bi);
 #pragma unroll
       for (int e = 0; e < kVec; ++e) {
-        f[e] = (f[e] - mean) * rstd * sc[e] + bi[e];
+        f[e] = (f[e] - mean) * rstd * sc[c][e] + bi[c][e];
       }
-      *(reinterpret_cast<typename P::Raw*>(y + row * d) + v) = P::pack(f);
+      *(reinterpret_cast<Raw*>(y + row * d) + v) = P::pack(f);
     }
   }
 }
@@ -382,13 +396,29 @@ inline bool shape_ok(int rows, int d, int dtype) {
          (dtype == 0 || dtype == 1);
 }
 
-template <typename T, int TPR>
-void launch_fwd(const void* x, const float* scale, const float* bias, void* y,
-                int rows, int d, float eps, cudaStream_t stream) {
-  constexpr int kRows = Shape<TPR>::kRows;
-  const int grid = (rows + kRows - 1) / kRows;
-  layernorm_fwd_kernel<T, TPR><<<grid, Shape<TPR>::kThreads, 0, stream>>>(
-      static_cast<const T*>(x), scale, bias, static_cast<T*>(y), rows, d, eps);
+// K7 at `slots` 16-byte pieces of a row a thread, as
+// `layernorm_fwd_geometry` gives them: any of 1 to kHeld / kVec that
+// covers the row with a group of TPR threads; others are refused. A block
+// for every kRows rows.
+template <typename T, int TPR, int SLOTS = 1>
+int launch_fwd(const void* x, const float* scale, const float* bias, void* y,
+               int rows, int d, float eps, int slots, cudaStream_t stream) {
+  constexpr int kVec = Piece<T>::kVec;
+  if constexpr (SLOTS > kHeld / kVec) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  } else {
+    if (slots != SLOTS) {
+      return launch_fwd<T, TPR, SLOTS + 1>(x, scale, bias, y, rows, d, eps,
+                                           slots, stream);
+    }
+    if (SLOTS * TPR * kVec < d) return static_cast<int>(cudaErrorInvalidValue);
+    constexpr int kRows = Shape<TPR>::kRows;
+    layernorm_fwd_kernel<T, TPR, SLOTS>
+        <<<(rows + kRows - 1) / kRows, Shape<TPR>::kThreads, 0, stream>>>(
+            static_cast<const T*>(x), scale, bias, static_cast<T*>(y), rows,
+            d, eps);
+    return static_cast<int>(cudaGetLastError());
+  }
 }
 
 // K8's pass over the rows on the geometry of `layernorm_bwd_geometry`,
@@ -415,15 +445,14 @@ int launch_bwd(const void* x, const float* scale, const void* g, void* dx,
 
 template <typename T>
 int run_fwd(const void* x, const float* scale, const float* bias, void* y,
-            int rows, int d, float eps, cudaStream_t stream) {
+            int rows, int d, float eps, int slots, cudaStream_t s) {
   switch (group_threads(d)) {
-    case 32: launch_fwd<T, 32>(x, scale, bias, y, rows, d, eps, stream); break;
-    case 64: launch_fwd<T, 64>(x, scale, bias, y, rows, d, eps, stream); break;
-    case 128: launch_fwd<T, 128>(x, scale, bias, y, rows, d, eps, stream); break;
-    case 256: launch_fwd<T, 256>(x, scale, bias, y, rows, d, eps, stream); break;
+    case 32: return launch_fwd<T, 32>(x, scale, bias, y, rows, d, eps, slots, s);
+    case 64: return launch_fwd<T, 64>(x, scale, bias, y, rows, d, eps, slots, s);
+    case 128: return launch_fwd<T, 128>(x, scale, bias, y, rows, d, eps, slots, s);
+    case 256: return launch_fwd<T, 256>(x, scale, bias, y, rows, d, eps, slots, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
@@ -447,14 +476,15 @@ extern "C" {
 // dbias and partials are float32). The Python wrapper has checked devices,
 // types, shapes, contiguity and 16-byte alignment.
 
+// `slots` comes from `layernorm_fwd_geometry`.
 int layernorm_fwd(const void* x, const float* scale, const float* bias,
-                  void* y, int rows, int d, float eps, int dtype,
+                  void* y, int rows, int d, float eps, int dtype, int slots,
                   void* stream) {
   if (!shape_ok(rows, d, dtype)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return dtype == 1
-             ? run_fwd<__nv_bfloat16>(x, scale, bias, y, rows, d, eps, s)
-             : run_fwd<float>(x, scale, bias, y, rows, d, eps, s);
+             ? run_fwd<__nv_bfloat16>(x, scale, bias, y, rows, d, eps, slots, s)
+             : run_fwd<float>(x, scale, bias, y, rows, d, eps, slots, s);
 }
 
 // `strip` and `parts` come from `layernorm_bwd_geometry`; `partials` is

@@ -59,11 +59,13 @@ launch_counts = {"space_attention_fwd": 0, "time_attention_fwd": 0,
 
 
 # K9's launches since the last reset by the form `flash_fwd_geometry` named.
-flash_form_counts = {"many_queries": 0, "few_queries": 0,
-                     "many_queries_tf32": 0, "few_queries_tf32": 0}
+flash_form_counts = {"many_queries": 0, "many_queries_chunked": 0,
+                     "few_queries": 0, "many_queries_tf32": 0,
+                     "few_queries_tf32": 0}
 
 
-# K8's launches since the last reset by the rows of x.
+# K7's and K8's launches since the last reset by the rows of x.
+layernorm_fwd_rows: dict = {}
 layernorm_bwd_rows: dict = {}
 
 
@@ -71,6 +73,7 @@ def reset_launch_counts() -> None:
     for counts in (launch_counts, flash_form_counts):
         for name in counts:
             counts[name] = 0
+    layernorm_fwd_rows.clear()
     layernorm_bwd_rows.clear()
 
 
@@ -162,7 +165,8 @@ def load() -> SimpleNamespace:
     fns.cls_row_attention_bwd.argtypes = [ptr] * 6 + [i32, ptr] + [i32] * 7 \
         + [f32, ptr]
     fns.cls_row_attention_bwd.restype = i32
-    fns.layernorm_fwd.argtypes = [ptr, ptr, ptr, ptr, i32, i32, f32, i32, ptr]
+    fns.layernorm_fwd.argtypes = [ptr, ptr, ptr, ptr, i32, i32, f32, i32, i32,
+                                  ptr]
     fns.layernorm_fwd.restype = i32
     fns.layernorm_bwd.argtypes = [ptr] * 7 + [i32, i32, f32] + [i32] * 3 \
         + [ptr]
@@ -695,30 +699,71 @@ def _check_ln(x: torch.Tensor, **params: torch.Tensor) -> tuple:
     return rows, d
 
 
+# K8's most blocks (and so partials): 4 for each of the H100's 132 SMs,
+# enough loads in flight to cover the memory's latency. Decided here alone.
+LN_BWD_MAX_PARTS = 4 * 132
+# Must match kHeld and kBlock of `csrc/layernorm.cu`, whose entry points
+# check the geometries against them: elements of a row one thread holds,
+# at most, and threads a block while a row takes at most that many.
+_LN_HELD, _LN_BLOCK = 32, 128
+
+
+def _ln_groups(dtype: torch.dtype, rows: int, d: int) -> tuple:
+    """The checks of K7's and K8's geometries; returns (threads a row, rows
+    a block takes at once)."""
+    if dtype not in _DTYPE_CODES:
+        raise TypeError(f"kernel takes float32 or bfloat16, got {dtype}")
+    if rows < 1 or d < 8 or d % 8 or d > LN_MAX_DIM:
+        raise ValueError(f"LayerNorm kernel takes R >= 1 rows of D a multiple "
+                         f"of 8 up to {LN_MAX_DIM}, got {rows} x {d}")
+    group = 32
+    while group * _LN_HELD < d:
+        group *= 2
+    return group, max(group, _LN_BLOCK) // group
+
+
+def layernorm_fwd_geometry(dtype: torch.dtype, rows: int,
+                           d: int) -> SimpleNamespace:
+    """K7's launch geometry for x [rows, d] of `dtype`:
+      * `group`: threads a row (32, 64, 128 or 256: the fewest that hold it
+        with 32 elements a thread); a block is 128 threads, or one group
+        where that is wider, and takes `at_once` rows at once, a block for
+        every `at_once` rows. On an H100 a walk of 1 to 16 blocks an SM
+        (each group over every n-th row, the next one's loads in flight)
+        was slower than this at every row count of the paths, by up to 6%
+        at 200,768 rows (PERF.md);
+      * `slots`: 16-byte pieces of a row a thread holds, and its scale and
+        bias for them in registers: as many as the row needs,
+        ceil(d / (group * 16 / b)) for b bytes an element (24 elements at
+        D = 768: 3 pieces in bf16, 6 in f32).
+    Pure, and the one place this is decided: the CPU tests check it, and
+    the C entry point launches with it as given, refusing slots that do not
+    cover the row or hold more than 32 elements (CUDA error 1, invalid
+    argument)."""
+    group, at_once = _ln_groups(dtype, rows, d)
+    per_piece = 128 // torch.finfo(dtype).bits  # elements a 16-byte piece
+    return SimpleNamespace(group=group, at_once=at_once,
+                           slots=-(-d // (per_piece * group)))
+
+
 def layernorm_fwd(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                   y: torch.Tensor, *, eps: float) -> None:
-    """K7: y = LayerNorm(x) over the last axis, written into `y`.
+    """K7: y = LayerNorm(x) over the last axis, written into `y`, on the
+    geometry of `layernorm_fwd_geometry`.
 
     x and y [R, D] float32 or bfloat16, scale and bias float32 [D]."""
     name = "layernorm_fwd"
     rows, d = _check_ln(x, scale=scale, bias=bias)
     _check_ln_rows("y", y, x)
+    geo = layernorm_fwd_geometry(x.dtype, rows, d)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         code = load().layernorm_fwd(
             x.data_ptr(), scale.data_ptr(), bias.data_ptr(), y.data_ptr(),
-            rows, d, float(eps), _DTYPE_CODES[x.dtype], stream)
+            rows, d, float(eps), _DTYPE_CODES[x.dtype], geo.slots, stream)
     _raise_on_error(name, code)
     launch_counts[name] += 1
-
-
-# K8's most blocks (and so partials): 4 for each of the H100's 132 SMs,
-# enough loads in flight to cover the memory's latency. Decided here alone.
-LN_BWD_MAX_PARTS = 4 * 132
-# Must match kHeld and kBlock of `csrc/layernorm.cu`, whose entry point
-# checks the strips against them: elements of a row one thread holds, at
-# most, and threads a block while a row takes at most that many.
-_LN_HELD, _LN_BLOCK = 32, 128
+    layernorm_fwd_rows[rows] = layernorm_fwd_rows.get(rows, 0) + 1
 
 
 def layernorm_bwd_geometry(dtype: torch.dtype, rows: int,
@@ -735,15 +780,7 @@ def layernorm_bwd_geometry(dtype: torch.dtype, rows: int,
     Pure, and the one place this split is decided: the CPU tests check it,
     and the C entry point launches with it as given, refusing one that does
     not hold (CUDA error 1, invalid argument)."""
-    if dtype not in _DTYPE_CODES:
-        raise TypeError(f"kernel takes float32 or bfloat16, got {dtype}")
-    if rows < 1 or d < 8 or d % 8 or d > LN_MAX_DIM:
-        raise ValueError(f"LayerNorm kernel takes R >= 1 rows of D a multiple "
-                         f"of 8 up to {LN_MAX_DIM}, got {rows} x {d}")
-    group = 32
-    while group * _LN_HELD < d:
-        group *= 2
-    at_once = max(group, _LN_BLOCK) // group
+    group, at_once = _ln_groups(dtype, rows, d)
     turns = -(-rows // at_once)
     per = -(-turns // min(turns, LN_BWD_MAX_PARTS))
     return SimpleNamespace(group=group, at_once=at_once, strip=per * at_once,
@@ -828,8 +865,25 @@ def _check_strided(name: str, t: torch.Tensor, like: torch.Tensor,
 # bf16 at a head dim of 32, 64 or 128, and 3xTF32 (float32, and bf16 at any
 # other head dim), each for many queries and for few.
 _FLASH_FORMS = {"many_queries": 1, "few_queries": 2, "many_queries_tf32": 3,
-                "few_queries_tf32": 4}
+                "few_queries_tf32": 4, "many_queries_chunked": 5}
 FLASH_FEW_ROWS = 32  # the most query rows of the few-query forms
+# The bf16 many-query ring form: at most FLASH_RING_KEYS keys (one chunk,
+# a one-pass softmax), a block FLASH_RING_ROWS query rows of one (batch,
+# head) at most, each warp streaming slabs of 16 rows through a ring of
+# FLASH_RING_STAGES; past FLASH_RING_KEYS keys the chunked form, 64 rows a
+# block.
+FLASH_RING_KEYS = 64
+FLASH_RING_ROWS = 256
+FLASH_RING_STAGES = 2  # compiled in (kRingStages); 3 and 4 were no faster
+FLASH_RING_SLAB = 16  # query rows a warp multiplies at once
+# The ring form's run is FLASH_RING_ROWS, shortened by 64 rows (a slab for
+# each of the 4 warps) at a time, down to 64, while the blocks, B * H *
+# ceil(Sq / run), are fewer than FLASH_RING_BLOCKS (four an SM). On an H100
+# (PERF.md) 128 to 256 rows a block and a ring of 2 were fastest at
+# the path shapes; at B=8, Sq=785 (96 (b, h)) 128 rows beat 256 and 144
+# (6.8 against 7.4-8.0 us).
+FLASH_RING_BLOCKS = 4 * 132
+_FLASH_PAD = 8  # bf16 of padding a staged row
 FLASH_CHUNK = 128  # keys a staged chunk; a run is a multiple of it
 FLASH_TF32_CHUNK = 32  # the same in the 3xTF32 forms (f32 rows)
 FLASH_TF32_FWD_CHUNK = 16  # keys a staged chunk of "many_queries_tf32"
@@ -853,28 +907,47 @@ def flash_tf32_dh(dh: int) -> int:
     return next(p for p in (16, 32, 64, 128) if dh <= p)
 
 
+def flash_ring_key_tiles(sk: int) -> int:
+    """The 16-key tiles the ring form is compiled for at Sk keys: 1, 2 or
+    4 (Sk up to 16, 32, FLASH_RING_KEYS)."""
+    return 1 if sk <= 16 else 2 if sk <= 32 else 4
+
+
 def flash_fwd_geometry(dtype: torch.dtype, dh: int, sq: int, sk: int, b: int,
                        h: int) -> SimpleNamespace:
     """K9's launch geometry for q [B, H, Sq, Dh] over Sk keys in `dtype`:
       * `form`: "few_queries" at Sq <= FLASH_FEW_ROWS (t2i and text
         self-attention: a block every query row of a (batch, head) and a
-        run of its keys) and "many_queries" at larger Sq (i2t: 64 query
-        rows a block), for bf16 at a head dim of 32, 64 or 128; the same
-        two structures in 3xTF32, "few_queries_tf32" and
+        run of its keys) and, at larger Sq (i2t), "many_queries" over at
+        most FLASH_RING_KEYS keys (the ring form: a block a run of query
+        rows of a (batch, head), K and V staged once, each warp streaming
+        16-row slabs through a ring of its own) or "many_queries_chunked"
+        over more (64 query rows a block, the keys in chunks of 64), for
+        bf16 at a head dim of 32, 64 or 128; the same two structures as
+        the few-query and chunked forms in 3xTF32, "few_queries_tf32" and
         "many_queries_tf32", for float32 and for bf16 at any other head
         dim;
       * `run`: keys a block of a few-query form: Sk over ceil(target /
         (B * H)) rounded up to a multiple of the chunk, so all of Sk where
         B * H reaches the target (FLASH_BLOCKS and FLASH_CHUNK in bf16,
         FLASH_TF32_BLOCKS and FLASH_TF32_CHUNK in 3xTF32); at least
-        FLASH_MIN_RUN (less only where Sk is);
-      * `splits`: ceil(Sk / run), the blocks a (batch, head): the splits
-        axis of the f32 partials [B, H, splits, Sq, Dh + 2] that a second
-        launch merges in order where there is more than one;
+        FLASH_MIN_RUN (less only where Sk is). Of the ring form: query rows
+        a block, FLASH_RING_ROWS, or 64 fewer at a time (down to 64) while
+        B * H * ceil(Sq / run) is under FLASH_RING_BLOCKS; the last block
+        of a (batch, head) takes what is left;
+      * `splits`: the blocks a (batch, head): ceil(Sk / run) in a few-query
+        form, the splits axis of the f32 partials [B, H, splits, Sq,
+        Dh + 2] that a second launch merges in order where there is more
+        than one; ceil(Sq / run) in the ring form;
       * `row_tiles`: 16-row tiles of the queries, 1 for Sq <= 16, else 2;
       * `stages`: the block's ring of staged chunks, FLASH_STAGES: one
-        chunk in flight while one is multiplied;
-      * `shared_bytes`: a block's dynamic shared memory. "few_queries": each
+        chunk in flight while one is multiplied; in the ring form each
+        warp's ring of slabs, FLASH_RING_STAGES;
+      * `key_tiles`: the ring form's 16-key tiles, `flash_ring_key_tiles`;
+      * `shared_bytes`: a block's dynamic shared memory. "many_queries":
+        K and V of 16 * key_tiles keys and the 4 warps' rings of 16-row
+        slabs, all at a pitch of Dh + 8 bf16, and the f32 bias of the
+        keys. "few_queries": each
         stage holds the K and V rows of a chunk at a pitch of Dh + 8 bf16
         and their f32 bias, FLASH_CHUNK rows, or Sk rounded up to 16 where
         it is shorter; after the last chunk the warps' f32 partials, 256 *
@@ -886,21 +959,34 @@ def flash_fwd_geometry(dtype: torch.dtype, dh: int, sq: int, sk: int, b: int,
         4 warps' partials after the last chunk where they need more;
         "many_queries_tf32" the 64-row Q tile and one chunk's K, V and
         bias, FLASH_TF32_FWD_CHUNK keys.
-    The many-query forms have `splits` 1 and no run, row tiles or stages;
-    "many_queries" no dynamic shared memory (None). Pure, and the one place
-    this geometry is decided: the CPU tests check it, and the C entry point
-    launches with it as given, refusing any other (CUDA error 1, invalid
-    argument)."""
+    The chunked many-query forms have `splits` 1 and no run, row tiles or
+    stages; "many_queries_chunked" no dynamic shared memory (None); only
+    the ring form has `key_tiles`. Pure, and the one place this geometry is
+    decided: the CPU tests check it, and the C entry point launches with it
+    as given, refusing any other (CUDA error 1, invalid argument)."""
     if dtype not in _DTYPE_CODES:
         raise TypeError(f"kernel takes float32 or bfloat16, got {dtype}")
     if not 1 <= dh <= 128 or min(sq, sk, b, h) < 1:
         raise ValueError(f"attention kernel takes a head dim up to 128 and "
                          f"Sq, Sk, B, H >= 1, got Dh={dh}, Sq={sq}, Sk={sk}, "
                          f"B={b}, H={h}")
-    many = dict(run=None, splits=1, row_tiles=None, stages=None)
+    many = dict(run=None, splits=1, row_tiles=None, stages=None,
+                key_tiles=None)
     bf16 = dtype == torch.bfloat16 and dh in (32, 64, 128)
+    if bf16 and sq > FLASH_FEW_ROWS and sk > FLASH_RING_KEYS:
+        return SimpleNamespace(form="many_queries_chunked", shared_bytes=None,
+                               **many)
     if bf16 and sq > FLASH_FEW_ROWS:
-        return SimpleNamespace(form="many_queries", shared_bytes=None, **many)
+        slab, step = FLASH_RING_SLAB, 4 * FLASH_RING_SLAB  # a slab a warp
+        run = FLASH_RING_ROWS
+        while run > step and b * h * -(-sq // run) < FLASH_RING_BLOCKS:
+            run -= step
+        kt, stages = flash_ring_key_tiles(sk), FLASH_RING_STAGES
+        return SimpleNamespace(
+            form="many_queries", run=run, splits=-(-sq // run),
+            row_tiles=None, stages=stages, key_tiles=kt,
+            shared_bytes=2 * (2 * 16 * kt + 4 * stages * slab)
+            * (dh + _FLASH_PAD) + 4 * 16 * kt)
     dp = flash_tf32_dh(dh)
     row_bytes = 4 * (2 * dp + 12 + 1)  # a key's K, V and bias in 3xTF32
     if sq > FLASH_FEW_ROWS:
@@ -923,7 +1009,7 @@ def flash_fwd_geometry(dtype: torch.dtype, dh: int, sq: int, sk: int, b: int,
     want = -(-blocks // (b * h))  # splits a (batch, head)
     run = min(max(-(-sk // (want * chunk)) * chunk, FLASH_MIN_RUN), whole)
     return SimpleNamespace(form=form, run=run, splits=-(-sk // run),
-                           row_tiles=row_tiles, stages=stages,
+                           row_tiles=row_tiles, stages=stages, key_tiles=None,
                            shared_bytes=shared)
 
 
@@ -931,8 +1017,10 @@ def flash_fwd_scratch(q: torch.Tensor, geometry: SimpleNamespace):
     """The f32 partials of one few-query K9 call on q [B, H, Sq, Dh] with
     more than one split, [B, H, splits, Sq, Dh + 2] (each row's unnormalised
     output, running max and sum in the log2 domain, of each split), else
-    None. Uninitialised: the first launch fills it, the merge reads it."""
-    if geometry.splits == 1:
+    None: the many-query forms write the output directly, the ring form's
+    splits being runs of query rows. Uninitialised: the first launch fills
+    it, the merge reads it."""
+    if not geometry.form.startswith("few_queries") or geometry.splits == 1:
         return None
     b, h, sq, dh = q.shape
     return torch.empty((b, h, geometry.splits, sq, dh + 2),

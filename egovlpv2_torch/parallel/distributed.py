@@ -117,7 +117,7 @@ def refuse_shared_devices(store, rank_: int, world: int,
 def initialize_multihost(coordinator_address: Optional[str] = None,
                          num_processes: Optional[int] = None,
                          process_id: Optional[int] = None,
-                         device="cpu",
+                         device="cuda",
                          timeout: timedelta = timedelta(minutes=30)) -> dict:
     """Starts the process group of this rank and returns its topology: the
     JAX function's keys (`process_index`, `process_count`, `local_devices`,

@@ -8,8 +8,9 @@ For each frame count, at the full width of configs/eval_egomcq.json
 
   1. timing  — `egovlpv2_torch.cli egomcq` for --steps batches. Each step is
                timed from the host's numpy batch to the end of its device
-               work, the input copy included. Prints every step and the
-               median of the warm ones (all but the first).
+               work, the input copy included. Prints every step, the
+               median of the warm ones (all but the first) and the peak
+               device memory of the run.
   2. profile — one more step of the same model under torch.profiler, after
                one warm step. Prints the device time of its kernels by kind,
                the number of device events, and the time of the input copy
@@ -73,6 +74,7 @@ def _kind(kernel_name: str) -> str:
 
 def time_steps(frames: int, steps: int) -> float:
     """Returns the median warm step in ms."""
+    torch.cuda.reset_peak_memory_stats()
     res = cli.main(["egomcq", "--config", CONFIG, "--device", "cuda",
                     "--batch_size", str(BATCH), "--val_batches", str(steps),
                     "--set", f"model.video.num_frames={frames}"])
@@ -80,7 +82,8 @@ def time_steps(frames: int, steps: int) -> float:
     warm = statistics.median(ms[1:])
     print(f"[timing {frames}f] steps {[round(x, 2) for x in ms]} ms | median "
           f"of {len(ms) - 1} warm {warm:.2f} ms | "
-          f"{res['clips_per_step'] / warm * 1e3:.2f} clips/s", flush=True)
+          f"{res['clips_per_step'] / warm * 1e3:.2f} clips/s | peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
     return warm
 
 

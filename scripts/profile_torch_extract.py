@@ -20,7 +20,8 @@ For mq and nlq: every inner batch's milliseconds (the host's time from one
 result's arrival to the next, the copy of the next inner batch overlapped
 with this one's compute), the median of the warm ones (all but the first two
 of a call: the first carries the warm-up, and the second arrives early
-because the host ran ahead meanwhile) and windows a second. For qfvs, where
+because the host ran ahead meanwhile), windows a second and the peak
+device memory from the start of the call. For qfvs, where
 the host is the bound and a result is collected one inner batch late (so the
 last entry of a call is only the drain of a result that is already there):
 `extract_video` is called twice, and of the second, warm call each runner
@@ -74,7 +75,9 @@ def _report(path: str, log, per_batch: int, what: str) -> float:
     warm = statistics.median(warm_ms)
     print(f"[timing {path}] {what}: inner batches {log[0][0]} ms "
           f"{[round(m, 2) for m in ms]} | median of {len(warm_ms)} warm "
-          f"{warm:.2f} ms | {per_batch / warm * 1e3:.2f} a second", flush=True)
+          f"{warm:.2f} ms | {per_batch / warm * 1e3:.2f} a second | peak "
+          f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
+          flush=True)
     return warm
 
 
@@ -129,6 +132,7 @@ def _frames(cfg, n: int) -> np.ndarray:
 def run_mq(windows: int, out_dir: str) -> None:
     cfg = load_train_config(CONFIG, [])
     frames = cfg.model.video.num_frames
+    torch.cuda.reset_peak_memory_stats()
     with tempfile.TemporaryDirectory() as feats:
         res = cli.main(["extract", "--config", CONFIG, "--device", "cuda",
                         "--synthetic", str(windows * frames), "--out", feats,
@@ -152,6 +156,7 @@ def run_nlq(windows: int, out_dir: str) -> None:
     enc = tok(["where did I put the scissors"])
     ids, mask = enc["text_ids"][0], enc["text_mask"][0]
     ex = FeatureExtractor(model, INNER_BATCH, device_norm="imagenet")
+    torch.cuda.reset_peak_memory_stats()
     feats = ex.fused_window_features(_frames(cfg, windows * frames), frames,
                                      ids, mask)
     assert feats.shape == (windows, cfg.model.video.embed_dim)

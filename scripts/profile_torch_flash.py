@@ -1,15 +1,16 @@
 """Device time of the fused attention kernel (K9) a call, on one CUDA card.
 
     python3 scripts/profile_torch_flash.py [--calls 30] [--runs 1152 3200]
-        [--only t2i] [--dtypes float32]
+        [--ring_rows 128 512] [--chunked] [--only t2i] [--dtypes float32]
 
 `chip_smoke.py` times a wrapper call with CUDA events, and below about 0.2 ms
 that reads the host's time to issue the call, not the kernel's. This script
 reads the kernel's own time from torch.profiler: for each shape the models
 give `flash_attention` (H=12, Dh=64; q, k and v transposed views of
 [B, S, H*Dh] projections; a padding mask where the models have one), bf16 and
-f32, the mean device time a call over `--calls` calls after 3 warm ones,
-summed over the call's kernels (the few-query form's split kernel and its
+f32, the mean device time a call over `--calls` calls after 3 warm ones
+(and the host's time a call of `flash_attention`, before it waits for the
+card), summed over the call's kernels (the few-query form's split kernel and its
 merge), each kernel's own time and name, the geometry of
 `flash_fwd_geometry` (form, run, splits) where the tree has one, and the
 device time of one `scaled_dot_product_attention` call on contiguous copies
@@ -21,9 +22,13 @@ or operations, as `chip_smoke.py` counts them).
 multiple of the form's chunk, 128 in bf16 and 64 in float32; Sk rounded up
 to one is a single split), the geometry's other fields as
 `flash_fwd_geometry` gives them: the sweep the geometry's choice of run
-comes from. It calls the C entry point itself, since the wrapper launches
-only the geometry's own choice. `--only` keeps the cases of one label,
-`--dtypes` the dtypes named.
+comes from. `--ring_rows` does the same for the bf16 ring form (i2t over
+at most 64 keys): each run of query rows a block given (a multiple of 16),
+and `--chunked` times the chunked many-query form at those shapes too (the
+one the ring form replaced there), all on the same inputs. The sweeps call the C entry
+point themselves, since the wrapper launches only the geometry's own
+choice. `--only` keeps the cases of one label, `--dtypes` the dtypes
+named.
 
 The package is imported from the current directory when it holds one, so that
 two trees can be compared inside one call: run the script of this tree from
@@ -35,6 +40,8 @@ import argparse
 import os
 import subprocess
 import sys
+import time
+from types import SimpleNamespace
 
 here = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.getcwd() if os.path.isdir("egovlpv2_torch") else here)
@@ -84,11 +91,18 @@ def _launch(q, k, v, bias, out, geo, scale) -> None:
         None if partials is None else partials.data_ptr(),
         _kernels._DTYPE_CODES[q.dtype], b, h, sq, k.shape[2], dh, *strides,
         0 if bias is None or bias.shape[0] == 1 else bias.stride(0), 0,
-        float(scale), _kernels._FLASH_FORMS[geo.form], geo.run, geo.splits,
-        geo.row_tiles, geo.stages, geo.shared_bytes,
-        torch.cuda.current_stream().cuda_stream)
+        float(scale), _kernels._FLASH_FORMS[geo.form], geo.run or 0,
+        geo.splits, geo.row_tiles or 0, geo.stages or 0,
+        geo.shared_bytes or 0, torch.cuda.current_stream().cuda_stream)
     if code:
         raise RuntimeError(f"fused_attention_fwd: CUDA error {code}")
+
+
+def _ring_sweep(geo, sq: int, rows: int):
+    """The ring form's geometry at `rows` query rows a block, the other
+    fields as `flash_fwd_geometry` gives them."""
+    return SimpleNamespace(**{**vars(geo), "run": rows,
+                              "splits": -(-sq // rows)})
 
 
 def _bound_us(dtype, b: int, sq: int, sk: int, masked: bool) -> float:
@@ -116,6 +130,20 @@ def _per_call(fn, calls: int) -> dict:
             if e.device_type == DeviceType.CUDA and e.self_device_time_total}
 
 
+def _host_us(fn, calls: int) -> float:
+    """The host's time a call of `fn`, us, over `calls` calls after 3 warm
+    ones, before it waits for the card (as chip_smoke.py's `_window_ms`)."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    host = (time.perf_counter() - t0) * 1e6 / calls
+    torch.cuda.synchronize()
+    return host
+
+
 def _line(tree, dtype, label, b, sq, sk, events, what) -> str:
     total = sum(events.values())
     own = ", ".join(f"{key[:48]} {t:.1f}" for key, t in sorted(events.items()))
@@ -127,6 +155,8 @@ def main(argv=None) -> None:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--calls", type=int, default=30)
     p.add_argument("--runs", type=int, nargs="*", default=[])
+    p.add_argument("--ring_rows", type=int, nargs="*", default=[])
+    p.add_argument("--chunked", action="store_true")
     p.add_argument("--only", default=None)
     p.add_argument("--dtypes", nargs="*", default=["bfloat16", "float32"],
                    choices=["bfloat16", "float32"])
@@ -157,8 +187,10 @@ def main(argv=None) -> None:
                 mask = torch.rand((b, sk), generator=gen, device="cuda") > 0.3
                 mask[:, 0] = True
                 bias = make_additive_mask(mask.long())
-            events = _per_call(lambda: flash.flash_attention(
-                q, k, v, scale=DH ** -0.5, bias=bias), args.calls)
+            call = lambda: flash.flash_attention(q, k, v, scale=DH ** -0.5,
+                                                 bias=bias)
+            events = _per_call(call, args.calls)
+            host = _host_us(call, args.calls)
             events = {key: t for key, t in events.items()
                       if any(n in key for n in KERNELS)}
             qc, kc, vc = q.contiguous(), k.contiguous(), v.contiguous()
@@ -173,11 +205,28 @@ def main(argv=None) -> None:
                 q, k, v, scale=DH ** -0.5, bias=bias), args.calls).values())
             what = (f" (library {lib:.1f} us, on the views {lib_views:.1f}; "
                     f"plain {plain:.1f} us; bound "
-                    f"{_bound_us(dtype, b, sq, sk, masked):.1f} us)")
+                    f"{_bound_us(dtype, b, sq, sk, masked):.1f} us; the host "
+                    f"{host:.1f} us a call)")
             if geometry is not None:
                 geo = geometry(dtype, DH, sq, sk, b, H)
-                what += f" ({geo.form}, run {geo.run}, {geo.splits} splits)"
+                what += (f" ({geo.form}, run {geo.run}, {geo.splits} splits, "
+                         f"{getattr(geo, 'stages', None)} stages)")
             print(_line(tree, dtype, label, b, sq, sk, events, what), flush=True)
+            if geometry is not None and geo.form == "many_queries" \
+                    and getattr(geo, "key_tiles", None):
+                sweeps = [(f"ring: {rows} rows a block",
+                           _ring_sweep(geo, sq, rows))
+                          for rows in args.ring_rows]
+                if args.chunked:
+                    sweeps.append(("the chunked form", SimpleNamespace(
+                        form="many_queries_chunked", run=None, splits=1,
+                        row_tiles=None, stages=None, shared_bytes=None)))
+                for what, other in sweeps:
+                    out = torch.empty_like(q)
+                    swept = _per_call(lambda: _launch(q, k, v, bias, out, other,
+                                                      DH ** -0.5), args.calls)
+                    print(_line(tree, dtype, label, b, sq, sk, swept,
+                                f" (sweep: {what})"), flush=True)
             if geometry is None or not geometry(
                     dtype, DH, sq, sk, b, H).form.startswith("few_queries"):
                 continue

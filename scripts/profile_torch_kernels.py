@@ -1,6 +1,6 @@
 """Device time a call of the divided-attention kernels (K1, K2, K3 forward;
-K4 and K6 after it backward) and of the LayerNorm backward (K8) at the
-shapes of `chip_smoke.py`'s phase 3, on one CUDA card.
+K4 and K6 after it backward) and of the LayerNorm forward and backward (K7,
+K8) at the shapes of `chip_smoke.py`'s phase 3, on one CUDA card.
 
     python3 scripts/profile_torch_kernels.py [--calls 20] [--only attention]
 
@@ -16,19 +16,32 @@ call on the frames or patch columns laid out for it. Backward at (16, 4),
 (16, 16), (8, 32) and (8, 4): K4 through its wrapper, then K6 adding to
 the rows K4 wrote from K4's `cls_part` and K3's output and lse0 (as the
 autograd Function runs them), each with its bound (`chip_smoke.py`'s) and,
-for K4, the backward of one library call on the frames. Then K8 at R x 768
-for the paths' row counts, bf16 and f32, through its wrapper, walking input
-sets of 4x the L2 cache as phase 3 does, each launch's time beside one
-`F.layer_norm` backward (autograd) and its bound. It runs on any tree of
+for K4, the backward of one library call on the frames. Then K7 and K8 at
+R x 768 for the paths' row counts, bf16 and f32, and at the heads' f32 shapes
+(8,192 and 480 x 128, 4,000 x 768), through their wrappers,
+walking input sets of 4x the L2 cache as phase 3 does: K7 beside its plain
+version, one `F.layer_norm` call and its bound (x read and y written once) and the
+host's time a call of its wrapper (before it waits for the card), with the
+geometry of `layernorm_fwd_geometry` where the tree has one; K8 each launch's time
+beside one `F.layer_norm` backward (autograd) and its bound. It runs on any tree of
 the port: run the script of this tree from the root of each (parent,
-change, change, parent), and it measures that tree's kernels. The card's
-name and power limit (nvidia-smi) head the output.
+change, change, parent), and it measures that tree's kernels. `--only host`
+reads the host's time a call of K7's and K9's wrappers where the card
+keeps up (`_kernels.layernorm_fwd` at 240 x 768 bf16, the pretrain step's
+text rows; `flash.flash_attention` at the i2t of B=16, S=785 over 15 masked
+keys): HOST_CALLS calls timed together, HOST_REPS times, the median and
+the range per call, the wrappers in turns. Where the tree has K9's ring
+form, K9's C entry point alone is timed too, at the ring form's geometry
+and at the chunked form's. The card's name and power limit (nvidia-smi)
+head the output.
 """
 
 import argparse
 import os
 import subprocess
 import sys
+import time
+from types import SimpleNamespace
 
 here = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.getcwd() if os.path.isdir("egovlpv2_torch") else here)
@@ -38,15 +51,22 @@ from torch.autograd import DeviceType  # noqa: E402
 from torch.nn import functional as F  # noqa: E402
 from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
-from egovlpv2_torch.ops import _kernels  # noqa: E402
+from egovlpv2_torch.ops import _kernels, flash  # noqa: E402
+from egovlpv2_torch.ops import layernorm as ln  # noqa: E402
+from egovlpv2_torch.ops.attention import make_additive_mask  # noqa: E402
 
 H, DH, N = 12, 64, 196
 FWD_CASES = ((20, 4), (20, 16), (16, 4), (8, 32), (64, 16), (16, 5), (8, 4))
 BWD_CASES = ((16, 4), (16, 16), (8, 32), (8, 4))
-LN_ROWS = (120, 240, 6280, 12560, 15696, 50184, 200768)
+LN_ROWS = (120, 240, 6280, 12560, 15696, 50184, 62740, 200768)
+# the downstream heads' f32 LayerNorms (chip_smoke.py's HEAD_LN_CASES):
+# VSLNet's video and query rows at D=128, the QFVS scorer's at D=768
+HEAD_LN_SHAPES = [(torch.float32, 32 * 256, 128), (torch.float32, 32 * 15, 128),
+                  (torch.float32, 20 * 200, 768)]
 L2_BYTES = 50e6
 PEAK_BYTES_S = 3.35e12  # NVIDIA H100 SXM data sheet
 PEAK_BF16 = 989e12  # dense tensor-core bf16, the same
+HOST_CALLS, HOST_REPS = 2000, 11
 
 
 def bound(kind: str, b: int, frames: int) -> str:
@@ -231,50 +251,153 @@ def _ln_sets(rows: int, d: int, dtype) -> list:
     return sets
 
 
+def layernorm_fwd(sets, rows: int, d: int, dtype, calls: int) -> None:
+    """K7 on `sets` (x, _, y), beside its plain version, one
+    `F.layer_norm` call and its bound."""
+    scale = torch.ones(d, device="cuda") + 0.1
+    bias = torch.full((d,), 0.1, device="cuda")
+    w, b = scale.to(dtype), bias.to(dtype)
+    turn = [0]
+
+    def next_set():
+        turn[0] += 1
+        return sets[turn[0] % len(sets)]
+
+    def kernel():
+        x, _, y = next_set()
+        _kernels.layernorm_fwd(x, scale, bias, y, eps=1e-5)
+
+    events = device_events(kernel, calls)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):  # the host's time a call, before it waits
+        kernel()
+    host = (time.perf_counter() - t0) * 1e6 / calls
+    lib = _ms(lambda: F.layer_norm(next_set()[0], (d,), w, b, 1e-5), calls)
+    plain = _ms(lambda: ln.layernorm_reference(next_set()[0], scale, bias,
+                                               eps=1e-5), calls)
+    e = torch.finfo(dtype).bits // 8
+    bound = (2 * rows * d * e + 2 * d * 4) / PEAK_BYTES_S * 1e3
+    geometry = getattr(_kernels, "layernorm_fwd_geometry", None)
+    geo = "" if geometry is None else \
+        f" ({geometry(dtype, rows, d).slots} pieces a thread)"
+    print(f"[layernorm_fwd] {str(dtype).split('.')[-1]} R={rows} D={d}: "
+          f"kernel {sum(events.values()):.4f} ms [{_by_kernel(events)}]"
+          f"{geo} plain {plain:.4f} ms library {lib:.4f} ms bound "
+          f"{bound:.4f} ms; the host "
+          f"{host:.1f} us a call [{len(sets)} input sets]", flush=True)
+
+
 def layernorm(calls: int) -> None:
-    d = 768
-    for dtype in (torch.bfloat16, torch.float32):
-        for rows in LN_ROWS:
-            sets = _ln_sets(rows, d, dtype)
-            scale = torch.ones(d, device="cuda") + 0.1
-            dscale, dbias = torch.empty_like(scale), torch.empty_like(scale)
-            partials = _kernels.layernorm_bwd_scratch(sets[0][0])
-            turn = [0]
+    shapes = [(dtype, rows, 768) for dtype in (torch.bfloat16, torch.float32)
+              for rows in LN_ROWS] + HEAD_LN_SHAPES
+    for dtype, rows, d in shapes:
+        sets = _ln_sets(rows, d, dtype)
+        layernorm_fwd(sets, rows, d, dtype, calls)
+        scale = torch.ones(d, device="cuda") + 0.1
+        dscale, dbias = torch.empty_like(scale), torch.empty_like(scale)
+        partials = _kernels.layernorm_bwd_scratch(sets[0][0])
+        turn = [0]
 
-            def kernel():
-                turn[0] += 1
-                x, g, dx = sets[turn[0] % len(sets)]
-                _kernels.layernorm_bwd(x, scale, g, dx, dscale, dbias,
-                                       partials, eps=1e-5)
+        def kernel():
+            turn[0] += 1
+            x, g, dx = sets[turn[0] % len(sets)]
+            _kernels.layernorm_bwd(x, scale, g, dx, dscale, dbias,
+                                   partials, eps=1e-5)
 
-            graphs = []
-            for x, g, _ in sets:
-                leaves = [t.detach().requires_grad_(True)
-                          for t in (x, scale.to(dtype), scale.to(dtype))]
-                graphs.append((F.layer_norm(leaves[0], (d,), leaves[1],
-                                            leaves[2], 1e-5), leaves, g))
+        graphs = []
+        for x, g, _ in sets:
+            leaves = [t.detach().requires_grad_(True)
+                      for t in (x, scale.to(dtype), scale.to(dtype))]
+            graphs.append((F.layer_norm(leaves[0], (d,), leaves[1],
+                                        leaves[2], 1e-5), leaves, g))
 
-            def library():
-                turn[0] += 1
-                y, leaves, g = graphs[turn[0] % len(graphs)]
-                torch.autograd.grad(y, leaves, g, retain_graph=True)
+        def library():
+            turn[0] += 1
+            y, leaves, g = graphs[turn[0] % len(graphs)]
+            torch.autograd.grad(y, leaves, g, retain_graph=True)
 
-            events = device_events(kernel, calls)
-            e = torch.finfo(dtype).bits // 8
-            bound = (3 * rows * d * e + 3 * d * 4) / PEAK_BYTES_S * 1e3
-            print(f"[layernorm_bwd] {str(dtype).split('.')[-1]} R={rows} "
-                  f"D={d}: kernel {sum(events.values()):.4f} ms "
-                  f"[{_by_kernel(events)}] library {_ms(library, calls):.4f} ms "
-                  f"bound {bound:.4f} ms [{len(sets)} input sets]", flush=True)
-            del sets, graphs
-            torch.cuda.empty_cache()
+        events = device_events(kernel, calls)
+        e = torch.finfo(dtype).bits // 8
+        bound = (3 * rows * d * e + 3 * d * 4) / PEAK_BYTES_S * 1e3
+        print(f"[layernorm_bwd] {str(dtype).split('.')[-1]} R={rows} "
+              f"D={d}: kernel {sum(events.values()):.4f} ms "
+              f"[{_by_kernel(events)}] library {_ms(library, calls):.4f} ms "
+              f"bound {bound:.4f} ms [{len(sets)} input sets]", flush=True)
+        del sets, graphs
+        torch.cuda.empty_cache()
+
+
+def _k9_entry(q, k, v, bias, out, geo):
+    """One call of K9's C entry point at `geo`, as the wrapper makes it
+    (no partials: a many-query form)."""
+    b, h, sq, dh = q.shape
+    strides = [x for t in (q, k, v, out) for x in _kernels.attention_strides(t)]
+    code = _kernels.load().fused_attention_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
+        out.data_ptr(), None, _kernels._DTYPE_CODES[q.dtype], b, h, sq,
+        k.shape[2], dh, *strides, bias.stride(0), 0, DH ** -0.5,
+        _kernels._FLASH_FORMS[geo.form], geo.run or 0, geo.splits,
+        geo.row_tiles or 0, geo.stages or 0, geo.shared_bytes or 0,
+        torch.cuda.current_stream().cuda_stream)
+    if code:
+        raise RuntimeError(f"fused_attention_fwd: CUDA error {code}")
+
+
+def host(calls: int) -> None:
+    """The host's time a call of K7's and K9's wrappers (module doc)."""
+    del calls  # HOST_CALLS: enough that the host's noise averages out
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randn((240, 768), generator=gen, device="cuda").bfloat16()
+    y, scale, bias = torch.empty_like(x), torch.ones(768, device="cuda"), \
+        torch.zeros(768, device="cuda")
+
+    def heads(s):
+        return torch.randn((16, s, H, DH), generator=gen,
+                           device="cuda").bfloat16().transpose(1, 2)
+
+    q, k, v = heads(785), heads(15), heads(15)
+    mask = torch.rand((16, 15), generator=gen, device="cuda") > 0.3
+    mask[:, 0] = True
+    bias_k = make_additive_mask(mask.long())
+    wrappers = {
+        "K7 layernorm_fwd R=240": lambda: _kernels.layernorm_fwd(
+            x, scale, bias, y, eps=1e-5),
+        "K9 flash_attention i2t B=16 S=785": lambda: flash.flash_attention(
+            q, k, v, scale=DH ** -0.5, bias=bias_k)}
+    if "many_queries_chunked" in getattr(_kernels, "_FLASH_FORMS", {}):
+        out = torch.empty_like(q)
+        ring = _kernels.flash_fwd_geometry(torch.bfloat16, DH, 785, 15, 16, H)
+        chunked = SimpleNamespace(form="many_queries_chunked", run=None,
+                                  splits=1, row_tiles=None, stages=None,
+                                  shared_bytes=None)
+        for name, geo in (("the ring form", ring), ("the chunked form",
+                                                     chunked)):
+            wrappers[f"K9's C entry alone, {name}"] = \
+                lambda geo=geo: _k9_entry(q, k, v, bias_k, out, geo)
+    times = {w: [] for w in wrappers}
+    for _ in range(HOST_REPS):
+        for w, fn in wrappers.items():
+            fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(HOST_CALLS):
+                fn()
+            times[w].append((time.perf_counter() - t0) * 1e6 / HOST_CALLS)
+            torch.cuda.synchronize()
+    for w, us in times.items():
+        us = sorted(us)
+        print(f"[host] {w}: median {us[len(us) // 2]:.2f} us a call (range "
+              f"{us[0]:.2f}-{us[-1]:.2f}, {HOST_REPS} x {HOST_CALLS} calls)",
+              flush=True)
 
 
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--calls", type=int, default=20)
     parser.add_argument("--only", nargs="+",
-                        choices=("attention", "backward", "layernorm"),
+                        choices=("attention", "backward", "layernorm",
+                                 "host"),
                         default=("attention", "backward", "layernorm"))
     args = parser.parse_args()
     if not torch.cuda.is_available():
@@ -284,7 +407,7 @@ def main() -> None:
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     print(f"[device] {smi}; tree {os.getcwd()}", flush=True)
     _kernels.load()
-    for part in ("attention", "backward", "layernorm"):
+    for part in ("attention", "backward", "layernorm", "host"):
         if part in args.only:
             globals()[part](args.calls)
 

@@ -48,12 +48,13 @@ from egovlpv2_torch.core.config import load_train_config  # noqa: E402
 from egovlpv2_torch.tasks.pretrain import (build_pretrain,  # noqa: E402
                                            synthetic_batch)
 
-# K9's kernels: the many-query forms (i2t) in bf16 and in 3xTF32 (float32
-# and the other head dims), the few-query forms' split kernels (t2i, text
-# self-attention) and their merge
-K9_KERNELS = ("fused_fwd_kernel", "fused_tf32_fwd_kernel",
-              "fused_split_kernel", "fused_tf32_split_kernel",
-              "fused_merge_kernel")
+# K9's kernels: the many-query forms (i2t) in bf16 (the ring form, and the
+# chunked one past 64 keys) and in 3xTF32 (float32 and the other head
+# dims), the few-query forms' split kernels (t2i, text self-attention) and
+# their merge
+K9_KERNELS = ("fused_ring_kernel", "fused_fwd_kernel",
+              "fused_tf32_fwd_kernel", "fused_split_kernel",
+              "fused_tf32_split_kernel", "fused_merge_kernel")
 KINDS = (  # first match wins
     ("memcpy", ("memcpy",)),
     ("hand kernels, forward (K1/K2/K3)", ("space_fwd_kernel", "time_fwd_kernel",
@@ -95,8 +96,9 @@ def _kind(kernel_name: str) -> str:
 
 def k9_launches(table) -> str:
     """K9's kernels in a profile's `key_averages()`, by template instance:
-    launches and device ms. `fused_fwd_kernel` is the many-query form
-    (i2t); `fused_split_kernel` the few-query form (text self-attention and
+    launches and device ms. `fused_ring_kernel` is the many-query form
+    (i2t; `fused_fwd_kernel` past 64 keys); `fused_split_kernel` the
+    few-query form (text self-attention and
     t2i together), `fused_merge_kernel` its merge where a call splits the
     keys; `fused_tf32_*` the same in 3xTF32 (float32)."""
     parts = []

@@ -114,6 +114,17 @@ def test_jax_flag_parses_alike(command, flag):
                              .choices[command].format_help())
 
 
+@pytest.mark.parametrize("command", sorted(_subparsers(cli._parser())))
+def test_every_command_names_its_device(command):
+    """`main` starts a multi-host group on the command's device: the card,
+    but for mq-anno, which touches none."""
+    port = cli._parser()
+    required = [arg for a in _subparsers(port)[command]._actions
+                if a.required for arg in (a.option_strings[-1], "1")]
+    args = port.parse_args([command, *required])
+    assert args.device == ("cpu" if command == "mq-anno" else "cuda")
+
+
 # ---------------- the downstream heads' commands ----------------
 
 

@@ -17,6 +17,7 @@ import torch
 from jax.experimental.pallas import tpu as pltpu
 
 from egovlpv2_tpu.ops import attention as jattn
+from egovlpv2_tpu.ops import flash as jflash
 from egovlpv2_torch.ops import _kernels, flash
 from egovlpv2_torch.ops import attention as tattn
 
@@ -262,6 +263,8 @@ def _tf32_row_bytes(dh):
 @pytest.mark.parametrize("dtype, dh, sq, form", [
     (torch.bfloat16, 64, 33, "many_queries"),
     (torch.bfloat16, 64, 785, "many_queries"),
+    (torch.bfloat16, 32, 3137, "many_queries"),
+    (torch.bfloat16, 128, 981, "many_queries"),
     (torch.bfloat16, 40, 15, "few_queries_tf32"),
     (torch.bfloat16, 16, 15, "few_queries_tf32"),
     (torch.float32, 64, 15, "few_queries_tf32"),    # EgoTaskQA eval's t2i
@@ -277,28 +280,116 @@ def _tf32_row_bytes(dh):
 ])
 def test_flash_fwd_geometry_other_forms(dtype, dh, sq, form):
     """bf16 above 32 query rows at a tensor-core head dim is the bf16
-    many-query form; float32 at any head dim and bf16 at the others take
-    the 3xTF32 forms, with the head dim padded to 16, 32, 64 or 128 and the
-    shared memory of `flash_fwd_geometry`'s docstring. B=8, H=12; i2t over
-    15 keys above 32 query rows, t2i over 785 keys at or below."""
+    many-query form, over 15 keys its ring form; float32 at any head dim
+    and bf16 at the others take the 3xTF32 forms, with the head dim padded
+    to 16, 32, 64 or 128 and the shared memory of `flash_fwd_geometry`'s
+    docstring. B=8, H=12; i2t over 15 keys above 32 query rows, t2i over
+    785 keys at or below."""
     sk, b = (15 if sq > 32 else 785), 8
     geo = _kernels.flash_fwd_geometry(dtype, dh, sq, sk, b, 12)
     assert geo.form == form
     assert "cuda_cores" not in _kernels._FLASH_FORMS
-    if form.startswith("many"):
+    if form == "many_queries":
+        assert (geo.key_tiles, geo.stages, geo.row_tiles) \
+            == (1, _kernels.FLASH_RING_STAGES, None)
+        assert (geo.splits - 1) * geo.run < sq <= geo.splits * geo.run
+        assert geo.shared_bytes == _ring_shared_bytes(dh, 1, geo.stages)
+    elif form == "many_queries_tf32":
         assert geo.splits == 1
-        assert geo.run is geo.row_tiles is geo.stages is None
-        if form == "many_queries":
-            assert geo.shared_bytes is None
-        else:
-            dp = _kernels.flash_tf32_dh(dh)
-            assert geo.shared_bytes == 4 * 64 * (dp + 8) \
-                + _kernels.FLASH_TF32_FWD_CHUNK * _tf32_row_bytes(dh)
-            assert geo.shared_bytes <= _kernels.SHARED_BYTES_MAX
+        assert geo.run is geo.row_tiles is geo.stages is geo.key_tiles is None
+        dp = _kernels.flash_tf32_dh(dh)
+        assert geo.shared_bytes == 4 * 64 * (dp + 8) \
+            + _kernels.FLASH_TF32_FWD_CHUNK * _tf32_row_bytes(dh)
+        assert geo.shared_bytes <= _kernels.SHARED_BYTES_MAX
     else:
         assert geo.run % _kernels.FLASH_TF32_CHUNK == 0
         assert geo.splits == -(-sk // geo.run)
         assert geo.shared_bytes <= _kernels.SHARED_BYTES_MAX
+
+
+def _ring_shared_bytes(dh, key_tiles, stages):
+    """The ring form's K and V (16 key_tiles rows), the 4 warps' rings of
+    16-row slabs (all at a pitch of Dh + 8 bf16) and the f32 bias."""
+    keys = 16 * key_tiles
+    return 2 * (2 * keys + 4 * stages * 16) * (dh + 8) + 4 * keys
+
+
+@pytest.mark.parametrize("sq, sk, b", [
+    (785, 15, 16),    # i2t, pretrain
+    (3137, 15, 20),   # EgoMCQ 16 frames
+    (3137, 15, 64),   # an NLQ inner batch
+    (981, 15, 16),    # QFVS
+    (785, 30, 8),     # the fine-tunes' 30 tokens: 128 rows a block
+    (6273, 15, 2),    # 32 frames
+    (64, 64, 16),     # 64 x 64: the most keys of the ring form
+    (37, 33, 3),      # an odd Sq over 3 key tiles: compiled as 4
+    (33, 1, 1),       # one key
+    (256, 16, 1), (257, 17, 1), (512, 32, 1), (513, 63, 1),
+])
+@pytest.mark.parametrize("dh", [32, 64, 128])
+def test_flash_fwd_geometry_ring_form(sq, sk, b, dh):
+    """The ring form's runs of query rows are FLASH_RING_ROWS (256), or
+    shorter by a slab of 16 for each of the 4 warps at a time, down to 64,
+    while the blocks of B * H (b, h) are fewer than FLASH_RING_BLOCKS; the
+    runs cover Sq with a row for every block; 1, 2 or 4 key tiles; its
+    shared memory fits a block; past FLASH_RING_KEYS keys the chunked
+    form."""
+    geo = _kernels.flash_fwd_geometry(torch.bfloat16, dh, sq, sk, b, 12)
+    assert geo.form == "many_queries"
+    slab, most = _kernels.FLASH_RING_SLAB, _kernels.FLASH_RING_ROWS
+    assert (slab, most) == (16, 256)
+    assert geo.run % (4 * slab) == 0 and 4 * slab <= geo.run <= most
+    assert geo.splits == -(-sq // geo.run)
+    assert (geo.splits - 1) * geo.run < sq <= geo.splits * geo.run
+    blocks = _kernels.FLASH_RING_BLOCKS
+    if geo.run < most:  # shortened: the longer run had too few blocks
+        assert b * 12 * -(-sq // (geo.run + 4 * slab)) < blocks
+    if geo.run > 4 * slab:
+        assert b * 12 * geo.splits >= blocks
+    if (sq, sk, b) in ((3137, 15, 20), (3137, 15, 64), (981, 15, 16),
+                       (785, 15, 16)):  # the path shapes
+        assert geo.run == most
+    assert geo.key_tiles == (1 if sk <= 16 else 2 if sk <= 32 else 4)
+    assert geo.key_tiles == _kernels.flash_ring_key_tiles(sk)
+    assert geo.stages == _kernels.FLASH_RING_STAGES
+    assert geo.row_tiles is None
+    assert geo.shared_bytes == _ring_shared_bytes(dh, geo.key_tiles,
+                                                  geo.stages)
+    assert geo.shared_bytes <= _kernels.SHARED_BYTES_MAX
+    chunked = _kernels.flash_fwd_geometry(torch.bfloat16, dh, sq, 65, b, 12)
+    assert chunked.form == "many_queries_chunked"
+    assert (chunked.splits, chunked.shared_bytes) == (1, None)
+    assert chunked.run is chunked.row_tiles is chunked.stages \
+        is chunked.key_tiles is None
+
+
+@pytest.mark.parametrize("dtype, dh, sq, sk, b, splits", [
+    (torch.bfloat16, 64, 3137, 15, 64, None),   # the ring form, 13 runs
+    (torch.bfloat16, 64, 6273, 15, 8, None),    # 32 frames
+    (torch.bfloat16, 64, 197, 197, 16, None),   # the chunked form
+    (torch.float32, 64, 785, 15, 8, None),      # many_queries_tf32
+    (torch.bfloat16, 64, 15, 3137, 5, 3),       # EgoMCQ's one question
+    (torch.bfloat16, 64, 15, 3137, 64, 1),
+    (torch.float32, 64, 15, 785, 8, 4),         # the TaskQA evaluation's t2i
+])
+def test_flash_fwd_scratch_only_for_split_few_query_forms(dtype, dh, sq, sk,
+                                                           b, splits):
+    """K9's f32 partials [B, H, splits, Sq, Dh + 2] exist only for a
+    few-query form at more than one split: the ring form's splits are runs
+    of query rows, written straight to the output, so it takes none."""
+    geo = _kernels.flash_fwd_geometry(dtype, dh, sq, sk, b, 12)
+    q = torch.empty((b, 12, sq, dh), dtype=dtype, device="meta")
+    partials = _kernels.flash_fwd_scratch(q, geo)
+    if splits is None:
+        assert not geo.form.startswith("few_queries")
+        assert partials is None
+    else:
+        assert geo.form.startswith("few_queries") and geo.splits == splits
+        if splits == 1:
+            assert partials is None
+        else:
+            assert partials.dtype == torch.float32
+            assert tuple(partials.shape) == (b, 12, splits, sq, dh + 2)
 
 
 @pytest.mark.parametrize("dh, pad", [(1, 16), (12, 16), (16, 16), (17, 32),
@@ -472,3 +563,86 @@ def _check_split_merge_at_32_rows(dtype):
                           tattn.make_additive_mask(torch.from_numpy(mask)),
                           dh ** -0.5, geo.run)
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), **FWD_TOL)
+
+
+# ---- K9's ring form (bf16 i2t over at most 64 keys): its walk and
+# arithmetic
+
+
+def _ring_walk(q, k, v, bias, scale, geo):
+    """K9's ring form in plain f32 torch, as its blocks walk: each (batch,
+    head) in runs of `geo.run` query rows, a run cut into slabs of 16 rows
+    that the block's 4 warps take in turn; each slab one pass over the keys
+    (one chunk: the logits q.k scale + bias in the log2 domain, their max,
+    exp2, the sum; no rescale) and P fed to P.V as hi + lo bf16 terms.
+    Returns the output and how many times each row was written."""
+    b, h, sq, _ = q.shape
+    sk = k.shape[-2]
+    out = torch.full_like(q, float("nan"))
+    written = torch.zeros((b, h, sq), dtype=torch.int64)
+    row_bias = torch.zeros((b, h, 1, sk)) if bias is None \
+        else bias.expand(b, h, 1, sk)
+    for split in range(geo.splits):
+        r_begin = split * geo.run
+        r_end = min(sq, r_begin + geo.run)
+        slabs = -(-(r_end - r_begin) // 16)
+        for warp in range(4):
+            for slab in range(warp, slabs, 4):
+                r0 = r_begin + 16 * slab
+                r1 = min(r0 + 16, r_end)
+                logits = (q[:, :, r0:r1] @ k.transpose(-1, -2)) \
+                    * (scale * LOG2E) + row_bias * LOG2E
+                p = torch.exp2(logits - logits.amax(dim=-1, keepdim=True))
+                hi = p.to(torch.bfloat16).float()
+                lo = (p - hi).to(torch.bfloat16).float()
+                out[:, :, r0:r1] = (lo @ v + hi @ v) / p.sum(dim=-1,
+                                                             keepdim=True)
+                written[:, :, r0:r1] += 1
+    return out, written
+
+
+@pytest.mark.parametrize("sq", [50, 785])
+def test_ring_walk_model_matches_jax_pallas(sq):
+    """The ring form's walk and arithmetic on its geometry (B * H = 4:
+    runs of 64 rows; Sq=50: one run of 4 slabs, the last of 2 rows;
+    Sq=785: 13 runs, the last of 17 rows) over the
+    i2t's 15 keys, k and v slices of one packed [B, Sk, 2, H, Dh]
+    projection, a padding mask with batch row 0 fully masked: every row
+    written once, within 2e-5 of `flash_attention_reference`, and of the
+    JAX package's Pallas `_flash_fwd_3d` (interpret mode) in the batch row
+    that has live keys; batch row 0 uniform over its 15 keys, as the plain
+    version and JAX's `attend` give it (the Pallas kernel pads the keys to
+    128 with the -1e9 of a masked key, so it spreads such a row over the
+    padding too: 15/128 of the mean). The inputs are bf16 values, as the
+    kernel's: the products q.k are exact in f32."""
+    b, h, sk, dh = 2, 2, 15, 32
+    geo = _kernels.flash_fwd_geometry(torch.bfloat16, dh, sq, sk, b, h)
+    assert geo.form == "many_queries"
+    rs = np.random.RandomState(sq)
+
+    def bf16_values(*shape):
+        x = torch.from_numpy(rs.randn(*shape).astype(np.float32))
+        return x.to(torch.bfloat16).float()
+
+    q = bf16_values(b, sq, h, dh).transpose(1, 2)
+    kv = bf16_values(b, sk, 2, h, dh).permute(2, 0, 3, 1, 4)
+    k, v = kv[0], kv[1]
+    mask = _mask(sq, b, sk)
+    mask[0] = 0
+    bias = tattn.make_additive_mask(torch.from_numpy(mask))
+    got, written = _ring_walk(q, k, v, bias, dh ** -0.5, geo)
+    assert torch.all(written == 1)
+    flat = [np.ascontiguousarray(t.numpy()).reshape(b * h, -1, dh)
+            for t in (q, k, v)]
+    bias_rows = np.broadcast_to(bias.numpy()[:, :, 0], (b, h, sk))
+    with pltpu.force_tpu_interpret_mode():
+        ref = jflash._flash_fwd_3d(*(jnp.asarray(x) for x in flat),
+                                   jnp.asarray(bias_rows.reshape(b * h, sk)),
+                                   dh ** -0.5)
+    np.testing.assert_allclose(got.reshape(b * h, sq, dh).numpy()[h:],
+                               np.asarray(ref)[h:], **FWD_TOL)
+    np.testing.assert_allclose(
+        got.numpy(), flash.flash_attention_reference(
+            q, k, v, scale=dh ** -0.5, bias=bias).numpy(), **FWD_TOL)
+    uniform = v[0].mean(dim=-2, keepdim=True).expand(h, sq, dh)
+    np.testing.assert_allclose(got[0].numpy(), uniform.numpy(), **FWD_TOL)

@@ -934,6 +934,43 @@ def test_layernorm_bwd_geometry(rows, d, dtype):
     assert tuple(_kernels.layernorm_bwd_scratch(x).shape) == (geo.parts, 2, d)
 
 
+# K7's shapes: chip_smoke.py's phase 3 (LN_CASES, EgoMCQ 16f's 20 x 3137
+# video rows among them, and the heads' HEAD_LN_CASES), a last block cut
+# short, and the wider groups.
+LN_FWD_SHAPES = [(16 * 785, 768), (8 * 6273, 768), (64 * 3137, 768),
+                 (20 * 3137, 768), (16 * 981, 768), (240, 768), (301, 776),
+                 (120, 768), (8 * 785, 768), (32 * 256, 128), (32 * 15, 128),
+                 (20 * 200, 768), (2111, 768), (1, 768), (7, 8), (130, 1032),
+                 (9, 2048), (3, 4096), (2, 8192)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows, d", LN_FWD_SHAPES)
+def test_layernorm_fwd_geometry(rows, d, dtype):
+    """K7's geometry: the groups of K8 (128 threads a block, or one group
+    where that is wider); a thread holds the 16-byte pieces of a row its
+    group needs, at most 32 elements' worth: 24 elements at D = 768, 3
+    pieces in bf16, 6 in f32."""
+    geo = _kernels.layernorm_fwd_geometry(dtype, rows, d)
+    bwd = _kernels.layernorm_bwd_geometry(dtype, rows, d)
+    assert (geo.group, geo.at_once) == (bwd.group, bwd.at_once)
+    per_piece = 16 // (torch.finfo(dtype).bits // 8)
+    assert geo.slots == -(-d // (per_piece * geo.group))
+    assert (geo.slots - 1) * per_piece * geo.group < d
+    assert 1 <= geo.slots * per_piece <= 32
+    if d == 768:
+        assert (geo.group, geo.slots * per_piece) == (32, 24)
+
+
+def test_layernorm_fwd_geometry_refuses_bad_input():
+    geo = _kernels.layernorm_fwd_geometry
+    with pytest.raises(TypeError, match="float16"):
+        geo(torch.float16, 240, 768)
+    for rows, d in ((0, 768), (240, 0), (240, 12), (240, 8200)):
+        with pytest.raises(ValueError):
+            geo(torch.bfloat16, rows, d)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("eps", [1e-5, 1e-12])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -990,6 +1027,49 @@ def test_layernorm_bwd_shapes_back_to_back(cuda, dtype):
         assert _ln_rel(dx, ref_dx) <= LN_TOL[dtype]
         assert _ln_rel(dscale, ref_dscale) <= 1e-3
         assert _ln_rel(dbias, ref_dbias) <= 1e-3
+
+
+def _launch_ln_fwd(x, scale, bias, y, eps, slots) -> int:
+    rows, d = x.shape
+    return _kernels.load().layernorm_fwd(
+        x.data_ptr(), scale.data_ptr(), bias.data_ptr(), y.data_ptr(), rows, d,
+        eps, _kernels._DTYPE_CODES[x.dtype], slots,
+        torch.cuda.current_stream().cuda_stream)
+
+
+# K7 at the row counts of chip_smoke.py's phase 3 (EgoMCQ 16f's video rows
+# 20 x 3137 among them) and at its other group widths.
+LN_FWD_CASES = [(12560, 768), (20 * 3137, 768), (240, 768), (301, 776),
+                (32 * 256, 128), (130, 1032), (9, 2048), (2, 8192)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", LN_FWD_CASES)
+def test_layernorm_fwd_launches_its_geometry_and_refuses_others(cuda, case,
+                                                               dtype):
+    """K7 at the slots of `layernorm_fwd_geometry` through the C entry
+    point: the same bits twice, within LN_TOL of the plain version, the
+    profiled kernel its one launch; a slot more, where a thread may hold
+    it, the same bits again; slots that do not cover the row, none, or
+    more than 32 elements' worth are refused."""
+    rows, d = case
+    x, _, scale, bias = _ln_inputs(rows, d, dtype, cuda)
+    geo = _kernels.layernorm_fwd_geometry(dtype, rows, d)
+    most = 32 // (16 // x.element_size())
+    outs = []
+    for slots in (geo.slots, geo.slots, min(geo.slots + 1, most)):
+        outs.append(torch.full_like(x, float("nan")))
+        assert _launch_ln_fwd(x, scale, bias, outs[-1], 1e-5, slots) == 0
+    torch.cuda.synchronize()
+    assert _same_bits(*outs[:2]) and _same_bits(*outs[1:])
+    ref = ln.layernorm_reference(x, scale, bias, eps=1e-5)
+    assert _ln_rel(outs[0], ref) <= LN_TOL[dtype]
+    names = _profiled_names(lambda: _kernels.layernorm_fwd(
+        x, scale, bias, outs[0], eps=1e-5))
+    assert len(names) == 1 and "layernorm_fwd_kernel" in names[0], names
+    for slots in (0, geo.slots - 1, most + 1):
+        assert _launch_ln_fwd(x, scale, bias, outs[1], 1e-5, slots) == 1
 
 
 @pytest.mark.gpu
@@ -1193,6 +1273,144 @@ def test_fused_attention_refuses_a_geometry_that_does_not_hold(cuda):
            dict(shared_bytes=geo.shared_bytes - 256)]
     for change in bad:
         assert launch(SimpleNamespace(**{**vars(geo), **change})) == 1, change
+
+
+def _launch_flash(q, k, v, bias, out, geo, scale, partials=None) -> int:
+    """One K9 call at the geometry `geo` through the C entry point, as the
+    wrapper makes it (its partials, unless given); returns its code (0, or
+    1 for a refused geometry)."""
+    b, h, sq, dh = q.shape
+    if partials is None:
+        partials = _kernels.flash_fwd_scratch(q, geo)
+    strides = [x for t in (q, k, v, out) for x in _kernels.attention_strides(t)]
+    return _kernels.load().fused_attention_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        None if bias is None else bias.data_ptr(), out.data_ptr(),
+        None if partials is None else partials.data_ptr(),
+        _kernels._DTYPE_CODES[q.dtype], b, h, sq, k.shape[2], dh, *strides,
+        0 if bias is None or bias.shape[0] == 1 else bias.stride(0), 0,
+        float(scale), _kernels._FLASH_FORMS[geo.form], geo.run or 0,
+        geo.splits, geo.row_tiles or 0, geo.stages or 0,
+        geo.shared_bytes or 0, torch.cuda.current_stream().cuda_stream)
+
+
+def _heads_out(q):
+    """[B, H, Sq, Dh] over a [B, Sq, H, Dh] buffer, as the wrapper writes."""
+    b, h, sq, dh = q.shape
+    return torch.empty_strided((b, h, sq, dh), (sq * h * dh, dh, h * dh, 1),
+                               dtype=q.dtype, device=q.device)
+
+
+# K9's ring form (bf16, Dh 32/64/128, Sq > 32 over Sk <= 64): the i2t shapes
+# of the paths and of chip_smoke.py's phase 3 (pretrain, EgoMCQ 16f, an NLQ
+# inner batch, QFVS; the fine-tunes' 30 tokens), the 64 x 64 case, an odd
+# Sq (a last slab of 5 rows), one key, the other head dims and key tiles:
+# (B, H, Sq, Sk, Dh, layout, bias).
+RING_CASES = [
+    (16, 12, 785, 15, 64, "packed", "masked_row"),
+    (20, 12, 3137, 15, 64, "packed", "masked_row"),
+    (64, 12, 3137, 15, 64, "packed", "masked_row"),
+    (16, 12, 981, 15, 64, "packed", "masked_row"),
+    (8, 12, 785, 30, 64, "packed", "mask"),
+    (16, 12, 64, 64, 64, "heads", "mask"),
+    (3, 5, 37, 33, 32, "heads", "masked_row"),
+    (2, 3, 100, 17, 128, "plain", None),
+    (1, 2, 33, 1, 64, "heads", None),
+    (2, 2, 6273, 15, 64, "packed", "mask"),
+]
+_CHUNKED = SimpleNamespace(form="many_queries_chunked", run=None, splits=1,
+                           row_tiles=None, stages=None, key_tiles=None,
+                           shared_bytes=None)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", RING_CASES)
+def test_ring_form_matches_plain_and_the_chunked_form_bit_for_bit(cuda,
+                                                                  case):
+    """The ring form through `flash_attention` against the plain version
+    (within 4e-3 of max |reference|; a fully masked batch row uniform over
+    its keys), its profiled kernel `fused_ring_kernel`; and against the
+    chunked form launched on the same inputs: the same mma products in the
+    same order, so the same bits."""
+    b, h, sq, sk, dh = case[:5]
+    geo = _kernels.flash_fwd_geometry(torch.bfloat16, dh, sq, sk, b, h)
+    assert geo.form == "many_queries"
+    q, k, v, bias = _flash_inputs(case, torch.bfloat16, cuda)
+    before = dict(_kernels.flash_form_counts)
+    got = flash.flash_attention(q, k, v, scale=dh ** -0.5, bias=bias)
+    torch.cuda.synchronize()
+    assert _kernels.flash_form_counts["many_queries"] \
+        == before["many_queries"] + 1
+    ref = flash.flash_attention_reference(q.float(), k.float(), v.float(),
+                                          scale=dh ** -0.5, bias=bias)
+    assert torch.isfinite(got).all()
+    assert _flash_rel(got, ref) <= FLASH_TOL[torch.bfloat16]
+    if case[6] == "masked_row":
+        uniform = v[0].float().mean(dim=-2, keepdim=True).expand(h, sq, dh)
+        assert _flash_rel(got[0], uniform) <= FLASH_TOL[torch.bfloat16]
+    chunked = _heads_out(q)
+    assert _launch_flash(q, k, v, bias, chunked, _CHUNKED, dh ** -0.5) == 0
+    torch.cuda.synchronize()
+    assert _same_bits(got, chunked)
+    names = _profiled_kernels(lambda: flash.flash_attention(
+        q, k, v, scale=dh ** -0.5, bias=bias))
+    assert len(names) == 1 and "fused_ring_kernel" in next(iter(names)), names
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", [RING_CASES[0], RING_CASES[6],
+                                  RING_CASES[7]])
+def test_ring_form_gives_the_same_bits_at_any_run_it_takes(cuda, case):
+    """The ring form at other runs of rows (one slab, a run that is not a
+    multiple of 64, all of Sq in one block) gives the bits of the
+    geometry's own choice: the run changes only which warp multiplies
+    which rows, and when."""
+    b, h, sq, sk, dh = case[:5]
+    q, k, v, bias = _flash_inputs(case, torch.bfloat16, cuda)
+    geo = _kernels.flash_fwd_geometry(torch.bfloat16, dh, sq, sk, b, h)
+    want = _heads_out(q)
+    assert _launch_flash(q, k, v, bias, want, geo, dh ** -0.5) == 0
+    for run in (16, 48, 1024, -(-sq // 16) * 16):
+        other = SimpleNamespace(**{**vars(geo), "run": run,
+                                   "splits": -(-sq // run)})
+        out = _heads_out(q)
+        assert _launch_flash(q, k, v, bias, out, other, dh ** -0.5) == 0
+        torch.cuda.synchronize()
+        assert _same_bits(out, want), run
+
+
+@pytest.mark.gpu
+def test_fused_attention_refuses_a_ring_geometry_that_does_not_hold(cuda):
+    """The C entry point launches the ring form's geometry as given and
+    refuses any other: a run of rows off a whole slab of 16, splits that do
+    not cover Sq, a ring of 1 or 3 slabs, row tiles, other shared memory,
+    the ring form over more than 64 keys, the chunked form with a ring
+    geometry, either form given partials; the chunked form at its own
+    geometry launches."""
+    case = (2, 2, 100, 15, 64, "heads", None)
+    q, k, v, _ = _flash_inputs(case, torch.bfloat16, cuda)
+    geo = _kernels.flash_fwd_geometry(torch.bfloat16, 64, 100, 15, 2, 2)
+    assert (geo.form, geo.key_tiles) == ("many_queries", 1)
+    out = _heads_out(q)
+    assert _launch_flash(q, k, v, None, out, geo, 0.125) == 0
+    assert _launch_flash(q, k, v, None, out, _CHUNKED, 0.125) == 0
+    torch.cuda.synchronize()
+    bad = [dict(run=100), dict(run=0), dict(splits=geo.splits + 1),
+           dict(stages=1), dict(stages=3), dict(row_tiles=1),
+           dict(shared_bytes=geo.shared_bytes - 16),
+           dict(form="many_queries_chunked"), dict(form="few_queries")]
+    for change in bad:
+        g = SimpleNamespace(**{**vars(geo), **change})
+        assert _launch_flash(q, k, v, None, out, g, 0.125) == 1, change
+    qk, kk, vk, _ = _flash_inputs((2, 2, 100, 65, 64, "heads", None),
+                                  torch.bfloat16, cuda)
+    assert _kernels.flash_fwd_geometry(torch.bfloat16, 64, 100, 65, 2,
+                                       2).form == "many_queries_chunked"
+    assert _launch_flash(qk, kk, vk, None, _heads_out(qk), geo, 0.125) == 1
+    spare = torch.empty(16, device=cuda)
+    for g in (geo, _CHUNKED):
+        assert _kernels.flash_fwd_scratch(q, g) is None
+        assert _launch_flash(q, k, v, None, out, g, 0.125, spare) == 1
 
 
 # The 3xTF32 forms at the shapes the paths give them, and at head dims off

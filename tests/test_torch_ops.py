@@ -95,7 +95,7 @@ def test_layernorm_matches_jax(dtype, tol):
 
 @pytest.mark.parametrize("dtype, tol", [("float32", 1e-5), ("bfloat16", 2e-2)])
 @pytest.mark.parametrize("rows", [300, 7])  # 300: a partial last row tile
-@pytest.mark.parametrize("d", [128, 256])
+@pytest.mark.parametrize("d", [128, 256, 768])  # 768: the models' width
 def test_plain_layernorm_matches_jax_pallas(d, rows, dtype, tol):
     """`layernorm_reference` and `layernorm_backward_reference` against the
     JAX package's Pallas LN kernels, forward and `jax.vjp`. Tolerance, of

@@ -10,6 +10,7 @@ to one rank, and two ranks on one device refused."""
 
 import concurrent.futures
 import dataclasses
+import inspect
 import json
 import os
 import signal
@@ -161,6 +162,17 @@ def test_two_ranks_on_one_device_are_refused(collectives_run, monkeypatch):
         distributed.initialize_multihost(device="cpu")
     with pytest.raises(ValueError, match="--num_processes"):
         distributed.initialize_multihost("localhost:1", device="cpu")
+
+
+def test_initialize_multihost_defaults_to_the_card():
+    """The public entry point runs on the card unless its caller asks for
+    the CPU: without CUDA its default raises before any rendezvous."""
+    default = inspect.signature(
+        distributed.initialize_multihost).parameters["device"].default
+    assert default == "cuda"
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            distributed.initialize_multihost("localhost:1", 2, 0)
 
 
 def test_local_rows_and_batch_size(monkeypatch):
