@@ -293,6 +293,23 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
                 for on the one card: both must exit non-zero with the
                 refusal of `parallel/distributed.py` ("two ranks on one
                 device") within REFUSE_TIMEOUT seconds.
+ 10. bench    — `python -m egovlpv2_torch.cli bench --device cuda` in a
+                child process with a time limit, at the bench's defaults
+                (BENCH_BATCH 16, no remat; full width, bf16): one synthetic
+                batch put once, BENCH_WARMUP warm and BENCH_ITERS timed
+                steps with two in flight. Its one JSON line must have a
+                finite `value` > 0, `devices` 1, `global_batch` 16 and a
+                finite `loss`; K1-K9 launched a whole number of times a
+                step (at least once), K10/K11 never ("bench" in
+                `launches_by_path`); the batch it reuses unchanged after
+                its last step. Printed beside the card's name and power
+                limit: the JSON line, the launches a step, the host
+                synchronisations inside one timed step (PyTorch's sync
+                debug mode warns at each) and where they come from, the
+                host's draw of one such batch and its put (three times
+                each, in this process), phase 5's median step (which holds
+                both) beside the bench's, the peak memory and the phase's
+                seconds.
 Then one JSON line of the kernels and, last, the result line.
 """
 
@@ -319,6 +336,7 @@ from torch.nn import functional as F
 from torch.profiler import ProfilerActivity, profile
 
 from egovlpv2_torch import cli
+from egovlpv2_torch.bench import bench_config
 from egovlpv2_torch.core.config import load_train_config
 from egovlpv2_torch.data.datasets import SyntheticVideoTextDataset
 from egovlpv2_torch.data.loader import (DataLoader, default_collate,
@@ -616,6 +634,12 @@ DIST_STEPS = PRETRAIN_STEPS
 DIST_LOSS_RTOL = 1e-3
 DIST_TIMEOUT = 300
 REFUSE_TIMEOUT = 120
+# The bench phase: `cli bench` at its defaults (bench.py's 3 warm and 10
+# timed steps), the host syncs counted in its second timed step.
+BENCH_WARMUP, BENCH_ITERS = 3, 10
+BENCH_SYNC_STEP = BENCH_WARMUP + 2
+BENCH_TIMEOUT = 300
+BENCH_DRAWS = 3
 FINETUNE_CONFIG = "configs/ft_charades.json"
 FINETUNE_SETS = ["global_batch_size=8", "optim.max_steps=1000"]
 FINETUNE_RUNS = (("ft_charades_32f", "model.remat=false", 5),
@@ -3083,6 +3107,130 @@ def phase_dist(smi: str, single: dict) -> dict:
     return {k: counts.get(k, 0) for k in KERNELS}
 
 
+# One run of phase 10: `cli bench` as a user runs it, its launches counted
+# from 0 in this process; in step BENCH_SYNC_STEP (a timed one) every host
+# synchronisation that goes through PyTorch warns (sync debug mode) and is
+# recorded with its Python line; the batch the bench reuses is copied at
+# its first step and compared after its last.
+_BENCH_CHILD = """
+import json, sys, warnings
+import torch
+from egovlpv2_torch import bench, cli
+from egovlpv2_torch.ops import _kernels
+out, sync_step = sys.argv[1], int(sys.argv[2])
+build = bench.build_pretrain
+seen = {"steps": 0, "syncs": []}
+
+def counted(cfg, device):
+    *trainer, step = build(cfg, device)
+
+    def call(batch):
+        seen["steps"] += 1
+        if seen["steps"] == 1:
+            seen["batch"] = batch
+            seen["before"] = {k: v.clone() for k, v in batch.items()}
+        if seen["steps"] != sync_step:
+            return step(batch)
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                metrics = step(batch)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        seen["syncs"] = [[str(w.message).splitlines()[0],
+                          f"{w.filename}:{w.lineno}"] for w in caught]
+        return metrics
+    return (*trainer, call)
+
+bench.build_pretrain = counted
+_kernels.reset_launch_counts()
+cli.main(sys.argv[3:])
+with open(out, "w") as f:
+    json.dump({"steps": seen["steps"], "syncs": seen["syncs"],
+               "counts": dict(_kernels.launch_counts),
+               "batch_unchanged": all(torch.equal(seen["batch"][k], v)
+                                      for k, v in seen["before"].items()),
+               "peak": torch.cuda.max_memory_allocated()}, f)
+"""
+
+
+def _draw_and_put_ms(cfg) -> tuple:
+    """The host's ms to draw one global batch of `cfg` and to put it on the
+    card (pinned, copied, waited for), BENCH_DRAWS times each."""
+    draws, puts = [], []
+    for i in range(BENCH_DRAWS):
+        t0 = time.perf_counter()
+        batch = synthetic_batch(cfg, cfg.global_batch_size,
+                                np.random.default_rng(i))
+        t1 = time.perf_counter()
+        device_put(torch.device("cuda"))(batch).wait()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        draws.append((t1 - t0) * 1e3)
+        puts.append((t2 - t1) * 1e3)
+    return draws, puts
+
+
+def phase_bench(smi: str, single: dict) -> dict:
+    """`cli bench --device cuda` at its defaults in a child process, beside
+    phase 5's step (`single`). Returns the launches of the run."""
+    t0 = time.perf_counter()
+    cfg = bench_config({}, 1)
+    draws, puts = _draw_and_put_ms(cfg)
+    _free()
+    env = {k: v for k, v in _child_env().items()
+           if not k.startswith("BENCH_")}
+    argv = ["bench", "--device", "cuda"]
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "bench.json")
+        codes, logs = run_ranks([[sys.executable, "-c", _BENCH_CHILD, out,
+                                  str(BENCH_SYNC_STEP), *argv]],
+                                BENCH_TIMEOUT, env=env)
+        if codes != [0]:
+            raise AssertionError(f"cli bench ended with {codes}:\n"
+                                 f"{logs[0][-6000:]}")
+        with open(out) as f:
+            res = json.load(f)
+    lines = [line for line in logs[0].splitlines()
+             if line.startswith('{"metric"')]
+    if len(lines) != 1:
+        raise AssertionError(f"cli bench printed {len(lines)} records:\n"
+                             f"{logs[0][-6000:]}")
+    record = json.loads(lines[0])
+    detail = record["detail"]
+    if not (np.isfinite(record["value"]) and record["value"] > 0
+            and detail["devices"] == 1
+            and detail["global_batch"] == cfg.global_batch_size == 16
+            and np.isfinite(detail["loss"])):
+        raise AssertionError(f"cli bench: {record}")
+    steps = BENCH_WARMUP + BENCH_ITERS
+    if res["steps"] != steps:
+        raise AssertionError(f"cli bench ran {res['steps']} steps")
+    if not res["batch_unchanged"]:
+        raise AssertionError("cli bench: a step changed the batch it reuses")
+    counts = res["counts"]
+    per_step = {k: counts.get(k, 0) / steps for k in KERNELS}
+    if not all(per_step[k] >= 1 and per_step[k] == int(per_step[k])
+               for k in BF16_PATH_KERNELS) \
+            or any(per_step[k] for k in GENERAL_KERNELS):
+        raise AssertionError(f"cli bench: launches a step {per_step}")
+    syncs = [s for s in res["syncs"] if "synchroniz" in s[0]]
+    where = sorted({loc for _, loc in syncs})
+    warm = float(np.median(single["step_ms"][2:]))
+    print(f"[10 bench] {' '.join(argv)} (BENCH_BATCH 16, no remat, full "
+          f"width, bf16): {lines[0]} | launches a step {per_step} | host "
+          f"synchronisations in timed step {BENCH_SYNC_STEP - BENCH_WARMUP} "
+          f"(sync debug mode) {len(syncs)}: {where} | the host's draw of one "
+          f"batch of 16 {[round(x, 1) for x in draws]} ms, its put "
+          f"{[round(x, 1) for x in puts]} ms | phase 5's median of steps "
+          f"3-{PRETRAIN_STEPS} (draw and put in each) {warm:.1f} ms against "
+          f"the bench's {detail['step_ms']} ms | batch unchanged after "
+          f"{steps} steps | peak memory {res['peak'] / 2**30:.2f} GiB | "
+          f"phase {time.perf_counter() - t0:.1f} s | {smi}", flush=True)
+    return {k: counts.get(k, 0) for k in KERNELS}
+
+
 def main() -> None:
     smi = phase_device()
     phase_build()
@@ -3099,8 +3247,9 @@ def main() -> None:
     by_path["pretrain_val"] = phase_loop(smi)
     by_path.update(phase_heads(smi))
     by_path["pretrain_dist"] = phase_dist(smi, single)
+    by_path["bench"] = phase_bench(smi, single)
     for path in ("egomcq_16f", "egomcq_4f", "egomcq_16f_1q", "pretrain",
-                 "pretrain_dist"):
+                 "pretrain_dist", "bench"):
         if not by_path[path]["fused_attention_fwd"]:
             raise AssertionError(f"{path}: K9 was not launched")
     bad = sorted(m for m in sys.modules
@@ -3120,6 +3269,7 @@ def main() -> None:
     steps = {"pretrain": PRETRAIN_STEPS, "taskqa": TASKQA_STEPS,
              "pretrain_val": 2 * LOOP_VAL_BATCHES,
              "pretrain_dist": DIST_STEPS,
+             "bench": BENCH_WARMUP + BENCH_ITERS,
              "mq_vsgn_b16_t928": HEAD_EPOCHS * MQ_TRAIN_CLIPS // MQ_BATCH,
              "nlq_vslnet_b32": HEAD_EPOCHS * NLQ_TRAIN // NLQ_BATCH,
              "qfvs_scorer_20x200": HEAD_EPOCHS * 2 * len(QFVS_PAIRS)}

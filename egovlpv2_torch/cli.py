@@ -102,6 +102,17 @@ Subcommands:
         --tags Dense_per_shot_tags --tags_mat Tags.mat --features qfvs_feats/ \
         --train_videos 1,2,3 --test_video 4
 
+  bench    — pretrain clips/s per card, the JAX package's `bench.py` on
+             the port (`bench.py` of this package): full width, bf16, one
+             synthetic batch put on the card once, 3 warm and 10 timed
+             steps with two in flight, one JSON line (`metric`, `value`,
+             `unit`, `vs_baseline`, `detail`). BENCH_BATCH rows a card
+             (16), BENCH_REMAT=1 and BENCH_PATH_REMAT=1 from the
+             environment; over N processes each rank drives its card with
+             BENCH_BATCH rows and rank 0 prints.
+
+    python -m egovlpv2_torch.cli bench --device cuda
+
 Checkpoints of pretrain and the fine-tunes (`train/checkpoint.py`):
 `--save_dir` writes the resolved config.json, info.log, stats.txt (a JSON
 line a logged step and a validation) and ckpt/: a checkpoint after each
@@ -133,6 +144,7 @@ files), every rank computes the loss of the global batch and the gradients
 are averaged, so the run equals one process over the global batch; a
 SIGTERM to any rank stops them all after one step, rank 0 saves, every
 rank reads a --resume checkpoint, and each rank runs the whole validation.
+bench runs on every rank too, each with BENCH_BATCH rows of the batch.
 The other commands have no data-parallel form: the group ends, rank 0
 runs them alone and the other ranks return. Files come from rank 0 alone.
 
@@ -1168,6 +1180,12 @@ def cmd_qfvs(args) -> dict:
     return {"metrics": metrics, "timings": timings}
 
 
+def cmd_bench(args) -> dict:
+    from egovlpv2_torch import bench
+
+    return bench.main(_device(args.device))
+
+
 def _parser() -> argparse.ArgumentParser:
     """The commands and their flags: those of the JAX CLI's parsers, with
     the same defaults, and --device; every command takes the multi-host
@@ -1367,13 +1385,19 @@ def _parser() -> argparse.ArgumentParser:
     q.add_argument("--metrics_out", default=None)
     q.add_argument("--device", default="cuda", help="cuda, cuda:<i> or cpu")
     q.set_defaults(fn=cmd_qfvs)
+
+    b = sub.add_parser("bench", help="pretrain clips/s per card on one "
+                       "synthetic batch (BENCH_BATCH, BENCH_REMAT, "
+                       "BENCH_PATH_REMAT from the environment)")
+    b.add_argument("--device", default="cuda", help="cuda, cuda:<i> or cpu")
+    b.set_defaults(fn=cmd_bench)
     for command in sub.choices.values():
         _add_multihost(command)
     return parser
 
 
 # the commands that train data parallel over a process group
-_DATA_PARALLEL = (cmd_pretrain, cmd_dual_ft)
+_DATA_PARALLEL = (cmd_pretrain, cmd_dual_ft, cmd_bench)
 
 
 def main(argv=None):

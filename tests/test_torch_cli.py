@@ -114,6 +114,14 @@ def test_jax_flag_parses_alike(command, flag):
                              .choices[command].format_help())
 
 
+def test_the_port_has_every_command_of_the_jax_cli():
+    """Every subcommand of the JAX parser is one of the port's (`bench`
+    the last to come)."""
+    jax_commands = set(_subparsers(JAX_PARSER))
+    assert "bench" in jax_commands
+    assert jax_commands <= set(_subparsers(cli._parser()))
+
+
 @pytest.mark.parametrize("command", sorted(_subparsers(cli._parser())))
 def test_every_command_names_its_device(command):
     """`main` starts a multi-host group on the command's device: the card,

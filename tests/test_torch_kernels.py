@@ -1695,4 +1695,5 @@ def test_port_imports_no_jax():
     modules = set(proc.stdout.split())
     assert len(modules) >= 35
     assert {"egovlpv2_torch.parallel.mesh", "egovlpv2_torch.parallel.mp_worker",
-            "egovlpv2_torch.parallel.collectives"} <= modules
+            "egovlpv2_torch.parallel.collectives",
+            "egovlpv2_torch.bench"} <= modules
