@@ -184,7 +184,7 @@ from egovlpv2_torch.parallel.distributed import (barrier,
                                                  is_main_process, rank,
                                                  shutdown, world_size)
 from egovlpv2_torch.parallel.mesh import local_batch_size, local_rows
-from egovlpv2_torch.utils.logging import setup_logging
+from egovlpv2_torch.utils.logging import setup_logging, span
 
 
 def _device(name: str) -> torch.device:
@@ -587,6 +587,20 @@ def _egomcq_validation(args, cfg, model):
     return validate
 
 
+# the host's milliseconds a step that `_fit`'s log line and stats.txt row
+# give, as the mean since the last log, and the spans each one sums
+# (`train/step.py`, `_train_loop`); across ranks `grad_sync_ms` is the
+# gradients' all-reduce that the backward does not hide
+PHASE_SPANS = {
+    "data_wait_ms": ("egovlpv2.loop.data_wait",),
+    "forward_ms": ("egovlpv2.step.forward",),
+    "backward_ms": ("egovlpv2.step.backward",),
+    "optimizer_ms": ("egovlpv2.step.zero_grad", "egovlpv2.step.optimizer"),
+    "grad_sync_ms": ("egovlpv2.optimizer.grad_sync",),
+    "sync_ms": ("egovlpv2.loop.sync",),
+}
+
+
 def _fit(args, device, log, cfg, trainer, batches, validate=None,
          monitor=None, ckpt_every=0, val_digits=4) -> dict:
     """The epochs of `pretrain` and the fine-tunes around `_train_loop`, in
@@ -598,8 +612,10 @@ def _fit(args, device, log, cfg, trainer, batches, validate=None,
     epoch's metrics, the best pointer and the monitor's state), every
     `ckpt_every` steps where it is not 0, and after the step in flight when
     SIGTERM arrives (then marked as the epoch before, which a resumed run
-    replays). --resume restores the latest save and goes on after its
-    epoch. `validate(epoch)` runs after each epoch, and with --init_val
+    replays). Each logged step's line and stats.txt row carry the host's
+    milliseconds a step of `PHASE_SPANS` since the last log. --resume
+    restores the latest save and goes on after its epoch.
+    `validate(epoch)` runs after each epoch, and with --init_val
     once before the first as `validate(-1)`, which returns its metrics and
     the `_recorded` record of its eval steps (empty where it has none);
     `monitor` reads the epoch's metrics, the last step's and the
@@ -617,7 +633,8 @@ def _fit(args, device, log, cfg, trainer, batches, validate=None,
     from egovlpv2_torch.train.checkpoint import (CheckpointManager,
                                                  load_train_state_,
                                                  train_state)
-    from egovlpv2_torch.utils.logging import StatsWriter, Throughput
+    from egovlpv2_torch.utils.logging import (SpanMeans, StatsWriter,
+                                              Throughput)
 
     model, optimizer, scheduler, train_step = trainer
     parts = (model, optimizer, scheduler, train_step.generator)
@@ -683,11 +700,13 @@ def _fit(args, device, log, cfg, trainer, batches, validate=None,
         return val
 
     tp = Throughput(cfg.global_batch_size)
+    phases = SpanMeans(PHASE_SPANS)
 
     def after_step(epoch, step, metrics):
         rates = tp.tick()
+        phases.add()
         if step % args.log_every == 0:
-            full = {**metrics, **rates}
+            full = {**metrics, **rates, **phases.read()}
             log.info("step %d: %s", step,
                      {k: round(v, 4) for k, v in full.items()})
             if stats:
@@ -789,12 +808,14 @@ def _train_loop(args, device, train_step, batches, after_step=None,
         try:
             while True:
                 t0 = time.perf_counter()
-                batch = next(it, None)
+                with span("egovlpv2.loop.data_wait"):
+                    batch = next(it, None)
                 if batch is None:
                     break
                 out = train_step(batch)
                 if device.type == "cuda":
-                    torch.cuda.synchronize(device)
+                    with span("egovlpv2.loop.sync"):
+                        torch.cuda.synchronize(device)
                 seconds.append(time.perf_counter() - t0)
                 step += 1
                 metrics = {k: float(v) for k, v in out.items()}

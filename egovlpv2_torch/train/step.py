@@ -26,6 +26,13 @@ the JAX package's condition (`path_remat and not model.remat`). With
 (`models/video.py`, `models/text.py`).
 The JAX package's `EGOVLP_MERGED_FUSED` branch (one 2B-wide fused stack, a
 measured loss there) is left behind.
+
+The step records its phases as host spans (`utils/logging.py::span`):
+`egovlpv2.step` around each call, with `egovlpv2.step.zero_grad`, `.put`,
+`.forward` (the paths of `pretrain_loss_fn` inside it as
+`egovlpv2.forward.egonce`, `.video_unfused`, `.mlm`, `.itm_mining` and
+`.itm`), `.backward` and `.optimizer` (with `egovlpv2.optimizer.grad_sync`
+and `egovlpv2.optimizer.adamw`).
 """
 
 from __future__ import annotations
@@ -47,6 +54,7 @@ from egovlpv2_torch.objectives.losses import (egonce_loss, itm_loss,
 from egovlpv2_torch.parallel.collectives import (all_gather, all_reduce_sum,
                                                  sync_gradients)
 from egovlpv2_torch.parallel.distributed import rank
+from egovlpv2_torch.utils.logging import STEP, span
 
 
 def pretrain_loss_fn(model: EgoVLPv2, batch: Dict[str, torch.Tensor],
@@ -77,52 +85,61 @@ def pretrain_loss_fn(model: EgoVLPv2, batch: Dict[str, torch.Tensor],
     metrics = {}
 
     # ---- EgoNCE (dual towers, over the global batch) ----
-    t_emb = all_gather(bound(model.compute_text)(ids, mask))
-    v_emb = all_gather(bound(lambda tok: model.compute_video(None, tok))(
-        tokens))
-    sim = sim_matrix(t_emb, v_emb)
-    if lcfg.type == "EgoNCE":
-        verb, noun = all_gather(batch["verb_vec"]), all_gather(
-            batch["noun_vec"])
-        sim_v = sim_matrix(verb, verb)
-        sim_n = sim_matrix(noun, noun)
-        loss_nce, mask_bool, temp = egonce_loss(
-            sim, sim_v, sim_n, lcfg.temperature, lcfg.noun, lcfg.verb)
-    else:
-        loss_nce = norm_softmax_loss(sim, lcfg.temperature)
-        mask_bool = torch.eye(sim.shape[0], dtype=torch.bool,
-                              device=sim.device)
-        temp = lcfg.temperature
+    # each path's span lies around its checkpoint region, so a backward
+    # that rebuilds the region re-enters no span
+    with span("egovlpv2.forward.egonce"):
+        t_emb = all_gather(bound(model.compute_text)(ids, mask))
+        v_emb = all_gather(bound(lambda tok: model.compute_video(None, tok))(
+            tokens))
+        sim = sim_matrix(t_emb, v_emb)
+        if lcfg.type == "EgoNCE":
+            verb, noun = all_gather(batch["verb_vec"]), all_gather(
+                batch["noun_vec"])
+            sim_v = sim_matrix(verb, verb)
+            sim_n = sim_matrix(noun, noun)
+            loss_nce, mask_bool, temp = egonce_loss(
+                sim, sim_v, sim_n, lcfg.temperature, lcfg.noun, lcfg.verb)
+        else:
+            loss_nce = norm_softmax_loss(sim, lcfg.temperature)
+            mask_bool = torch.eye(sim.shape[0], dtype=torch.bool,
+                                  device=sim.device)
+            temp = lcfg.temperature
     loss = loss_nce
     metrics["loss_egonce"] = loss_nce
 
     # ---- fused paths: one shared unfused-video pass ----
     if "MLM" in cfg.tasks or "ITM" in cfg.tasks:
-        v_un = bound(lambda tok: model.video_unfused(None, tok))(tokens)
+        with span("egovlpv2.forward.video_unfused"):
+            v_un = bound(lambda tok: model.video_unfused(None, tok))(tokens)
 
     if "MLM" in cfg.tasks:
-        mlm_logits = bound(model.mlm_forward_from_video)(
-            v_un, batch["text_mlm_ids"], mask)
-        # the global masked-token mean: every rank's sum over every count
-        total, count = masked_lm_sums(mlm_logits, batch["text_mlm_labels"])
-        loss_mlm = all_reduce_sum(total) / torch.clamp(all_reduce_sum(count),
-                                                       min=1)
+        with span("egovlpv2.forward.mlm"):
+            mlm_logits = bound(model.mlm_forward_from_video)(
+                v_un, batch["text_mlm_ids"], mask)
+            # the global masked-token mean: every rank's sum over every count
+            total, count = masked_lm_sums(mlm_logits,
+                                          batch["text_mlm_labels"])
+            loss_mlm = all_reduce_sum(total) / torch.clamp(
+                all_reduce_sum(count), min=1)
         loss = loss + lcfg.mlm_weight * loss_mlm
         metrics["loss_mlm"] = loss_mlm
 
     if "ITM" in cfg.tasks:
-        idx = mine_itm_indices(
-            generator if mining_generator is None else mining_generator,
-            sim.detach(), mask_bool, temp)
-        # this rank's rows of the global mined batch, from every rank's
-        # tokens; a mined row's gradient goes back to the rank that owns it
-        lo = rank() * ids.shape[0]
-        rows = slice(lo, lo + ids.shape[0])
-        vid, txt = idx.video_idx[rows], idx.text_idx[rows]
-        ids_all, mask_all = all_gather(ids), all_gather(mask)
-        itm_logits = all_gather(bound(model.itm_forward_from_video)(
-            all_gather(v_un)[vid], ids_all[txt], mask_all[txt]))
-        loss_itm = itm_loss(itm_logits, idx.labels)
+        with span("egovlpv2.forward.itm_mining"):
+            idx = mine_itm_indices(
+                generator if mining_generator is None else mining_generator,
+                sim.detach(), mask_bool, temp)
+        with span("egovlpv2.forward.itm"):
+            # this rank's rows of the global mined batch, from every rank's
+            # tokens; a mined row's gradient goes back to the rank that
+            # owns it
+            lo = rank() * ids.shape[0]
+            rows = slice(lo, lo + ids.shape[0])
+            vid, txt = idx.video_idx[rows], idx.text_idx[rows]
+            ids_all, mask_all = all_gather(ids), all_gather(mask)
+            itm_logits = all_gather(bound(model.itm_forward_from_video)(
+                all_gather(v_un)[vid], ids_all[txt], mask_all[txt]))
+            loss_itm = itm_loss(itm_logits, idx.labels)
         loss = loss + lcfg.itm_weight * loss_itm
         metrics["loss_itm"] = loss_itm
 
@@ -165,29 +182,42 @@ def make_train_step(model: EgoVLPv2, cfg: TrainConfig,
     model.set_generator(generator)
 
     def step(batch) -> Dict[str, torch.Tensor]:
-        model.train()
-        optimizer.zero_grad(set_to_none=True)
-        loss, metrics = loss_fn(model, batch_to_device(batch, device))
-        loss.backward()
-        # A parameter the loss does not reach (the fusion gates of a dual
-        # model) has a zero gradient in the JAX package, where every leaf
-        # has one; it gets one here, so AdamW decays it alike.
-        for p in params:
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
-        # the clip and the norm see the global gradient
-        sync_gradients(params)
-        if cfg.optim.grad_clip is not None:
-            norm = nn.utils.clip_grad_norm_(params, cfg.optim.grad_clip)
-        elif cfg.log_grad_norm:
-            norm = torch.linalg.vector_norm(torch.stack(
-                [torch.linalg.vector_norm(p.grad) for p in params
-                 if p.grad is not None]))
-        if cfg.log_grad_norm:
-            metrics["grad_norm"] = norm  # before the clip, as optax's
-        optimizer.step()
-        scheduler.step()
-        return {k: v.detach() for k, v in metrics.items()}
+        with span(STEP):
+            model.train()
+            with span("egovlpv2.step.zero_grad"):
+                optimizer.zero_grad(set_to_none=True)
+            with span("egovlpv2.step.put"):
+                batch = batch_to_device(batch, device)
+            with span("egovlpv2.step.forward"):
+                loss, metrics = loss_fn(model, batch)
+            # the main thread's wait on the autograd engine, which launches
+            # the backward's kernels from its own thread
+            with span("egovlpv2.step.backward"):
+                loss.backward()
+            with span("egovlpv2.step.optimizer"):
+                # A parameter the loss does not reach (the fusion gates of
+                # a dual model) has a zero gradient in the JAX package,
+                # where every leaf has one; it gets one here, so AdamW
+                # decays it alike.
+                for p in params:
+                    if p.grad is None:
+                        p.grad = torch.zeros_like(p)
+                # the clip and the norm see the global gradient
+                with span("egovlpv2.optimizer.grad_sync"):
+                    sync_gradients(params)
+                if cfg.optim.grad_clip is not None:
+                    norm = nn.utils.clip_grad_norm_(params,
+                                                    cfg.optim.grad_clip)
+                elif cfg.log_grad_norm:
+                    norm = torch.linalg.vector_norm(torch.stack(
+                        [torch.linalg.vector_norm(p.grad) for p in params
+                         if p.grad is not None]))
+                if cfg.log_grad_norm:
+                    metrics["grad_norm"] = norm  # before the clip, as optax's
+                with span("egovlpv2.optimizer.adamw"):
+                    optimizer.step()
+                scheduler.step()
+            return {k: v.detach() for k, v in metrics.items()}
 
     # the generator is part of a run's state (`train/checkpoint.py::
     # train_state`): a resumed run must draw what the first would have
