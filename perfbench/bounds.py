@@ -3,13 +3,20 @@ and the least time the card could take for it: the larger of the bytes
 over the memory's peak and the operations over the peak of their type.
 Inputs are read once and outputs written once, whatever a kernel reads
 again (after `scripts/profile_torch_kernels.py`'s `bound`).
+
+The step's calls of the ops (`pretrain_calls`, `dual_calls`) are counted
+from a configuration's shapes and the paths the step takes, as
+`perfbench/flops.py` counts its operations: each call with its shape and
+whether its output reaches a loss, so that its backward runs. They follow
+the port's modules at remat off, the cells' setting; a recomputed forward
+is not counted.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import List, NamedTuple, Optional, Tuple
 
-from perfbench import peaks
+from perfbench import flops, kinds, peaks
 
 ELEMENT = {"bfloat16": 2, "float16": 2, "float32": 4}
 
@@ -53,3 +60,126 @@ def least_seconds(ops: float, nbytes: float, dtype: str,
     type, float32's outside them otherwise)."""
     rate = peaks.FLOPS[dtype] if tensor_cores else peaks.FLOPS["float32"]
     return max(nbytes / peaks.BYTES_PER_S, ops / rate)
+
+
+class Call(NamedTuple):
+    """One call of a hand-kernel op: `op` ("divided_attn" or "layernorm"),
+    its shape as (field, value) pairs in the order of the benchmark's
+    ranges (`trace.call_name`), and whether it takes a backward."""
+    op: str
+    shape: Tuple[Tuple[str, object], ...]
+    backward: bool
+
+
+def call_seconds(call: Call) -> float:
+    """The least time of one call, forward and, where it takes one,
+    backward: the divided attention's products on the tensor cores in a
+    16-bit type, LayerNorm's operations outside them."""
+    f = dict(call.shape)
+    count = {"divided_attn": divided_attention, "layernorm": layernorm}[
+        call.op]
+    tensor = call.op == "divided_attn" and f["dtype"] != "float32"
+    passes = (False, True) if call.backward else (False,)
+    return sum(least_seconds(*count(**f, backward=b), f["dtype"], tensor)
+               for b in passes)
+
+
+def least_seconds_of(calls: List[Call], op: str) -> float:
+    return sum(call_seconds(c) for c in calls if c.op == op)
+
+
+def roofline_share(ctx, op: str) -> Optional[float]:
+    """The least time of the step's calls of `op` (`ctx.calls`) times the
+    profiled steps, over the device time of the op's kernel family
+    (`kinds.FAMILIES[op]`) in the device-only stretch, as a share; None
+    where the stretch holds none of the family's kernels."""
+    if ctx.timeline is None:
+        return None
+    device = kinds.family_seconds(ctx.timeline, op)
+    least = least_seconds_of(ctx.calls, op) * ctx.stretch_steps
+    if device is None or least <= 0:
+        return None
+    return 100.0 * least / device
+
+
+def _attention(z: flops.Shapes, dtype: str, axis: str,
+               backward: bool) -> Call:
+    return Call("divided_attn", (("b", z.b), ("s", z.s), ("h", z.hv),
+                                 ("dh", z.d // z.hv), ("frames", z.f),
+                                 ("axis", axis), ("dtype", dtype)), backward)
+
+
+def _layernorm(rows: int, d: int, dtype: str, backward: bool) -> Call:
+    return Call("layernorm", (("rows", rows), ("d", d), ("dtype", dtype)),
+                backward)
+
+
+def video_block(z: flops.Shapes, dtype: str, fused: bool,
+                backward: bool) -> List[Call]:
+    """`models/video.py::SpaceTimeBlock`: norm3, the time attention, norm1,
+    the space attention (with the i2t's norm where text is fused in),
+    norm2."""
+    ln = _layernorm(z.b * z.s, z.d, dtype, backward)
+    calls = [ln, _attention(z, dtype, "time", backward), ln,
+             _attention(z, dtype, "space", backward)]
+    if fused:
+        calls.append(ln)
+    return calls + [ln]
+
+
+def text_layers(z: flops.Shapes, dtype: str, layers: int,
+                embed: bool) -> List[Call]:
+    """`models/text.py`: the embeddings' LayerNorm where `embed`, then two
+    a layer (after the attention, after the feed-forward); each reaches a
+    loss on every path."""
+    ln = _layernorm(z.b * z.l, z.dt, dtype, True)
+    return [ln] * (int(embed) + 2 * layers)
+
+
+def video_tower(z: flops.Shapes, dtype: str) -> List[Call]:
+    """The dual video tower: every block unfused, then the final norm."""
+    out = []
+    for _ in range(z.depth):
+        out += video_block(z, dtype, False, True)
+    return out + [_layernorm(z.b * z.s, z.d, dtype, True)]
+
+
+def fused_path(z: flops.Shapes, dtype: str, path: str) -> List[Call]:
+    """One fused path after the shared unfused video pass
+    (`models/egovlp.py::fuse_from_unfused`): the text's embeddings and
+    unfused layers, then a fused video block and a fused text layer a
+    depth, the fused stack's final norm, and MLM's head. On the MLM path
+    the last fused video block and the final norm reach no loss (MLM reads
+    the text alone, which attends the video from before that block)."""
+    out = text_layers(z, dtype, z.layers - z.fuse, embed=True)
+    mlm = path == "MLM"
+    for i in range(z.fuse):
+        out += video_block(z, dtype, True, not (mlm and i == z.fuse - 1))
+        out += text_layers(z, dtype, 1, embed=False)
+    out.append(_layernorm(z.b * z.s, z.d, dtype, not mlm))
+    if mlm:
+        out.append(_layernorm(z.b * z.l, z.hs, dtype, True))
+    return out
+
+
+def pretrain_calls(cfg: dict, rows: int) -> List[Call]:
+    """A pre-training step (`train/step.py::pretrain_loss_fn`): EgoNCE's
+    two towers, the one unfused video pass the fused paths share, and the
+    fused stacks of MLM and ITM (ITM on as many mined rows)."""
+    z = flops.Shapes(cfg, rows)
+    dtype = cfg["model"]["compute_dtype"]
+    out = text_layers(z, dtype, z.layers, embed=True) + video_tower(z, dtype)
+    paths = [p for p in ("MLM", "ITM") if p in cfg["tasks"]]
+    if paths:
+        for _ in range(z.depth - z.fuse):
+            out += video_block(z, dtype, False, True)
+    for p in paths:
+        out += fused_path(z, dtype, p)
+    return out
+
+
+def dual_calls(cfg: dict, rows: int) -> List[Call]:
+    """A dual-encoder fine-tune step: the two towers."""
+    z = flops.Shapes(cfg, rows)
+    dtype = cfg["model"]["compute_dtype"]
+    return text_layers(z, dtype, z.layers, embed=True) + video_tower(z, dtype)

@@ -230,6 +230,7 @@ def run_cell(root: Path, name: str, seed: int, seconds: float, traced: bool,
         cfg=cell.cfg, chips=cell.chips, rows=cell.rows, setup_s=setup_s,
         window=window, spans=spans,
         flops=cell.task.step_flops(cell.cfg, cell.rows, cell.traffic),
+        calls=cell.task.step_calls(cell.cfg, cell.rows, cell.traffic),
         peak_window_bytes=peak_window, trace=stretch, timeline=timeline,
         timeline_s=timeline_s, stretch_steps=stretch_steps)
     metrics = {}

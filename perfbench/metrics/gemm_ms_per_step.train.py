@@ -1,17 +1,12 @@
-"""Device milliseconds a step of the kernels launched inside the matrix-
-product operators (aten::mm, addmm, bmm, baddbmm, linear, matmul), forward
-and backward, each kernel once (the profiled stretch)."""
+"""Device milliseconds a step of cuBLAS's matrix products, forward and
+backward: the kernels of the GEMM kind by name (perfbench/kinds.py) in the
+device-only stretch, over its steps."""
 
-GEMM_OPS = ("aten::mm", "aten::addmm", "aten::bmm", "aten::baddbmm",
-            "aten::linear", "aten::matmul")
+from perfbench import kinds
 
 
 def read(ctx):
-    tr = ctx.trace
-    if tr is None:
+    if ctx.timeline is None:
         return None
-    corrs = [c for r in tr.ranges if r.name in GEMM_OPS
-             for c in tr.corr_under(r)]
-    if not corrs:
-        return None
-    return tr.device_us(corrs) / 1e3 / ctx.stretch_steps
+    seconds = kinds.family_seconds(ctx.timeline, "gemm")
+    return None if seconds is None else seconds * 1e3 / ctx.stretch_steps

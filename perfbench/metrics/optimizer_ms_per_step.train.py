@@ -1,12 +1,12 @@
-"""Device milliseconds a step of the kernels launched inside the
-optimizer's step (`Optimizer.step#AdamW.step`; the profiled stretch)."""
+"""Device milliseconds a step of AdamW's updates: the kernels of the
+optimizer kind by name (the foreach `multi_tensor` and `adam` kernels,
+perfbench/kinds.py) in the device-only stretch, over its steps."""
+
+from perfbench import kinds
 
 
 def read(ctx):
-    tr = ctx.trace
-    if tr is None:
+    if ctx.timeline is None:
         return None
-    corrs = [c for r in tr.named("Optimizer.step#") for c in tr.corr_under(r)]
-    if not corrs:
-        return None
-    return tr.device_us(corrs) / 1e3 / ctx.stretch_steps
+    seconds = kinds.family_seconds(ctx.timeline, "adamw")
+    return None if seconds is None else seconds * 1e3 / ctx.stretch_steps

@@ -2,7 +2,7 @@
 loss): the port's `tasks/retrieval.py::make_dual_train_step`, as
 `build_dual` assembles it."""
 
-from perfbench import flops
+from perfbench import bounds, flops
 
 REFERENCE = "dual"
 
@@ -14,3 +14,7 @@ def make_step(model, cfg, optimizer, scheduler, generator, mining):
 
 def step_flops(cfg: dict, rows: int, traffic: dict) -> dict:
     return flops.dual(cfg, rows)
+
+
+def step_calls(cfg: dict, rows: int, traffic: dict) -> list:
+    return bounds.dual_calls(cfg, rows)

@@ -1,38 +1,48 @@
 """The step's operation count against PyTorch's FlopCounterMode over the
 port's own step at tiny widths on the CPU, where every attention is plain
-matrix products."""
+matrix products; the step's table of hand-kernel calls against the calls
+the benchmark's ranges record over the same step."""
 
 import dataclasses
 import json
 import tempfile
+from collections import Counter
 
 import numpy as np
 import pytest
 import torch
 from torch.utils.flop_counter import FlopCounterMode
 
-from perfbench import flops
+from perfbench import bounds, flops, trace
 from perfbench.tests.tiny import tiny_config
 
 
-@pytest.mark.parametrize("task", ["pretrain", "dual"])
-def test_count_matches_flop_counter(task):
+def tiny_step(task: str, dtype: str, rows: int):
+    """The port's step of `task` on the CPU at tiny widths, run once, with
+    its configuration (as the program and as the file's dict) and a batch
+    of `rows` rows."""
     from egovlpv2_torch.core.config import load_train_config
     from egovlpv2_torch.tasks.pretrain import build_pretrain, synthetic_batch
     from egovlpv2_torch.tasks.retrieval import build_dual
 
-    cfg_dict = tiny_config(task, "float32")
+    cfg_dict = tiny_config(task, dtype)
     build = build_pretrain if task == "pretrain" else build_dual
     with tempfile.NamedTemporaryFile("w", suffix=".json") as f:
         json.dump({k: v for k, v in cfg_dict.items()
                    if not k.startswith("_")}, f)
         f.flush()
         cfg = load_train_config(f.name)
-    rows = 6
     torch.manual_seed(0)
     _, _, _, step = build(cfg, "cpu")
     batch = synthetic_batch(cfg, rows, np.random.default_rng(0))
     step(batch)
+    return step, batch, cfg, cfg_dict
+
+
+@pytest.mark.parametrize("task", ["pretrain", "dual"])
+def test_count_matches_flop_counter(task):
+    rows = 6
+    step, batch, cfg, cfg_dict = tiny_step(task, "float32", rows)
     with FlopCounterMode(display=False) as counter:
         step(batch)
     counted = (flops.pretrain(cfg_dict, rows) if task == "pretrain"
@@ -40,6 +50,27 @@ def test_count_matches_flop_counter(task):
     assert counted["useful"] + counted["recomputed"] \
         == counter.get_total_flops()
     assert dataclasses.asdict(cfg)["model"] == cfg_dict["model"]
+
+
+@pytest.mark.parametrize("task", ["pretrain", "dual"])
+def test_call_table_matches_the_recorded_calls(task):
+    """Every call of the divided attention and of LayerNorm that the step
+    makes, with its shape and whether it took a backward, is the table's
+    (`bounds.pretrain_calls`, `bounds.dual_calls`), as a multiset."""
+    rows = 6
+    step, batch, _, cfg_dict = tiny_step(task, "bfloat16", rows)
+    with trace.Instrument():
+        tr = trace.profile(lambda: step(batch), cuda=False)
+    recorded = Counter((r.name, bool(tr.backward_of(r)))
+                       for op in ("divided_attn", "layernorm")
+                       for r in tr.named(f"perfbench.{op}|"))
+    table = (bounds.pretrain_calls if task == "pretrain"
+             else bounds.dual_calls)(cfg_dict, rows)
+    assert recorded == Counter((trace.call_name(c.op, **dict(c.shape)),
+                                c.backward) for c in table)
+    # the table has calls with and without a backward (pretrain's MLM path)
+    assert {c.backward for c in table} == (
+        {True, False} if task == "pretrain" else {True})
 
 
 def test_full_width_counts():

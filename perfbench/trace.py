@@ -2,22 +2,27 @@
 kernel ops, `torch.profiler` over a stretch of steps, and the parsed trace
 that the per-layer readers take their numbers from.
 
-`Instrument` wraps the port's op entry points while a traced run lasts:
-every call of `ops.divided.divided_attention` (as `models/video.py` calls
-it) and of `ops.layernorm.layernorm` runs inside a `record_function` range
-whose name carries the call's shapes, `perfbench.<op>|<shape fields>`.
-A range's kernels are those whose launch lies inside it on its thread; its
+`Instrument` wraps the port's op entry points while the host-and-device
+stretch is traced: every call of `ops.divided.divided_attention` (as
+`models/video.py` calls it) and of `ops.layernorm.layernorm` runs inside a
+`record_function` range whose name carries the call's shapes,
+`perfbench.<op>|<shape fields>`. The ranges name the idle gaps of that
+stretch (`kinds.breakdown`), and the tests hold the benchmark's table of
+the step's calls (`bounds.pretrain_calls`) against them: a range's
 backward is the autograd nodes whose sequence numbers the ops inside it
-recorded, and their kernels. So an op is counted by what it is called on,
-not by the names of the kernels that serve it.
+recorded. No reader credits device time to a range: the readers take a
+kernel family's time by kernel name (`kinds.FAMILIES`), which a replayed
+CUDA graph, whose kernels all carry its one launch's correlation and run
+under no operator, leaves as it is.
 
 `Trace` is the profile of one stretch as plain lists: device events
 (kernels, copies, sets), host ranges (operators, annotations, autograd
-nodes) and the link from a device event to the thread and time of its
-launch. A traced run profiles two stretches: one of the device alone, for
-the busy time, the idle share and the time by kind (tracing the host's
-operators as well slows a host-paced step about twofold), and one of host
-and device, for the links and the idle gaps' names.
+nodes) and each thread's launches with their correlation ids. A traced
+run profiles two stretches: one of the device alone, for the busy time,
+the idle share, the time by kind and the families' times (tracing the
+host's operators as well slows a host-paced step about twofold), and one
+of host and device, for the launches, the idle gaps' names and the clock
+of the program's spans.
 """
 
 from __future__ import annotations
@@ -84,24 +89,6 @@ class Trace:
 
     def named(self, prefix: str) -> List[Range]:
         return [r for r in self.ranges if r.name.startswith(prefix)]
-
-    def corr_under(self, r: Range) -> List[object]:
-        """Correlation ids of the launches inside range `r`, on its thread."""
-        ls = self.launches.get(r.tid, [])
-        lo = bisect.bisect_left(ls, (r.ts, -float("inf")))
-        hi = bisect.bisect_right(ls, (r.end, float("inf")))
-        return [c for _, c in ls[lo:hi]]
-
-    def device_us(self, corrs: Iterable[object]) -> float:
-        """Device time of the events of the given launches, each once."""
-        seen = set()
-        total = 0.0
-        for c in corrs:
-            for i in self.by_corr.get(c, ()):
-                if i not in seen:
-                    seen.add(i)
-                    total += self.device[i][1] - self.device[i][0]
-        return total
 
     def inside(self, outer: Range) -> List[Range]:
         """Ranges on `outer`'s thread that lie inside it."""
@@ -236,11 +223,6 @@ def profile_device(fn, cuda: bool = True) -> Tuple[Trace, float]:
 def call_name(op: str, **shape) -> str:
     return "perfbench." + op + "|" + "|".join(
         f"{k}={v}" for k, v in shape.items())
-
-
-def parse_call(name: str) -> Tuple[str, Dict[str, str]]:
-    op, *fields = name[len("perfbench."):].split("|")
-    return op, dict(f.split("=", 1) for f in fields)
 
 
 def _dtype(t: torch.Tensor) -> str:
