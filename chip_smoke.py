@@ -179,7 +179,16 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
                 frames, no remat: every loss part finite at every step,
                 parameters changed, all nine kernels launched every step,
                 K8's launches a step printed by row count (so in the
-                fine-tune and EgoTaskQA runs);
+                fine-tune and EgoTaskQA runs). Without remat on one card
+                the step replays as one CUDA graph from its third step
+                (`train/step.py::GraphStep`; the pretrain, the fine-tune
+                without remat, the feed, the loop and the bench): a replay
+                calls no kernel wrapper, so the launches a step are counted
+                over the steps whose wrappers ran (the eager first, the
+                capturing second: `_step_kinds`, from the span ring), and
+                the hand kernels of the first step and of the last, a
+                replay, are taken by `__global__` name from the profiler
+                and must be the same, launch for launch (`_witnessed`);
                 `egovlpv2_torch.cli ft-charades --synthetic` from
                 configs/ft_charades.json (32 frames, S=6273, small
                 projection at 256, 30 text tokens), batch 8: 5 steps
@@ -280,16 +289,20 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
                 a child process with a time limit: its step gathers the
                 embeddings, the unfused video tokens, the ITM logits and
                 the MLM sums, and averages the gradients, over NCCL. The
-                first loss (the forward before any update) must equal phase
-                5's first, bit for bit, and the next within DIST_LOSS_RTOL
-                (the embedding backward sums with atomics); K1-K9 launched
-                every step ("pretrain_dist" in `launches_by_path`).
-                Printed beside the card's name and power limit: the median
-                of steps 3 on with the group and, over the same steps,
-                phase 5's without it; the device time a step of the
+                first loss (the forward before any update) must equal that
+                of the same run without a group and with the eager step
+                (in this process) and phase 5's, bit for bit, and the next
+                the eager run's within DIST_LOSS_RTOL (the embedding
+                backward sums with atomics); K1-K9 launched every step
+                ("pretrain_dist" in `launches_by_path`). Printed beside the
+                card's name and power limit: each step's largest relative
+                difference of the losses from the eager run, with the group
+                and in phase 5's replays; the median of steps 3 on with the
+                group and, over the same steps, the eager run's without
+                it; the device time a step of the
                 gradient mean and of the forward gathers (CUDA events
                 around each call); the peak of device memory with the group
-                and phase 5's without it. Then two ranks asked
+                and the eager run's without it. Then two ranks asked
                 for on the one card: both must exit non-zero with the
                 refusal of `parallel/distributed.py` ("two ranks on one
                 device") within REFUSE_TIMEOUT seconds.
@@ -299,9 +312,12 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
                 batch put once, BENCH_WARMUP warm and BENCH_ITERS timed
                 steps with two in flight. Its one JSON line must have a
                 finite `value` > 0, `devices` 1, `global_batch` 16 and a
-                finite `loss`; K1-K9 launched a whole number of times a
-                step (at least once), K10/K11 never ("bench" in
-                `launches_by_path`); the batch it reuses unchanged after
+                finite `loss`; the steps eager, capturing, then replayed;
+                K1-K9 launched a whole number of times a step whose wrappers
+                ran (at least once), K10/K11 never ("bench" in
+                `launches_by_path`), the hand kernels of the first step and
+                of the last warm one (a replay) the same by the profiler;
+                the batch it reuses unchanged after
                 its last step. Printed beside the card's name and power
                 limit: the JSON line, the launches a step, the host
                 synchronisations inside one timed step (PyTorch's sync
@@ -322,11 +338,13 @@ import io
 import itertools
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
 import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 import scipy.io as scipy_io
@@ -360,11 +378,14 @@ from egovlpv2_torch.ops.divided import (cls_row_reference,
 from egovlpv2_torch.tasks.egomcq import make_egomcq_eval_step
 from egovlpv2_torch.tasks.extract import FeatureExtractor, extract_nlq_features
 from egovlpv2_torch.tasks.orchestrators import run_egotaskqa
+from egovlpv2_torch.tasks import pretrain as pretrain_task
+from egovlpv2_torch.tasks import retrieval as retrieval_task
 from egovlpv2_torch.tasks.pretrain import build_pretrain, synthetic_batch
 from egovlpv2_torch.tasks.qfvs_extract import QFVSExtractor
 from egovlpv2_torch.tasks.retrieval import (build_dual, dual_loss_fn,
                                             synthetic_dual_batch)
 from egovlpv2_torch.train import step as train_step_module
+from egovlpv2_torch.utils.logging import CAPTURE, REPLAY, SPANS, STEP
 from egovlpv2_torch.weights import random_init_, training_init_
 
 FWD_SOURCE = "egovlpv2_torch/csrc/divided_attention.cu"
@@ -626,10 +647,12 @@ PRETRAIN_SETS = ["model.compute_dtype=bfloat16", "model.remat=false",
                  "global_batch_size=16"]
 # The multiprocess phase: pretrain at PRETRAIN_SETS under a group of one
 # over NCCL, in a child process, as many steps as phase 5 so that both
-# warm medians take steps 3 on; its later steps against phase 5's within
-# DIST_LOSS_RTOL (the embedding backward sums with atomics, as phase 6's
-# FEED_LOSS_RTOL says); the refusal of two ranks on the card within
-# REFUSE_TIMEOUT seconds.
+# warm medians take steps 3 on; its later steps against those of the same
+# run without a group within DIST_LOSS_RTOL (the embedding backward sums
+# with atomics, as phase 6's FEED_LOSS_RTOL says), that run's step the
+# eager one as under the group (phase 5's replays a CUDA graph, whose
+# `capturable` AdamW rounds its bias corrections otherwise); the refusal of
+# two ranks on the card within REFUSE_TIMEOUT seconds.
 DIST_STEPS = PRETRAIN_STEPS
 DIST_LOSS_RTOL = 1e-3
 DIST_TIMEOUT = 300
@@ -832,6 +855,91 @@ def _reset_counts() -> None:
     _kernels.reset_launch_counts()
     ln.contiguous_copies.update(x=0, g=0)
     flash.contiguous_copies.update(q=0, k=0, v=0, bias=0)
+
+
+def _hand_kernels() -> set:
+    """The `__global__` names of the hand-written kernels in `csrc/`."""
+    names = set()
+    for src in Path(_kernels.__file__).resolve().parents[1].glob(
+            "csrc/*.cu"):
+        names |= set(re.findall(r"__global__\s+void\s+(?:__launch_bounds__"
+                                r"\((?:[^()]|\([^()]*\))*\)\s+)?(\w+)\s*\(",
+                                src.read_text()))
+    return names
+
+
+def _hand_launches(prof) -> dict:
+    """The device's launches of each hand-written kernel in a profile, by
+    its `__global__` name (the profiler's is demangled: "void
+    (anonymous namespace)::name<...>(...)")."""
+    hand, out = _hand_kernels(), {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            for name in set(re.findall(r"\w+", e.name)) & hand:
+                out[name] = out.get(name, 0) + 1
+    return dict(sorted(out.items()))
+
+
+def _step_kinds(mark: int) -> list:
+    """How each training step since span `mark` ran, in order: "eager",
+    "capture" (the call that captured the step's CUDA graph, then replayed
+    it) or "replay". The kernels' wrappers count launches in the eager and
+    capturing steps alone: a replay calls none."""
+    names = {}
+    for s in SPANS.records(mark):
+        names.setdefault(s.step, set()).add(s.name)
+    return ["capture" if CAPTURE in n else "replay" if REPLAY in n
+            else "eager" for _, n in sorted(names.items()) if STEP in n]
+
+
+def _python_steps(kinds: list) -> int:
+    """The steps of `kinds` (`_step_kinds`) whose wrappers ran."""
+    return sum(k != "replay" for k in kinds)
+
+
+@contextlib.contextmanager
+def _witnessed(module, name: str, calls: tuple):
+    """Wraps `module.<name>`, a builder of (model, optimizer, scheduler,
+    step): the calls numbered in `calls` (from 1) of each step it builds
+    run under torch.profiler. Yields a dict, filled as the block runs: call
+    number -> (how that call's step ran, `_step_kinds`; its
+    `_hand_launches`). A replayed step's kernels are seen so alone."""
+    plain, seen = getattr(module, name), {}
+
+    def build(*args, **kwargs):
+        *rest, step = plain(*args, **kwargs)
+        n = 0
+
+        def call(batch):
+            nonlocal n
+            n += 1
+            if n not in calls:
+                return step(batch)
+            mark = SPANS.last
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                out = step(batch)
+                torch.cuda.synchronize()
+            seen[n] = (_step_kinds(mark), _hand_launches(prof))
+            return out
+
+        call.generator = step.generator
+        call.mining_generator = step.mining_generator
+        return (*rest, call)
+
+    setattr(module, name, build)
+    try:
+        yield seen
+    finally:
+        setattr(module, name, plain)
+
+
+def _check_witness(label: str, seen: dict, first: int, later: int) -> None:
+    """The hand kernels of call `later` (a replay where the step captures)
+    are those of call `first` (eager), launch for launch, and not none."""
+    (k1, a), (k2, b) = seen[first], seen[later]
+    if k1 != ["eager"] or not a or a != b:
+        raise AssertionError(f"{label}: hand kernels of call {first} {k1} "
+                             f"{a} against call {later} {k2} {b}")
 
 
 def _free() -> None:
@@ -1983,16 +2091,26 @@ def phase_pretrain() -> dict:
             str(PRETRAIN_STEPS), "--set", *PRETRAIN_SETS]
     torch.cuda.reset_peak_memory_stats()
     _reset_counts()
-    res = cli.main(args)
+    mark = SPANS.last
+    with _witnessed(pretrain_task, "build_pretrain",
+                    (1, PRETRAIN_STEPS)) as seen:
+        res = cli.main(args)
     counts = dict(_kernels.launch_counts)
     peak = torch.cuda.max_memory_allocated()
+    kinds = _step_kinds(mark)
+    python = _python_steps(kinds)
     rows = res["logged"]
-    if len(rows) != PRETRAIN_STEPS:
-        raise AssertionError(f"pretrain logged {len(rows)} steps")
+    if len(rows) != PRETRAIN_STEPS or len(kinds) != PRETRAIN_STEPS:
+        raise AssertionError(f"pretrain logged {len(rows)} steps, ran "
+                             f"{kinds}")
     for row in rows:
         if not all(np.isfinite(v) for v in row.values()):
             raise AssertionError(f"pretrain: non-finite loss part in {row}")
-    per_step = {k: v / PRETRAIN_STEPS for k, v in counts.items()}
+    # remat off, one card, no group: the step replays as one CUDA graph
+    if kinds[-1] != "replay":
+        raise AssertionError(f"pretrain: steps ran {kinds}")
+    _check_witness("pretrain", seen, 1, PRETRAIN_STEPS)
+    per_step = {k: v / python for k, v in counts.items()}
     if not all(per_step[k] >= 1 and per_step[k] == int(per_step[k])
                for k in BF16_PATH_KERNELS) \
             or any(counts[k] for k in GENERAL_KERNELS):
@@ -2009,19 +2127,25 @@ def phase_pretrain() -> dict:
           f"{rows[-1]} | step ms (from next(): the synthetic batch's host "
           f"RNG included) {[round(x, 1) for x in steps_ms]}, median of "
           f"the last {PRETRAIN_STEPS - 2} {warm:.1f} ms = "
-          f"{res['clips_per_step'] / warm * 1e3:.2f} clips/s | launches a "
-          f"step {per_step} | K7 launches a step by rows "
-          f"{_ln_rows_a_step(PRETRAIN_STEPS, _kernels.layernorm_fwd_rows)} | "
+          f"{res['clips_per_step'] / warm * 1e3:.2f} clips/s (steps 1 and "
+          f"{PRETRAIN_STEPS} profiled) | steps ran {kinds} | launches a "
+          f"step, over the {python} whose wrappers ran {per_step} | hand "
+          f"kernels on the device, step 1 (eager) {seen[1][1]}, step "
+          f"{PRETRAIN_STEPS} ({seen[PRETRAIN_STEPS][0][0]}) the same | K7 "
+          f"launches a step by rows "
+          f"{_ln_rows_a_step(python, _kernels.layernorm_fwd_rows)} | "
           f"K8 launches a step by rows "
-          f"{_ln_rows_a_step(PRETRAIN_STEPS)} | LayerNorm inputs copied to "
+          f"{_ln_rows_a_step(python)} | LayerNorm inputs copied to "
           f"make them contiguous {ln.contiguous_copies}, K9 inputs "
           f"{flash.contiguous_copies} | parameters changed {moved}/{n_params} | "
-          f"peak memory {peak / 2**30:.2f} GiB", flush=True)
+          f"peak memory {peak / 2**30:.2f} GiB (a graph's pool not in it)",
+          flush=True)
     _no_flash_copies("pretrain")
     if moved < n_params // 2:
         raise AssertionError(f"pretrain: only {moved}/{n_params} parameters "
                              "changed")
-    single = {"rows": rows, "step_ms": steps_ms, "peak": peak}
+    single = {"rows": rows, "step_ms": steps_ms, "peak": peak,
+              "python_steps": python}
     del res
     _free()
     return counts, single
@@ -2038,15 +2162,24 @@ def phase_finetune() -> dict:
                 *FINETUNE_SETS, remat_set]
         torch.cuda.reset_peak_memory_stats()
         _reset_counts()
-        res = cli.main(args)
+        mark = SPANS.last
+        with _witnessed(retrieval_task, "build_dual", (1, steps)) as seen:
+            res = cli.main(args)
         counts = dict(_kernels.launch_counts)
         peak = torch.cuda.max_memory_allocated()
+        kinds = _step_kinds(mark)
+        python = _python_steps(kinds)
         rows, cfg = res["logged"], res["config"]
-        if len(rows) != steps:
-            raise AssertionError(f"{label} logged {len(rows)} steps")
+        if len(rows) != steps or len(kinds) != steps:
+            raise AssertionError(f"{label} logged {len(rows)} steps, ran "
+                                 f"{kinds}")
         if not all(np.isfinite(row["loss_total"]) for row in rows):
             raise AssertionError(f"{label}: non-finite loss in {rows}")
-        per_step = {k: v / steps for k, v in counts.items()}
+        # the steps replay as one CUDA graph without checkpoint regions
+        if (kinds[-1] == "replay") == cfg.model.remat:
+            raise AssertionError(f"{label}: steps ran {kinds}")
+        _check_witness(label, seen, 1, steps)
+        per_step = {k: v / python for k, v in counts.items()}
         if not all(per_step[k] >= 1 and per_step[k] == int(per_step[k])
                    for k in FINETUNE_KERNELS) \
                 or any(counts[k] for k in GENERAL_KERNELS):
@@ -2066,10 +2199,13 @@ def phase_finetune() -> dict:
               f"{[round(x, 1) for x in steps_ms]}, "
               f"{'median of the last ' + str(steps - 2) if steps > 2 else 'the last'}"
               f" {warm:.1f} ms = {res['clips_per_step'] / warm * 1e3:.2f} "
-              f"clips/s | launches a step {per_step} | K7 launches a step by "
-              f"rows {_ln_rows_a_step(steps, _kernels.layernorm_fwd_rows)} | "
+              f"clips/s (steps 1 and {steps} profiled) | steps ran {kinds} | "
+              f"launches a step, over the {python} whose wrappers ran "
+              f"{per_step} | hand kernels on the device, step 1 and step "
+              f"{steps} each {seen[1][1]} | K7 launches a step by "
+              f"rows {_ln_rows_a_step(python, _kernels.layernorm_fwd_rows)} | "
               f"K8 launches a step by "
-              f"rows {_ln_rows_a_step(steps)} | LayerNorm inputs copied "
+              f"rows {_ln_rows_a_step(python)} | LayerNorm inputs copied "
               f"to make them contiguous {ln.contiguous_copies} | parameters "
               f"changed {moved}/{n_params} | peak memory {peak / 2**30:.2f} GiB",
               flush=True)
@@ -2572,12 +2708,18 @@ def phase_loop(smi: str) -> dict:
         save, ckpt_dir = os.path.join(tmp, "run"), os.path.join(tmp, "run",
                                                                  "ckpt")
         _reset_counts()
+        mark = SPANS.last
         with _validation_launches() as val_counts:
             whole = cli.main(base + ["--epochs", "2"])
         steps = 2 * LOOP_STEPS
+        # the validation between the epochs leaves the graph as it was
+        kinds = {"C": _step_kinds(mark)}
+        if kinds["C"] != ["eager", "capture"] + ["replay"] * (steps - 2):
+            raise AssertionError(f"loop: run C's steps ran {kinds['C']}")
+        python = _python_steps(kinds["C"])
         step_counts = {k: _kernels.launch_counts[k] - val_counts[k]
                        for k in KERNELS}
-        if any(step_counts[k] < steps for k in BF16_PATH_KERNELS) \
+        if any(step_counts[k] < python for k in BF16_PATH_KERNELS) \
                 or any(step_counts[k] for k in GENERAL_KERNELS):
             raise AssertionError(f"loop: the steps' launches {step_counts}")
         if not all(val_counts[k] for k in LOOP_VAL_KERNELS):
@@ -2604,8 +2746,12 @@ def phase_loop(smi: str) -> dict:
         del cut
         _free()
         free_gb = shutil.disk_usage(tmp).free / 1e9
+        mark = SPANS.last
         resumed = cli.main(base + ["--epochs", "2", "--save_dir", save,
                                    "--resume"])
+        kinds["B"] = _step_kinds(mark)
+        if kinds["B"] != ["eager", "capture"][:steps - LOOP_STEPS]:
+            raise AssertionError(f"loop: run B's steps ran {kinds['B']}")
         with open(os.path.join(save, "info.log")) as f:
             log_text = f.read()
         for line in (f"resumed from step {LOOP_STEPS} (epoch 1)",
@@ -2691,8 +2837,9 @@ def phase_loop(smi: str) -> dict:
           f"copy included) {ms['eval step, C']}; the whole validation a "
           f"batch (the synthetic batch's host RNG included) "
           f"{ms['validation a batch, C']}", flush=True)
-    print(f"{head} launches a step "
-          f"{ {k: v / steps for k, v in step_counts.items()} }, run C's "
+    print(f"{head} steps ran {kinds} | launches a step, over run C's "
+          f"{python} whose wrappers ran "
+          f"{ {k: v / python for k, v in step_counts.items()} }, run C's "
           f"{len(whole_val)} validations {val_counts}, egomcq --ckpt "
           f"{mcq_counts}; no file left, pinned host memory held "
           f"{pinned_after} as before", flush=True)
@@ -3012,15 +3159,41 @@ def _child_env() -> dict:
     return env
 
 
+def _eager_pretrain(argv: list) -> dict:
+    """`cli <argv>` in this process with the eager step where the step
+    would replay a CUDA graph: its logged rows, step ms and peak memory."""
+    decide = train_step_module.captures_graph
+    train_step_module.captures_graph = lambda *args: False
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        res = cli.main(argv)
+    finally:
+        train_step_module.captures_graph = decide
+    out = {"rows": res["logged"],
+           "step_ms": [x * 1e3 for x in res["step_seconds"]],
+           "peak": torch.cuda.max_memory_allocated()}
+    del res
+    _free()
+    return out
+
+
+def _worst_rtol(rows: list, ref: list) -> list:
+    """The largest relative difference of the losses, a step."""
+    return [max(abs(a[k] - b[k]) / abs(b[k]) for k in a
+                if k.startswith("loss_")) for a, b in zip(rows, ref)]
+
+
 def phase_dist(smi: str, single: dict) -> dict:
-    """`cli pretrain` under NCCL at world size 1, against phase 5's run
-    without a group (`single`: its logged rows and step ms); then two
+    """`cli pretrain` under NCCL at world size 1, against the same run
+    without a group and with the eager step; phase 5's (`single`: its
+    logged rows), whose step replays a CUDA graph, beside it. Then two
     ranks on one card refused. Returns the launches of the run."""
     t0 = time.perf_counter()
-    argv = ["pretrain", "--synthetic", "--device", "cuda", "--steps_per_epoch",
-            str(DIST_STEPS), "--set", *PRETRAIN_SETS, "--coordinator",
-            f"localhost:{free_port()}", "--num_processes", "1",
-            "--process_id", "0"]
+    alone = ["pretrain", "--synthetic", "--device", "cuda",
+             "--steps_per_epoch", str(DIST_STEPS), "--set", *PRETRAIN_SETS]
+    plain = _eager_pretrain(alone)
+    argv = alone + ["--coordinator", f"localhost:{free_port()}",
+                    "--num_processes", "1", "--process_id", "0"]
     with tempfile.TemporaryDirectory() as tmp:
         out = os.path.join(tmp, "dist.json")
         codes, logs = run_ranks([[sys.executable, "-c", _DIST_CHILD, out,
@@ -3039,11 +3212,12 @@ def phase_dist(smi: str, single: dict) -> dict:
         raise AssertionError(f"pretrain under NCCL logged {len(rows)} steps")
     keys = [k for k in rows[0] if k.startswith("loss_")]
     first = {k: rows[0][k] for k in keys}
-    want = {k: single["rows"][0][k] for k in keys}
-    if first != want:
+    want = {k: plain["rows"][0][k] for k in keys}
+    if first != want or {k: single["rows"][0][k] for k in keys} != want:
         raise AssertionError(f"first loss under NCCL {first} is not the one "
-                             f"without a group {want}")
-    for got, ref in zip(rows[1:], single["rows"][1:]):
+                             f"without a group {want} (phase 5 "
+                             f"{single['rows'][0]})")
+    for got, ref in zip(rows[1:], plain["rows"][1:]):
         for k in keys:
             if not abs(got[k] - ref[k]) <= DIST_LOSS_RTOL * abs(ref[k]):
                 raise AssertionError(f"step {got['step']} {k}: {got[k]} under "
@@ -3058,7 +3232,7 @@ def phase_dist(smi: str, single: dict) -> dict:
     group_ms = [s * 1e3 for s in res["step_seconds"]]
     # the first two steps carry warm-up, in both runs
     warm, warm_single = (float(np.median(ms[2:]))
-                         for ms in (group_ms, single["step_ms"]))
+                         for ms in (group_ms, plain["step_ms"]))
     sync_ms = res["ms"]["sync_gradients"]
     gathers = res["ms"]["all_gather"]
     if len(sync_ms) != DIST_STEPS or len(gathers) % DIST_STEPS:
@@ -3088,11 +3262,14 @@ def phase_dist(smi: str, single: dict) -> dict:
                   if "two ranks on one device" in line)
     print(f"[9 multiprocess] pretrain b16 4f bf16 under {topo[2:]}: "
           f"{DIST_STEPS} steps, losses {[r['loss_total'] for r in rows]} "
-          f"(first bit for bit the run without a group, "
-          f"{single['rows'][0]['loss_total']}; then within "
-          f"{DIST_LOSS_RTOL} of {[r['loss_total'] for r in single['rows'][1:DIST_STEPS]]})"
+          f"(first bit for bit the run without a group and with the eager "
+          f"step, {plain['rows'][0]['loss_total']}; then within "
+          f"{DIST_LOSS_RTOL} of {[r['loss_total'] for r in plain['rows'][1:DIST_STEPS]]}:"
+          f" {[f'{x:.2e}' for x in _worst_rtol(rows, plain['rows'])]}; "
+          f"phase 5's replayed steps from that run "
+          f"{[f'{x:.2e}' for x in _worst_rtol(single['rows'], plain['rows'])]})"
           f" | step ms with the group {[round(x, 1) for x in group_ms]}, "
-          f"without (phase 5) {[round(x, 1) for x in single['step_ms']]}"
+          f"without {[round(x, 1) for x in plain['step_ms']]}"
           f", median of steps 3-{DIST_STEPS} {warm:.1f} ms with against "
           f"{warm_single:.1f} ms without | device ms a step (CUDA events): "
           f"the gradient mean {[round(x, 2) for x in sync_ms]}, median of "
@@ -3100,7 +3277,7 @@ def phase_dist(smi: str, single: dict) -> dict:
           f"{per} forward gathers {[round(x, 2) for x in gather_ms]}, median "
           f"{float(np.median(gather_ms[2:])):.2f} | peak memory "
           f"{res['peak'] / 2**30:.2f} GiB with against "
-          f"{single['peak'] / 2**30:.2f} GiB without | launches a step "
+          f"{plain['peak'] / 2**30:.2f} GiB without | launches a step "
           f"{per_step} | run {run_s:.1f} s | two ranks "
           f"on one card refused in {refuse_s:.1f} s, exit codes {codes}: "
           f"{reason.strip()} | {smi}", flush=True)
@@ -3115,11 +3292,14 @@ def phase_dist(smi: str, single: dict) -> dict:
 _BENCH_CHILD = """
 import json, sys, warnings
 import torch
+from torch.profiler import ProfilerActivity, profile
+from chip_smoke import _hand_launches, _python_steps, _step_kinds
 from egovlpv2_torch import bench, cli
 from egovlpv2_torch.ops import _kernels
-out, sync_step = sys.argv[1], int(sys.argv[2])
+from egovlpv2_torch.utils.logging import SPANS
+out, sync_step, witness = sys.argv[1], int(sys.argv[2]), int(sys.argv[3])
 build = bench.build_pretrain
-seen = {"steps": 0, "syncs": []}
+seen = {"steps": 0, "syncs": [], "hand": {}}
 
 def counted(cfg, device):
     *trainer, step = build(cfg, device)
@@ -3129,6 +3309,14 @@ def counted(cfg, device):
         if seen["steps"] == 1:
             seen["batch"] = batch
             seen["before"] = {k: v.clone() for k, v in batch.items()}
+        if seen["steps"] in (1, witness):
+            mark = SPANS.last
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                metrics = step(batch)
+                torch.cuda.synchronize()
+            seen["hand"][seen["steps"]] = [_step_kinds(mark),
+                                           _hand_launches(prof)]
+            return metrics
         if seen["steps"] != sync_step:
             return step(batch)
         torch.cuda.set_sync_debug_mode("warn")
@@ -3145,10 +3333,13 @@ def counted(cfg, device):
 
 bench.build_pretrain = counted
 _kernels.reset_launch_counts()
-cli.main(sys.argv[3:])
+mark = SPANS.last
+cli.main(sys.argv[4:])
+kinds = _step_kinds(mark)
 with open(out, "w") as f:
     json.dump({"steps": seen["steps"], "syncs": seen["syncs"],
-               "counts": dict(_kernels.launch_counts),
+               "counts": dict(_kernels.launch_counts), "kinds": kinds,
+               "python_steps": _python_steps(kinds), "hand": seen["hand"],
                "batch_unchanged": all(torch.equal(seen["batch"][k], v)
                                       for k, v in seen["before"].items()),
                "peak": torch.cuda.max_memory_allocated()}, f)
@@ -3185,7 +3376,8 @@ def phase_bench(smi: str, single: dict) -> dict:
     with tempfile.TemporaryDirectory() as tmp:
         out = os.path.join(tmp, "bench.json")
         codes, logs = run_ranks([[sys.executable, "-c", _BENCH_CHILD, out,
-                                  str(BENCH_SYNC_STEP), *argv]],
+                                  str(BENCH_SYNC_STEP), str(BENCH_WARMUP),
+                                  *argv]],
                                 BENCH_TIMEOUT, env=env)
         if codes != [0]:
             raise AssertionError(f"cli bench ended with {codes}:\n"
@@ -3209,8 +3401,13 @@ def phase_bench(smi: str, single: dict) -> dict:
         raise AssertionError(f"cli bench ran {res['steps']} steps")
     if not res["batch_unchanged"]:
         raise AssertionError("cli bench: a step changed the batch it reuses")
-    counts = res["counts"]
-    per_step = {k: counts.get(k, 0) / steps for k in KERNELS}
+    counts, kinds, python = res["counts"], res["kinds"], res["python_steps"]
+    # remat off, one card: every step after the capture replays
+    if kinds != ["eager", "capture"] + ["replay"] * (steps - 2):
+        raise AssertionError(f"cli bench: steps ran {kinds}")
+    hand = {int(n): v for n, v in res["hand"].items()}
+    _check_witness("cli bench", hand, 1, BENCH_WARMUP)
+    per_step = {k: counts.get(k, 0) / python for k in KERNELS}
     if not all(per_step[k] >= 1 and per_step[k] == int(per_step[k])
                for k in BF16_PATH_KERNELS) \
             or any(per_step[k] for k in GENERAL_KERNELS):
@@ -3219,16 +3416,21 @@ def phase_bench(smi: str, single: dict) -> dict:
     where = sorted({loc for _, loc in syncs})
     warm = float(np.median(single["step_ms"][2:]))
     print(f"[10 bench] {' '.join(argv)} (BENCH_BATCH 16, no remat, full "
-          f"width, bf16): {lines[0]} | launches a step {per_step} | host "
+          f"width, bf16): {lines[0]} | steps ran {kinds} (steps 1 and "
+          f"{BENCH_WARMUP} profiled) | launches a step, over the {python} "
+          f"whose wrappers ran {per_step} | hand kernels on the device, step "
+          f"1 (eager) {hand[1][1]}, step {BENCH_WARMUP} "
+          f"({hand[BENCH_WARMUP][0][0]}) the same | host "
           f"synchronisations in timed step {BENCH_SYNC_STEP - BENCH_WARMUP} "
           f"(sync debug mode) {len(syncs)}: {where} | the host's draw of one "
           f"batch of 16 {[round(x, 1) for x in draws]} ms, its put "
           f"{[round(x, 1) for x in puts]} ms | phase 5's median of steps "
           f"3-{PRETRAIN_STEPS} (draw and put in each) {warm:.1f} ms against "
           f"the bench's {detail['step_ms']} ms | batch unchanged after "
-          f"{steps} steps | peak memory {res['peak'] / 2**30:.2f} GiB | "
+          f"{steps} steps | peak memory {res['peak'] / 2**30:.2f} GiB (a "
+          f"graph's pool not in it) | "
           f"phase {time.perf_counter() - t0:.1f} s | {smi}", flush=True)
-    return {k: counts.get(k, 0) for k in KERNELS}
+    return {k: counts.get(k, 0) for k in KERNELS}, python
 
 
 def main() -> None:
@@ -3247,7 +3449,7 @@ def main() -> None:
     by_path["pretrain_val"] = phase_loop(smi)
     by_path.update(phase_heads(smi))
     by_path["pretrain_dist"] = phase_dist(smi, single)
-    by_path["bench"] = phase_bench(smi, single)
+    by_path["bench"], bench_python = phase_bench(smi, single)
     for path in ("egomcq_16f", "egomcq_4f", "egomcq_16f_1q", "pretrain",
                  "pretrain_dist", "bench"):
         if not by_path[path]["fused_attention_fwd"]:
@@ -3265,11 +3467,15 @@ def main() -> None:
     # their grouped forms two (a query pass, then a key pass); K3, K6 and
     # the LayerNorm backward two (a pass, then the merge or sum of the
     # blocks' partials); K10 two and K11 three.
-    # pretrain_val: the validation batches of the loop phase's run C
-    steps = {"pretrain": PRETRAIN_STEPS, "taskqa": TASKQA_STEPS,
+    # pretrain_val: the validation batches of the loop phase's run C. A
+    # step replayed as one CUDA graph calls no wrapper: the pretrain and
+    # bench runs count the steps whose wrappers ran (the eager one and the
+    # one that captured); their replays' kernels are witnessed by name
+    # from the profiler in phases 5 and 10.
+    steps = {"pretrain": single["python_steps"], "taskqa": TASKQA_STEPS,
              "pretrain_val": 2 * LOOP_VAL_BATCHES,
              "pretrain_dist": DIST_STEPS,
-             "bench": BENCH_WARMUP + BENCH_ITERS,
+             "bench": bench_python,
              "mq_vsgn_b16_t928": HEAD_EPOCHS * MQ_TRAIN_CLIPS // MQ_BATCH,
              "nlq_vslnet_b32": HEAD_EPOCHS * NLQ_TRAIN // NLQ_BATCH,
              "qfvs_scorer_20x200": HEAD_EPOCHS * 2 * len(QFVS_PAIRS)}

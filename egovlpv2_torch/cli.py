@@ -590,13 +590,16 @@ def _egomcq_validation(args, cfg, model):
 # the host's milliseconds a step that `_fit`'s log line and stats.txt row
 # give, as the mean since the last log, and the spans each one sums
 # (`train/step.py`, `_train_loop`); across ranks `grad_sync_ms` is the
-# gradients' all-reduce that the backward does not hide
+# gradients' all-reduce that the backward does not hide. A step replayed
+# as one CUDA graph has no forward, backward or optimizer span, only
+# `replay_ms`; a group with no span since the last log is left out.
 PHASE_SPANS = {
     "data_wait_ms": ("egovlpv2.loop.data_wait",),
     "forward_ms": ("egovlpv2.step.forward",),
     "backward_ms": ("egovlpv2.step.backward",),
     "optimizer_ms": ("egovlpv2.step.zero_grad", "egovlpv2.step.optimizer"),
     "grad_sync_ms": ("egovlpv2.optimizer.grad_sync",),
+    "replay_ms": ("egovlpv2.step.replay",),
     "sync_ms": ("egovlpv2.loop.sync",),
 }
 

@@ -195,6 +195,10 @@ class SpaceTimeViT(nn.Module):
             for i in range(cfg.depth))
         self.norm = LayerNorm(d, eps=cfg.ln_eps, **kw)
         self.pos_drop = Dropout(cfg.drop_rate)
+        # device -> (mean, std) of `cfg.uint8_norm` there, built once: a
+        # copy from the host each call would wait on the host, and a CUDA
+        # graph cannot capture it
+        self._uint8_stats: dict = {}
 
     def patchify(self, video: torch.Tensor) -> torch.Tensor:
         """[B, F, H, W, C] -> [B, F*N, D] (frame-major, row-major patches).
@@ -203,8 +207,11 @@ class SpaceTimeViT(nn.Module):
         is applied here, on the device."""
         if video.dtype == torch.uint8:
             mean, std, scale = NORM_STATS[self.cfg.uint8_norm]
-            mean = torch.tensor(mean, dtype=torch.float32, device=video.device)
-            std = torch.tensor(std, dtype=torch.float32, device=video.device)
+            if video.device not in self._uint8_stats:
+                self._uint8_stats[video.device] = tuple(
+                    torch.tensor(x, dtype=torch.float32, device=video.device)
+                    for x in (mean, std))
+            mean, std = self._uint8_stats[video.device]
             video = (video.float() * scale - mean) / std
         b, f, hh, ww, c = video.shape
         x = self.patch_embed(video.reshape(b * f, hh, ww, c))

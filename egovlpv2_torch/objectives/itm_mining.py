@@ -48,6 +48,31 @@ def combine_indices(labels: torch.Tensor, coin: torch.Tensor,
     return ITMIndices(video_idx, text_idx, labels)
 
 
+def categorical(weights: torch.Tensor,
+                generator: Optional[torch.Generator]) -> torch.Tensor:
+    """One draw a row of `weights` [B, C] (non-negative, each row's sum
+    positive), by index: `torch.multinomial(weights, 1, generator)[:, 0]`,
+    draw for draw. That is multinomial's own path for one sample (the
+    argmax of weights over exponential noise) without its checks of the
+    weights, which read them on the host: a CUDA graph cannot capture
+    them. So it is taken only inside a capture (`draw_one`)."""
+    noise = torch.empty_like(weights).exponential_(1, generator=generator)
+    return torch.argmax(weights / noise, dim=-1)
+
+
+def draw_one(weights: torch.Tensor,
+             generator: Optional[torch.Generator]) -> torch.Tensor:
+    """`torch.multinomial(weights, 1, generator)[:, 0]`, with its checks of
+    the weights, except while a CUDA graph captures: there `categorical`,
+    the same draws unchecked. The mining's weights are a softmax of the
+    similarities with zeros put in, so only a non-finite similarity would
+    fail the checks, and the EgoNCE loss of that step is then non-finite
+    too."""
+    if weights.is_cuda and torch.cuda.is_current_stream_capturing():
+        return categorical(weights, generator)
+    return torch.multinomial(weights, 1, generator=generator)[:, 0]
+
+
 def mine_itm_indices(generator: Optional[torch.Generator], sim: torch.Tensor,
                      mask_bool: torch.Tensor, temperature: float) -> ITMIndices:
     """sim [B, B] (rows = text, cols = video), mask_bool [B, B] the EgoNCE
@@ -59,7 +84,7 @@ def mine_itm_indices(generator: Optional[torch.Generator], sim: torch.Tensor,
     labels = labels[torch.randperm(b, generator=generator, device=dev)]
     w_t2v, w_v2t = mining_weights(sim, mask_bool, temperature)
     # multinomial(w + 1e-9), as model.py:460,465
-    neg_video = torch.multinomial(w_t2v + 1e-9, 1, generator=generator)[:, 0]
-    neg_text = torch.multinomial(w_v2t + 1e-9, 1, generator=generator)[:, 0]
+    neg_video = draw_one(w_t2v + 1e-9, generator)
+    neg_text = draw_one(w_v2t + 1e-9, generator)
     coin = torch.rand(b, generator=generator, device=dev) < 0.5
     return combine_indices(labels, coin, neg_video, neg_text)

@@ -32,7 +32,11 @@ The step records its phases as host spans (`utils/logging.py::span`):
 `.forward` (the paths of `pretrain_loss_fn` inside it as
 `egovlpv2.forward.egonce`, `.video_unfused`, `.mlm`, `.itm_mining` and
 `.itm`), `.backward` and `.optimizer` (with `egovlpv2.optimizer.grad_sync`
-and `egovlpv2.optimizer.adamw`).
+and `egovlpv2.optimizer.adamw`). A step replayed as one CUDA graph
+(`GraphStep`) runs no Python inside the graph: its call records
+`egovlpv2.step`, `.put` (with the copy into the graph's inputs) and
+`.replay`; the call that captures the graph records `.capture` around the
+phases as the capture ran them.
 """
 
 from __future__ import annotations
@@ -40,7 +44,9 @@ from __future__ import annotations
 import functools
 from typing import Callable, Dict, Optional, Tuple
 
+import numpy as np
 import torch
+from torch import distributed as dist
 from torch import nn
 
 from egovlpv2_torch.core.config import TrainConfig
@@ -54,7 +60,7 @@ from egovlpv2_torch.objectives.losses import (egonce_loss, itm_loss,
 from egovlpv2_torch.parallel.collectives import (all_gather, all_reduce_sum,
                                                  sync_gradients)
 from egovlpv2_torch.parallel.distributed import rank
-from egovlpv2_torch.utils.logging import STEP, span
+from egovlpv2_torch.utils.logging import CAPTURE, REPLAY, STEP, span
 
 
 def pretrain_loss_fn(model: EgoVLPv2, batch: Dict[str, torch.Tensor],
@@ -159,6 +165,124 @@ def batch_to_device(batch, device: torch.device) -> Dict[str, torch.Tensor]:
     return batch.wait()
 
 
+def captures_graph(device: torch.device, cfg: TrainConfig,
+                   path_regions: bool) -> bool:
+    """Whether `make_train_step` replays its step as one CUDA graph: on a
+    CUDA device, without a process group (the collectives stay eager), and
+    with no checkpoint region in the step, neither a block's
+    (`cfg.model.remat`) nor a path's (`path_regions`): a region's rebuild
+    sets the generator's state on the host, which a graph cannot hold."""
+    return (device.type == "cuda"
+            and not (dist.is_available() and dist.is_initialized())
+            and not cfg.model.remat and not path_regions)
+
+
+def capturable_(optimizer: torch.optim.Optimizer,
+                device: torch.device) -> None:
+    """AdamW as a CUDA graph replays it, in place: `capturable`, each
+    group's learning rate a 0-d float32 tensor on `device` (the scheduler
+    fills it in place each step; a float would be frozen into the graph at
+    its capture value) and the step counts there too. Tensors already so
+    stay the same objects."""
+    for group in optimizer.param_groups:
+        group["capturable"] = True
+        lr = group["lr"]
+        if not (torch.is_tensor(lr) and lr.device == device
+                and lr.dtype == torch.float32):
+            group["lr"] = torch.tensor(float(lr), dtype=torch.float32,
+                                       device=device)
+    for state in optimizer.state.values():
+        count = state.get("step")
+        if torch.is_tensor(count) and count.device != device:
+            state["step"] = count.to(device=device, dtype=torch.float32)
+
+
+def _signature(batch) -> tuple:
+    """A batch's keys, shapes and dtypes as the caller hands it over
+    (arrays, tensors or a `DeviceBatch`): batches alike here are alike on
+    the device."""
+    return tuple((k, tuple(np.shape(v)), str(
+        v.dtype if hasattr(v, "dtype") else np.asarray(v).dtype))
+        for k, v in sorted(batch.items(), key=lambda kv: kv[0]))
+
+
+class GraphStep:
+    """The training step replayed as one CUDA graph: `update` (forward,
+    backward, zero fill, clip or norm, AdamW) captured once for one batch
+    signature (keys, shapes, dtypes) and launched with one
+    `cudaGraphLaunch` a call, the scheduler stepped after it.
+
+    A call whose signature was also the last eager call's captures, then
+    replays once; a later call of the captured signature replays; any other
+    call is the `eager` step (the first, a loader's short last batch). A
+    call of another signature than the captured one first drops the graph
+    and frees its memory pool, so that the eager step has the device's
+    memory to itself; a signature that repeats is captured again. Each call
+    is one update. A replay copies the batch into the graph's inputs and
+    returns fresh copies of its metrics, so a caller may hold a step's
+    metrics across later calls. The dropout and mining generators are
+    registered with the graph: every replay draws anew, in the eager
+    step's order. The model's parameters, the optimizer's state and its
+    learning rates must stay the tensors they were at the capture (load a
+    state before the first call)."""
+
+    def __init__(self, model: nn.Module, eager: Callable, update: Callable,
+                 optimizer, scheduler, generators, device: torch.device):
+        self.model, self.eager, self.update = model, eager, update
+        self.optimizer, self.scheduler = optimizer, scheduler
+        self.generators, self.device = generators, device
+        self.graph = self.signature = self.last = None
+        self.inputs = self.outputs = None
+
+    def __call__(self, batch) -> Dict[str, torch.Tensor]:
+        sig = _signature(batch)
+        if self.graph is not None and sig != self.signature:
+            self._drop()
+        if self.graph is None and sig != self.last:
+            self.last = sig
+            # a state loaded since the build (a resumed run) brings its
+            # own learning rates and flags
+            capturable_(self.optimizer, self.device)
+            return self.eager(batch)
+        with span(STEP):
+            self.model.train()
+            with span("egovlpv2.step.put"):
+                batch = batch_to_device(batch, self.device)
+                if self.graph is not None:
+                    for k, v in self.inputs.items():
+                        v.copy_(batch[k])
+            if self.graph is None:
+                with span(CAPTURE):
+                    self._capture(batch, sig)
+            with span(REPLAY):
+                self.graph.replay()
+                self.scheduler.step()
+                return {k: v.clone() for k, v in self.outputs.items()}
+
+    def _capture(self, batch, sig) -> None:
+        # no gradient before the capture: the graph's backward assigns
+        # them where it would otherwise accumulate into last step's
+        self.optimizer.zero_grad(set_to_none=True)
+        capturable_(self.optimizer, self.device)
+        self.inputs = {k: v.clone() for k, v in batch.items()}
+        graph = torch.cuda.CUDAGraph()
+        for g in self.generators:
+            graph.register_generator_state(g)
+        # `torch.cuda.graph` synchronises and empties the allocator's cache
+        # first, so the pool starts from the eager step's freed memory;
+        # other threads (a loader's feeder) may keep using the device
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            self.outputs = self.update(self.inputs, schedule=False)
+        self.graph, self.signature = graph, sig
+
+    def _drop(self) -> None:
+        """The graph and every tensor of its pool (the gradients, the
+        metrics) let go, and the pool returned to the device."""
+        self.optimizer.zero_grad(set_to_none=True)
+        self.graph = self.signature = self.inputs = self.outputs = None
+        torch.cuda.empty_cache()
+
+
 def make_train_step(model: EgoVLPv2, cfg: TrainConfig,
                     optimizer: torch.optim.Optimizer, scheduler,
                     generator: Optional[torch.Generator] = None,
@@ -172,7 +296,12 @@ def make_train_step(model: EgoVLPv2, cfg: TrainConfig,
     here); `grad_norm` joins them when `cfg.log_grad_norm`. `loss_fn(model,
     batch)` returns (loss, metrics); the default is `pretrain_loss_fn` with
     `generator`, `mining_generator` and `loss_scale`. The step keeps
-    `generator` and `mining_generator` as its attributes of those names."""
+    `generator` and `mining_generator` as its attributes of those names.
+
+    Where `captures_graph` holds, the step is a `GraphStep` and AdamW is
+    made `capturable_` at once, so that every call, eager or replayed,
+    runs the same update; its `eager(batch)` is the eager step."""
+    path_regions = loss_fn is None and cfg.path_remat
     if loss_fn is None:
         loss_fn = functools.partial(pretrain_loss_fn, generator=generator,
                                     cfg=cfg, loss_scale=loss_scale,
@@ -181,44 +310,55 @@ def make_train_step(model: EgoVLPv2, cfg: TrainConfig,
     params = [p for p in model.parameters() if p.requires_grad]
     model.set_generator(generator)
 
-    def step(batch) -> Dict[str, torch.Tensor]:
+    def update(batch, schedule: bool = True) -> Dict[str, torch.Tensor]:
+        with span("egovlpv2.step.forward"):
+            loss, metrics = loss_fn(model, batch)
+        # the main thread's wait on the autograd engine, which launches
+        # the backward's kernels from its own thread
+        with span("egovlpv2.step.backward"):
+            loss.backward()
+        with span("egovlpv2.step.optimizer"):
+            # A parameter the loss does not reach (the fusion gates of
+            # a dual model) has a zero gradient in the JAX package,
+            # where every leaf has one; it gets one here, so AdamW
+            # decays it alike.
+            for p in params:
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+            # the clip and the norm see the global gradient
+            with span("egovlpv2.optimizer.grad_sync"):
+                sync_gradients(params)
+            if cfg.optim.grad_clip is not None:
+                norm = nn.utils.clip_grad_norm_(params, cfg.optim.grad_clip)
+            elif cfg.log_grad_norm:
+                norm = torch.linalg.vector_norm(torch.stack(
+                    [torch.linalg.vector_norm(p.grad) for p in params
+                     if p.grad is not None]))
+            if cfg.log_grad_norm:
+                metrics["grad_norm"] = norm  # before the clip, as optax's
+            with span("egovlpv2.optimizer.adamw"):
+                optimizer.step()
+            if schedule:
+                scheduler.step()
+        return {k: v.detach() for k, v in metrics.items()}
+
+    def eager(batch) -> Dict[str, torch.Tensor]:
         with span(STEP):
             model.train()
             with span("egovlpv2.step.zero_grad"):
                 optimizer.zero_grad(set_to_none=True)
             with span("egovlpv2.step.put"):
                 batch = batch_to_device(batch, device)
-            with span("egovlpv2.step.forward"):
-                loss, metrics = loss_fn(model, batch)
-            # the main thread's wait on the autograd engine, which launches
-            # the backward's kernels from its own thread
-            with span("egovlpv2.step.backward"):
-                loss.backward()
-            with span("egovlpv2.step.optimizer"):
-                # A parameter the loss does not reach (the fusion gates of
-                # a dual model) has a zero gradient in the JAX package,
-                # where every leaf has one; it gets one here, so AdamW
-                # decays it alike.
-                for p in params:
-                    if p.grad is None:
-                        p.grad = torch.zeros_like(p)
-                # the clip and the norm see the global gradient
-                with span("egovlpv2.optimizer.grad_sync"):
-                    sync_gradients(params)
-                if cfg.optim.grad_clip is not None:
-                    norm = nn.utils.clip_grad_norm_(params,
-                                                    cfg.optim.grad_clip)
-                elif cfg.log_grad_norm:
-                    norm = torch.linalg.vector_norm(torch.stack(
-                        [torch.linalg.vector_norm(p.grad) for p in params
-                         if p.grad is not None]))
-                if cfg.log_grad_norm:
-                    metrics["grad_norm"] = norm  # before the clip, as optax's
-                with span("egovlpv2.optimizer.adamw"):
-                    optimizer.step()
-                scheduler.step()
-            return {k: v.detach() for k, v in metrics.items()}
+            return update(batch)
 
+    step = eager
+    if captures_graph(device, cfg, path_regions):
+        capturable_(optimizer, device)
+        # by identity: one generator may draw both
+        generators = list({id(g): g for g in (generator, mining_generator)
+                           if g is not None}.values())
+        step = GraphStep(model, eager, update, optimizer, scheduler,
+                         generators, device)
     # the generator is part of a run's state (`train/checkpoint.py::
     # train_state`): a resumed run must draw what the first would have
     step.generator = generator

@@ -93,6 +93,10 @@ class Throughput:
 
 
 STEP = "egovlpv2.step"
+# a training step that replays as one CUDA graph (`train/step.py`): the
+# call that captures the graph, and each launch of it
+CAPTURE = "egovlpv2.step.capture"
+REPLAY = "egovlpv2.step.replay"
 
 
 class Span(NamedTuple):
@@ -200,7 +204,8 @@ class SpanMeans:
     `add()` after each step takes the spans finished since the one before
     (so the ring's bound does not limit a log interval); `read()` returns
     each group's time over the steps added, a step's mean, and starts
-    anew."""
+    anew. A group none of whose spans finished since the last read is left
+    out (a replayed step has no forward span: its time is not 0)."""
 
     def __init__(self, groups: Dict[str, Sequence[str]],
                  spans: Spans = SPANS):
@@ -210,20 +215,21 @@ class SpanMeans:
         self._reset()
 
     def _reset(self) -> None:
-        self._ns = dict.fromkeys(self.groups, 0)
+        self._ns: Dict[str, int] = {}
         self._steps = 0
 
     def add(self) -> None:
         for s in self.spans.records(self._seen):
             key = self._of.get(s.name)
             if key is not None:
-                self._ns[key] += s.end - s.start
+                self._ns[key] = self._ns.get(key, 0) + s.end - s.start
             self._seen = s.id
         self._steps += 1
 
     def read(self) -> Dict[str, float]:
         if not self._steps:
             return {}
-        out = {k: v / 1e6 / self._steps for k, v in self._ns.items()}
+        out = {k: self._ns[k] / 1e6 / self._steps for k in self.groups
+               if k in self._ns}
         self._reset()
         return out

@@ -193,7 +193,8 @@ def test_span_means_since_the_last_read():
     means = SpanMeans({"a_ms": ("a",), "bx_ms": ("b", "x"), "c_ms": ("c",)},
                       spans=rec)
     assert means.read() == {}
-    want = {"a_ms": 0.0, "bx_ms": 0.0, "c_ms": 0.0}
+    # "c" never ends a span: its group is left out, not read as 0
+    want = {"a_ms": 0.0, "bx_ms": 0.0}
     for _ in range(3):
         for name in ("a", "b", "x", "other"):
             with rec.span(name):
@@ -208,7 +209,7 @@ def test_span_means_since_the_last_read():
     means.add()
     last = rec.records()[-1]
     assert means.read() == pytest.approx(
-        {"a_ms": (last.end - last.start) / 1e6, "bx_ms": 0.0, "c_ms": 0.0})
+        {"a_ms": (last.end - last.start) / 1e6})
 
 
 def test_cli_log_rows_carry_the_phase_means(tmp_path):
@@ -223,10 +224,12 @@ def test_cli_log_rows_carry_the_phase_means(tmp_path):
             (save / "stats.txt").read_text().strip().splitlines()]
     assert [r["step"] for r in rows] == [2, 4]
     for row in rows:
-        assert set(cli.PHASE_SPANS) <= set(row)
+        # the CPU has no synchronisation and no graph to replay: those
+        # phases are left out, not read as 0
+        assert set(cli.PHASE_SPANS) - set(row) == {"sync_ms", "replay_ms"}
         assert row["forward_ms"] > 0 and row["backward_ms"] > 0
         assert row["optimizer_ms"] > 0 and row["data_wait_ms"] > 0
-        assert row["sync_ms"] == 0 and row["grad_sync_ms"] >= 0
+        assert row["grad_sync_ms"] >= 0
         # a step's phases lie inside its time
         assert row["forward_ms"] + row["backward_ms"] + row[
             "optimizer_ms"] < 1e3 * max(res["step_seconds"]) * 2
