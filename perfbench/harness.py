@@ -1,18 +1,22 @@
 """One run of one cell: set-up, the checked first steps, the timed window,
 the traced stretch, and the comparison with the reference.
 
-Set-up builds the port's training step from the pieces its task builders
-use (`EgoVLPv2`, `make_optimizer`, `parallel.mesh.train_generators`, the
-task's step maker), fills the parameters from the seed on the device, and
-draws the pool of input batches on the device. The first steps, which
-build and warm every kernel the window uses, go through the window's own
-call on the pool's first batches: their losses, the first gradient (from
-AdamW's first moment after one step) and the parameters' change over them
-are the program's readings. The same object then runs the window: step i-1's
-loss is read after step i is launched, nothing is drawn or copied from the
-host, and one synchronisation closes it. A traced run then profiles a
-short stretch of further steps. Last, the program's state is freed and the
-reference repeats the first steps in float64 from the same seed.
+Set-up builds the port's training step from the pieces that the cell's
+task file names (`perfbench/tasks/<task>.py`: the configuration's
+loader, the model, the optimizer, the step maker) and the port's
+`parallel.mesh.train_generators`, fills the parameters from the seed on
+the device by the task's weight rules, and draws the pool of input
+batches on the device. The first steps, which build and warm every
+kernel the window uses, go through the window's own call on the pool's
+first batches: their losses, the first gradient (from AdamW's first
+moment after one step) and the parameters' change over them are the
+program's readings. The same object then runs the window: step i-1's
+loss is read after step i is launched, nothing is drawn or copied from
+the host, and one synchronisation closes it. A traced run then profiles
+a short stretch of further steps. Last, the program's state is freed and
+the reference that the task names (`perfbench/reference/<REFERENCE>.py`)
+repeats the first steps in float64 from the same seed. Nothing here
+names a model.
 """
 
 from __future__ import annotations
@@ -61,30 +65,31 @@ class Cell:
         self.rows = self.cfg["global_batch_size"] // self.chips
 
     def program_config(self):
-        from egovlpv2_torch.core.config import load_train_config
-        return load_train_config(str(self.config_file))
+        return self.task.program_config(str(self.config_file))
+
+    def weights(self, shapes, seed: int, device) -> Dict[str, torch.Tensor]:
+        return make_weights(shapes, seed, device, self.task.init_kind)
 
 
 class Program:
     """The port's training step, its model and optimizer, on `device`."""
 
     def __init__(self, cell: Cell, seeds: Seeds, device):
-        from egovlpv2_torch.models.egovlp import EgoVLPv2
         from egovlpv2_torch.parallel.mesh import train_generators
-        from egovlpv2_torch.train.optimizer import make_optimizer
 
         cfg = cell.program_config()
+        self.cell = cell
         self.device = torch.device(device)
         self.seeds = seeds
-        self.model = EgoVLPv2(cfg.model, device=self.device)
+        self.model = cell.task.build_model(cfg, self.device)
         self.shapes = {n: tuple(p.shape)
                        for n, p in self.model.named_parameters()}
-        weights = make_weights(self.shapes, seeds.weights, self.device)
+        weights = cell.weights(self.shapes, seeds.weights, self.device)
         with torch.no_grad():
             for n, p in self.model.named_parameters():
                 p.copy_(weights[n])
         del weights
-        self.optimizer, scheduler = make_optimizer(cfg.optim, self.model)
+        self.optimizer, scheduler = cell.task.make_optimizer(cfg, self.model)
         generator, mining = train_generators(self.device, seeds.dropout)
         self.step = cell.task.make_step(self.model, cfg, self.optimizer,
                                         scheduler, generator, mining)
@@ -107,7 +112,8 @@ class Program:
     def change(self) -> Dict[str, torch.Tensor]:
         """Each leaf's change from the seeded weights (drawn again), kept
         in host memory until the reference has run."""
-        start = make_weights(self.shapes, self.seeds.weights, self.device)
+        start = self.cell.weights(self.shapes, self.seeds.weights,
+                                  self.device)
         return {n: (p - start[n]).cpu()
                 for n, p in self.model.named_parameters()}
 
@@ -157,10 +163,11 @@ class Program:
 
 def reference_readings(cell: Cell, seeds: Seeds, shapes, batches, n: int,
                        device, precision: str = "float64") -> dict:
-    weights = make_weights(shapes, seeds.weights, device)
+    weights = cell.weights(shapes, seeds.weights, device)
     generator = torch.Generator(device=device).manual_seed(seeds.dropout)
-    return reference.readings(cell.cfg, cell.task.REFERENCE, weights,
-                              batches, generator, n, precision, device)
+    return reference.readings(
+        cell.cfg, manifest.reference(cell.root, cell.task.REFERENCE),
+        weights, batches, generator, n, precision, device)
 
 
 def free(device) -> None:
@@ -203,6 +210,10 @@ def run_cell(root: Path, name: str, seed: int, seconds: float, traced: bool,
                         spans=spans if traced else None)
     setup_s = window["t0"] - t_start
     peak_window = torch.cuda.max_memory_allocated() if cuda else 0
+    # the window's peak of the allocator's reserved segments: a replayed
+    # step's working set lies in its graph's private pool, whose blocks
+    # count as allocated only while a capture or an eager step holds them
+    reserved_window = torch.cuda.max_memory_reserved() if cuda else 0
     stretch = timeline = None
     stretch_steps, timeline_s = 0, 0.0
     if traced:
@@ -231,8 +242,9 @@ def run_cell(root: Path, name: str, seed: int, seconds: float, traced: bool,
         window=window, spans=spans,
         flops=cell.task.step_flops(cell.cfg, cell.rows, cell.traffic),
         calls=cell.task.step_calls(cell.cfg, cell.rows, cell.traffic),
-        peak_window_bytes=peak_window, trace=stretch, timeline=timeline,
-        timeline_s=timeline_s, stretch_steps=stretch_steps)
+        reserved_window_bytes=reserved_window, trace=stretch,
+        timeline=timeline, timeline_s=timeline_s,
+        stretch_steps=stretch_steps)
     metrics = {}
     for m in manifest.metrics_of(cell.bench, name, traced):
         value = manifest.reader(root, m["name"]).read(ctx)

@@ -23,8 +23,18 @@ DIVIDED_FWD = "hand kernels, forward (K1/K2/K3)"
 DIVIDED_GENERAL = "hand kernels, general divided attention (K10/K11)"
 DIVIDED_BWD = "hand kernels, backward (K4/K5/K6)"
 LAYERNORM = "hand kernels, LayerNorm (K7/K8)"
+FUSED = "hand kernel, fused attention (K9)"
 GEMM = "GEMM (cuBLAS)"
-ADAMW = "optimizer (AdamW, foreach)"
+ADAMW = "optimizer (AdamW)"
+# `capturable` AdamW divides each parameter's denominator by its 0-d bias
+# corrections one parameter at a time (`torch._foreach_div_` over a list of
+# 0-d tensors takes its per-tensor path): a float32 division with a
+# broadcast operand, two launches a parameter (1,090 of the pretrain
+# step's 1,104 such launches, 4.436 of its 4.445 ms; H100, torch 2.11)
+ADAMW_BIAS_CORRECTION = (
+    "elementwise_kernel<128, 2, at::native::gpu_kernel_impl_nocast<"
+    "at::native::binaryfunctor<float, float, float, "
+    "at::native::binary_internal::divfunctor<float> > >")
 
 KINDS = (  # first match wins
     ("memcpy", ("memcpy",)),
@@ -39,22 +49,24 @@ KINDS = (  # first match wins
                    "cls_row_bwd_part_kernel", "cls_row_bwd_merge_kernel")),
     (LAYERNORM, ("layernorm_fwd_kernel", "layernorm_bwd_kernel",
                  "layernorm_bwd_sum_kernel")),
-    ("hand kernel, fused attention (K9)", K9_KERNELS),
+    (FUSED, K9_KERNELS),
     ("NCCL", ("nccl",)),
     # cuBLASLt's split-K reduction (`cublasLt::splitKreduce_kernel`) is a
     # GEMM's own second pass
     (GEMM, ("gemm", "nvjet", "cutlass", "xmma", "gemv", "cublas")),
-    (ADAMW, ("multi_tensor", "adam")),
+    (ADAMW, ("multi_tensor", "adam", ADAMW_BIAS_CORRECTION)),
     ("reductions", ("reduce_kernel",)),
 )
 OTHER = "elementwise and copies"
 
 # the kernels that do one layer's work, as the per-layer readers time it:
 # the divided attention in bf16 (K1-K6) and in f32 (K10/K11), LayerNorm's
-# forward and backward, cuBLAS's products, AdamW's foreach updates
+# forward and backward, the fused attention's forward (K9), cuBLAS's
+# products, AdamW's foreach updates and bias corrections
 FAMILIES = {
     "divided_attn": (DIVIDED_FWD, DIVIDED_GENERAL, DIVIDED_BWD),
     "layernorm": (LAYERNORM,),
+    "fused_attn": (FUSED,),
     "gemm": (GEMM,),
     "adamw": (ADAMW,),
 }

@@ -2,9 +2,10 @@
 of a checkout: a configuration's file as the manifest gives it, a traffic
 mix at `perfbench/traffic/<traffic>.json`, a cell's limits at
 `perfbench/cells/<cell>.json`, a task at `perfbench/tasks/<task>.py` (the
-configuration file's "_task") and a metric's reader at
-`perfbench/metrics/<metric>.py`. A later change adds any of them as new
-files and manifest entries, and edits none of these."""
+configuration file's "_task"), the task's reference at
+`perfbench/reference/<REFERENCE>.py` (the task's `REFERENCE`) and a
+metric's reader at `perfbench/metrics/<metric>.py`. A later change adds
+any of them as new files and manifest entries, and edits none of these."""
 
 from __future__ import annotations
 
@@ -62,6 +63,10 @@ def module(path: Path) -> ModuleType:
 
 def task(root: Path, name: str) -> ModuleType:
     return module(Path(root) / HOME / "tasks" / f"{name}.py")
+
+
+def reference(root: Path, name: str) -> ModuleType:
+    return module(Path(root) / HOME / "reference" / f"{name}.py")
 
 
 def reader(root: Path, metric: str) -> ModuleType:

@@ -1,12 +1,13 @@
 """The program's own spans of the training step, as the per-layer readers
-take them: the port's ring of host spans (`egovlpv2_torch.utils.logging.
-SPANS`, `time.perf_counter_ns()`) and the same spans as `record_function`
-ranges in the host-and-device stretch (`ctx.trace`, microseconds on the
-profiler's clock).
+(`launches_per_step.train`, `graph_replay_share.train`) and
+`scripts/profile_torch_spans.py` take them: the port's ring of host
+spans (`egovlpv2_torch.utils.logging.SPANS`, `time.perf_counter_ns()`)
+and the same spans as `record_function` ranges in the host-and-device
+stretch (`ctx.trace`, microseconds on the profiler's clock).
 
 The window: the steps whose `egovlpv2.step` starts inside the untraced
 window's `t0`-`t1`; a reader of it finds nothing unless the ring holds
-every one of them with its phases.
+every one of them.
 
 The clock: the host-and-device stretch holds each span twice, as its
 range and as its ring entry; the median of (range start - ring start)
@@ -14,9 +15,10 @@ over the matched spans is the offset from the ring's clock to the
 profiler's. The profiler exports times after a base that one process
 keeps for all its sessions, so the same offset places the ring's spans of
 the device-only stretch (`ctx.timeline`, profiled in the same process) on
-that stretch's device timeline. A reader checks that most of that
-stretch's device activity falls inside the placed steps, and finds nothing
-where it does not (a profiler whose sessions do not share the base).
+that stretch's device timeline, where `idle_by_phase` cuts an eager
+step's idle time at its phases. It checks that most of that stretch's
+device activity falls inside the placed steps, and finds nothing where it
+does not (a profiler whose sessions do not share the base).
 
 Every function returns None where it has nothing to read: no trace, a
 program without the ring (the ring came with these readers), or steps
@@ -31,8 +33,9 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 STEP = "egovlpv2.step"
 PREFIX = "egovlpv2."
-# the phases of a step, as the three host and the three idle metrics split
-# it (the rest of a step is its own time and `egovlpv2.step.put`)
+# the phases of an eager step, as `idle_by_phase` (and
+# `scripts/profile_torch_spans.py`) split it (the rest of a step is its own
+# time and `egovlpv2.step.put`); a replayed step has none of them
 PHASES = {
     "forward": ("egovlpv2.step.forward",),
     "backward": ("egovlpv2.step.backward",),
@@ -58,15 +61,6 @@ def by_step(spans: Sequence) -> Dict[int, list]:
     return out
 
 
-def phase_ns(step_spans: Sequence, names: Sequence[str]) -> Optional[int]:
-    """The nanoseconds of the spans named `names` in one step, or None
-    where one of the names is missing."""
-    found = [s for s in step_spans if s.name in names]
-    if {s.name for s in found} != set(names):
-        return None
-    return sum(s.end - s.start for s in found)
-
-
 def window_steps(ctx, spans=None) -> Optional[List[list]]:
     """Each step of the untraced window as its list of spans, or None
     unless the ring holds all of the window's steps."""
@@ -79,17 +73,6 @@ def window_steps(ctx, spans=None) -> Optional[List[list]]:
     inside = [steps[s.step] for s in spans
               if s.name == STEP and t0 <= s.start <= t1]
     return inside if len(inside) == w["steps"] else None
-
-
-def host_ms(ctx, phase: str, spans=None) -> Optional[float]:
-    """The host's milliseconds a step of `phase` over the window."""
-    steps = window_steps(ctx, spans)
-    if not steps:
-        return None
-    ns = [phase_ns(s, PHASES[phase]) for s in steps]
-    if any(n is None for n in ns):
-        return None
-    return sum(ns) / 1e6 / len(ns)
 
 
 # ---- the traced stretches
@@ -218,9 +201,3 @@ def idle_by_phase(ctx, spans=None) -> Optional[dict]:
     out["all"] = ctx.timeline_s * 1e6 - tl.busy_us()
     out["offset"] = c
     return out
-
-
-def idle_ms(ctx, phase: str) -> Optional[float]:
-    """The device-only stretch's idle milliseconds a step inside `phase`."""
-    got = idle_by_phase(ctx)
-    return None if got is None else got[phase] / 1e3 / ctx.stretch_steps

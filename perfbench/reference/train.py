@@ -1,27 +1,38 @@
-"""The plain reference of the two training steps: the objectives, ITM
-hard-negative mining, AdamW over the six parameter groups with its
-warmup-cosine schedule, and the readings a run is judged by.
+"""The plain reference of the training steps: the objectives, ITM
+hard-negative mining, AdamW with its groups and warmup-cosine schedule,
+and the readings a run is judged by.
 
-Written out from the published recipe (EgoVLPv2 `model/loss.py`,
-`model/model.py:370-487`, `set_optim_schedule.py`), importing nothing of
-the port: EgoNCE + MLM + itm_weight * ITM for pre-training (one shared
-unfused-video pass feeds MLM and ITM), NormSoftmax over the dual towers for
-the Charades-Ego fine-tune. Mining draws a fair coin a row, one categorical
-draw a row over the softmaxed similarity with the EgoNCE positives masked
-out, and shuffles which half of the rows are positive; it draws from the
-same generator as dropout, in the port's order and over float32 weights
-as the port draws them, but from its own similarity, so a near tie can
-mine another negative than the program.
+A task's reference is the module `perfbench/reference/<REFERENCE>.py` that
+its task file names (`pretrain.py`, `dual.py`): it gives `build(model_cfg,
+precision)`, the plain model whose parameter names are the program's;
+`loss(model, batch, generator, cfg)`, each step's losses as a dict holding
+`loss_total` and each objective's; and `group_of(name, ndim)`, the AdamW
+group of a parameter. `readings` takes all three from it and knows no
+model; a model that draws dropout masks takes the generator by its
+`set_generator`.
+
+EgoVLPv2's objectives and groups are written out here from the published
+recipe (EgoVLPv2 `model/loss.py`, `model/model.py:370-487`,
+`set_optim_schedule.py`), importing nothing of the port: EgoNCE + MLM +
+itm_weight * ITM for pre-training (one shared unfused-video pass feeds MLM
+and ITM), NormSoftmax over the dual towers for the Charades-Ego fine-tune.
+Mining draws a fair coin a row, one categorical draw a row over the
+softmaxed similarity with the EgoNCE positives masked out, and shuffles
+which half of the rows are positive; it draws from the same generator as
+dropout, in the port's order and over float32 weights as the port draws
+them, but from its own similarity, so a near tie can mine another negative
+than the program.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, List
+from typing import Callable, Dict, List
 
 import torch
+from torch import nn
 
-from perfbench.reference.model import EgoVLPv2, sim_matrix
+from perfbench.reference.model import sim_matrix
 
 HEAD_NAMES = ("mlm_score", "itm_score", "txt_proj", "vid_proj")
 CROSS_MODAL_NAMES = ("cross_modal", "i2t", "t2i")
@@ -92,7 +103,7 @@ def mine_itm(generator, sim, pos, temperature):
     return video, text, labels
 
 
-def pretrain_loss(model: EgoVLPv2, batch, generator, cfg: dict):
+def pretrain_loss(model: nn.Module, batch, generator, cfg: dict):
     lc = cfg["loss"]
     ids, mask = batch["text_ids"], batch["text_mask"]
     tokens = model.video_model.patchify(batch["video"])
@@ -117,14 +128,11 @@ def pretrain_loss(model: EgoVLPv2, batch, generator, cfg: dict):
             "loss_mlm": loss_mlm, "loss_itm": loss_itm}
 
 
-def dual_loss(model: EgoVLPv2, batch, generator, cfg: dict):
+def dual_loss(model: nn.Module, batch, generator, cfg: dict):
     tokens = model.video_model.patchify(batch["video"])
     sim = sim_matrix(model.compute_text(batch["text_ids"], batch["text_mask"]),
                      model.compute_video(tokens))
     return {"loss_total": norm_softmax_loss(sim, cfg["loss"]["temperature"])}
-
-
-LOSSES = {"pretrain": pretrain_loss, "dual": dual_loss}
 
 
 # ---------------------------------------------------------------- optimizer
@@ -176,9 +184,11 @@ def lr_factor(optim: dict, count: int) -> float:
 
 class AdamW:
     """Decoupled weight decay, then the Adam step with bias correction,
-    parameter by parameter."""
+    parameter by parameter; `group_of(name, ndim)` puts each parameter in
+    {backbone, head, cross} x {wd, nd}."""
 
-    def __init__(self, model, optim: dict):
+    def __init__(self, model, optim: dict,
+                 group_of: Callable[[str, int], str]):
         mult = {"backbone": 1.0, "head": optim["lr_mult_head"],
                 "cross": optim["lr_mult_cross_modal"]}
         self.o = optim
@@ -213,16 +223,18 @@ class AdamW:
         return grads
 
 
-def readings(cfg: dict, task: str, weights: Dict[str, torch.Tensor],
-             batches, generator: torch.Generator, steps: int,
+def readings(cfg: dict, reference,
+             weights: Dict[str, torch.Tensor], batches,
+             generator: torch.Generator, steps: int,
              precision: str = "float64", device="cpu") -> dict:
-    """Run `steps` reference steps from `weights` on `batches` (one each)
-    and return what a program run is compared by: each step's losses (the
-    total and each objective's), the first step's gradient and the
-    parameters' change over the steps, leaf by leaf. `precision` "float64"
-    computes in float64 (the reference), "fp8" computes every product in
-    float8 (the control, `model.Precision`); parameters and AdamW's state are
-    float32 in both. TF32 is off for the run."""
+    """Run `steps` steps of the task's `reference` module from `weights` on
+    `batches` (one each) and return what a program run is compared by: each
+    step's losses (the total and each objective's), the first step's
+    gradient and the parameters' change over the steps, leaf by leaf.
+    `precision` "float64" computes in float64 (the reference), "fp8"
+    computes every product in float8 (the control, `model.Precision`);
+    parameters and AdamW's state are float32 in both. TF32 is off for the
+    run."""
     from perfbench.reference.model import Precision
 
     tf32 = (torch.backends.cuda.matmul.allow_tf32,
@@ -230,21 +242,21 @@ def readings(cfg: dict, task: str, weights: Dict[str, torch.Tensor],
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     try:
-        model = EgoVLPv2(cfg["model"], Precision(
+        model = reference.build(cfg["model"], Precision(
             "fp8" if precision == "fp8" else "exact")).to(device)
         names = [n for n, _ in model.named_parameters()]
         with torch.no_grad():
             for n, p in model.named_parameters():
                 p.copy_(weights[n])
-        model.set_generator(generator)
+        if hasattr(model, "set_generator"):
+            model.set_generator(generator)
         model.train()
-        opt = AdamW(model, cfg["optim"])
-        loss_fn = LOSSES[task]
+        opt = AdamW(model, cfg["optim"], reference.group_of)
         losses, first = [], None
         for i in range(steps):
             for _, p, _, _ in opt.params:
                 p.grad = None
-            parts = loss_fn(model, batches[i], generator, cfg)
+            parts = reference.loss(model, batches[i], generator, cfg)
             parts["loss_total"].backward()
             grads = opt.step()
             losses.append({k: float(v.detach()) for k, v in parts.items()})

@@ -50,3 +50,37 @@ def test_layernorm_bytes_are_the_sources(rows, d, dtype, e):
 def test_peaks_are_the_data_sheets():
     assert peaks.FLOPS["bfloat16"] == 989e12
     assert peaks.BYTES_PER_S == 3.35e12
+
+
+def test_fused_attention_reads_each_input_once():
+    """K9's i2t at the pretrain cell's shapes (B=64, H=12, S=785 queries
+    over 15 text keys, Dh=64, bf16): bound by bytes."""
+    b, h, sq, sk, dh = 64, 12, 785, 15, 64
+    ops, nbytes = bounds.fused_attention(b, h, sq, sk, dh, "bfloat16",
+                                         causal=False, bias=True)
+    assert ops == 4 * b * h * sq * sk * dh
+    assert nbytes == (2 * sq + 2 * sk) * b * h * dh * 2 + b * sk * 4
+    least = bounds.least_seconds(ops, nbytes, "bfloat16", True)
+    assert least == nbytes / peaks.BYTES_PER_S
+    assert least * 1e3 == pytest.approx(0.04695, abs=5e-5)
+    _, no_bias = bounds.fused_attention(b, h, sq, sk, dh, "bfloat16",
+                                        causal=False, bias=False)
+    assert nbytes - no_bias == b * sk * 4
+
+
+@pytest.mark.parametrize("sq,sk,pairs", [(4, 4, 10), (2, 4, 7), (4, 2, 3),
+                                         (77, 77, 77 * 78 // 2)])
+def test_causal_counts_the_visible_pairs(sq, sk, pairs):
+    ops, _ = bounds.fused_attention(1, 1, sq, sk, 64, "bfloat16",
+                                    causal=True, bias=False)
+    assert ops == 4 * pairs * 64
+
+
+def test_a_fused_call_counts_its_forward_alone():
+    shape = (("b", 2), ("h", 2), ("sq", 9), ("sk", 5), ("dh", 16),
+             ("dtype", "bfloat16"), ("causal", False), ("bias", True))
+    fwd = bounds.least_seconds(*bounds.fused_attention(**dict(shape)),
+                               "bfloat16", True)
+    for backward in (False, True):
+        assert bounds.call_seconds(bounds.Call("fused_attn", shape,
+                                               backward)) == fwd

@@ -1,6 +1,7 @@
 """Nothing under perfbench/ imports JAX, flax, optax or the JAX package,
 compared by whole top-level module names; the reference imports nothing of
-the port."""
+the port; the harness, the calibration and the reference's training loop
+name no model and no task."""
 
 import ast
 from pathlib import Path
@@ -45,3 +46,19 @@ def test_whole_names_not_prefixes():
     # would refuse it, a whole-name test does not
     assert "egovlpv2_torch" not in FORBIDDEN
     assert top_level_imports(HOME / "harness.py") >= {"torch", "perfbench"}
+
+
+@pytest.mark.parametrize("name", ["harness.py", "calibrate.py",
+                                  "reference/train.py"])
+def test_the_yardstick_names_no_model_and_no_task(name):
+    tree = ast.parse((HOME / name).read_text())
+    imported = {(node.module, a.name) for node in ast.walk(tree)
+                if isinstance(node, ast.ImportFrom)
+                for a in node.names}
+    assert not [m for m, _ in imported
+                if m.startswith("egovlpv2_torch.models")]
+    assert not [a for _, a in imported if a in ("EgoVLPv2", "model")]
+    words = {node.value for node in ast.walk(tree)
+             if isinstance(node, ast.Constant) and isinstance(node.value,
+                                                              str)}
+    assert not words & {"pretrain", "dual"}

@@ -101,16 +101,29 @@ def test_cell_files(w):
 
 @pytest.mark.parametrize("c", BENCH["configs"], ids=lambda c: c["name"])
 def test_config_files(c):
-    from egovlpv2_torch.core.config import load_train_config
-
     path = ROOT / c["file"]
     assert c["file"].startswith("perfbench/") and line(c["source"])
     assert line(c["why"]) and len(c["reduced"]) <= 16
     raw = json.loads(path.read_text())
     assert set(c["reduced"]) <= set(raw)
     assert set(c["reduced"]) == set(raw["_reduced"])
-    load_train_config(str(path))  # the program's own loader takes it
+    # the loader that its task names takes it
+    manifest.task(ROOT, raw["_task"]).program_config(str(path))
     assert any(c["name"] == w["config"] for w in BENCH["workloads"])
+
+
+HOOKS = ("REFERENCE", "init_kind", "program_config", "build_model",
+         "make_optimizer", "make_step", "step_flops", "step_calls")
+
+
+@pytest.mark.parametrize("name", sorted(
+    p.stem for p in (ROOT / "perfbench" / "tasks").glob("*.py")))
+def test_each_task_names_its_model_reference_and_weights(name):
+    task = manifest.task(ROOT, name)
+    assert all(hasattr(task, hook) for hook in HOOKS)
+    reference = manifest.reference(ROOT, task.REFERENCE)
+    assert all(callable(getattr(reference, f))
+               for f in ("build", "loss", "group_of"))
 
 
 def test_config_files_are_the_repos_with_the_reductions():

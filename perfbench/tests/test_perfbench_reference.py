@@ -1,13 +1,14 @@
-"""The plain reference against the port's own step on the CPU at tiny
-widths in float32: the same losses (dropout masks and ITM mining drawn
-alike), first gradients and changes, within float32 rounding."""
+"""The plain reference against the program's own step on the CPU at tiny
+widths in float32 (EgoVLPv2's two tasks, and the third architecture of
+`tiny.py`): the same losses (dropout masks and ITM mining drawn alike),
+first gradients and changes, within float32 rounding."""
 
 import pytest
 
 from perfbench import compare, harness, inputs
 
 
-@pytest.mark.parametrize("cell", ["tiny_pretrain", "tiny_dual"])
+@pytest.mark.parametrize("cell", ["tiny_pretrain", "tiny_dual", "tiny_clip"])
 @pytest.mark.parametrize("seed", [3, 2 ** 31 + 11])
 def test_reference_follows_the_port_in_float32(tiny_root_f32, cell, seed):
     c = harness.Cell(tiny_root_f32, cell)
@@ -25,17 +26,38 @@ def test_reference_follows_the_port_in_float32(tiny_root_f32, cell, seed):
 
 
 def test_seeded_weights_repeat_and_differ():
-    from perfbench.weights import make_weights
+    from perfbench.weights import init_kind, make_weights
     shapes = {"a.weight": (8, 4), "b.bias": (8,), "c.embeddings.weight":
               (5, 3), "video_model.cls_token": (1, 1, 4)}
-    one = make_weights(shapes, 5, "cpu")
-    two = make_weights(shapes, 5, "cpu")
-    other = make_weights(shapes, 6, "cpu")
+    one = make_weights(shapes, 5, "cpu", init_kind)
+    two = make_weights(shapes, 5, "cpu", init_kind)
+    other = make_weights(shapes, 6, "cpu", init_kind)
     for n in shapes:
         assert one[n].equal(two[n])
     assert not one["a.weight"].equal(other["a.weight"])
     assert one["b.bias"].abs().sum() == 0
     assert one["video_model.cls_token"].abs().max() <= 0.04 + 1e-7
+
+
+def test_a_tasks_own_weight_rules_and_a_fill():
+    """`make_weights` takes a task's rules: a constant such as a logit
+    scale's log(1 / 0.07), and a kind that no rule knows refused."""
+    import math
+
+    from perfbench.weights import init_kind, make_weights
+
+    def rules(name, shape):
+        return ("fill", math.log(1 / 0.07)) if name == "logit_scale" \
+            else init_kind(name, shape)
+
+    got = make_weights({"logit_scale": (), "a.weight": (8, 4)}, 5, "cpu",
+                       rules)
+    assert got["logit_scale"].shape == ()
+    assert float(got["logit_scale"]) == pytest.approx(math.log(1 / 0.07))
+    assert got["a.weight"].equal(make_weights({"a.weight": (8, 4)}, 5,
+                                              "cpu", init_kind)["a.weight"])
+    with pytest.raises(ValueError):
+        make_weights({"x": (2,)}, 5, "cpu", lambda n, s: ("uniform", 1.0))
 
 
 def test_pool_batches_differ_and_repeat():

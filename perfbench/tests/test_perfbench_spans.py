@@ -1,8 +1,8 @@
 """The readers of the program's spans (perfbench/program_spans.py) on a
-synthetic ring and synthetic traces: the host's time a phase over the
-window, the launches a step across two threads, the clock's offset from
-the matched spans, and the device-only stretch's idle time cut at the
-phases; each finds nothing without a trace or without the ring."""
+synthetic ring and synthetic traces: the window's steps, the launches a
+step across two threads, the clock's offset from the matched spans, and
+the device-only stretch's idle time cut at an eager step's phases; each
+finds nothing without a trace or without the ring."""
 
 from collections import namedtuple
 from pathlib import Path
@@ -18,10 +18,6 @@ Span = namedtuple("Span", "id name parent step start end thread")
 ROOT = Path(__file__).resolve().parents[2]
 MS = 1_000_000  # ns
 OFFSET = 5e9  # us from the ring's clock to the profiler's
-HOST = ["forward_host_ms_per_step.train", "backward_host_ms_per_step.train",
-        "optimizer_host_ms_per_step.train"]
-IDLE = ["forward_idle_ms_per_step.train", "backward_idle_ms_per_step.train",
-        "optimizer_idle_ms_per_step.train"]
 
 # a step's spans from its start, in ms: (name, parent, start, end)
 LAYOUT = [
@@ -127,9 +123,10 @@ def read(name, ctx):
     return manifest.reader(ROOT, name).read(ctx)
 
 
-def test_host_ms_of_the_window(ring):
-    got = [read(n, context()) for n in HOST]
-    assert got == pytest.approx([3.9, 3.0, 2.0])
+def test_window_steps_from_the_ring(ring):
+    steps = program_spans.window_steps(context())
+    assert [len(s) for s in steps] == [len(LAYOUT)] * 2
+    assert [s[0].start for s in steps] == [t * MS for t in WINDOW]
 
 
 def test_launches_across_two_threads(ring):
@@ -153,9 +150,9 @@ def test_clock_from_the_matched_spans():
 
 def test_idle_cut_at_the_phases(ring):
     ctx = context()
-    got = [read(n, ctx) for n in IDLE]
-    assert got == pytest.approx([0.9, 0.0, 1.1], abs=2e-3)
     parts = program_spans.idle_by_phase(ctx)
+    got = [parts[p] / 1e3 / ctx.stretch_steps for p in program_spans.PHASES]
+    assert got == pytest.approx([0.9, 0.0, 1.1], abs=2e-3)
     # a step's idle: its three phases and its put (0.1) and its own time
     # after the optimizer (0.5)
     assert parts["step"] / 2e3 == pytest.approx(0.9 + 1.1 + 0.1 + 0.5,
@@ -167,36 +164,33 @@ def test_idle_cut_at_the_phases(ring):
 def test_readers_find_nothing_without_a_trace(ring):
     empty = context(trace=None, timeline=None, timeline_s=0.0,
                     stretch_steps=0)
-    for name in ["launches_per_step.train"] + IDLE:
-        assert read(name, empty) is None
-    # the host's metrics need only the ring and the window
-    assert read(HOST[0], empty) == pytest.approx(3.9)
+    assert read("launches_per_step.train", empty) is None
+    assert program_spans.idle_by_phase(empty) is None
+    # the window's steps need only the ring and the window
+    assert len(program_spans.window_steps(empty)) == 2
 
 
 def test_readers_find_nothing_without_the_ring(monkeypatch):
     monkeypatch.setattr(program_spans, "ring", lambda: None)
-    for name in HOST + IDLE:
-        assert read(name, context()) is None
+    assert program_spans.window_steps(context()) is None
+    assert program_spans.idle_by_phase(context()) is None
 
 
 def test_readers_find_nothing_where_the_steps_left_the_ring(monkeypatch):
     # a third window step that the ring no longer holds
     monkeypatch.setattr(program_spans, "ring", lambda: list(RING))
     ctx = context(window={"t0": 0.0, "t1": 0.1, "steps": 3})
-    for name in HOST:
-        assert read(name, ctx) is None
+    assert program_spans.window_steps(ctx) is None
     # the device-only stretch's first step overwritten
     first = TIMELINE[0] * MS
     monkeypatch.setattr(program_spans, "ring", lambda: [
         s for s in RING if not first <= s.start < first + 10 * MS])
-    for name in IDLE:
-        assert read(name, context()) is None
+    assert program_spans.idle_by_phase(context()) is None
 
 
 def test_idle_finds_nothing_where_the_stretches_share_no_clock(ring):
     ctx = context(timeline=trace.Trace(timeline_events(shift=-3.6e9)))
-    for name in IDLE:
-        assert read(name, ctx) is None
+    assert program_spans.idle_by_phase(ctx) is None
 
 
 def test_the_programs_own_ring_is_read():

@@ -15,9 +15,12 @@ SHAPE = (("b", 2), ("s", 9), ("h", 1), ("dh", 8), ("frames", 2),
          ("axis", "space"), ("dtype", "bfloat16"))
 CALL = trace.call_name("divided_attn", **dict(SHAPE))
 LN_SHAPE = (("rows", 18), ("d", 8), ("dtype", "bfloat16"))
+K9_SHAPE = (("b", 2), ("h", 1), ("sq", 9), ("sk", 4), ("dh", 8),
+            ("dtype", "bfloat16"), ("causal", False), ("bias", True))
 CALLS = [bounds.Call("divided_attn", SHAPE, True)]
 FAMILY_READERS = ("gemm_ms_per_step.train", "optimizer_ms_per_step.train",
-                  "divided_attn_roofline.train", "layernorm_roofline.train")
+                  "divided_attn_roofline.train", "layernorm_roofline.train",
+                  "fused_attn_roofline.train")
 
 
 def X(cat, name, ts, dur, tid=1, **args):
@@ -81,7 +84,7 @@ def test_readers(ctx):
 
 def test_breakdown(ctx):
     b = kinds.breakdown(ctx.timeline, ctx.trace)
-    assert b["device_ops"][0] == ["optimizer (AdamW, foreach)", 200e-6]
+    assert b["device_ops"][0] == ["optimizer (AdamW)", 200e-6]
     assert dict(b["device_ops"])["GEMM (cuBLAS)"] == pytest.approx(100e-6)
     assert b["idle_gaps"][0] == ["Optimizer.step#AdamW.step",
                                  pytest.approx(190e-6)]
@@ -91,9 +94,7 @@ def test_breakdown(ctx):
 def test_readers_find_nothing_without_a_trace():
     empty = Context(trace=None, stretch_steps=0, timeline=None,
                     timeline_s=0.0, calls=CALLS)
-    for name in ("gemm_ms_per_step.train", "optimizer_ms_per_step.train",
-                 "device_idle_share.train", "divided_attn_roofline.train",
-                 "layernorm_roofline.train"):
+    for name in FAMILY_READERS + ("device_idle_share.train",):
         assert read(name, empty) is None
 
 
@@ -115,7 +116,13 @@ STEP_KERNELS = [
      "autograd::engine::evaluate_function: _LayerNormBackward"),
     ("layernorm_bwd_sum_kernel", 282, 3,
      "autograd::engine::evaluate_function: _LayerNormBackward"),
+    ("void (anonymous namespace)::mma::fused_ring_kernel<64, 1>", 290, 4,
+     "perfbench.fused_attn|b=2|h=1|sq=9|sk=4|dh=8|dtype=bfloat16"
+     "|causal=False|bias=True"),
     ("multi_tensor_apply_kernel", 300, 40, "Optimizer.step#AdamW.step"),
+    (f"void at::native::{kinds.ADAMW_BIAS_CORRECTION}(...)".replace(
+        "binaryfunctor", "BinaryFunctor").replace("divfunctor", "DivFunctor"),
+     340, 6, "Optimizer.step#AdamW.step"),
 ]
 
 
@@ -142,7 +149,8 @@ def step_events(graph: bool):
 def step_context(graph: bool):
     events = step_events(graph)
     return Context(trace=trace.Trace(events), stretch_steps=1,
-                   calls=CALLS + [bounds.Call("layernorm", LN_SHAPE, True)],
+                   calls=CALLS + [bounds.Call("layernorm", LN_SHAPE, True),
+                                  bounds.Call("fused_attn", K9_SHAPE, True)],
                    timeline=trace.Trace([e for e in events
                                          if e["cat"] == "kernel"]),
                    timeline_s=1e-3)
@@ -153,7 +161,8 @@ def test_readers_read_a_graph_replay_as_its_eager_launches():
     for name in FAMILY_READERS:
         assert read(name, graph) == pytest.approx(read(name, eager)), name
     assert read("gemm_ms_per_step.train", graph) == pytest.approx(0.1)
-    assert read("optimizer_ms_per_step.train", graph) == pytest.approx(0.04)
+    # AdamW's foreach kernels and its bias corrections
+    assert read("optimizer_ms_per_step.train", graph) == pytest.approx(0.046)
     least = bounds.least_seconds_of(graph.calls, "layernorm")
     assert read("layernorm_roofline.train", graph) == pytest.approx(
         100 * least / 23e-6)
@@ -161,6 +170,11 @@ def test_readers_read_a_graph_replay_as_its_eager_launches():
     least = bounds.least_seconds_of(graph.calls, "divided_attn")
     assert read("divided_attn_roofline.train", graph) == pytest.approx(
         100 * least / 95e-6)
+    # K9's forward alone, whether or not its call takes a backward
+    least = bounds.call_seconds(bounds.Call("fused_attn", K9_SHAPE, False))
+    assert least == bounds.least_seconds_of(graph.calls, "fused_attn")
+    assert read("fused_attn_roofline.train", graph) == pytest.approx(
+        100 * least / 4e-6)
     # a replay is one launch; its kernels all carry its correlation
     assert read("launches_per_step.train", eager) == len(STEP_KERNELS)
     assert read("launches_per_step.train", graph) == 1
@@ -169,7 +183,7 @@ def test_readers_read_a_graph_replay_as_its_eager_launches():
 def test_family_is_none_without_its_kernels():
     tl = trace.Trace([X("kernel", "nvjet_gemm", 0, 10)])
     assert kinds.family_seconds(tl, "gemm") == pytest.approx(10e-6)
-    for family in ("divided_attn", "layernorm", "adamw"):
+    for family in ("divided_attn", "layernorm", "fused_attn", "adamw"):
         assert kinds.family_seconds(tl, family) is None
 
 
@@ -184,7 +198,16 @@ def test_family_is_none_without_its_kernels():
     ("void cublasLt::splitKreduce_kernel<32, 16, int, float>", "gemm"),
     ("void at::native::reduce_kernel<512, 1>", None),
     ("void at::native::multi_tensor_apply_kernel<...>", "adamw"),
-    ("fused_ring_kernel", None),
+    ("void at::native::elementwise_kernel<128, 2, at::native::"
+     "gpu_kernel_impl_nocast<at::native::BinaryFunctor<float, float, float, "
+     "at::native::binary_internal::DivFunctor<float> > >(at::"
+     "TensorIteratorBase&, ...)", "adamw"),
+    ("void at::native::vectorized_elementwise_kernel<4, at::native::"
+     "BinaryFunctor<float, float, float, at::native::binary_internal::"
+     "DivFunctor<float> >, std::array<char*, 3ul> >(...)", None),
+    ("void (anonymous namespace)::mma::fused_ring_kernel<64, 1>(...)",
+     "fused_attn"),
+    ("fused_split_kernel", "fused_attn"),
     ("void at::native::elementwise_kernel<128, 4, ...>", None),
 ])
 def test_kernel_families_by_name(name, family):

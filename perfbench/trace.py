@@ -4,9 +4,10 @@ that the per-layer readers take their numbers from.
 
 `Instrument` wraps the port's op entry points while the host-and-device
 stretch is traced: every call of `ops.divided.divided_attention` (as
-`models/video.py` calls it) and of `ops.layernorm.layernorm` runs inside a
-`record_function` range whose name carries the call's shapes,
-`perfbench.<op>|<shape fields>`. The ranges name the idle gaps of that
+`models/video.py` calls it), of `ops.layernorm.layernorm` and of
+`ops.flash.flash_attention` (K9, as `ops/attention.py::attend` calls it)
+runs inside a `record_function` range whose name carries the call's
+shapes, `perfbench.<op>|<shape fields>`. The ranges name the idle gaps of that
 stretch (`kinds.breakdown`), and the tests hold the benchmark's table of
 the step's calls (`bounds.pretrain_calls`) against them: a range's
 backward is the autograd nodes whose sequence numbers the ops inside it
@@ -231,13 +232,15 @@ def _dtype(t: torch.Tensor) -> str:
 
 @contextmanager
 def Instrument():
-    """Wraps the port's divided attention (as the video tower calls it)
-    and LayerNorm entry points in named ranges for as long as the context
-    lasts."""
+    """Wraps the port's divided attention (as the video tower calls it),
+    LayerNorm and fused attention (as `attend` calls it) entry points in
+    named ranges for as long as the context lasts."""
     from egovlpv2_torch.models import video
+    from egovlpv2_torch.ops import attention
     from egovlpv2_torch.ops import layernorm as ln_module
 
     divided, layernorm = video.divided_attention, ln_module.layernorm
+    fused = attention.flash_attention
 
     def divided_ranged(qkv, *, scale, axis, num_frames):
         b, s, _, h, dh = qkv.shape
@@ -253,10 +256,22 @@ def Instrument():
                 dtype=_dtype(x))):
             return layernorm(x, scale, bias, eps=eps)
 
+    def fused_ranged(q, k, v, *, scale, bias=None, **kw):
+        sq, dh = q.shape[-2:]
+        h = q.shape[-3] if q.dim() > 2 else 1
+        with torch.profiler.record_function(call_name(
+                "fused_attn", b=q.numel() // (h * sq * dh), h=h, sq=sq,
+                sk=k.shape[-2], dh=dh, dtype=_dtype(q),
+                causal=bool(kw.get("causal", False)),
+                bias=bias is not None)):
+            return fused(q, k, v, scale=scale, bias=bias, **kw)
+
     video.divided_attention = divided_ranged
     ln_module.layernorm = layernorm_ranged
+    attention.flash_attention = fused_ranged
     try:
         yield
     finally:
         video.divided_attention = divided
         ln_module.layernorm = layernorm
+        attention.flash_attention = fused

@@ -10,17 +10,20 @@ deviations; `temporal_embed`, the fused path's `cls_token` and the fusion
 gates 0; LayerNorm scales 1; the time attention starting as the identity
 (qkv 0, proj weight all ones).
 
-Every cut normal of the model comes from one uniform draw through the
-inverse normal CDF and every plain normal from one normal draw, each over
-the leaves in the order of their sorted names, so the same seed gives the
-same tensors on the same device whatever module holds them. The program
-and the reference are both filled from `make_weights`.
+`init_kind` gives those rules by EgoVLPv2's parameter names; a task
+(`perfbench/tasks/<task>.py`) names the rules of its model as its own
+`init_kind`, which `make_weights` takes. Every cut normal of the model
+comes from one uniform draw through the inverse normal CDF and every plain
+normal from one normal draw, each over the leaves in the order of their
+sorted names, so the same seed gives the same tensors on the same device
+whatever module holds them. The program and the reference are both filled
+from `make_weights`.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, Mapping, Tuple
+from typing import Callable, Dict, Mapping, Tuple
 
 import torch
 
@@ -29,8 +32,9 @@ _CUT = 2.0  # standard deviations
 
 
 def init_kind(name: str, shape: Tuple[int, ...]) -> Tuple[str, float]:
-    """(kind, standard deviation) of parameter `name`: kind is "cut" (cut
-    normal), "normal", "zeros" or "ones"."""
+    """(kind, number) of EgoVLPv2's parameter `name`: kind is "cut" (cut
+    normal) or "normal" with the number its standard deviation, "zeros"
+    or "ones" (the number unread), or "fill" with the number its value."""
     leaf = name.rsplit(".", 1)[-1]
     if name in ("video_model.cls_token", "video_model.pos_embed"):
         return "cut", INIT_STD
@@ -56,12 +60,14 @@ def _cut_normal_(u: torch.Tensor) -> torch.Tensor:
         math.sqrt(2.0)).clamp_(-_CUT, _CUT)
 
 
-def make_weights(shapes: Mapping[str, Tuple[int, ...]], seed: int,
-                 device) -> Dict[str, torch.Tensor]:
-    """name -> float32 tensor on `device`, drawn from `seed`. The tensors of
-    one kind are views of one buffer."""
+def make_weights(shapes: Mapping[str, Tuple[int, ...]], seed: int, device,
+                 kind_of: Callable[[str, Tuple[int, ...]], Tuple[str, float]]
+                 ) -> Dict[str, torch.Tensor]:
+    """name -> float32 tensor on `device`, drawn from `seed` by the rules
+    `kind_of(name, shape)` (`init_kind`'s kinds). The tensors of one random
+    kind are views of one buffer."""
     gen = torch.Generator(device=device).manual_seed(seed)
-    kinds = {n: init_kind(n, tuple(s)) for n, s in shapes.items()}
+    kinds = {n: kind_of(n, tuple(s)) for n, s in shapes.items()}
     out: Dict[str, torch.Tensor] = {}
     for kind in ("cut", "normal"):
         names = sorted(n for n, (k, _) in kinds.items() if k == kind)
@@ -78,9 +84,13 @@ def make_weights(shapes: Mapping[str, Tuple[int, ...]], seed: int,
             size = math.prod(shapes[n])
             out[n] = flat[at:at + size].view(shapes[n]).mul_(kinds[n][1])
             at += size
-    for n, (kind, _) in kinds.items():
+    for n, (kind, value) in kinds.items():
         if kind == "zeros":
             out[n] = torch.zeros(shapes[n], device=device)
         elif kind == "ones":
             out[n] = torch.ones(shapes[n], device=device)
+        elif kind == "fill":
+            out[n] = torch.full(shapes[n], float(value), device=device)
+        elif kind not in ("cut", "normal"):
+            raise ValueError(f"{n}: no weight kind {kind!r}")
     return out
